@@ -9,7 +9,10 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
 
 1. The card's name and power limit (``nvidia-smi``), then the build of every
    CUDA source (``nvcc`` for sm_90a, one process per source, all started
-   together), with each source's ``ptxas -v`` lines.
+   together), with each source's ``ptxas -v`` lines.  ``cuobjdump -sass``
+   of the flash-attention library counts the ``HGMMA`` (wgmma) and
+   ``UTMALDG`` (TMA load) instructions of each bf16 kernel; a count of 0
+   fails the run.
 2. ``[kernels]``: each topo-score kernel against its plain PyTorch version on
    the card, bit for bit (tiers, per-tile argmax, scores), over all three
    server specs, several requests with the exactness traps in their inputs,
@@ -26,8 +29,11 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    20-node 3 x 10 protocol must give 30/30/0.
 4. ``[flash]``: the flash-attention kernel (K4) against its plain version on
    the card, in f32 (2e-5) and bf16 (2.5e-2), over the reference tests'
-   five shapes, the serving path's shape, a head_dim-128 shape and a window
-   with fully masked first tiles; no output may be non-finite.
+   five shapes, the serving path's shape, a head_dim-128 shape, a window
+   with fully masked first tiles, a ragged Sq at the 128-row q block and a
+   windowed head_dim-128 shape whose length is not a multiple of 128; no
+   output may be non-finite.  Then 50 back-to-back launches at the serving
+   shape must give bit-identical outputs.
 5. ``[serve]``: the serving path, llama3.2-1b at full width and depth with
    seeded random weights made on the card, through ``ServeEngine`` (batch
    4, seq_len 1024): 8 requests of 512-1024 prompt tokens and 32 new tokens
@@ -44,8 +50,10 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
 7. One ``{"kernels": [...]}`` line: per kernel its launches on its path,
    the largest difference against the plain version, the time per call
    from CUDA events (kernel and plain version), the device time per launch
-   from torch.profiler, the bound, and the time of one PyTorch library call
-   of the same function where there is one.  Then a ``[trace]`` line: one
+   from torch.profiler, the bound and the share of it the kernel reaches,
+   the function's operations over the kernel's time (``tflops``), and the
+   time of one PyTorch library call of the same function where there is
+   one.  Then a ``[trace]`` line: one
    traced ``imp_pallas`` plan on 1024 nodes, its device time against its
    sourcing wall time, and the host functions that dominate.
 8. The card's name and power limit again, then the last line
@@ -289,7 +297,9 @@ def main_path(dev) -> tuple[list[dict], dict[str, int]]:
 
 #: B, H, K, Sq, Sk, d, causal, window: the reference tests' five shapes, the
 #: serving path's (llama3.2-1b prefill, batch 4 x 1024), a head_dim-128
-#: shape, and a window whose first KV tile is fully masked for some rows
+#: shape, a window whose first KV tile is fully masked for some rows, a
+#: ragged Sq at the bf16 kernel's 128-row q block, and a windowed
+#: head_dim-128 shape whose length is not a multiple of 128
 FLASH_SHAPES = (
     (2, 4, 2, 128, 128, 32, True, None),
     (1, 4, 1, 200, 200, 16, True, None),
@@ -299,7 +309,11 @@ FLASH_SHAPES = (
     (4, 32, 8, 1024, 1024, 64, True, None),
     (1, 28, 4, 1500, 1500, 128, True, None),
     (1, 8, 2, 600, 600, 128, True, 100),
+    (2, 16, 4, 1000, 1000, 64, True, None),
+    (2, 8, 2, 777, 777, 128, True, 250),
 )
+#: back-to-back launches at the serving shape that must agree bit for bit
+REPEATS = 50
 MAIN_FLASH = FLASH_SHAPES[5]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2.5e-2}
 
@@ -338,6 +352,15 @@ def flash_phase(torch) -> dict[str, float]:
                 errs[f"{name}_main"] = err
     print(f"[flash] {len(FLASH_SHAPES)} shapes x 2 dtypes within tolerance "
           f"of the plain version: {json.dumps(errs)}", flush=True)
+    q, k, v = flash_inputs(torch, MAIN_FLASH, torch.bfloat16, seed=5)
+    first = fa.flash_attention(q, k, v, causal=True)
+    outs = [fa.flash_attention(q, k, v, causal=True) for _ in range(REPEATS)]
+    torch.cuda.synchronize()
+    same = sum(torch.equal(o, first) for o in outs)
+    check(same == REPEATS, f"flash: {REPEATS - same} of {REPEATS} repeated "
+          f"launches at {MAIN_FLASH[:6]} differ from the first")
+    print(f"[flash] {REPEATS} back-to-back launches at {MAIN_FLASH[:6]} bf16 "
+          "bit-identical", flush=True)
     return errs
 
 
@@ -616,6 +639,14 @@ def bound_ms(n_bytes: float, flops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def rates(flops: float, b_ms: float, ms: float, kernel_ms) -> dict:
+    """The function's operations over the kernel's time in TFLOP/s, and
+    the share of the bound it reaches: by the device time a launch where
+    the profiler gave one, else by the time a call."""
+    t = kernel_ms or ms
+    return {"tflops": flops / t / 1e9, "bound_share": b_ms / t}
+
+
 def timing_phase(torch, np, dev, errs, launches, plans) -> list[dict]:
     from repro_torch.core.topology import RTX4090_SERVER as spec
     from repro_torch.kernels import topo_score as ts
@@ -649,11 +680,12 @@ def timing_phase(torch, np, dev, errs, launches, plans) -> list[dict]:
                 def plain(): return ts.placement_tier_plain(g, c, spec, req)
                 extra = 0
             b_ms, b_by = bound_ms(bpl * n + extra, fpl * n)
+            ms = event_ms(torch, fn)
+            kernel_ms = profiled_kernel_ms(torch, fn, sym)
             shapes.append({
-                "n": n, "ms": event_ms(torch, fn),
-                "kernel_ms": profiled_kernel_ms(torch, fn, sym),
+                "n": n, "ms": ms, "kernel_ms": kernel_ms,
                 "plain_ms": event_ms(torch, plain), "bound_ms": b_ms,
-                "bound_by": b_by})
+                "bound_by": b_by, **rates(fpl * n, b_ms, ms, kernel_ms)})
         main = next(s for s in shapes if s["n"] == main_n)
         rows.append({
             "name": name, "route": "cuda",
@@ -665,7 +697,8 @@ def timing_phase(torch, np, dev, errs, launches, plans) -> list[dict]:
             "max_abs_err": errs[name], "shape": [main_n],
             "ms": main["ms"], "kernel_ms": main["kernel_ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "library_ms": None,
+            "bound_by": main["bound_by"], "tflops": main["tflops"],
+            "bound_share": main["bound_share"], "library_ms": None,
             "shapes": shapes,
         })
     return rows
@@ -693,13 +726,14 @@ def flash_timing(torch, shape, plain: bool) -> dict:
     flops = 4 * d * B * H * S * (S + 1) / 2
     n_bytes = 2 * (2 * B * H * S * d + 2 * B * K * S * d)
     b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOP_PER_S)
+    ms = event_ms(torch, fn, inner=20)
+    kernel_ms = profiled_kernel_ms(torch, fn, "flash_bf16_kernel")
     return {
-        "shape": list(shape[:6]), "ms": event_ms(torch, fn, inner=20),
-        "kernel_ms": profiled_kernel_ms(torch, fn, "flash_bf16_kernel"),
+        "shape": list(shape[:6]), "ms": ms, "kernel_ms": kernel_ms,
         "plain_ms": (event_ms(torch, plain_fn, reps=5, inner=5) if plain
                      else None),
         "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
-        "bytes": n_bytes,
+        "bytes": n_bytes, **rates(flops, b_ms, ms, kernel_ms),
         "library_ms": event_ms(torch, library, reps=10, inner=10),
         "library_kv_expanded_ms": event_ms(torch, library_expanded, reps=10,
                                            inner=10)}
@@ -718,7 +752,8 @@ def flash_row(torch, errs, launches) -> dict:
         "shape": main["shape"], "dtype": "bfloat16",
         "ms": main["ms"], "kernel_ms": main["kernel_ms"],
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        "bound_by": main["bound_by"], "tflops": main["tflops"],
+        "bound_share": main["bound_share"], "library_ms": main["library_ms"],
         "library": "torch.nn.functional.scaled_dot_product_attention("
                    "is_causal=True, enable_gqa=True)",
         "library_kv_expanded_ms": main["library_kv_expanded_ms"],
@@ -780,7 +815,8 @@ def trace_phase(torch, dev) -> dict:
 
 
 def build_all() -> None:
-    """Build every CUDA source, one nvcc process each, all started together."""
+    """Build every CUDA source, one nvcc process each, all started together;
+    then count the Hopper instructions of the bf16 flash-attention kernels."""
     from repro_torch.kernels import _build
 
     def one(name):
@@ -793,6 +829,41 @@ def build_all() -> None:
         for name, secs, log in pool.map(one, names):
             print(f"[build] {name}.cu: {secs:.2f} s\n{log.strip()}",
                   flush=True)
+    counts = sass_counts(_build._target("flash_attention")[1])
+    print(f"[build] flash_bf16_kernel SASS (head dim: counts): "
+          f"{json.dumps(counts)}", flush=True)
+    check(len(counts) == 4, f"flash_bf16_kernel: {len(counts)} of 4 head "
+          "dims found in the SASS")
+    for d, c in counts.items():
+        check(c["HGMMA"] > 0 and c["UTMALDG"] > 0,
+              f"flash_bf16_kernel<{d}> has no wgmma or no TMA load: {c}")
+
+
+SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG")
+
+
+def sass_counts(lib) -> dict[str, dict[str, int]]:
+    """Per bf16 flash kernel (by head dim), the count of each SASS_OPS
+    instruction in ``cuobjdump -sass`` of the built library."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()}")
+    counts: dict[str, dict[str, int]] = {}
+    cur = None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            m = re.search(r"flash_bf16_kernelILi(\d+)E", line)
+            cur = counts.setdefault(m.group(1), dict.fromkeys(SASS_OPS, 0)) \
+                if m else None
+        elif cur is not None:
+            for op in SASS_OPS:
+                if re.search(rf"\b{op}\b", line):
+                    cur[op] += 1
+    return counts
 
 
 def run() -> int:

@@ -16,6 +16,12 @@ head h reading KV head ``h // (H // K)``; the output is a new contiguous
 ``[B, H, Sq, d]`` tensor in q's dtype.  The inputs may be strided views
 (e.g. ``x.transpose(1, 2)`` of a ``[B, S, H, d]`` projection) as long as the
 last dimension is contiguous.
+
+The bf16 kernel reads its tiles through TMA tensor maps, which the C
+launcher encodes from the rows ``tensor_map`` computes here (dims, byte
+strides, box, swizzle); ``tile_needs_mask`` is the kernel's test for the
+tiles that need the per-element mask.  Both are plain Python, so the CPU
+tests hold them.
 """
 from __future__ import annotations
 
@@ -30,16 +36,33 @@ from . import _build
 #: masked score: finite, as in the reference (a fully masked tile must not
 #: give exp(-inf + inf))
 NEG_INF = -1e30
-#: q rows and KV rows per block of the kernel and of the plain version
-BLOCK_Q = 64
-BLOCK_K = 64
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: rows of the consumer warpgroup that owns a slice of a bf16 q block
+CONSUMER_ROWS = 64
+#: the fields of one tensor-map row, as the C launcher reads them
+MAP_FIELDS = ("d", "S", "heads", "B", "row_bytes", "head_bytes",
+              "batch_bytes", "box_cols", "box_rows", "swizzle")
 
 
-def _scale(d: int) -> float:
-    """d^-0.5 rounded to f32, the scale the kernel multiplies by."""
-    return float(np.float32(d ** -0.5))
+def block_shape(d: int, dtype: torch.dtype) -> tuple[int, int]:
+    """(q rows, KV rows) of a block of the kernel, and so of the plain
+    version's loop: bf16 takes 128 q rows (two consumer warpgroups of 64)
+    and KV tiles of 128 rows, 64 at d = 128 (registers); f32 runs on the
+    CUDA cores in 64 x 64 blocks."""
+    if dtype == torch.bfloat16:
+        return 2 * CONSUMER_ROWS, 64 if d == 128 else 128
+    return 64, 64
+
+
+def _scale(d: int, dtype: torch.dtype = torch.float32) -> float:
+    """The f32 factor the kernel multiplies scores by: d^-0.5, and for bf16
+    d^-0.5 log2(e) (the bf16 kernel's softmax runs in log2 units, on the
+    SFU's 2^x)."""
+    scale = np.float32(d ** -0.5)
+    if dtype == torch.bfloat16:
+        scale = scale * np.float32(np.log2(np.e))
+    return float(scale)
 
 
 def _kv_range(q0: int, sk: int, causal: bool, window: int | None,
@@ -49,19 +72,68 @@ def _kv_range(q0: int, sk: int, causal: bool, window: int | None,
     return lo, hi
 
 
+def tile_needs_mask(r0: int, k0: int, block_k: int, sk: int, causal: bool,
+                    window: int | None, rows: int = CONSUMER_ROWS) -> bool:
+    """Whether q rows [r0, r0 + rows) against keys [k0, k0 + block_k) need
+    the per-element mask: some key lies past Sk, above the causal diagonal
+    or outside the window.  Where it is False every element is allowed."""
+    return (k0 + block_k > sk or (causal and k0 + block_k - 1 > r0)
+            or bool(window) and r0 + rows - 1 - k0 >= window)
+
+
+def tensor_map(x: torch.Tensor, box_rows: int) -> tuple[int, ...]:
+    """One row of the launcher's tensor-map table for a [B, heads, S, d]
+    view: dims (d, S, heads, B) innermost first, the byte strides of S,
+    heads and B, the box (columns, rows) and the swizzle in bytes.
+
+    A bf16 box is at most 64 columns (128 bytes; d = 128 takes two) with a
+    swizzle as wide as its row: 128B at d >= 64, 64B at d = 32, 32B at
+    d = 16.  f32 tensors get no box (the f32 kernel reads by pointer and
+    takes only the strides).  Raises ValueError on what TMA cannot take: a
+    base that is not 16-byte aligned, a last dimension that is not
+    contiguous, byte strides that are not multiples of 16 or reach 2^40,
+    dims of 0 or of 2^32 and more.  A dimension of size 1 is never
+    stepped, so its stride is given as 16."""
+    B, heads, S, d = x.shape
+    es = x.element_size()
+    if x.stride(3) != 1:
+        raise ValueError("the last dimension must be contiguous")
+    if x.data_ptr() % 16:
+        raise ValueError("the base address must be 16-byte aligned")
+    if not all(0 < n < 2 ** 32 for n in x.shape):
+        raise ValueError(f"dims {tuple(x.shape)} must lie in [1, 2^32)")
+    strides = []
+    for dim in (2, 1, 0):
+        nbytes = x.stride(dim) * es if x.shape[dim] > 1 else 16
+        if nbytes % 16 or not 0 < nbytes < 2 ** 40:
+            raise ValueError(f"byte stride {nbytes} of dim {dim} must be a "
+                             "positive multiple of 16 below 2^40")
+        strides.append(nbytes)
+    box = (0, 0, 0)
+    if x.dtype == torch.bfloat16:
+        span = min(d, 64)
+        box = (span, box_rows, 2 * span)
+    return (d, S, heads, B, *strides, *box)
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int | None = None,
-                          block_q: int = BLOCK_Q, block_k: int = BLOCK_K
-                          ) -> torch.Tensor:
+                          block_q: int | None = None,
+                          block_k: int | None = None) -> torch.Tensor:
     """Plain PyTorch version of the kernel, with its arithmetic: the same
-    blocked loop and bounds, the finite sentinel, the f32 online softmax,
-    for bf16 inputs P carried as bf16 hi + lo parts (a 16-bit mantissa) in
-    P V, and ``acc / max(l, 1e-30)`` cast to q's dtype."""
+    blocked loop and bounds (``block_shape`` unless given), the finite
+    sentinel, the f32 online softmax, for bf16 inputs the softmax in log2
+    units (2^(s log2(e) - m log2(e)) = e^(s - m)) and P carried as bf16
+    hi + lo parts (a 16-bit mantissa) in P V, and ``acc / max(l, 1e-30)``
+    cast to q's dtype."""
     B, H, Sq, d = q.shape
+    bq, bk = block_shape(d, q.dtype)
+    block_q, block_k = block_q or bq, block_k or bk
     K, Sk = k.shape[1], k.shape[2]
     G = H // K
-    scale = _scale(d)
+    scale = _scale(d, q.dtype)
     split_p = q.dtype == torch.bfloat16
+    exp = torch.exp2 if split_p else torch.exp
     out = torch.empty((B, H, Sq, d), dtype=q.dtype, device=q.device)
     kf, vf = k.float(), v.float()
     for q0 in range(0, Sq, block_q):
@@ -86,8 +158,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 mask = mask & ((rows - cols) < window)
             s = torch.where(mask, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-            p = torch.exp(s - m_new)
-            alpha = torch.exp(m - m_new)
+            p = exp(s - m_new)
+            alpha = exp(m - m_new)
             l = alpha * l + p.sum(dim=-1, keepdim=True)
             if split_p:
                 hi = p.to(torch.bfloat16).float()
@@ -128,38 +200,43 @@ def _checked(q, k, v, window) -> bool:
     return q.device.type == "cuda"
 
 
-def _aligned(x: torch.Tensor) -> bool:
-    """16-byte rows: contiguous last dim, aligned base and row strides."""
-    es = x.element_size()
-    return (x.stride(3) == 1 and x.data_ptr() % 16 == 0
-            and all((x.stride(i) * es) % 16 == 0 for i in range(3)))
-
-
-def check_kernel_inputs(q, k, v) -> None:
+def check_kernel_inputs(q, k, v) -> list[tuple[int, ...]]:
     """What the kernel takes beyond `_checked`: a head dimension it is
-    instantiated for, 16-byte aligned rows, B * H within the grid."""
+    instantiated for, tensors TMA can read (``tensor_map``), B * H within
+    the grid.  Returns the tensor-map rows of q, k and v."""
     B, H, _, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"head dimension {d} has no kernel; supported: "
                          f"{HEAD_DIMS}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if not _aligned(x):
-            raise ValueError(f"{name} must have a contiguous last dimension "
-                             "and 16-byte aligned rows")
     if B * H > 65535:
         raise ValueError(f"B * H = {B * H} exceeds the grid's y limit")
+    block_q, block_k = block_shape(d, q.dtype)
+    rows = []
+    for name, x, box_rows in (("q", q, block_q), ("k", k, block_k),
+                              ("v", v, block_k)):
+        try:
+            rows.append(tensor_map(x, box_rows))
+        except ValueError as exc:
+            raise ValueError(f"{name}: {exc}") from None
+    return rows
 
 
-@functools.lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention")
-    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from
+    ``csrc/flash_attention.cu`` (or from a variant of it)."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_launch.argtypes = (
-        [vp] * 4 + [ci] * 7 + [cl] * 9 + [ci, ci, ctypes.c_float, vp])
+        [vp] * 4 + [ci] * 7 + [ctypes.POINTER(ctypes.c_longlong), ci, ci,
+                               ctypes.c_float, vp])
     lib.flash_attention_launch.restype = ci
     lib.flash_attention_error_string.argtypes = [ci]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=1)
+def _lib() -> ctypes.CDLL:
+    return bind(_build.load("flash_attention"))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -173,19 +250,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     plain version."""
     if not _checked(q, k, v, window):
         return flash_attention_plain(q, k, v, causal=causal, window=window)
-    check_kernel_inputs(q, k, v)
     B, H, Sq, d = q.shape
     K, Sk = k.shape[1], k.shape[2]
     out = torch.empty((B, H, Sq, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    maps = check_kernel_inputs(q, k, v)
+    maps.append(tensor_map(out, CONSUMER_ROWS))
+    table = (ctypes.c_longlong * (4 * len(MAP_FIELDS)))(
+        *[n for row in maps for n in row])
     lib = _lib()
     with torch.cuda.device(q.device):
         code = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPE_CODE[q.dtype], B, H, K, Sq, Sk, d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            int(causal), int(window or 0), _scale(d),
+            _DTYPE_CODE[q.dtype], B, H, K, Sq, Sk, d, table,
+            int(causal), int(window or 0), _scale(d, q.dtype),
             torch.cuda.current_stream(q.device).cuda_stream)
     if code != 0:
         msg = lib.flash_attention_error_string(code).decode()

@@ -140,7 +140,8 @@ def test_block_shape_invariance():
     q, k, v = (torch.from_numpy(a).float()
                for a in _inputs((1, 2, 2, 160, 160, 32), seed=5))
     outs = [fa.flash_attention_plain(q, k, v, block_q=bq, block_k=bk)
-            for bq, bk in [(32, 32), (64, 32), (32, 64), (128, 128)]]
+            for bq, bk in [(32, 32), (64, 32), (32, 64), (128, 128),
+                           (128, 64)]]
     for o in outs[1:]:
         np.testing.assert_allclose(o.numpy(), outs[0].numpy(), atol=1e-5,
                                    rtol=1e-5)
