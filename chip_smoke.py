@@ -18,45 +18,65 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    server specs, several requests with the exactness traps in their inputs,
    and n in {256, 1500, 65536}; ``placement_tier`` also against host
    ``best_tier``.
-3. ``[main]``: the scheduler path, ``run_hit_rate_experiment`` (the paper's
+3. ``[fused]``: the fused engine's kernels against their plain versions
+   on the card, bit for bit: K1's resident form (``fused_class``), its
+   tail (``fused_argmax``) and K2's normal-cycle form (``normal_cycle``)
+   on random resident states at 100, 1024 and 10240 nodes (m_res 4 and 8
+   with 13 gathered rows) and a 16-slot state through the wide kernel, every
+   ``REQUESTS`` entry (alpha 0, 0.3, 0.5, 1) at two preemptor priorities,
+   with and without patch rows; then the skip path.
+4. ``[main]``: the scheduler path, ``run_hit_rate_experiment`` (the paper's
    Table 4 protocol, ``TopoScheduler.plan()`` per scale-up) with
    ``imp_pallas`` and then host ``imp`` on the 100-node Table 3 cluster (2
    cycles x 50 scale-ups, which must give 100/100/0/0) and on a 1024-node
    cluster (1 x 20); the decisions of the two engines must be identical.
-   Launch counters are set to 0 just before each ``imp_pallas`` run and
-   read just after it: the topo_score_argmax launches must equal the
+   Launch counters are set to 0 just before each run and read just after
+   it: the topo_score_argmax launches must equal the ``imp_pallas``
    engine's per-node calls less its host fallbacks, and be > 0.  Then the
-   20-node 3 x 10 protocol must give 30/30/0.
-4. ``[flash]``: the flash-attention kernel (K4) against its plain version on
+   20-node 3 x 10 protocol must give 30/30/0.  Then ``imp_batched`` (the
+   fused engine over the device-resident state) at 100 nodes (2 x 50,
+   100/100/0/0), 1024 nodes (1 x 20) and 10240 nodes (1 x 10), decision
+   for decision against host ``imp``: one ``normal_cycle`` launch a plan,
+   one ``fused_class`` and one ``fused_argmax`` launch a plan (every plan
+   of a saturated cluster fails its normal cycle; the Table 3 mix needs no
+   wide chunk), and no lane-form K1 launch.
+5. ``[commit]``: twin 1024-node clusters, 200 steps of
+   ``schedule_or_preempt``, rollbacks and releases: ``imp_batched`` against
+   host ``imp`` with identical decisions and masks at every step (the row
+   scatter and the pending-row patches).
+6. ``[flash]``: the flash-attention kernel (K4) against its plain version on
    the card, in f32 (2e-5) and bf16 (2.5e-2), over the reference tests'
    five shapes, the serving path's shape, a head_dim-128 shape, a window
    with fully masked first tiles, a ragged Sq at the 128-row q block and a
    windowed head_dim-128 shape whose length is not a multiple of 128; no
    output may be non-finite.  Then 50 back-to-back launches at the serving
    shape must give bit-identical outputs.
-5. ``[serve]``: the serving path, llama3.2-1b at full width and depth with
+7. ``[serve]``: the serving path, llama3.2-1b at full width and depth with
    seeded random weights made on the card, through ``ServeEngine`` (batch
    4, seq_len 1024): 8 requests of 512-1024 prompt tokens and 32 new tokens
    each.  Counters at 0 just before, read just after: K4 launches must be
    16 layers x 2 prefill batches.  Every request has 32 tokens, no logit is
    non-finite, and the first batch served again gives the same tokens.
    ``[serve-trace]`` profiles one prefill and one decode step.
-6. ``[serve-check]``: decode against prefill at full width.  2 sequences of
+8. ``[serve-check]``: decode against prefill at full width.  2 sequences of
    1000 tokens, then 4 decode steps; each step's logits within 0.08 of a
    fresh prefill (through K4) of the extended sequence, with the depth cut
    to 2 layers.  The full depth's differences are recorded beside them, and
    so is how far each layer amplifies a 1e-6 perturbation of the input
    (f32): the random-weight model is chaotic at depth (``serve_check``).
-7. One ``{"kernels": [...]}`` line: per kernel its launches on its path,
+9. One ``{"kernels": [...]}`` line: per kernel its launches on its path,
    the largest difference against the plain version, the time per call
    from CUDA events (kernel and plain version), the device time per launch
    from torch.profiler, the bound and the share of it the kernel reaches,
    the function's operations over the kernel's time (``tflops``), and the
    time of one PyTorch library call of the same function where there is
-   one.  Then a ``[trace]`` line: one
-   traced ``imp_pallas`` plan on 1024 nodes, its device time against its
-   sourcing wall time, and the host functions that dominate.
-8. The card's name and power limit again, then the last line
+   one (the fused kernels at preemptor B on the saturated 1024- and
+   10240-node clusters).  Then ``[trace]`` lines: one traced
+   ``imp_pallas`` plan on 1024 nodes and one ``imp_batched`` plan on 1024
+   and on 10240 nodes, each's device time against its sourcing wall time,
+   and the host functions that dominate; a ``[sourcing]`` line with the
+   P50/P90 of every engine and size of ``[main]``.
+10. The card's name and power limit again, then the last line
    ``{"ok": true, "device": {...}}``.
 
 With no CUDA device, or without ``src/repro_torch`` beside this file, it
@@ -131,7 +151,7 @@ def lanes(torch, np, spec, n, seed, dev):
 
 def compare(torch, got, want, what: str) -> float:
     """Bitwise equality of each output pair; returns the max |difference|
-    over finite floats (0.0 when bitwise equal)."""
+    over integers and finite floats (0.0 when bitwise equal)."""
     err = 0.0
     for i, (a, b) in enumerate(zip(got, want)):
         check(a.shape == b.shape and a.dtype == b.dtype,
@@ -143,6 +163,8 @@ def compare(torch, got, want, what: str) -> float:
                 err = max(err, float((a[fin] - b[fin]).abs().max()))
             same = torch.equal(a.view(torch.int32), b.view(torch.int32))
         else:
+            if a.numel():
+                err = max(err, float((a.long() - b.long()).abs().max()))
             same = torch.equal(a, b)
         check(same, f"{what}: output {i} differs from the plain version "
               f"(max |diff| {err})")
@@ -237,16 +259,55 @@ def protocol(num_nodes, cycles, scaleups, engine, dev):
     torch_sync(dev)
     wall = time.perf_counter() - t0
     counts = read_counts()                # and read just after it
+    return rep, summarize(rep, num_nodes, cycles, scaleups, wall, counts)
+
+
+def summarize(rep, nodes, cycles, scaleups, wall, counts) -> dict:
+    """The ``[main]`` line of one protocol run."""
     summary = {
-        "nodes": num_nodes, "cycles": cycles, "scaleups": scaleups,
-        "engine": engine, "preemptions": rep.preemptions, "hits": rep.hits,
-        "failures": rep.failures, "placed": rep.placements,
-        "sourcing_p50_us": rep.percentile(50),
+        "nodes": nodes, "cycles": cycles, "scaleups": scaleups,
+        "engine": rep.engine, "preemptions": rep.preemptions,
+        "hits": rep.hits, "failures": rep.failures,
+        "placed": rep.placements, "sourcing_p50_us": rep.percentile(50),
         "sourcing_p90_us": rep.percentile(90),
         "samples": len(rep.sourcing_us), "wall_s": wall, "counts": counts,
     }
     print(f"[main] {json.dumps(summary)}", flush=True)
-    return rep, summary
+    return summary
+
+
+def protocol_on(cluster, scaleups, engine, dev):
+    """``protocol`` for one cycle on a cluster built beforehand (the
+    10240-node one takes ~100 s to build on the card's host): cycle 0 of
+    ``run_hit_rate_experiment`` — the same scale-up draw, every plan a pure
+    read — so its decisions are the protocol's."""
+    import random
+
+    from repro_torch.core.scheduler import TopoScheduler
+    from repro_torch.core.simulator import HitRateReport, decision_key
+    from repro_torch.core.workload import table3_workloads
+
+    workloads = {w.name: w for w in table3_workloads()}
+    rep = HitRateReport(engine=engine)
+    reset_counts()                        # counts at 0 just before the path
+    t0 = time.perf_counter()
+    sched = TopoScheduler(cluster, engine=engine, alpha=0.5)
+    rng = random.Random(10_000)
+    for _ in range(scaleups):
+        dec = sched.plan(workloads[rng.choice(("B", "C"))]).decision
+        rep.decision_keys.append(decision_key(dec))
+        if dec.preempted:
+            rep.preemptions += 1
+            rep.hits += int(dec.hit)
+            rep.sourcing_us.append(dec.sourcing_us)
+        elif dec.rejected:
+            rep.failures += 1
+        else:
+            rep.placements += 1
+    torch_sync(dev)
+    wall = time.perf_counter() - t0
+    counts = read_counts()                # and read just after it
+    return rep, summarize(rep, cluster.num_nodes, 1, scaleups, wall, counts)
 
 
 def torch_sync(dev) -> None:
@@ -256,11 +317,17 @@ def torch_sync(dev) -> None:
         torch.cuda.synchronize()
 
 
-def main_path(dev) -> tuple[list[dict], dict[str, int]]:
-    from repro_torch.kernels import topo_score as ts
+#: the fused engine's runs: nodes, cycles, scale-ups, expected counts
+BATCHED_RUNS = ((100, 2, 50, (100, 100, 0, 0)), (1024, 1, 20, None),
+                (10240, 1, 10, None))
+
+
+def main_path(dev, clusters) -> tuple[list[dict], dict[str, int]]:
+    from repro_torch.kernels import WRAPPERS
 
     runs = []
-    launches = {w.__name__: 0 for w in ts.WRAPPERS}
+    host_keys = {}
+    launches = {w.__name__: 0 for w in WRAPPERS}
     for nodes, cycles, scaleups, expect in ((100, 2, 50, (100, 100, 0, 0)),
                                             (1024, 1, 20, None),
                                             (20, 3, 10, (30, 30, 0, 0))):
@@ -285,10 +352,292 @@ def main_path(dev) -> tuple[list[dict], dict[str, int]]:
         host, s_host = protocol(nodes, cycles, scaleups, "imp", dev)
         check(fast.decision_keys == host.decision_keys,
               f"{nodes} nodes: imp_pallas and imp decisions differ")
+        host_keys[nodes] = host.decision_keys
         runs.append(s_host)
         print(f"[main] {nodes} nodes: {len(fast.decision_keys)} decisions "
               f"identical between imp_pallas and imp", flush=True)
+    batched_runs(dev, runs, launches, host_keys, clusters)
     return runs, launches
+
+
+def batched_runs(dev, runs: list, launches: dict, host_keys: dict,
+                 clusters: dict, plan_runs=BATCHED_RUNS) -> None:
+    """The fused engine through the same protocol, decision for decision
+    against host ``imp`` (run here where ``host_keys`` lacks the size);
+    its launches are added to ``launches`` and its summaries to ``runs``.
+    A size in ``clusters`` (one cycle) runs on that prebuilt cluster."""
+
+    def run(nodes, cycles, scaleups, engine):
+        if nodes in clusters:
+            return protocol_on(clusters[nodes], scaleups, engine, dev)
+        return protocol(nodes, cycles, scaleups, engine, dev)
+
+    for nodes, cycles, scaleups, expect in plan_runs:
+        fused, s_fused = run(nodes, cycles, scaleups, "imp_batched")
+        c = s_fused["counts"]
+        plans = cycles * scaleups
+        check(c["normal_cycle"] == plans,
+              f"{nodes} nodes: {c['normal_cycle']} normal_cycle launches for "
+              f"{plans} plans (one each)")
+        # saturated clusters: the normal cycle fails on every plan, so the
+        # sweep and its tail run on every plan; the Table 3 mix has at most
+        # 8 victims a node, so no wide chunk is dispatched
+        check(fused.placements == 0 and c["fused_class"] == plans
+              and c["fused_argmax"] == plans,
+              f"{nodes} nodes: {c['fused_class']} fused_class and "
+              f"{c['fused_argmax']} fused_argmax launches for {plans} plans "
+              f"with {fused.placements} placed")
+        check(c["topo_score_argmax"] == 0 and c["imp_pallas_calls"] == 0,
+              f"{nodes} nodes: imp_batched launched the lane form of K1")
+        for name in launches:
+            launches[name] += c[name]
+        got = (fused.preemptions, fused.hits, fused.failures,
+               fused.placements)
+        if expect is not None:
+            check(got == expect, f"{nodes} nodes: imp_batched gave {got}, "
+                  f"the reference gives {expect}")
+        runs.append(s_fused)
+        if nodes not in host_keys:
+            host, s_host = run(nodes, cycles, scaleups, "imp")
+            host_keys[nodes] = host.decision_keys
+            runs.append(s_host)
+        check(fused.decision_keys == host_keys[nodes],
+              f"{nodes} nodes: imp_batched and imp decisions differ")
+        print(f"[main] {nodes} nodes: {len(fused.decision_keys)} decisions "
+              f"identical between imp_batched and imp", flush=True)
+
+
+def commit_phase(dev, steps: int = 200, nodes: int = 1024) -> dict:
+    """Twin 1024-node clusters, ``steps`` steps of schedule_or_preempt (B,
+    C or D), rollbacks of the newest commit, and releases of a random
+    instance (a direct evict): ``imp_batched`` on one, host ``imp`` on the
+    other, decisions (masks included) identical at every step.  Exercises
+    the row scatter and the pending-row patches."""
+    import random
+
+    from repro_torch.core.scheduler import TopoScheduler
+    from repro_torch.core.simulator import (SimConfig,
+                                            build_saturated_cluster,
+                                            decision_key)
+    from repro_torch.core.workload import table3_workloads
+
+    wl = {w.name: w for w in table3_workloads()}
+    cfg = SimConfig(num_nodes=nodes, seed=3, device=dev)
+    twins = [build_saturated_cluster(cfg) for _ in range(2)]
+    scheds = [TopoScheduler(twins[0], engine="imp_batched"),
+              TopoScheduler(twins[1], engine="imp")]
+    rng = random.Random(5)
+    stack: list = [[], []]
+    kinds = {"placed": 0, "preempted": 0, "rejected": 0}
+    ops = {"plan": 0, "rollback": 0, "release": 0}
+    reset_counts()                        # counts at 0 just before the path
+    t0 = time.perf_counter()
+    for step in range(steps):
+        op = rng.random()
+        if op < 0.15 and stack[0]:
+            for s_ in stack:
+                s_.pop().rollback()
+            ops["rollback"] += 1
+        elif op < 0.3:
+            uids = sorted(twins[0].instances)
+            uid = uids[rng.randrange(len(uids))]
+            for c in twins:
+                c.evict(uid)
+            for s_ in stack:
+                s_.clear()                # older commits may not reverse
+            ops["release"] += 1
+        else:
+            name = rng.choice("BBCCD")
+            decs = []
+            for sched, s_ in zip(scheds, stack):
+                txn = sched.plan(wl[name])
+                dec = txn.commit()
+                s_.append(txn)
+                decs.append(decision_key(dec) + (
+                    None if dec.placement is None else
+                    (dec.placement.gpu_mask, dec.placement.cg_mask),))
+            check(decs[0] == decs[1], f"commit step {step}: imp_batched "
+                  f"{decs[0]} against imp {decs[1]}")
+            kinds[decs[0][0]] += 1
+            ops["plan"] += 1
+    torch_sync(dev)
+    wall = time.perf_counter() - t0
+    counts = read_counts()                # and read just after it
+    check(counts["normal_cycle"] == ops["plan"],
+          f"commit: {counts['normal_cycle']} normal_cycle launches for "
+          f"{ops['plan']} plans")
+    check(counts["fused_class"] == counts["fused_argmax"] == ops["plan"],
+          f"commit: {counts['fused_class']} fused_class launches for "
+          f"{ops['plan']} plans")
+    check(counts["topo_score_argmax"] == 0,
+          "commit: imp_batched launched the lane form of K1")
+    out = {"nodes": nodes, "steps": steps, "ops": ops, "decisions": kinds,
+           "identical": True, "wall_s": wall, "counts": counts,
+           "sweep_launches_that_exit_at_once": kinds["placed"]}
+    print(f"[commit] {json.dumps(out)}", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------------
+# Phase 3b: the fused engine's kernels against their plain versions
+# ---------------------------------------------------------------------------------
+
+#: node counts of the random resident states, and the preemptor priorities
+FUSED_NODES = (100, 1024, 10240)
+FUSED_THRESH = (1000, 300)
+#: a SKU with 24 CoreGroups, where 16 victims with disjoint masks fit
+BIG_CG = dict(name="bigcg", num_sockets=2, num_numa=8, num_cores=192,
+              num_gpus=8, coregroup_size=8)
+SENTINEL = 2**31 - 1
+
+
+def resident_state(np, spec, rows: int, max_victims: int, seed: int,
+                   cap: int = 16):
+    """Seeded resident rows (nodestate, victims, drain) as the allocator
+    leaves them: every GPU and CoreGroup free, held by one stored victim,
+    or held by a non-preemptible instance (one node's masks disjoint);
+    victims sorted by priority, ranks a permutation; some rows sentinels,
+    some truncated."""
+    rng = np.random.default_rng(seed)
+    s = rng.integers(0, max_victims + 1, rows)
+    own_g = (rng.random((rows, spec.num_gpus)) * (s[:, None] + 2)).astype(
+        np.int64) - 1                                  # -1 held, 0 free
+    own_c = (rng.random((rows, spec.num_coregroups)) * (s[:, None] + 2)
+             ).astype(np.int64) - 1
+    slot = np.arange(cap)
+    stored = slot[None, :] < s[:, None]
+    v = np.zeros((5, rows, cap), np.int64)
+    for j in range(cap):
+        v[0, :, j] = ((own_g == j + 1) << np.arange(spec.num_gpus)).sum(1)
+        v[1, :, j] = ((own_c == j + 1) << np.arange(spec.num_coregroups)
+                      ).sum(1)
+    prio = rng.choice(np.array([1, 2, 3, 200, 450, 900, 1200]), (rows, cap))
+    prio = np.where(stored, prio, SENTINEL)
+    v[2] = np.where(stored, np.sort(prio, axis=1), 0)
+    key = np.where(stored, rng.random((rows, cap)), np.inf)
+    v[3] = np.where(stored, np.argsort(np.argsort(key, axis=1), axis=1), 0)
+    v[4] = stored
+    v[0] *= stored
+    v[1] *= stored
+    ns = np.zeros((5, rows), np.int64)
+    ns[0] = ((own_g == 0) << np.arange(spec.num_gpus)).sum(1)
+    ns[1] = ((own_c == 0) << np.arange(spec.num_coregroups)).sum(1)
+    ns[2] = np.where(rng.random(rows) < 0.03, SENTINEL, np.arange(rows))
+    over = rng.random(rows) < 0.1
+    ns[3] = over
+    ns[4] = np.where(over, rng.integers(0, 1600, rows), SENTINEL)
+    dr = np.stack([ns[0] | np.bitwise_or.reduce(v[0], axis=1),
+                   ns[1] | np.bitwise_or.reduce(v[1], axis=1)])
+    return [x.astype(np.int32) for x in (ns, v, dr)]
+
+
+def patch_rows(np, spec, n: int, count: int, seed: int, max_victims: int):
+    """(pidx, pbuf): ``count`` sorted random rows replaced by the rows of
+    another state, padded with sentinels to a power of two."""
+    rng = np.random.default_rng(seed)
+    nodes = np.sort(rng.choice(n, count, replace=False)).astype(np.int32)
+    pns, pv, pdr = resident_state(np, spec, count, max_victims, seed + 1)
+    pns[2] = nodes
+    size = 1 << (count - 1).bit_length()
+    pidx = np.full(size, SENTINEL, np.int32)
+    pidx[:count] = nodes
+    pbuf = np.zeros((size, 5 + 5 * pv.shape[2] + 2), np.int32)
+    pbuf[:count] = np.concatenate(
+        [pns.T, pv.transpose(1, 0, 2).reshape(count, -1), pdr.T], axis=1)
+    return pidx, pbuf
+
+
+def fused_phase(torch, np, dev) -> dict[str, float]:
+    """K1's resident form, its tail and K2's normal-cycle form against
+    their plain versions on the card, bit for bit: random resident states
+    at 100, 1024 and 10240 nodes (m_res 4 and 8, 13 gathered mid rows),
+    a 16-slot state through the wide kernel, every REQUESTS entry at two
+    preemptor priorities, with and without patch rows; then the skip
+    path (the normal cycle placed: the sweep and the tail do nothing)."""
+    from repro_torch.core.topology import RTX4090_SERVER, ServerSpec
+    from repro_torch.kernels import fused_class as fc
+    from repro_torch.kernels import normal_cycle as nck
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    errs = {"fused_class": 0.0, "fused_argmax": 0.0, "normal_cycle": 0.0}
+    cases = normal_cases = 0
+    plans = []      # (spec, n, state, patches, gidx, m_res, m_gather, res)
+    for n in FUSED_NODES:
+        state = [t(x) for x in resident_state(np, RTX4090_SERVER, n, 8, n)]
+        rng = np.random.default_rng(n + 1)
+        gidx = np.full(16, SENTINEL, np.int32)
+        gidx[:13] = rng.choice(n, 13, replace=False)
+        for patched in (False, True):
+            pidx, pbuf = (patch_rows(np, RTX4090_SERVER, n, 9, n + 2, 8)
+                          if patched else
+                          (np.zeros(0, np.int32),
+                           np.zeros((0, 87), np.int32)))
+            for m_res in (4, 8):
+                plans.append((RTX4090_SERVER, n, state, (t(pidx), t(pbuf)),
+                              t(gidx), m_res, 8, True))
+    big = ServerSpec(**BIG_CG)
+    state = [t(x) for x in resident_state(np, big, 40, 16, 5)]
+    gidx = np.full(48, SENTINEL, np.int32)
+    gidx[:40] = np.arange(40)
+    gidx[40:44] = [3, 7, 11, 39]
+    for patched in (False, True):
+        pidx, pbuf = (patch_rows(np, big, 40, 5, 6, 16) if patched else
+                      (np.zeros(0, np.int32), np.zeros((0, 87), np.int32)))
+        plans.append((big, 40, state, (t(pidx), t(pbuf)), t(gidx), 16, 16,
+                      False))
+    for spec, n, (ns, v, dr), (pidx, pbuf), gidx, m_res, m_g, res in plans:
+        for ng, ncg, cpb, alpha in REQUESTS:
+            for thresh in FUSED_THRESH:
+                req = fc.FusedRequest(thresh, ng, ncg, cpb, alpha)
+                what = (f"{spec.name} n={n} p={pidx.shape[0]} m_res={m_res} "
+                        f"m_gather={m_g} req={thresh, ng, ncg, cpb, alpha}")
+                kw = dict(m_res=m_res, resident=res, m_gather=m_g, req=req,
+                          spec=spec)
+                cls = fc.fused_class(ns, v, dr, pidx, pbuf, gidx, **kw)
+                want = fc.fused_class_plain(ns, v, dr, pidx, pbuf, gidx, **kw)
+                errs["fused_class"] = max(errs["fused_class"], compare(
+                    torch, [cls], [want], "fused_class " + what))
+                seg = cls.shape[1] if res else 16
+                kw = dict(resident=res, seg=seg, req=req, spec=spec)
+                errs["fused_argmax"] = max(errs["fused_argmax"], compare(
+                    torch,
+                    [fc.fused_argmax(cls, ns, v, pidx, pbuf, gidx, **kw)],
+                    [fc.fused_argmax_plain(want, ns, v, pidx, pbuf, gidx,
+                                           **kw)],
+                    "fused_argmax " + what))
+                if thresh == FUSED_THRESH[0] and m_res in (4, 16):
+                    errs["normal_cycle"] = max(errs["normal_cycle"], compare(
+                        torch,
+                        [nck.normal_cycle(ns, v, dr, pidx, pbuf, req=req,
+                                          spec=spec)],
+                        [nck.normal_cycle_plain(ns, v, dr, pidx, pbuf, req,
+                                                spec)],
+                        "normal_cycle " + what))
+                    normal_cases += 1
+                cases += 1
+    # every K2 launch leaves its scratch as it found it: no key, ticket 0
+    scratch = nck._SCRATCH[plans[0][2][0].device].tolist()
+    check(scratch == [-1, 0], f"normal_cycle: scratch left at {scratch}")
+    # the skip path: out[0] set, the sweep returns, the tail writes zeros
+    spec, n, (ns, v, dr), (pidx, pbuf), gidx = plans[0][:5]
+    req = fc.FusedRequest(1000, *REQUESTS[0])
+    out = torch.full((14,), 7, dtype=torch.int32, device=dev)
+    out[0] = 1
+    cls = fc.fused_class(ns, v, dr, pidx, pbuf, gidx, m_res=4, resident=True,
+                         m_gather=8, req=req, spec=spec, skip=out[:1])
+    fc.fused_argmax(cls, ns, v, pidx, pbuf, gidx, resident=True,
+                    seg=cls.shape[1], req=req, spec=spec, skip=out[:1],
+                    out=out[5:])
+    check(out[5:].tolist() == [0] * 9 and out[:5].tolist() == [1, 7, 7, 7, 7],
+          f"fused: the skip path wrote {out.tolist()}")
+    torch_sync(dev)
+    print(f"[fused] {cases} cases x (fused_class, fused_argmax) and "
+          f"{normal_cases} x normal_cycle bit-exact against the plain versions "
+          f"(N {list(FUSED_NODES)} and a 16-slot state, patch rows on/off); "
+          "skip path ok", flush=True)
+    return errs
 
 
 # ---------------------------------------------------------------------------------
@@ -612,24 +961,31 @@ def event_ms(torch, fn, reps: int = 15, inner: int = 40) -> float:
     return statistics.median(samples)
 
 
-def profiled_kernel_ms(torch, fn, kernel: str, calls: int = 40):
+def profiled_kernel_ms(torch, fn, kernel: str, calls: int = 40,
+                       attempts: int = 3):
     """Device time per launch of `kernel` from torch.profiler, or None where
-    the profiler records no device time for it."""
+    the profiler records no device time for it.  The profiler has come back
+    without the device records of the ctypes-launched kernels now and then
+    (one of six fused timings in a run), so an empty window is profiled
+    again, up to ``attempts`` times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for ev in prof.key_averages():
-        if kernel in ev.key:
-            total += getattr(ev, "device_time_total",
-                             getattr(ev, "cuda_time_total", 0.0))
-            count += ev.count
-    return total / count / 1e3 if count and total > 0 else None
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for ev in prof.key_averages():
+            if kernel in ev.key:
+                total += getattr(ev, "device_time_total",
+                                 getattr(ev, "cuda_time_total", 0.0))
+                count += ev.count
+        if count and total > 0:
+            return total / count / 1e3
+    return None
 
 
 def bound_ms(n_bytes: float, flops: float,
@@ -704,6 +1060,142 @@ def timing_phase(torch, np, dev, errs, launches, plans) -> list[dict]:
     return rows
 
 
+#: an upper rate for the integer work of the fused kernels: the card's f32
+#: rate (the published table gives none for int32, whose pipes are no
+#: faster), so the operations bound stays a lower bound
+INT_OPS_PER_S = F32_FLOP_PER_S
+
+
+def sweep_ops(torch, ns, v, dr, m: int, gate: bool, req, spec) -> float:
+    """Integer operations the class sweep needs on these rows: every
+    subset of a row's eligible slots (rows that pass Filtering and the
+    gate), at 6 a set slot (fold, sums, bit scan) plus 12 a NUMA node, 4 a
+    socket and 20 for the tier, count and key updates (fused_class_kernel
+    in csrc/topo_score.cu)."""
+    from repro_torch.core.placement_device import best_tier_counts, spec_slices
+
+    sl = spec_slices(spec, ns.device)
+    tier, _, _ = best_tier_counts(dr[0], dr[1], req.need_gpus, req.need_cgs,
+                                  req.cgs_per_bundle, sl)
+    ok = (tier < 3) & (ns[2] < SENTINEL)
+    elig = (v[4] != 0) & (v[2] < req.thresh)
+    if gate:
+        ok &= (elig.sum(1) <= m) & ~((ns[3] != 0) & (ns[4] < req.thresh))
+    k = elig[:, :m].sum(1).to(torch.float64)
+    per = 12 * spec.num_numa + 4 * spec.num_sockets + 20
+    ops = torch.where(ok, 2.0 ** k * per + 6 * k * 2.0 ** (k - 1), 0.0)
+    return float(ops.sum())
+
+
+def fused_rows(torch, np, dev, errs, launches, plans, clusters) -> list[dict]:
+    """The fused engine's kernels at the main path's shapes (preemptor B on
+    the saturated 1024- and 10240-node clusters, no patch rows): time per
+    call, device time per launch, plain version, bound."""
+    from repro_torch.core.preemption_device import (_pad_idx, _request,
+                                                    split_fused_nodes)
+    from repro_torch.core.workload import table3_workloads
+    from repro_torch.kernels import fused_class as fc
+    from repro_torch.kernels import normal_cycle as nck
+
+    wl = {w.name: w for w in table3_workloads()}["B"]
+    shapes = {"fused_class": [], "fused_argmax": [], "normal_cycle": []}
+    for n in sorted(clusters):
+        dcs = clusters[n].device_state().sync()
+        spec = clusters[n].spec
+        req = _request(spec, wl, 0.5)
+        split = split_fused_nodes(dcs, {}, wl.priority)
+        gidx = torch.from_numpy(_pad_idx(split.mid) if split.mid else
+                                np.zeros(0, np.int32)).to(dev)
+        pidx = torch.zeros(0, dtype=torch.int32, device=dev)
+        pbuf = torch.zeros((0, 87), dtype=torch.int32, device=dev)
+        ns, v, dr = dcs.nodestate, dcs.victims, dcs.drain
+        cap, rows = v.shape[2], n + gidx.shape[0]
+        kw = dict(m_res=split.m_res, resident=True, m_gather=8, req=req,
+                  spec=spec)
+        cls = fc.fused_class(ns, v, dr, pidx, pbuf, gidx, **kw)
+        tkw = dict(resident=True, seg=rows, req=req, spec=spec)
+        win = fc.fused_argmax(cls, ns, v, pidx, pbuf, gidx,
+                              **tkw).reshape(-1).tolist()
+        n_mid = len(split.mid)
+        # the sweep reads a resident row's 5 node fields, its 2 drain masks,
+        # priority and stored of every slot and GPU mask, CG mask and rank
+        # of its first m_res; a gathered row its index, 2 node fields, the
+        # drain and the same slots at m_gather 8 (a pad index only itself);
+        # it writes 15 int32 a row
+        class_bytes = (n * (5 + 2 + 2 * cap + 3 * split.m_res)
+                       + n_mid * (1 + 2 + 2 + 2 * cap + 3 * 8)
+                       + (gidx.shape[0] - n_mid) + 15 * rows) * 4
+        # the tail reads 12 class fields a row (any, priority sum, uid mask
+        # of each tier, k, count, node id), then the winner's combo id, its
+        # free masks and the GPU and CG masks of its k victims; it writes 9
+        k_win = bin(win[3] & 0xFFFFFFFF).count("1")
+        tail_bytes = (12 * rows + 1 + (win[1] >= n) + 2 + 2 * k_win + 9) * 4
+        ops = sweep_ops(torch, ns, v, dr, split.m_res, True, req, spec)
+        if split.mid:
+            g = gidx[:len(split.mid)].long()
+            ops += sweep_ops(torch, ns[:, g], v[:, g], dr[:, g], 8, False,
+                             req, spec)
+        work = {
+            "fused_class": (
+                lambda: fc.fused_class(ns, v, dr, pidx, pbuf, gidx, **kw),
+                lambda: fc.fused_class_plain(ns, v, dr, pidx, pbuf, gidx,
+                                             **kw),
+                "fused_class_kernel", class_bytes, ops),
+            "fused_argmax": (
+                lambda: fc.fused_argmax(cls, ns, v, pidx, pbuf, gidx, **tkw),
+                lambda: fc.fused_argmax_plain(cls, ns, v, pidx, pbuf, gidx,
+                                              **tkw),
+                "fused_argmax_kernel", tail_bytes, 3 * rows * 20),
+            "normal_cycle": (
+                lambda: nck.normal_cycle(ns, v, dr, pidx, pbuf, req=req,
+                                         spec=spec),
+                lambda: nck.normal_cycle_plain(ns, v, dr, pidx, pbuf, req,
+                                               spec),
+                "normal_cycle_kernel", 3 * n * 4 + 20,
+                n * (12 * spec.num_numa + 4 * spec.num_sockets + 20)),
+        }
+        for name, (fn, plain, sym, n_bytes, n_ops) in work.items():
+            b_ms, b_by = bound_ms(n_bytes, n_ops, INT_OPS_PER_S)
+            ms = event_ms(torch, fn)
+            kernel_ms = profiled_kernel_ms(torch, fn, sym)
+            shapes[name].append({
+                "nodes": n, "rows": rows, "m_res": split.m_res,
+                "mid_rows": len(split.mid), "ms": ms, "kernel_ms": kernel_ms,
+                "plain_ms": event_ms(torch, plain, reps=5, inner=3),
+                "bytes": n_bytes, "int_ops": n_ops, "bound_ms": b_ms,
+                "bound_by": b_by,
+                "bound_share": b_ms / (kernel_ms or ms)})
+    ref = {"fused_class": ("topo_score_argmax_pallas", 214,
+                           "resident form: preemption_jax.py:445 "
+                           "_fused_class_core"),
+           "fused_argmax": ("topo_score_argmax_pallas", 214,
+                            "its tail: preemption_jax.py:567 "
+                            "_fused_argmax_core + placement_jax.py:295 "
+                            "winner_place"),
+           "normal_cycle": ("placement_tier_pallas", 285,
+                            "normal-cycle form: placement_jax.py:247 "
+                            "normal_cycle_core")}
+    rows_out = []
+    for name, got in shapes.items():
+        main = got[0]                       # 1024 nodes: the main path's
+        fn_name, line, form = ref[name]
+        rows_out.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/topo_score.cu",
+            "replaces": f"src/repro/kernels/topo_score.py:{line}",
+            "replaces_fn": f"{fn_name} ({form})",
+            "launches": launches[name], "on_main_path": launches[name] > 0,
+            "launches_per_plan": launches[name] / plans,
+            "max_abs_err": errs[name], "shape": [main["rows"]],
+            "ms": main["ms"], "kernel_ms": main["kernel_ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "bound_share": main["bound_share"], "library_ms": None,
+            "shapes": got,
+        })
+    return rows_out
+
+
 def flash_timing(torch, shape, plain: bool) -> dict:
     """Kernel, plain version and library call at one shape (bf16, causal):
     the operations the causal mask leaves, the bytes of q, k, v read once
@@ -761,11 +1253,19 @@ def flash_row(torch, errs, launches) -> dict:
     }
 
 
-def trace_phase(torch, dev) -> dict:
-    """Where one ``imp_pallas`` plan's time goes on the 1024-node cluster:
-    the device time of its kernels and copies (torch.profiler) against the
-    plan's sourcing wall time, and the host functions that take the most
-    of an untraced plan (cProfile)."""
+#: the CUDA kernels of each traced engine's plan
+TRACE_KERNELS = {"imp_pallas": ("topo_score_argmax_kernel",),
+                 "imp_batched": ("fused_class_kernel", "fused_argmax_kernel",
+                                 "normal_cycle_kernel")}
+
+
+def trace_phase(torch, dev, engine: str = "imp_pallas", nodes: int = 1024,
+                cluster=None, plans: int = 1, attempts: int = 3) -> dict:
+    """Where a plan's time goes on a saturated cluster: the device time of
+    its kernels and copies (torch.profiler) over ``plans`` plans against
+    their sourcing wall time, and the host functions that take the most of
+    an untraced plan (cProfile).  A window in which the profiler recorded
+    no device time is traced again, up to ``attempts`` times."""
     import cProfile
     import pstats
 
@@ -778,23 +1278,29 @@ def trace_phase(torch, dev) -> dict:
     from repro_torch.kernels import topo_score as ts
 
     wl = {w.name: w for w in table3_workloads()}["B"]
-    cluster = build_saturated_cluster(SimConfig(num_nodes=1024, seed=0,
-                                                device=dev))
-    sched = TopoScheduler(cluster, engine="imp_pallas")
+    if cluster is None:
+        cluster = build_saturated_cluster(SimConfig(num_nodes=nodes, seed=0,
+                                                    device=dev))
+    sched = TopoScheduler(cluster, engine=engine)
     untraced_us = [sched.plan(wl).decision.sourcing_us for _ in range(3)]
-    calls = ts.flextopo_imp_pallas.calls
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        traced_us = sched.plan(wl).decision.sourcing_us
-        torch.cuda.synchronize()
-    filtered = ts.flextopo_imp_pallas.calls - calls
-    device = {"kernel": 0.0, "copy": 0.0, "other": 0.0}
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        part = ("kernel" if "topo_score_argmax_kernel" in ev.key
-                else "copy" if "memcpy" in ev.key.lower() else "other")
-        device[part] += ev.device_time_total
+    for attempt in range(1, attempts + 1):
+        calls = ts.flextopo_imp_pallas.calls
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            traced_us = sum(sched.plan(wl).decision.sourcing_us
+                            for _ in range(plans))
+            torch.cuda.synchronize()
+        filtered = (ts.flextopo_imp_pallas.calls - calls) // plans
+        device = {"kernel": 0.0, "copy": 0.0, "other": 0.0}
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            part = ("kernel"
+                    if any(k in ev.key for k in TRACE_KERNELS[engine])
+                    else "copy" if "memcpy" in ev.key.lower() else "other")
+            device[part] += ev.device_time_total
+        if sum(device.values()) > 0:
+            break
     prof_host = cProfile.Profile()
     prof_host.enable()
     sched.plan(wl)
@@ -802,10 +1308,13 @@ def trace_phase(torch, dev) -> dict:
     stats = pstats.Stats(prof_host)
     top = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:8]
     out = {
-        "nodes": 1024, "preemptor": "B", "filtered_nodes": filtered,
-        "sourcing_us_untraced": untraced_us, "sourcing_us_traced": traced_us,
-        "device_us": device,
-        "device_busy_share": sum(device.values()) / traced_us,
+        "engine": engine, "nodes": nodes, "preemptor": "B",
+        "filtered_nodes": filtered if engine == "imp_pallas" else None,
+        "sourcing_us_untraced": untraced_us, "traced_plans": plans,
+        "trace_attempts": attempt, "sourcing_us_traced": traced_us / plans,
+        "device_us": {k: v / plans for k, v in device.items()},
+        "device_busy_share": (sum(device.values()) / traced_us
+                              if sum(device.values()) > 0 else None),
         "host_top_tottime_s": [
             [f"{os.path.basename(f)}:{line}({fn})", calls_, round(tt, 6)]
             for (f, line, fn), (_, calls_, tt, _, _) in top],
@@ -888,21 +1397,43 @@ def run() -> int:
           flush=True)
     build_all()
 
+    from repro_torch.core.simulator import SimConfig, build_saturated_cluster
+
     errs = kernel_phase(torch, np, dev)
-    runs, launches = main_path(dev)
+    errs.update(fused_phase(torch, np, dev))
+    t0 = time.perf_counter()
+    big = {10240: build_saturated_cluster(SimConfig(num_nodes=10240, seed=0,
+                                                    device=dev))}
+    print(f"[main] built the 10240-node cluster in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    runs, launches = main_path(dev, big)
     plans = sum(r["cycles"] * r["scaleups"] for r in runs
                 if r["engine"] == "imp_pallas")
+    fused_plans = sum(r["cycles"] * r["scaleups"] for r in runs
+                      if r["engine"] == "imp_batched")
+    commit_phase(dev)
     flash_errs = flash_phase(torch)
     serve, api, params = serve_phase(torch, np)
     serve_trace(torch, api, params)
     check_errs = serve_check(torch, np, api, params)
     del api, params
     torch.cuda.empty_cache()
+    clusters = {1024: build_saturated_cluster(SimConfig(num_nodes=1024,
+                                                        seed=0, device=dev)),
+                **big}
     rows = timing_phase(torch, np, dev, errs, launches, plans)
     rows.append(flash_row(torch, flash_errs,
                           serve["counts"]["flash_attention"]))
+    rows.extend(fused_rows(torch, np, dev, errs, launches, fused_plans,
+                           clusters))
     trace_phase(torch, dev)
-    p50 = {f"{r['engine']}@{r['nodes']}": r["sourcing_p50_us"] for r in runs}
+    for n, cluster in clusters.items():
+        trace_phase(torch, dev, "imp_batched", n, cluster, plans=20)
+    sourcing = {f"{r['engine']}@{r['nodes']}": [r["sourcing_p50_us"],
+                                                r["sourcing_p90_us"]]
+                for r in runs}
+    print(f"[sourcing] P50/P90 us {json.dumps(sourcing)}", flush=True)
+    p50 = {k: v[0] for k, v in sourcing.items()}
     print(json.dumps({"sourcing_p50_us": p50,
                       "serve": {k: serve[k] for k in (
                           "prefill_s", "decode_p50_ms", "decode_p90_ms",

@@ -1,12 +1,19 @@
-"""Cluster state: N servers × FlexTopo + the instance registry (host half).
+"""Cluster state: N servers × FlexTopo + the instance registry.
 
 The scheduler and simulator mutate cluster state exclusively through this
 class so that the FlexTopo graphs, the bitmask arrays, and the instance
-registry can never diverge.  ``arrays()`` exports the dense per-node view.
+registry can never diverge.  ``arrays()`` exports the dense per-node view,
+``sourcing_context()`` hands out the incrementally-maintained host
+`SourcingContext` mirror, and ``device_state()`` hands out the
+`DeviceClusterState`: the struct-of-arrays copy of the sourcing rows that
+stays RESIDENT on the cluster's device across plans.  ``invalidate_node``
+marks single rows dirty in both; the device copy re-uploads only those rows
+as one ``index_copy_`` per sync, so a ``plan()`` never re-uploads the whole
+``[N, M]`` state host→device.
 
 A cluster names the torch device its kernels run on (``device="cuda"`` by
 default).  The host state lives in Python objects either way; the device is
-where an engine such as ``imp_pallas`` sends its per-node subset tensors.
+where the resident state lives and where the engines launch their kernels.
 A cluster asked for CUDA on a machine without it raises instead of quietly
 running on the CPU.
 
@@ -30,9 +37,10 @@ from .placement import Placement
 from .topology import ServerSpec
 from .workload import Instance, TopoPolicy, WorkloadSpec
 
-#: Widest per-node victim set the dense subset sweep encodes (2^16 lanes).
-#: Nodes holding more victims than this are sourced through the per-node
-#: python engine instead (see ``kernels.topo_score.flextopo_imp_pallas``).
+#: Widest per-node victim row the dense sourcing arrays encode (2^16
+#: subsets).  Nodes holding more preemptible instances than this overflow
+#: the row and are sourced through the per-node python engine instead (see
+#: ``kernels.topo_score.flextopo_imp_pallas`` and ``preemption_device``).
 MAX_DENSE_VICTIMS = 16
 
 #: One instance as plain values:
@@ -103,6 +111,8 @@ class Cluster:
         self._op_listeners: list[Callable[[tuple], None]] = []
         # instance fan-out: the same stream with the WHOLE Instance attached
         self._inst_listeners: list[Callable[[int, "Instance"], None]] = []
+        self._sourcing_ctx: "SourcingContext | None" = None
+        self._device_state: "DeviceClusterState | None" = None
 
     @classmethod
     def from_instances(cls, spec: ServerSpec, num_nodes: int,
@@ -208,6 +218,19 @@ class Cluster:
         ``invalidate_node`` calls do NOT produce ops."""
         self._op_listeners.append(fn)
 
+    def sourcing_context(self) -> "SourcingContext":
+        """The lazily-created incremental array cache for fused sourcing."""
+        if self._sourcing_ctx is None:
+            self._sourcing_ctx = SourcingContext(self)
+        return self._sourcing_ctx
+
+    def device_state(self) -> "DeviceClusterState":
+        """The lazily-created struct-of-arrays state, resident on
+        ``self.device``."""
+        if self._device_state is None:
+            self._device_state = DeviceClusterState(self)
+        return self._device_state
+
     # ---- queries --------------------------------------------------------------------
     def free_masks(self, node: int) -> tuple[int, int]:
         cached = self._mask_cache[node]
@@ -312,6 +335,8 @@ class ClusterView:
         # virtual uid -> real uid, filled as the view's transactions commit so
         # later transactions can resolve victims planned against earlier binds
         self.committed_uids: dict[int, int] = {}
+        # per-node planned-mutation counter (0 = untouched)
+        self._node_version: dict[int, int] = {}
 
     # -- read interface (mirrors Cluster) ------------------------------------------
     def free_masks(self, node: int) -> tuple[int, int]:
@@ -342,13 +367,23 @@ class ClusterView:
         )
 
     # -- planned mutations ----------------------------------------------------------
+    def _bump(self, node: int) -> None:
+        self._node_version[node] = self._node_version.get(node, 0) + 1
+
+    def node_version(self, node: int) -> int:
+        """Planned-mutation counter for one node (0 = untouched)."""
+        return self._node_version.get(node, 0)
+
     def plan_evict(self, uid: int) -> Instance:
         if uid in self._added:
-            return self._added.pop(uid)
+            inst = self._added.pop(uid)
+            self._bump(inst.node)
+            return inst
         inst = self.base.instances[uid]
         if uid in self._evicted:
             raise ValueError(f"uid {uid} already planned for eviction")
         self._evicted[uid] = inst
+        self._bump(inst.node)
         return inst
 
     def plan_bind(self, workload: WorkloadSpec, node: int,
@@ -356,8 +391,511 @@ class ClusterView:
         inst = Instance(uid=next(self._uid), workload=workload, node=node,
                         gpu_mask=placement.gpu_mask, cg_mask=placement.cg_mask)
         self._added[inst.uid] = inst
+        self._bump(node)
         return inst
 
     def resolve_uid(self, uid: int) -> int:
         """Map a virtual (planned-bind) uid to the real uid it committed as."""
         return self.committed_uids.get(uid, uid)
+
+    def delta_nodes(self) -> set[int]:
+        """Nodes whose state differs from the base cluster (planned deltas)."""
+        return ({i.node for i in self._evicted.values()}
+                | {i.node for i in self._added.values()})
+
+
+class SourcingContext:
+    """Incrementally-maintained dense arrays for the fused sourcing path.
+
+    One row per node holds the padded bitmask/priority/uid arrays of ALL
+    preemptible instances on that node (sorted by ``(priority, uid)``, the
+    same order ``victims_on`` yields).  The preemptor-priority filter is NOT
+    baked in: the fused sweep masks victims by ``priority < preemptor`` on
+    the device, so one cache serves every preemptor class.
+
+    Invalidation semantics: the context subscribes to the cluster's
+    ``invalidate_node`` choke point (hit by every ``bind``/``evict``/
+    ``restore``/explicit invalidation) and marks rows dirty; ``refresh()``
+    rebuilds only the dirty rows lazily before the next read.
+
+    ``rank`` is each victim's uid-rank within its node's stored victims:
+    the fused sweep packs a subset's ranks into a bitmask whose integer
+    order equals the lexicographic order of the subset's sorted uid tuple,
+    reproducing ``select_best``'s victim-uid tie-break on the device.
+
+    Rows with more than `MAX_DENSE_VICTIMS` preemptible instances are marked
+    ``overflow`` but still store the first `cap` victims (the lowest
+    ``(priority, uid)`` prefix) plus ``next_prio``, the priority of the
+    first victim NOT stored.  Any preemptor's eligible victims are a prefix
+    of that order, so a truncated row stays on the fused path whenever
+    ``next_prio >= preemptor``; callers fall back to per-node sourcing only
+    when eligible victims really exceed the row.
+    """
+
+    #: replay gate: a single row accumulating more preemptible additions
+    #: than this between refreshes re-encodes instead (bounds the merge
+    #: scratch width)
+    MAX_REPLAY_ADDS = 64
+
+    def __init__(self, cluster: Cluster, cap: int = MAX_DENSE_VICTIMS) -> None:
+        self.cluster = cluster
+        self.cap = cap
+        n = cluster.num_nodes
+        self.free_gpu = np.zeros(n, np.int32)
+        self.free_cg = np.zeros(n, np.int32)
+        self.vg = np.zeros((n, cap), np.int32)      # victim GPU bitmasks
+        self.vc = np.zeros((n, cap), np.int32)      # victim CoreGroup bitmasks
+        self.vp = np.zeros((n, cap), np.int32)      # victim priorities
+        self.vu = np.zeros((n, cap), np.int64)      # victim uids
+        self.rank = np.zeros((n, cap), np.int32)    # uid-rank within the node
+        self.stored = np.zeros((n, cap), bool)      # slot holds an instance
+        self.count = np.zeros(n, np.int32)          # preemptible instances
+        self.overflow = np.zeros(n, bool)           # count > cap: truncated
+        self.next_prio = np.full(n, 2**31 - 1, np.int32)  # 1st unstored prio
+        self._dirty: set[int] = set(range(n))
+        # journal-driven refresh: the exact mutation stream since the last
+        # refresh, plus a per-node dirty-mark counter.  A dirty row whose
+        # mark count equals its op count was mutated ONLY through
+        # bind/evict/restore and replays vectorized; anything else
+        # (external invalidation, truncated base row, large add bursts)
+        # falls back to `encode_row`.  Rows never encoded (`_fresh`) always
+        # do.
+        self._journal: list[tuple] = []
+        self._marks: dict[int, int] = {}
+        self._fresh: set[int] = set(range(n))
+        cluster.add_dirty_listener(self._mark)
+        cluster.add_op_listener(self._journal.append)
+
+    def _mark(self, node: int) -> None:
+        self._dirty.add(node)
+        self._marks[node] = self._marks.get(node, 0) + 1
+
+    def refresh(self) -> None:
+        """Bring every dirty row up to date: rows whose dirt the op journal
+        explains replay in one vectorized numpy merge (`_replay_journal`),
+        the rest re-encode through `refresh_row`."""
+        if self._dirty:
+            for node in self._replay_journal():
+                self.refresh_row(node, self.cluster)
+        self._dirty.clear()
+        self._journal.clear()
+        self._marks.clear()
+
+    def _replay_journal(self) -> set[int]:
+        """Vectorized journal replay over the replay-safe dirty rows.
+        Returns the rows that still need a full `encode_row` rebuild."""
+        ops_by_node: dict[int, list[tuple]] = {}
+        for op in self._journal:
+            ops_by_node.setdefault(op[0], []).append(op)
+        bad: set[int] = set()
+        rows: list[int] = []
+        descs: list[tuple] = []     # (free_gpu, free_cg, keep, adds)
+        max_adds = 1
+        for node in self._dirty:
+            ops = ops_by_node.get(node, ())
+            if (node in self._fresh or self.overflow[node]
+                    or self._marks.get(node, 0) != len(ops)):
+                bad.add(node)
+                continue
+            # net out the ops: a bind+evict (or evict+restore) of the same
+            # uid inside one window cancels exactly
+            present: dict[int, tuple] = {}
+            removed: set[int] = set()
+            fg, fc = int(self.free_gpu[node]), int(self.free_cg[node])
+            for _, delta, gm, cm, prio, uid, preempt in ops:
+                if delta > 0:
+                    fg &= ~gm
+                    fc &= ~cm
+                    if preempt:
+                        if uid in removed:
+                            removed.discard(uid)    # evict -> restore
+                        else:
+                            present[uid] = (prio, uid, gm, cm)
+                else:
+                    fg |= gm
+                    fc |= cm
+                    if preempt:
+                        if uid in present:
+                            del present[uid]
+                        else:
+                            removed.add(uid)
+            stored_uids = set(int(u) for u in self.vu[node][self.stored[node]])
+            adds = sorted(present.values())
+            if not removed <= stored_uids or len(adds) > self.MAX_REPLAY_ADDS:
+                bad.add(node)       # removal outside the stored prefix
+                continue
+            keep = self.stored[node] & ~np.isin(
+                self.vu[node], np.fromiter(removed, np.int64, len(removed)))
+            rows.append(node)
+            descs.append((fg, fc, keep, adds))
+            max_adds = max(max_adds, len(adds))
+        if rows:
+            self._replay_rows(rows, descs, max_adds)
+        return bad
+
+    def _replay_rows(self, rows: list[int], descs: list[tuple],
+                     a: int) -> None:
+        """One batched (priority, uid) lexsort merge for all replayed rows:
+        surviving base victims + net-new additions, exact int64 uids."""
+        cap, r = self.cap, len(rows)
+        idx = np.asarray(rows, np.int64)
+        s = cap + a
+        prio = np.full((r, s), 2**31 - 1, np.int32)
+        uid = np.full((r, s), np.iinfo(np.int64).max, np.int64)
+        gm = np.zeros((r, s), np.int32)
+        cm = np.zeros((r, s), np.int32)
+        valid = np.zeros((r, s), bool)
+        fg = np.zeros(r, np.int32)
+        fc = np.zeros(r, np.int32)
+        for i, (node, (nfg, nfc, keep, adds)) in enumerate(zip(rows, descs)):
+            fg[i], fc[i] = nfg, nfc
+            valid[i, :cap] = keep
+            prio[i, :cap][keep] = self.vp[node][keep]
+            uid[i, :cap][keep] = self.vu[node][keep]
+            gm[i, :cap][keep] = self.vg[node][keep]
+            cm[i, :cap][keep] = self.vc[node][keep]
+            for j, (p_, u_, g_, c_) in enumerate(adds):
+                prio[i, cap + j] = p_
+                uid[i, cap + j] = u_
+                gm[i, cap + j] = g_
+                cm[i, cap + j] = c_
+                valid[i, cap + j] = True
+        order = np.lexsort((uid, prio), axis=-1)
+        take = np.take_along_axis
+        sv = take(valid, order, 1)
+        sp = take(prio, order, 1)
+        su = take(uid, order, 1)
+        count = valid.sum(axis=1).astype(np.int32)
+        overflow = count > cap
+        self.free_gpu[idx] = fg
+        self.free_cg[idx] = fc
+        self.count[idx] = count
+        self.overflow[idx] = overflow
+        self.next_prio[idx] = np.where(overflow, sp[:, cap], 2**31 - 1)
+        st = sv[:, :cap]
+        self.stored[idx] = st
+        self.vg[idx] = np.where(st, take(gm, order, 1)[:, :cap], 0)
+        self.vc[idx] = np.where(st, take(cm, order, 1)[:, :cap], 0)
+        self.vp[idx] = np.where(st, sp[:, :cap], 0)
+        self.vu[idx] = np.where(st, su[:, :cap], 0)
+        ukey = np.where(st, su[:, :cap], np.iinfo(np.int64).max)
+        rank = np.argsort(np.argsort(ukey, axis=1, kind="stable"), axis=1)
+        self.rank[idx] = np.where(st, rank, 0)
+
+    def refresh_row(self, node: int, source) -> None:
+        """Fill one row from ``source`` (the base cluster or a ClusterView)."""
+        self._fresh.discard(node)
+        row = encode_row(source, node, self.cap)
+        self.free_gpu[node] = row.free_gpu
+        self.free_cg[node] = row.free_cg
+        self.count[node] = row.count
+        self.overflow[node] = row.overflow
+        self.next_prio[node] = row.next_priority
+        self.stored[node] = row.stored
+        self.vg[node] = row.vg
+        self.vc[node] = row.vc
+        self.vp[node] = row.vp
+        self.vu[node] = row.vu
+        self.rank[node] = row.rank
+
+
+@dataclasses.dataclass
+class VictimRow:
+    """One node's encoded dense sourcing row (padded to ``cap`` slots)."""
+
+    free_gpu: int
+    free_cg: int
+    count: int
+    overflow: bool           # count > cap: only the prefix is stored
+    next_priority: int       # priority of the first victim NOT stored
+    vg: np.ndarray           # int32[cap]
+    vc: np.ndarray
+    vp: np.ndarray
+    vu: np.ndarray           # int64[cap]
+    rank: np.ndarray
+    stored: np.ndarray       # bool[cap]
+
+
+def encode_row(source, node: int, cap: int) -> VictimRow:
+    """Row encoder over any Cluster-like read interface (the base cluster
+    for `SourcingContext` rows, a `ClusterView` for per-plan delta rows).
+
+    When a node holds more than ``cap`` preemptible instances only the
+    lowest ``(priority, uid)`` prefix is stored; ``next_priority`` lets
+    callers decide per preemptor whether the eligible victims still fit.
+    """
+    fg, fc = source.free_masks(node)
+    victims = sorted((i for i in source.instances_on(node) if i.preemptible),
+                     key=lambda i: (i.priority, i.uid))
+    row = VictimRow(
+        free_gpu=fg, free_cg=fc, count=len(victims),
+        overflow=len(victims) > cap,
+        next_priority=victims[cap].priority if len(victims) > cap
+        else 2**31 - 1,
+        vg=np.zeros(cap, np.int32), vc=np.zeros(cap, np.int32),
+        vp=np.zeros(cap, np.int32), vu=np.zeros(cap, np.int64),
+        rank=np.zeros(cap, np.int32), stored=np.zeros(cap, bool),
+    )
+    victims = victims[:cap]
+    for j, v in enumerate(victims):
+        row.vg[j] = v.gpu_mask
+        row.vc[j] = v.cg_mask
+        row.vp[j] = v.priority
+        row.vu[j] = v.uid
+        row.stored[j] = True
+    if victims:
+        uids = np.asarray([v.uid for v in victims])
+        row.rank[: len(victims)] = np.argsort(np.argsort(uids))
+    return row
+
+
+# ---------------------------------------------------------------------------------
+# Device-resident cluster state (struct-of-arrays on the cluster's device)
+# ---------------------------------------------------------------------------------
+
+#: rows of the stacked node-state tensor (``DeviceClusterState.nodestate``)
+NODE_FIELDS = 5
+NS_FREE_GPU, NS_FREE_CG, NS_NODE_ID, NS_OVERFLOW, NS_NEXT_PRIO = range(NODE_FIELDS)
+
+#: rows of the stacked victim tensor (``DeviceClusterState.victims``)
+VICTIM_FIELDS = 5
+VF_GPU, VF_CG, VF_PRIO, VF_RANK, VF_STORED = range(VICTIM_FIELDS)
+
+#: rows of the stacked drain tensor: free ∪ every stored victim mask — the
+#: fully-drained masks Guaranteed Filtering popcounts on the device
+DRAIN_FIELDS = 2
+
+#: out-of-range row index that pads scatter/gather index vectors; dropped by
+#: `apply_rows` and read as a zero row (with this node id) by gathers
+IDX_SENTINEL = 2**31 - 1
+
+#: largest dirty set ``sync(flush=False)`` may leave pending for the
+#: in-dispatch overlay before forcing a real scatter (floor — see
+#: `max_pending_rows` for the node-count-scaled cap)
+MAX_PENDING_ROWS = 16
+
+
+def _pad_pow2(n: int) -> int:
+    b = 1
+    while b < n:
+        b *= 2
+    return b
+
+
+def max_pending_rows(num_nodes: int) -> int:
+    """Node-count-scaled pending-overlay cap (power of two): ~n/64, clamped
+    to [`MAX_PENDING_ROWS`, 1024]."""
+    return max(MAX_PENDING_ROWS, min(1024, _pad_pow2(max(1, num_nodes // 64))))
+
+
+def row_width(cap: int) -> int:
+    """Length of one flattened row (see `flatten_rows`)."""
+    return NODE_FIELDS + VICTIM_FIELDS * cap + DRAIN_FIELDS
+
+
+def pack_rows(rows: list[VictimRow], node_ids, cap: int):
+    """Stack encoded `VictimRow`s into the device layout.
+
+    Returns ``(nodestate int32[NODE_FIELDS, P], victims
+    int32[VICTIM_FIELDS, P, cap], drain int32[DRAIN_FIELDS, P])`` — the same
+    column layout `DeviceClusterState` keeps resident.
+    """
+    p = len(rows)
+    ns = np.zeros((NODE_FIELDS, p), np.int32)
+    v = np.zeros((VICTIM_FIELDS, p, cap), np.int32)
+    dr = np.zeros((DRAIN_FIELDS, p), np.int32)
+    for j, (node, row) in enumerate(zip(node_ids, rows)):
+        ns[NS_FREE_GPU, j] = row.free_gpu
+        ns[NS_FREE_CG, j] = row.free_cg
+        ns[NS_NODE_ID, j] = node
+        ns[NS_OVERFLOW, j] = int(row.overflow)
+        ns[NS_NEXT_PRIO, j] = row.next_priority
+        v[VF_GPU, j] = row.vg
+        v[VF_CG, j] = row.vc
+        v[VF_PRIO, j] = row.vp
+        v[VF_RANK, j] = row.rank
+        v[VF_STORED, j] = row.stored
+        dr[0, j] = row.free_gpu | int(
+            np.bitwise_or.reduce(np.where(row.stored, row.vg, 0)))
+        dr[1, j] = row.free_cg | int(
+            np.bitwise_or.reduce(np.where(row.stored, row.vc, 0)))
+    return ns, v, dr
+
+
+def pack_context_rows(ctx: SourcingContext, idx):
+    """Vectorized `pack_rows` over `SourcingContext` rows ``idx``."""
+    idx = np.asarray(idx, np.int64)
+    ns = np.zeros((NODE_FIELDS, len(idx)), np.int32)
+    ns[NS_FREE_GPU] = ctx.free_gpu[idx]
+    ns[NS_FREE_CG] = ctx.free_cg[idx]
+    ns[NS_NODE_ID] = idx
+    ns[NS_OVERFLOW] = ctx.overflow[idx]
+    ns[NS_NEXT_PRIO] = ctx.next_prio[idx]
+    stored = ctx.stored[idx]
+    v = np.stack([
+        ctx.vg[idx], ctx.vc[idx], ctx.vp[idx], ctx.rank[idx],
+        stored.astype(np.int32),
+    ]).astype(np.int32)
+    dr = np.zeros((DRAIN_FIELDS, len(idx)), np.int32)
+    dr[0] = ctx.free_gpu[idx] | np.bitwise_or.reduce(
+        np.where(stored, ctx.vg[idx], 0), axis=1)
+    dr[1] = ctx.free_cg[idx] | np.bitwise_or.reduce(
+        np.where(stored, ctx.vc[idx], 0), axis=1)
+    return ns, v, dr
+
+
+def flatten_rows(ns, v, dr) -> np.ndarray:
+    """Concatenate packed rows into ONE int32 row-major buffer
+    ``int32[P, row_width(cap)]``: dirty-row scatters and view-delta patches
+    travel host→device as a single upload."""
+    p = ns.shape[1]
+    return np.concatenate(
+        [ns.T, v.transpose(1, 0, 2).reshape(p, -1), dr.T],
+        axis=1).astype(np.int32)
+
+
+def unflatten_rows(buf, cap: int):
+    """Inverse of `flatten_rows`; works on numpy arrays and torch tensors."""
+    p = buf.shape[0]
+    ns = buf[:, :NODE_FIELDS].T
+    v = buf[:, NODE_FIELDS:NODE_FIELDS + VICTIM_FIELDS * cap]
+    v = v.reshape(p, VICTIM_FIELDS, cap).swapaxes(0, 1)
+    dr = buf[:, NODE_FIELDS + VICTIM_FIELDS * cap:].T
+    return ns, v, dr
+
+
+def apply_rows(ns, v, dr, idx, buf):
+    """The three stacked tensors with the flattened rows ``buf`` written at
+    the row indices ``idx``; indices outside ``[0, N)`` (`IDX_SENTINEL`
+    pads) are dropped.  Returns new tensors: the resident ones are never
+    written.  The plain form of the fused kernels' in-dispatch overlay."""
+    a, b, c = unflatten_rows(buf, v.shape[2])
+    idx = torch.as_tensor(idx, device=ns.device).to(torch.int64)
+    keep = (idx >= 0) & (idx < ns.shape[1])
+    if not bool(keep.all()):
+        idx, a, b, c = idx[keep], a[:, keep], b[:, keep], c[:, keep]
+    return (ns.index_copy(1, idx, a), v.index_copy(1, idx, b),
+            dr.index_copy(1, idx, c))
+
+
+def _scatter_rows(ns, v, dr, idx, buf) -> None:
+    """Write the flattened dirty rows ``buf`` into the resident tensors at
+    rows ``idx`` (all in range), in place: one ``index_copy_`` each."""
+    a, b, c = unflatten_rows(buf, v.shape[2])
+    ns.index_copy_(1, idx, a)
+    v.index_copy_(1, idx, b)
+    dr.index_copy_(1, idx, c)
+
+
+def pad_idx(ids, floor: int = 1) -> np.ndarray:
+    """Pad a row-index list to a power-of-two bucket with `IDX_SENTINEL`."""
+    p = max(floor, _pad_pow2(len(ids)))
+    out = np.full(p, IDX_SENTINEL, np.int32)
+    out[: len(ids)] = ids
+    return out
+
+
+class DeviceClusterState:
+    """Struct-of-arrays view of the cluster's sourcing state, resident on
+    ``cluster.device`` (counterpart of the reference's
+    ``repro.core.cluster.DeviceClusterState``).
+
+    Three stacked int32 tensors live on the device across plans:
+
+    * ``nodestate [NODE_FIELDS, N]`` — free-GPU/CG slot masks, node id,
+      overflow flag, first-unstored priority;
+    * ``victims   [VICTIM_FIELDS, N, cap]`` — per-slot victim GPU/CG masks,
+      priorities, uid-ranks, stored flags (the ``(priority, uid)``-sorted
+      rows of the host `SourcingContext` mirror);
+    * ``drain     [DRAIN_FIELDS, N]`` — per-node fully-drained masks (free ∪
+      all stored victim masks), the popcount input of the fused Guaranteed
+      Filtering.
+
+    The host `SourcingContext` stays as the *mirror*: it keeps the int64
+    victim uids (decoded only for the winner) and the counts the host needs
+    for wide/overflow routing.  Both subscribe to ``invalidate_node``, so a
+    ``bind``/``evict``/``restore`` marks single rows dirty; ``sync()``
+    refreshes the mirror and writes ONLY the dirty rows into the resident
+    tensors (one upload, one ``index_copy_`` per tensor).  `ClusterView`
+    deltas never touch these tensors: the fused kernels read patch rows
+    beside them.
+    """
+
+    def __init__(self, cluster: Cluster) -> None:
+        self.cluster = cluster
+        self.device = cluster.device
+        self.mirror = cluster.sourcing_context()
+        self.cap = self.mirror.cap
+        self.max_pending = max_pending_rows(cluster.num_nodes)
+        self.nodestate: torch.Tensor | None = None  # int32[NODE_FIELDS, N]
+        self.victims: torch.Tensor | None = None    # int32[VICTIM_FIELDS, N, cap]
+        self.drain: torch.Tensor | None = None      # int32[DRAIN_FIELDS, N]
+        #: host fast path: when no node stores more than `MIN_M` victims,
+        #: per-plan wide/overflow routing is skipped entirely
+        self.count_max = 0
+        #: monotonic state counter, bumped by every invalidation: entries
+        #: of ``plan_cache`` (per-preemptor routing splits + uploaded index
+        #: tensors) record the version they were built at and are ignored
+        #: once it moves
+        self.version = 0
+        self.plan_cache: dict = {}
+        self._dirty: set[int] = set(range(cluster.num_nodes))
+        cluster.add_dirty_listener(self._mark_dirty)
+
+    def _mark_dirty(self, node: int) -> None:
+        self._dirty.add(node)
+        self.version += 1
+
+    def _upload(self, x: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+    def sync(self, flush: bool = True) -> "DeviceClusterState":
+        """Bring the device tensors up to date with the live cluster.
+
+        Dirty rows are packed host-side (O(dirty)) and written in place with
+        one upload; a majority-dirty state is re-uploaded whole.
+
+        ``flush=False`` refreshes the host mirror but leaves a SMALL dirty
+        set resident-stale in ``pending``: the fused kernels read those
+        rows from the plan's patch buffer, exactly like view-delta rows,
+        saving the separate scatter on the plan hot path.  Pending sets
+        above ``max_pending`` are flushed regardless.
+        """
+        self.mirror.refresh()
+        n = self.cluster.num_nodes
+        if self.nodestate is None or 2 * len(self._dirty) >= max(n, 2):
+            ns, v, dr = pack_context_rows(self.mirror, np.arange(n))
+            self.nodestate = self._upload(ns)
+            self.victims = self._upload(v)
+            self.drain = self._upload(dr)
+            self._dirty.clear()
+        elif self._dirty and (flush or len(self._dirty) > self.max_pending):
+            rows = sorted(self._dirty)
+            buf = flatten_rows(*pack_context_rows(self.mirror, rows))
+            both = self._upload(np.concatenate(
+                [np.asarray(rows, np.int32)[:, None], buf], axis=1))
+            _scatter_rows(self.nodestate, self.victims, self.drain,
+                          both[:, 0].to(torch.int64), both[:, 1:])
+            self._dirty.clear()
+        self.count_max = int(self.mirror.count.max()) if n else 0
+        return self
+
+    @property
+    def n_rows(self) -> int:
+        """Length of the device node axis (``num_nodes``)."""
+        return self.cluster.num_nodes
+
+    @property
+    def pending(self) -> set[int]:
+        """Rows whose device copy is stale (the mirror is fresh after
+        sync): deferred by ``sync(flush=False)`` for the in-dispatch
+        overlay."""
+        return self._dirty
+
+    @property
+    def slices(self):
+        """The SKU's NUMA/socket slice layout on this state's device
+        (`repro_torch.core.placement_device.SpecSlices`)."""
+        from .placement_device import spec_slices
+
+        return spec_slices(self.cluster.spec, self.device)

@@ -53,6 +53,12 @@ class SchedulingDecision:
     victims: tuple[int, ...] = ()
     sourcing_us: float = 0.0
     num_candidates: int = 0
+    #: how ``sourcing_us`` was produced: the resolved engine, and whether
+    #: ``engine="auto"`` picked it at which node-count threshold.  Excluded
+    #: from equality so decision-parity comparisons across engines stay
+    #: meaningful.
+    sourcing_provenance: dict = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
     instance: Instance | None = None
     evicted: list[Instance] = dataclasses.field(default_factory=list)
     txn: "Transaction | None" = dataclasses.field(

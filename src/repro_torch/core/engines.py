@@ -8,13 +8,15 @@ over.  Engines register themselves by name::
     @register_engine("my_engine")
     def my_source(cluster, workload, node) -> list[Candidate]: ...
 
-and the scheduler resolves them with ``get_engine(name)``; ``source_all``
-loops the per-node function over the Filtering survivors.
+and the scheduler resolves them with ``get_engine(name)``.  Cluster-wide
+engines (one sweep over ALL candidate nodes, e.g. the fused
+``imp_batched``) register with ``batched=True`` and receive the full node
+list; per-node engines are looped by the default ``source_all``.
 
 Engines that live in modules outside the core import graph (the CUDA
-kernels' ``imp_pallas``) register *lazily*: ``get_engine`` imports the
-owning module on first use and the module's decorators complete the
-registration.
+kernels' ``imp_pallas``, the fused ``imp_batched``) register *lazily*:
+``get_engine`` imports the owning module on first use and the module's
+decorators complete the registration.
 """
 from __future__ import annotations
 
@@ -47,9 +49,14 @@ class SourcingEngine(Protocol):
         """Candidates for one node."""
         ...
 
-    def source_all(self, cluster, workload,
-                   nodes: list[int]) -> list[Candidate]:
-        """Candidates for all filtered nodes."""
+    def source_all(self, cluster, workload, nodes: list[int],
+                   alpha: float | None = None) -> list[Candidate]:
+        """Candidates for all filtered nodes (batched engines do one sweep).
+
+        ``alpha`` is the scheduler's Eq. 1 weight; *fused* engines that run
+        the Eq. 2 selection on the device (``imp_batched``) consume it
+        during sourcing and return only the winning shortlist.
+        """
         ...
 
     def select(self, candidates: list[Candidate], alpha: float) -> Candidate | None:
@@ -62,15 +69,56 @@ class EngineSpec:
     """Function-backed `SourcingEngine` built by ``register_engine``."""
 
     name: str
-    source_node: Callable                   # fn(cluster, workload, node)
+    source_node: Callable | None = None     # fn(cluster, workload, node)
+    source_nodes: Callable | None = None    # fn(cluster, workload, nodes)
     topology_aware: bool = True
     selector: Callable | None = None        # fn(candidates, alpha) -> Candidate
+    needs_alpha: bool = False               # source_nodes takes alpha= (fused)
+    #: the engine runs Guaranteed Filtering inside its own dispatch: the
+    #: scheduler skips the host filter loop and calls ``source_all`` with
+    #: ``nodes=None`` (evaluate the whole cluster)
+    fused_filter: bool = False
+    #: the engine runs BOTH cycles of Algorithm 1 — the normal cycle and
+    #: §3.4 placement included — inside its dispatch: the scheduler calls
+    #: ``plan_fused`` instead of its host ``_plan_normal``/``_place_on``
+    #: loops and binds the decoded masks directly
+    fused_place: bool = False
+    #: fn(cluster_or_view, workload, alpha, allow_preempt) -> FusedPlanResult
+    plan_fn: Callable | None = None
+    #: fn(cluster_or_view, workload) -> (node, Placement) | None — the
+    #: normal cycle alone as one dispatch
+    normal_fn: Callable | None = None
+    #: fn(cluster, alpha): build kernels and fill caches at
+    #: ``TopoScheduler(..., warmup=True)`` construction
+    warmup_fn: Callable | None = None
 
     def source(self, cluster, workload, node: int) -> list[Candidate]:
-        return list(self.source_node(cluster, workload, node))
+        if self.source_node is not None:
+            return list(self.source_node(cluster, workload, node))
+        return self.source_all(cluster, workload, [node])
 
-    def source_all(self, cluster, workload,
-                   nodes: list[int]) -> list[Candidate]:
+    def plan_fused(self, cluster, workload, alpha: float,
+                   allow_preempt: bool = True):
+        """Both Algorithm 1 cycles in one dispatch (``fused_place``)."""
+        return self.plan_fn(cluster, workload, alpha, allow_preempt)
+
+    def plan_normal(self, cluster, workload):
+        """The normal cycle alone as one dispatch."""
+        return self.normal_fn(cluster, workload)
+
+    def warmup(self, cluster, alpha: float) -> None:
+        """Build kernels and fill caches (no-op without ``warmup_fn``)."""
+        if self.warmup_fn is not None:
+            self.warmup_fn(cluster, alpha)
+
+    def source_all(self, cluster, workload, nodes: list[int] | None,
+                   alpha: float | None = None) -> list[Candidate]:
+        if self.source_nodes is not None:
+            kw = {"alpha": alpha} if (self.needs_alpha
+                                      and alpha is not None) else {}
+            got = self.source_nodes(cluster, workload, nodes, **kw)
+            # keep list subclasses intact (CandidateShortlist.n_candidates)
+            return got if isinstance(got, list) else list(got)
         out: list[Candidate] = []
         for node in nodes:
             out.extend(self.source_node(cluster, workload, node))
@@ -96,28 +144,49 @@ class UnknownEngineError(ValueError):
 _REGISTRY: dict[str, SourcingEngine] = {}
 
 # name -> module that self-registers it on import (kept out of the eager
-# import graph: the kernel module owns the CUDA build and its wrappers).
+# import graph: the kernel modules own the CUDA builds and their wrappers).
 _LAZY: dict[str, str] = {
     "imp_pallas": "repro_torch.kernels.topo_score",
+    "imp_batched": "repro_torch.core.preemption_device",
+    "imp_batched_full": "repro_torch.core.preemption_device",
 }
 
 
 def register_engine(
     name: str,
     *,
+    batched: bool = False,
     topology_aware: bool = True,
     selector: Callable | None = None,
+    needs_alpha: bool = False,
+    fused_filter: bool = False,
+    fused_place: bool = False,
+    plan_fn: Callable | None = None,
+    normal_fn: Callable | None = None,
+    warmup_fn: Callable | None = None,
 ):
-    """Decorator: register a per-node sourcing function.
+    """Decorator: register a sourcing function.
 
-    The function takes ``(cluster, workload, node)`` and returns the
-    node's `Candidate` list; ``selector`` replaces the Eq. 2 argmax.
+    Plain functions take ``(cluster, workload, node)`` — or ``(cluster,
+    workload, nodes)`` with ``batched=True`` — and return `Candidate`
+    lists; ``selector`` replaces the Eq. 2 argmax.  ``needs_alpha=True``
+    marks a batched function whose signature ends in ``alpha=`` because it
+    fuses the Eq. 2 selection into sourcing.  ``fused_filter=True`` also
+    fuses Guaranteed Filtering: the scheduler passes ``nodes=None``.
+    ``fused_place=True`` (with ``plan_fn``/``normal_fn``) runs both
+    Algorithm 1 cycles, placement masks included, inside the engine's
+    dispatch.  ``warmup_fn`` is the opt-in build/cache warm-up.
     """
 
     def deco(fn):
-        _REGISTRY[name] = EngineSpec(name=name, source_node=fn,
-                                     topology_aware=topology_aware,
-                                     selector=selector)
+        _REGISTRY[name] = EngineSpec(
+            name=name,
+            source_node=None if batched else fn,
+            source_nodes=fn if batched else None,
+            topology_aware=topology_aware, selector=selector,
+            needs_alpha=needs_alpha, fused_filter=fused_filter,
+            fused_place=fused_place, plan_fn=plan_fn, normal_fn=normal_fn,
+            warmup_fn=warmup_fn)
         _LAZY.pop(name, None)
         return fn
 

@@ -13,10 +13,21 @@ Pipeline per scheduling attempt:
      Eq. 1/Eq. 2.
    * *Bind* — evict the victims and place the preemptor.
 
-The normal cycle and Filtering are python loops over the nodes and Sorting
-is sourced per node by the engine.  With ``engine="imp_pallas"`` Sorting
-scores every victim subset of a filtered node in one CUDA kernel launch on
-the cluster's device (`repro_torch.kernels.topo_score`).
+For host engines the normal cycle and Filtering are python loops over the
+nodes and Sorting is sourced per node by the engine.  With
+``engine="imp_pallas"`` Sorting scores every victim subset of a filtered
+node in one CUDA kernel launch on the cluster's device
+(`repro_torch.kernels.topo_score`).  For engines registered with
+``fused_place=True`` (``imp_batched``) the scheduler does no per-node host
+work: the whole of Algorithm 1 — normal-cycle argmin, Guaranteed
+Filtering, Sorting, Eq. 2 selection and the §3.4 placement masks — runs
+over the cluster's device-resident state (`Cluster.device_state`) as three
+kernel launches and one readback (`repro_torch.core.preemption_device`).
+``fused_filter`` engines fuse Filtering into sourcing (``nodes=None``).
+``invalidate_node`` (hit by every bind/evict/restore) marks single device
+rows stale; they are written on the next plan, so cluster state never
+leaves the device wholesale.  Pass ``warmup=True`` to build the engine's
+kernels and fill its caches at construction.
 
 Transactional protocol
 ----------------------
@@ -32,7 +43,10 @@ conveniences, and the deprecated ``undo(decision)`` shim delegates to
 ``Transaction.rollback()``.
 
 Latency accounting mirrors the paper's overhead analysis: we time the
-candidate-sourcing phase ("the primary contributor to time overhead").
+candidate-sourcing phase ("the primary contributor to time overhead").  For
+``fused_filter`` engines the number includes Filtering (the same dispatch),
+and for ``fused_place`` engines it spans the whole chained plan, normal
+cycle and placement included.
 """
 from __future__ import annotations
 
@@ -51,6 +65,12 @@ from .placement import (INFEASIBLE, Placement, best_tier, is_topology_hit,
 from .scoring import DEFAULT_ALPHA
 from .workload import TopoPolicy, WorkloadSpec
 
+#: ``engine="auto"`` node-count routing threshold: below it the
+#: single-device fused engine; at or above it the mesh-sharded engine
+#: (``imp_sharded``, not ported yet, so ``auto`` raises there)
+AUTO_ENGINE_THRESHOLD = 4096
+
+
 @dataclasses.dataclass(frozen=True)
 class ShortlistConfig:
     """Knobs of the two-stage shortlist sourcing front-end.
@@ -65,8 +85,8 @@ class ShortlistConfig:
     * ``"best_effort"`` — fixed-K latency cap: the shortlist winner is
       returned even when uncertain.
 
-    No engine of this package takes it yet: the fused engine that does is
-    still to be ported.
+    No engine of this package takes it yet: the shortlist front-end of the
+    fused engine is still to be ported.
     """
 
     k: int = 128
@@ -83,10 +103,13 @@ class TopoScheduler:
     """Algorithm 1 scheduler over a pluggable sourcing engine (module
     docstring above for the pipeline).
 
-    Engine selection: pass a registered engine name.  ``engine="auto"``
-    routes by cluster size to ``imp_batched`` / ``imp_sharded`` in the
-    reference; neither is ported yet, so it raises `UnknownEngineError`
-    rather than pick another engine.
+    Engine selection: pass a registered engine name, or ``engine="auto"``
+    to route by cluster size — ``imp_batched`` below
+    `AUTO_ENGINE_THRESHOLD` nodes, ``imp_sharded`` at or above it; that
+    engine is not ported yet, so there it raises
+    `UnknownEngineError` rather than pick another.  The resolved name is in
+    ``self.engine``; every decision carries the routing in
+    ``sourcing_provenance``.
     """
 
     def __init__(
@@ -95,13 +118,24 @@ class TopoScheduler:
         engine: EngineName = "imp",
         alpha: float = DEFAULT_ALPHA,
         topology_aware_placement: bool | None = None,
+        warmup: bool = False,
     ) -> None:
-        if engine == "auto":
-            raise UnknownEngineError(engine)
         self.cluster = cluster
+        self.auto_threshold = AUTO_ENGINE_THRESHOLD
+        self._auto = engine == "auto"
+        if self._auto:
+            if cluster.num_nodes >= self.auto_threshold:
+                raise UnknownEngineError("imp_sharded")
+            engine = "imp_batched"
         self.engine: EngineName = engine
         self._engine: SourcingEngine = get_engine(engine)
         self.alpha = alpha
+        self._provenance = {"engine": engine, "auto": self._auto,
+                            "auto_threshold": self.auto_threshold}
+        # engines that fuse Guaranteed Filtering into their dispatch get
+        # nodes=None and the host filter loop is skipped entirely
+        self._fused_filter = bool(getattr(self._engine, "fused_filter",
+                                          False))
         # Local (node-internal) allocation is kubelet-style topology-aware for
         # ALL engines — the paper's baseline miss comes from topology-blind
         # victim/node selection freeing badly-distributed resources, not from
@@ -110,8 +144,19 @@ class TopoScheduler:
         self.topology_aware = (
             True if topology_aware_placement is None else topology_aware_placement
         )
+        # fused_place engines run BOTH Algorithm 1 cycles (normal-cycle
+        # argmin + Sorting + Eq. 2 + §3.4 placement masks) on the device;
+        # the blind-allocator ablation keeps the host path (the device
+        # scorer is the topology-aware allocator)
+        self._fused_place = (self.topology_aware
+                             and bool(getattr(self._engine, "fused_place",
+                                              False)))
         self.sourcing_us_log: list[float] = []
         self.listeners: list[Callable[[SchedulingDecision, str], None]] = []
+        if warmup:
+            warm = getattr(self._engine, "warmup", None)
+            if callable(warm):
+                warm(cluster, self.alpha)
 
     # ---- commit/rollback observers ------------------------------------------------
     def add_listener(self, fn: Callable[[SchedulingDecision, str], None]) -> None:
@@ -217,29 +262,50 @@ class TopoScheduler:
 
     def _plan_preempt(self, workload: WorkloadSpec, view: ClusterView
                       ) -> tuple[SchedulingDecision, int | None]:
-        nodes = self._guaranteed_filter(workload, view)
-        if not nodes:
-            return SchedulingDecision(kind="rejected", workload=workload), None
-        t0 = time.perf_counter()
-        candidates = self._engine.source_all(view, workload, nodes)
+        if self._fused_filter:
+            # Guaranteed Filtering runs inside the engine's dispatch over
+            # the device-resident state: no host node loop, nodes=None
+            t0 = time.perf_counter()
+            candidates = self._engine.source_all(view, workload, None,
+                                                 alpha=self.alpha)
+        else:
+            nodes = self._guaranteed_filter(workload, view)
+            if not nodes:
+                return SchedulingDecision(kind="rejected",
+                                          workload=workload), None
+            t0 = time.perf_counter()
+            candidates = self._engine.source_all(view, workload, nodes,
+                                                 alpha=self.alpha)
         sourcing_us = (time.perf_counter() - t0) * 1e6
         self.sourcing_us_log.append(sourcing_us)
         if not candidates:
             return SchedulingDecision(kind="rejected", workload=workload,
                                       sourcing_us=sourcing_us), None
         chosen = self._engine.select(candidates, self.alpha)
+        # fused engines placed the winner on the device already: bind those
+        # masks instead of re-running the host place() on the winning node
+        placement = None
+        if self.topology_aware:
+            placement = getattr(candidates, "placements", {}).get(
+                (chosen.node, chosen.victims))
         return self._bind_preemption(
-            workload, view, chosen.node, chosen.victims, sourcing_us,
-            len(candidates))
+            workload, view, chosen.node, chosen.victims, placement,
+            sourcing_us,
+            # fused engines return a winner shortlist but report the true
+            # evaluated-candidate count via CandidateShortlist.n_candidates
+            getattr(candidates, "n_candidates", len(candidates)))
 
     def _bind_preemption(
         self, workload: WorkloadSpec, view: ClusterView, node: int,
-        victims: tuple[int, ...], sourcing_us: float, num_candidates: int,
+        victims: tuple[int, ...], placement: Placement | None,
+        sourcing_us: float, num_candidates: int,
     ) -> tuple[SchedulingDecision, int | None]:
-        """Preemption tail: plan the evictions, place, and bind."""
+        """Preemption tail: plan the evictions, fall back to the host
+        placement when no device masks came back, and bind."""
         for uid in victims:
             view.plan_evict(uid)
-        placement = self._place_on(workload, node, view)
+        if placement is None:
+            placement = self._place_on(workload, node, view)
         if placement is None:  # cannot happen if engines are correct
             raise RuntimeError("victim set freed insufficient resources")
         planned = view.plan_bind(workload, node, placement)
@@ -249,6 +315,36 @@ class TopoScheduler:
             victims=tuple(victims), sourcing_us=sourcing_us,
             num_candidates=num_candidates,
         ), planned.uid
+
+    def _plan_fused(self, workload: WorkloadSpec, view: ClusterView,
+                    allow_preempt: bool
+                    ) -> tuple[SchedulingDecision, int | None]:
+        """Algorithm 1 in one chained dispatch for ``fused_place`` engines.
+
+        The engine returns the normal-cycle winner or the preemption
+        winner, both with the device scorer's placement masks — no host
+        node loop, no host ``place()``.  The recorded ``sourcing_us`` spans
+        the whole plan (normal cycle and Filtering are the same chain)."""
+        t0 = time.perf_counter()
+        res = self._engine.plan_fused(view, workload, self.alpha,
+                                      allow_preempt)
+        sourcing_us = (time.perf_counter() - t0) * 1e6
+        self.sourcing_us_log.append(sourcing_us)
+        if res.kind == "rejected":
+            return SchedulingDecision(kind="rejected", workload=workload,
+                                      sourcing_us=sourcing_us,
+                                      num_candidates=res.n_candidates), None
+        if res.kind == "placed":
+            planned = view.plan_bind(workload, res.node, res.placement)
+            return SchedulingDecision(
+                kind="placed", workload=workload, node=res.node,
+                placement=res.placement,
+                hit=self._hit(workload, res.placement),
+                sourcing_us=sourcing_us), planned.uid
+        # res.placement is None for host-fallback winners: host place()
+        return self._bind_preemption(
+            workload, view, res.node, res.victims, res.placement,
+            sourcing_us, res.n_candidates)
 
     # ---- the transactional entry points --------------------------------------------
     def plan(self, workload: WorkloadSpec, *, view: ClusterView | None = None,
@@ -265,20 +361,27 @@ class TopoScheduler:
         view = view if view is not None else ClusterView(self.cluster)
         decision: SchedulingDecision | None = None
         planned_uid: int | None = None
-        if allow_normal:
-            normal = self._plan_normal(workload, view)
-            if normal is not None:
-                node, placement = normal
-                planned_uid = view.plan_bind(workload, node, placement).uid
-                decision = SchedulingDecision(
-                    kind="placed", workload=workload, node=node,
-                    placement=placement,
-                    hit=self._hit(workload, placement),
-                )
-        if decision is None and allow_preempt:
-            decision, planned_uid = self._plan_preempt(workload, view)
+        if self._fused_place and allow_normal:
+            # device-resident Algorithm 1: both cycles in one chain
+            decision, planned_uid = self._plan_fused(workload, view,
+                                                     allow_preempt)
+        else:
+            if allow_normal:
+                normal = self._plan_normal(workload, view)
+                if normal is not None:
+                    node, placement = normal
+                    planned_uid = view.plan_bind(workload, node,
+                                                 placement).uid
+                    decision = SchedulingDecision(
+                        kind="placed", workload=workload, node=node,
+                        placement=placement,
+                        hit=self._hit(workload, placement),
+                    )
+            if decision is None and allow_preempt:
+                decision, planned_uid = self._plan_preempt(workload, view)
         if decision is None:
             decision = SchedulingDecision(kind="rejected", workload=workload)
+        decision.sourcing_provenance = dict(self._provenance)
         return Transaction(cluster=self.cluster, decision=decision,
                            on_event=self._notify, view=view,
                            planned_uid=planned_uid)

@@ -2,12 +2,18 @@
 
 topo_score — the paper's candidate-sourcing hot loop as bitmask lane math
 (``csrc/topo_score.cu``), and the ``imp_pallas`` engine that launches it.
+fused_class, normal_cycle — the fused ``imp_batched`` engine's kernels over
+the device-resident cluster state, in the same source: K1's resident form
+(the class sweep of every row of a plan in one launch) and its tail, and
+K2's normal-cycle form.
 flash_attention — blocked causal / sliding-window GQA attention, the
 serving path's prefill attention (``csrc/flash_attention.cu``).
 """
-from . import flash_attention, ops, topo_score
+from . import flash_attention, fused_class, normal_cycle, ops, topo_score
 
 #: every kernel wrapper of the package (their ``launches`` counters)
-WRAPPERS = topo_score.WRAPPERS + (flash_attention.flash_attention,)
+WRAPPERS = (topo_score.WRAPPERS + fused_class.WRAPPERS + normal_cycle.WRAPPERS
+            + (flash_attention.flash_attention,))
 
-__all__ = ["WRAPPERS", "flash_attention", "ops", "topo_score"]
+__all__ = ["WRAPPERS", "flash_attention", "fused_class", "normal_cycle", "ops",
+           "topo_score"]

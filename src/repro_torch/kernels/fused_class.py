@@ -1,0 +1,480 @@
+"""K1 in its resident form: the fused engine's class sweep and its tail.
+
+One plan of the ``imp_batched`` engine scores every victim subset of every
+row of the device-resident cluster state in ONE launch, then reduces the
+class winners to the Eq. 2 winner and places it in a second.  Two
+hand-written CUDA kernels in ``csrc/topo_score.cu`` (beside the lane forms
+of K1–K3, whose tier math they share), each with its plain PyTorch version
+in this module:
+
+=================  =====================  ====================================
+wrapper            plain version          replaces (repro)
+=================  =====================  ====================================
+``fused_class``    ``fused_class_plain``  ``core/preemption_jax.py
+                                          _fused_class_core``, the sweep K1
+                                          (``kernels/topo_score.py:214
+                                          topo_score_argmax_pallas``) scores
+                                          lane by lane
+``fused_argmax``   ``fused_argmax_plain`` ``_fused_argmax_core`` +
+                                          ``placement_jax.winner_place``
+=================  =====================  ====================================
+
+A plan's rows are the resident rows (with the plan's patch rows read in
+their place) at the adaptive width ``m_res`` behind the narrow gate, then
+the rows gathered by index (``gidx``) at ``m_gather`` without it.  The
+sweep's output ``cls`` is int32[`CLS_FIELDS`, rows]: per row the (row,
+tier) class winners (any, combo id, priority sum, uid-rank mask for each
+of the three tiers), the smallest feasible subset size, the count of
+feasible subsets at that size, and the node id.  The tail reduces each
+segment of ``seg`` rows to one int32[`WIN_FIELDS`] winner.
+
+A wrapper runs the plain version for tensors on the CPU and launches its
+kernel for tensors on a CUDA device; anything else raises.  Each wrapper
+counts its launches in ``<wrapper>.launches``.  ``skip`` (an int32 tensor
+of one element, the normal cycle's ``found``) makes both return at once
+when it is set: the kernels read it on the device, so a plan chains the
+normal cycle, the sweep and the tail without a host round trip.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.core.cluster import (IDX_SENTINEL, MAX_DENSE_VICTIMS,
+                                      NS_FREE_CG, NS_FREE_GPU, NS_NEXT_PRIO,
+                                      NS_NODE_ID, NS_OVERFLOW, VF_CG, VF_GPU,
+                                      VF_PRIO, VF_RANK, VF_STORED, apply_rows)
+from repro_torch.core.placement_device import (best_tier_counts, place_core,
+                                               popcount32, spec_slices)
+from repro_torch.core.scoring import TIER_SCORES
+from repro_torch.core.topology import ServerSpec
+
+from . import topo_score as ts
+
+#: rows of the sweep's output: anyc[3], combo id[3], priority sum[3],
+#: uid-rank mask[3], smallest feasible k, its count, node id
+CLS_FIELDS = 15
+C_ANY, C_CB, C_PP, C_UM, C_K, C_CNT, C_NID = 0, 3, 6, 9, 12, 13, 14
+#: width of one decoded winner: (found, row, tier, combo id, priority sum,
+#: k, n_candidates) + the placement's (gpu_mask, cg_mask)
+WIN_FIELDS = 9
+#: widest slot count of the one-warp-a-row kernel; wider rows take the
+#: one-CTA-a-row kernel
+NARROW_KERNEL_M = 8
+_INT32_MAX = 2**31 - 1
+_MAX_SCOPES = 8 + 8 + 1     # FusedParams.scope_* widths in csrc/topo_score.cu
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedRequest:
+    """A preemptor's ask as the fused kernels take it."""
+
+    thresh: int           # preemptor priority: victims must be below it
+    need_gpus: int
+    need_cgs: int
+    cgs_per_bundle: int   # 0 = no bundle locality
+    alpha: float          # Eq. 1 weight
+
+
+# ---------------------------------------------------------------------------------
+# Plain PyTorch versions (the CPU path, and the kernels' yardstick on the card)
+# ---------------------------------------------------------------------------------
+
+def plan_rows(nodestate, victims, drain, pidx, pbuf, gidx, resident: bool):
+    """The plan's rows as ``(nodestate, victims, drain)`` column stacks:
+    the resident rows with the patch rows written over them (when
+    ``resident``), then the rows named by ``gidx``; an index outside
+    ``[0, N)`` gathers a zero row whose node id is the index."""
+    if pbuf.shape[0]:
+        nodestate, victims, drain = apply_rows(nodestate, victims, drain,
+                                               pidx, pbuf)
+    parts = [(nodestate, victims, drain)] if resident else []
+    if gidx.shape[0]:
+        n = nodestate.shape[1]
+        idx = gidx.to(torch.int64)
+        inr = (idx >= 0) & (idx < n)
+        safe = torch.where(inr, idx, 0)
+        ns = torch.where(inr[None], nodestate[:, safe], 0)
+        ns[NS_NODE_ID] = gidx
+        vv = torch.where(inr[None, :, None], victims[:, safe], 0)
+        dd = torch.where(inr[None], drain[:, safe], 0)
+        parts.append((ns, vv, dd))
+    if len(parts) == 1:
+        return parts[0]
+    return tuple(torch.cat(x, dim=1) for x in zip(*parts))
+
+
+def class_sweep_plain(ns, v, dr, *, m: int, gate: bool, req: FusedRequest,
+                      spec: ServerSpec) -> torch.Tensor:
+    """Filtering + all-2^m-subset evaluation + per-(row, tier) reduction
+    over rows ``(ns, v, dr)``: ``_fused_class_core`` with the freed masks as
+    free | OR of the subset's slots.  Returns int32[`CLS_FIELDS`, rows]."""
+    dev = ns.device
+    sl = spec_slices(spec, dev)
+    thresh, ng, nc, cpb = (req.thresh, req.need_gpus, req.need_cgs,
+                           req.cgs_per_bundle)
+    node_ids = ns[NS_NODE_ID]
+    stored_full = v[VF_STORED] != 0
+    vp_full = v[VF_PRIO]
+    drain_tier, _, _ = best_tier_counts(dr[0], dr[1], ng, nc, cpb, sl)
+    node_ok = (drain_tier < 3) & (node_ids < _INT32_MAX)
+    if gate:
+        elig_full = (stored_full & (vp_full < thresh)).sum(dim=1)
+        node_ok &= (elig_full <= m) & ~((ns[NS_OVERFLOW] != 0)
+                                        & (ns[NS_NEXT_PRIO] < thresh))
+    n_comb = 1 << m
+    cids = torch.arange(n_comb, dtype=torch.int32, device=dev)
+    kk = popcount32(cids)
+    slots = torch.arange(m, dtype=torch.int32, device=dev)
+    bits = ((cids[None, :] >> slots[:, None]) & 1) != 0       # [m, n_comb]
+    valid_slot = stored_full[:, :m] & (vp_full[:, :m] < thresh)
+    valid_mask = (valid_slot.to(torch.int32) << slots).sum(
+        dim=1, dtype=torch.int32)
+    combo_ok = ((cids[None, :] & ~valid_mask[:, None]) == 0) & node_ok[:, None]
+
+    rank = v[VF_RANK, :, :m]
+    shift = MAX_DENSE_VICTIMS - 1 - rank
+    rankbit = torch.where((shift >= 0) & (shift < 32),
+                          torch.ones_like(rank) << shift.clamp(0, 31), 0)
+    combo_g = ns[NS_FREE_GPU][:, None].expand(-1, n_comb)
+    combo_c = ns[NS_FREE_CG][:, None].expand(-1, n_comb)
+    prio = torch.zeros(combo_g.shape, dtype=torch.int64, device=dev)
+    umask = torch.zeros_like(prio)
+    for j in range(m):
+        on = bits[j][None, :]
+        combo_g = combo_g | torch.where(on, v[VF_GPU, :, j:j + 1], 0)
+        combo_c = combo_c | torch.where(on, v[VF_CG, :, j:j + 1], 0)
+        prio = prio + torch.where(on, vp_full[:, j:j + 1].to(torch.int64), 0)
+        umask = umask + torch.where(on, rankbit[:, j:j + 1].to(torch.int64), 0)
+    prio = prio.to(torch.int32)         # int32 wrap, as the int32 dot product
+    umask = umask.to(torch.int32)
+    tier, _, _ = best_tier_counts(combo_g, combo_c, ng, nc, cpb, sl)
+    tier = torch.where(combo_ok, tier, 3)
+
+    feasible = tier < 3
+    k_node = torch.where(feasible, kk[None, :], m + 1).amin(dim=1)
+    atmin = feasible & (kk[None, :] == k_node[:, None])
+    cnt = atmin.sum(dim=1, dtype=torch.int32)
+    p_eff = prio if req.alpha > 0 else torch.zeros_like(prio)
+    out = torch.empty((CLS_FIELDS, ns.shape[1]), dtype=torch.int32,
+                      device=dev)
+    for t in range(3):
+        sel = atmin & (tier == t)
+        out[C_ANY + t] = sel.any(dim=1)
+        pmin = torch.where(sel, p_eff, _INT32_MAX).amin(dim=1)
+        sel = sel & (p_eff == pmin[:, None])
+        umax = torch.where(sel, umask, -1).amax(dim=1)
+        sel = sel & (umask == umax[:, None])
+        cb = torch.argmax(sel.to(torch.int32), dim=1)      # first True, or 0
+        out[C_CB + t] = cb
+        out[C_PP + t] = prio.gather(1, cb[:, None])[:, 0]
+        out[C_UM + t] = umask.gather(1, cb[:, None])[:, 0]
+    out[C_K] = k_node
+    out[C_CNT] = cnt
+    out[C_NID] = node_ids
+    return out
+
+
+def fused_class_plain(nodestate, victims, drain, pidx, pbuf, gidx, *,
+                      m_res: int, resident: bool, m_gather: int,
+                      req: FusedRequest, spec: ServerSpec) -> torch.Tensor:
+    """Plain version of `fused_class`: the resident section at ``m_res``
+    behind the narrow gate, then the gathered section at ``m_gather``."""
+    ns, v, dr = plan_rows(nodestate, victims, drain, pidx, pbuf, gidx,
+                          resident)
+    n_res = nodestate.shape[1] if resident else 0
+    parts = []
+    if n_res:
+        parts.append(class_sweep_plain(
+            ns[:, :n_res], v[:, :n_res], dr[:, :n_res], m=m_res, gate=True,
+            req=req, spec=spec))
+    if ns.shape[1] > n_res:
+        parts.append(class_sweep_plain(
+            ns[:, n_res:], v[:, n_res:], dr[:, n_res:], m=m_gather,
+            gate=False, req=req, spec=spec))
+    return torch.cat(parts, dim=1)
+
+
+def _scores(pp: torch.Tensor, alpha: float) -> torch.Tensor:
+    """Eq. 1 in f32 for [rows, 3] priority sums, one rounding an operation:
+    alpha rounded to f32, (1 - alpha) computed in double and rounded."""
+    f32 = dict(dtype=torch.float32, device=pp.device)
+    tier_vals = torch.tensor(TIER_SCORES, **f32)
+    one = torch.ones(pp.shape, **f32)
+    prio_term = torch.where(
+        pp > 0, torch.div(one, torch.clamp(pp, min=1).to(torch.float32)), one)
+    a = torch.tensor(np.float32(alpha), **f32)
+    b = torch.tensor(np.float32(1.0 - alpha), **f32)
+    return a * prio_term + b * tier_vals[None, :]
+
+
+def _argmax_segment(cls, ns, v, req: FusedRequest, spec: ServerSpec):
+    """``_fused_argmax_core`` + ``winner_place`` over one segment's rows."""
+    dev = cls.device
+    anyc = cls[C_ANY:C_ANY + 3].T != 0                       # [rows, 3]
+    cb = cls[C_CB:C_CB + 3].T
+    pp = cls[C_PP:C_PP + 3].T
+    um = cls[C_UM:C_UM + 3].T
+    k_node = cls[C_K]
+    node_ids = cls[C_NID]
+    big = _INT32_MAX
+    score = torch.where(anyc, _scores(pp, req.alpha), -np.inf)
+    sel = anyc & (score == score.max())
+    tcol = torch.arange(3, dtype=torch.int32, device=dev)[None, :].expand(
+        sel.shape)
+    same_tier = (torch.where(sel, tcol, 3).min()
+                 == torch.where(sel, tcol, -1).max())
+    ppe = pp if req.alpha > 0 else torch.zeros_like(pp)
+    ppe_key = torch.where(same_tier, ppe, 0)
+    sel = sel & (ppe_key == torch.where(sel, ppe_key, big).min())
+    kn = k_node[:, None].expand(sel.shape)
+    sel = sel & (kn == torch.where(sel, kn, big).min())
+    nid = node_ids[:, None].expand(sel.shape)
+    sel = sel & (nid == torch.where(sel, nid, big).min())
+    sel = sel & (um == torch.where(sel, um, -1).max())
+    flat = torch.argmax(sel.reshape(-1).to(torch.int32))     # first True, or 0
+    row = flat // 3
+    t = flat % 3
+    combo = cb.reshape(-1)[flat]
+    slots = torch.arange(v.shape[2], dtype=torch.int32, device=dev)
+    on = ((combo >> slots) & 1) != 0
+    freed_g = ns[NS_FREE_GPU, row]
+    freed_c = ns[NS_FREE_CG, row]
+    for j in range(v.shape[2]):
+        freed_g = freed_g | torch.where(on[j], v[VF_GPU, row, j], 0)
+        freed_c = freed_c | torch.where(on[j], v[VF_CG, row, j], 0)
+    _, _, p_g, p_c = place_core(freed_g, freed_c, req.need_gpus,
+                                req.need_cgs, req.cgs_per_bundle, spec=spec)
+    return torch.stack([
+        anyc.any().to(torch.int32), row, t, combo, pp.reshape(-1)[flat],
+        k_node[row], cls[C_CNT].sum(dtype=torch.int32), p_g, p_c,
+    ]).to(torch.int32)
+
+
+def fused_argmax_plain(cls, nodestate, victims, pidx, pbuf, gidx, *,
+                       resident: bool, seg: int, req: FusedRequest,
+                       spec: ServerSpec) -> torch.Tensor:
+    """Plain version of `fused_argmax`: int32[segments, `WIN_FIELDS`], one
+    Eq. 2 winner (with its placement) per segment of ``seg`` rows."""
+    drain = torch.zeros((2, nodestate.shape[1]), dtype=torch.int32,
+                        device=nodestate.device)
+    ns, v, _ = plan_rows(nodestate, victims, drain, pidx, pbuf, gidx,
+                         resident)
+    r = cls.shape[1]
+    return torch.stack([
+        _argmax_segment(cls[:, lo:lo + seg], ns[:, lo:lo + seg],
+                        v[:, lo:lo + seg], req, spec)
+        for lo in range(0, r, seg)])
+
+
+# ---------------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------------
+
+class _FusedParams(ctypes.Structure):
+    """ctypes mirror of ``struct FusedParams`` in csrc/topo_score.cu: the
+    lane kernels' TopoParams (request, NUMA layout, alpha) and what
+    placement and the eligibility filter add."""
+
+    _fields_ = [
+        ("t", ts._Params),
+        ("num_gpus", ctypes.c_int),
+        ("num_cgs", ctypes.c_int),
+        ("n_scopes", ctypes.c_int),
+        ("scope_members", ctypes.c_int * _MAX_SCOPES),
+        ("scope_tier", ctypes.c_int * _MAX_SCOPES),
+        ("thresh", ctypes.c_int),
+        ("alpha_pos", ctypes.c_int),
+    ]
+
+
+class _State(ctypes.Structure):
+    """ctypes mirror of ``struct State`` in csrc/topo_score.cu."""
+
+    _fields_ = [
+        ("ns", ctypes.c_void_p),
+        ("v", ctypes.c_void_p),
+        ("dr", ctypes.c_void_p),
+        ("pidx", ctypes.c_void_p),
+        ("pbuf", ctypes.c_void_p),
+        ("gidx", ctypes.c_void_p),
+        ("n", ctypes.c_int),
+        ("cap", ctypes.c_int),
+        ("p", ctypes.c_int),
+        ("g", ctypes.c_int),
+        ("n_res", ctypes.c_int),
+    ]
+
+
+@functools.lru_cache(maxsize=256)
+def params(spec: ServerSpec, req: FusedRequest) -> _FusedParams:
+    """The kernels' FusedParams for one SKU and request."""
+    p = _FusedParams()
+    p.t = ts._params(spec, ts.TopoRequest(req.need_gpus, req.need_cgs,
+                                          req.cgs_per_bundle, req.alpha))
+    p.num_gpus = spec.num_gpus
+    p.num_cgs = spec.num_coregroups
+    sl = spec_slices(spec, "cpu")
+    p.n_scopes = sl.scope_mask.shape[0]
+    for sc in range(p.n_scopes):
+        p.scope_members[sc] = sum(1 << u for u in range(spec.num_numa)
+                                  if int(sl.scope_mask[sc, u]))
+        p.scope_tier[sc] = int(sl.scope_tier[sc])
+    p.thresh = int(np.int64(req.thresh).astype(np.int32))
+    p.alpha_pos = int(req.alpha > 0)
+    return p
+
+
+def state(nodestate, victims, drain, pidx, pbuf, gidx,
+          resident: bool) -> _State:
+    """The kernels' State over contiguous int32 CUDA tensors."""
+    n = nodestate.shape[1]
+    cap = victims.shape[2]
+    if pbuf.shape[0] and pbuf.shape[1] != 5 + 5 * cap + 2:
+        raise ValueError(f"patch rows are {pbuf.shape[1]} wide, expected "
+                         f"{5 + 5 * cap + 2}")
+    for name, x in (("nodestate", nodestate), ("victims", victims),
+                    ("drain", drain), ("pidx", pidx), ("pbuf", pbuf),
+                    ("gidx", gidx)):
+        if x.dtype != torch.int32 or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous int32 tensor")
+        if x.device != nodestate.device:
+            raise ValueError(f"{name} is on {x.device}, the state on "
+                             f"{nodestate.device}")
+    if pidx.shape[0] != pbuf.shape[0]:
+        raise ValueError("pidx and pbuf name different row counts")
+    s = _State()
+    s.ns, s.v, s.dr = (nodestate.data_ptr(), victims.data_ptr(),
+                       drain.data_ptr())
+    s.pidx = pidx.data_ptr() if pidx.shape[0] else None
+    s.pbuf = pbuf.data_ptr() if pbuf.shape[0] else None
+    s.gidx = gidx.data_ptr() if gidx.shape[0] else None
+    s.n, s.cap, s.p, s.g = n, cap, pidx.shape[0], gidx.shape[0]
+    s.n_res = n if resident else 0
+    return s
+
+
+@functools.lru_cache(maxsize=1)
+def lib() -> ctypes.CDLL:
+    """The built ``csrc/topo_score.cu`` with the fused launchers' argument
+    types declared."""
+    out = ts._lib()
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    sp, pp = ctypes.POINTER(_State), ctypes.POINTER(_FusedParams)
+    out.fused_class_launch.argtypes = [sp, pp, ci, ci, ci, ci, vp, vp, vp]
+    out.fused_argmax_launch.argtypes = [sp, pp, vp, ci, ci, vp, vp, vp]
+    out.normal_cycle_launch.argtypes = [sp, pp, vp, vp, vp]
+    for fn in (out.fused_class_launch, out.fused_argmax_launch,
+               out.normal_cycle_launch):
+        fn.restype = ci
+    return out
+
+
+def on_cuda(*xs: torch.Tensor) -> bool:
+    """Whether the tensors lie on a CUDA device (all on one device)."""
+    dev = xs[0].device
+    if any(x.device != dev for x in xs):
+        raise ValueError("tensors on different devices")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev.type == "cuda"
+
+
+def stream_of(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def fused_class(nodestate, victims, drain, pidx, pbuf, gidx, *, m_res: int,
+                resident: bool, m_gather: int, req: FusedRequest,
+                spec: ServerSpec, skip: torch.Tensor | None = None
+                ) -> torch.Tensor:
+    """The class sweep over every row of a plan in one launch: int32
+    [`CLS_FIELDS`, rows] (rows = N if ``resident`` else 0, plus
+    ``len(gidx)``).  With ``skip`` set the sweep does nothing and its
+    output is undefined.  Counterpart of ``_fused_class_core``."""
+    rows = (nodestate.shape[1] if resident else 0) + gidx.shape[0]
+    if not on_cuda(nodestate, victims, drain, pidx, pbuf, gidx):
+        if skip is not None and int(skip.reshape(-1)[0]):
+            return torch.zeros((CLS_FIELDS, rows), dtype=torch.int32)
+        return fused_class_plain(nodestate, victims, drain, pidx, pbuf, gidx,
+                                 m_res=m_res, resident=resident,
+                                 m_gather=m_gather, req=req, spec=spec)
+    cls = torch.empty((CLS_FIELDS, rows), dtype=torch.int32,
+                      device=nodestate.device)
+    if rows == 0:
+        return cls
+    st = state(nodestate, victims, drain, pidx, pbuf, gidx, resident)
+    wide = int(max(m_res if resident else 0,
+                   m_gather if gidx.shape[0] else 0) > NARROW_KERNEL_M)
+    out = lib()
+    with torch.cuda.device(nodestate.device):
+        code = out.fused_class_launch(
+            ctypes.byref(st), ctypes.byref(params(spec, req)), m_res,
+            m_gather, rows, wide,
+            None if skip is None else skip.data_ptr(), cls.data_ptr(),
+            stream_of(nodestate))
+    ts._raise_on(out, code, "fused_class")
+    fused_class.launches += 1
+    return cls
+
+
+fused_class.launches = 0
+
+
+def fused_argmax(cls, nodestate, victims, pidx, pbuf, gidx, *,
+                 resident: bool, seg: int, req: FusedRequest,
+                 spec: ServerSpec, skip: torch.Tensor | None = None,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+    """The Eq. 2 argmax and the winner's placement, one per segment of
+    ``seg`` rows of ``cls``: int32[segments, `WIN_FIELDS`] (written into
+    ``out`` when given).  With ``skip`` set every winner is zeros.
+    Counterpart of ``_fused_argmax_core`` + ``winner_place``."""
+    rows = cls.shape[1]
+    segs = -(-rows // seg)
+    if not on_cuda(cls, nodestate, victims, pidx, pbuf, gidx):
+        if skip is not None and int(skip.reshape(-1)[0]):
+            got = torch.zeros((segs, WIN_FIELDS), dtype=torch.int32)
+        else:
+            got = fused_argmax_plain(cls, nodestate, victims, pidx, pbuf,
+                                     gidx, resident=resident, seg=seg,
+                                     req=req, spec=spec)
+        if out is None:
+            return got
+        out.view(segs, WIN_FIELDS).copy_(got)
+        return out
+    if out is None:
+        out = torch.empty((segs, WIN_FIELDS), dtype=torch.int32,
+                          device=cls.device)
+    if out.numel() != segs * WIN_FIELDS or not out.is_contiguous():
+        raise ValueError(f"out must hold {segs} x {WIN_FIELDS} int32")
+    if rows == 0:
+        return out
+    if cls.dtype != torch.int32 or not cls.is_contiguous():
+        raise ValueError("cls must be a contiguous int32 tensor")
+    drain = nodestate[:2]       # not read by the tail; any int32 [2, N]
+    st = state(nodestate, victims, drain, pidx, pbuf, gidx, resident)
+    lb = lib()
+    with torch.cuda.device(cls.device):
+        code = lb.fused_argmax_launch(
+            ctypes.byref(st), ctypes.byref(params(spec, req)),
+            cls.data_ptr(), rows, seg,
+            None if skip is None else skip.data_ptr(), out.data_ptr(),
+            stream_of(cls))
+    ts._raise_on(lb, code, "fused_argmax")
+    fused_argmax.launches += 1
+    return out
+
+
+fused_argmax.launches = 0
+
+#: this module's kernel wrappers (their ``launches`` counters)
+WRAPPERS = (fused_class, fused_argmax)
+
+__all__ = ["CLS_FIELDS", "FusedRequest", "IDX_SENTINEL", "WIN_FIELDS",
+           "WRAPPERS", "class_sweep_plain", "fused_argmax",
+           "fused_argmax_plain", "fused_class", "fused_class_plain",
+           "plan_rows"]

@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.core.cluster import MAX_DENSE_VICTIMS
 from repro_torch.core.engines import register_engine
+from repro_torch.core.placement_device import popcount32
 from repro_torch.core.preemption import flextopo_imp
 from repro_torch.core.scoring import Candidate
 from repro_torch.core.topology import ServerSpec
@@ -104,15 +105,6 @@ def _params(spec: ServerSpec, req: TopoRequest) -> _Params:
 # Plain PyTorch versions (the CPU path, and the kernels' yardstick on the card)
 # ---------------------------------------------------------------------------------
 
-def _popcount32(x: torch.Tensor) -> torch.Tensor:
-    """Set bits of each int32 bit pattern (SWAR on int64 to stay unsigned)."""
-    x = x.to(torch.int64) & 0xFFFFFFFF
-    x = x - ((x >> 1) & 0x55555555)
-    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
-    x = (x + (x >> 4)) & 0x0F0F0F0F
-    return (((x * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
-
-
 def _tier_score_plain(g: torch.Tensor, c: torch.Tensor, prio: torch.Tensor,
                       spec: ServerSpec, req: TopoRequest
                       ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -125,8 +117,8 @@ def _tier_score_plain(g: torch.Tensor, c: torch.Tensor, prio: torch.Tensor,
     glob_cg = zero
     numa_ok = torch.zeros_like(g, dtype=torch.bool)
     for u in range(spec.num_numa):
-        cnt_gpu = _popcount32(g & int(spec.numa_gpu_masks[u]))
-        cnt_cg = _popcount32(c & int(spec.numa_cg_masks[u]))
+        cnt_gpu = popcount32(g & int(spec.numa_gpu_masks[u]))
+        cnt_cg = popcount32(c & int(spec.numa_cg_masks[u]))
         if req.cgs_per_bundle > 0:
             units = torch.minimum(cnt_gpu, cnt_cg // req.cgs_per_bundle)
         else:

@@ -194,8 +194,15 @@ def test_plan_batch_composes_against_one_view():
         assert got == want
 
 
-@pytest.mark.parametrize("engine", ["auto", "imp_sharded", "imp_batched"])
-def test_unported_engines_raise(engine):
+@pytest.mark.parametrize("engine", ["auto", "imp_sharded",
+                                    "imp_batched_legacy"])
+def test_unported_engines_raise(engine, monkeypatch):
+    """Engines not ported yet raise; ``auto`` raises where it would pick the
+    unported ``imp_sharded`` (at or above its node threshold, lowered here
+    to this 2-node cluster)."""
+    from repro_torch.core import scheduler
+
+    monkeypatch.setattr(scheduler, "AUTO_ENGINE_THRESHOLD", 2)
     cluster = Cluster(RTX4090_SERVER, 2, device="cpu")
     with pytest.raises(UnknownEngineError):
         TopoScheduler(cluster, engine=engine)
