@@ -44,27 +44,48 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    ``schedule_or_preempt``, rollbacks and releases: ``imp_batched`` against
    host ``imp`` with identical decisions and masks at every step (the row
    scatter and the pending-row patches).
-6. ``[flash]``: the flash-attention kernel (K4) against its plain version on
+6. ``[day]``: the co-location day cycle (``repro_torch.core.colocation``)
+   on the card through ``imp_batched``, 24 h, seed 0, warm-up on (the
+   protocol of ``benchmarks/bench_colocation.py:day_config``).  At 24
+   nodes ``compare_day_cycle(engines=("imp_batched", "godel"))`` must give
+   every deterministic field of ``BENCH_colocation.json`` and
+   ``compare_two_level`` both modes of ``BENCH_elastic.json``; at 128 nodes
+   the day's ``key_metrics()`` must equal host ``imp``'s and the
+   reference's numbers; at 1024 nodes its events, scalar metrics and hour
+   rows must equal the reference's host ``imp`` day (``DAY_1024``).  Each
+   counted day is built, then its counts are set to 0 just before
+   ``run()`` and read just after: one ``normal_cycle`` launch a plan the
+   scheduler counts, one ``fused_class`` and one ``fused_argmax`` launch a
+   plan that may preempt, no lane-form K1 launch.  Each ``[day]`` line
+   carries events, wall time, events/s and the plan P50/P90.
+   ``[day-trace]`` profiles 200 plans of the 1024-node day from simulated
+   hour 8 (the morning ramp): device time per kernel against the window's
+   wall, and the host functions that dominate the next 200 plans.  After
+   ``[serve]``, ``[day-serve]`` multiplies its decode throughput by the
+   Fig. 2 factor of the best- and worst-placed online instance of the
+   24-node ``imp_batched`` day and of the ``godel`` day (the last step of
+   ``examples/colocated_serving.py``).
+7. ``[flash]``: the flash-attention kernel (K4) against its plain version on
    the card, in f32 (2e-5) and bf16 (2.5e-2), over the reference tests'
    five shapes, the serving path's shape, a head_dim-128 shape, a window
    with fully masked first tiles, a ragged Sq at the 128-row q block and a
    windowed head_dim-128 shape whose length is not a multiple of 128; no
    output may be non-finite.  Then 50 back-to-back launches at the serving
    shape must give bit-identical outputs.
-7. ``[serve]``: the serving path, llama3.2-1b at full width and depth with
+8. ``[serve]``: the serving path, llama3.2-1b at full width and depth with
    seeded random weights made on the card, through ``ServeEngine`` (batch
    4, seq_len 1024): 8 requests of 512-1024 prompt tokens and 32 new tokens
    each.  Counters at 0 just before, read just after: K4 launches must be
    16 layers x 2 prefill batches.  Every request has 32 tokens, no logit is
    non-finite, and the first batch served again gives the same tokens.
    ``[serve-trace]`` profiles one prefill and one decode step.
-8. ``[serve-check]``: decode against prefill at full width.  2 sequences of
+9. ``[serve-check]``: decode against prefill at full width.  2 sequences of
    1000 tokens, then 4 decode steps; each step's logits within 0.08 of a
    fresh prefill (through K4) of the extended sequence, with the depth cut
    to 2 layers.  The full depth's differences are recorded beside them, and
    so is how far each layer amplifies a 1e-6 perturbation of the input
    (f32): the random-weight model is chaotic at depth (``serve_check``).
-9. One ``{"kernels": [...]}`` line: per kernel its launches on its path,
+10. One ``{"kernels": [...]}`` line: per kernel its launches on its path,
    the largest difference against the plain version, the time per call
    from CUDA events (kernel and plain version), the device time per launch
    from torch.profiler, the bound and the share of it the kernel reaches,
@@ -76,7 +97,7 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    and on 10240 nodes, each's device time against its sourcing wall time,
    and the host functions that dominate; a ``[sourcing]`` line with the
    P50/P90 of every engine and size of ``[main]``.
-10. The card's name and power limit again, then the last line
+11. The card's name and power limit again, then the last line
    ``{"ok": true, "device": {...}}``.
 
 With no CUDA device, or without ``src/repro_torch`` beside this file, it
@@ -475,6 +496,376 @@ def commit_phase(dev, steps: int = 200, nodes: int = 1024) -> dict:
            "identical": True, "wall_s": wall, "counts": counts,
            "sweep_launches_that_exit_at_once": kinds["placed"]}
     print(f"[commit] {json.dumps(out)}", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------------
+# Phase 6: the co-location day cycle on the card
+# ---------------------------------------------------------------------------------
+
+#: the reference's host ``imp`` day at 1024 nodes x 24 h, seed 0, made with
+#: the JAX package on a CPU (``repro.core.colocation.run_day_cycle(
+#: ColocationConfig(num_nodes=1024, seed=0, engine="imp"))``, 344 s): its
+#: scalar ``key_metrics()`` (``engine`` differs by design) and the SHA-256
+#: of ``json.dumps(key_metrics()["hours"], sort_keys=True)``
+DAY_1024 = {
+    "seed": 0, "num_nodes": 1024, "scheduled_perf": 58212.00000000001,
+    "offline_goodput": 126380.97766694226, "preemptions": 322, "hits": 322,
+    "placements": 44850, "failures": 0, "requeued": 1079,
+    "requeue_replanned": 1079, "completed_jobs": 39746,
+    "elastic_admitted": 0, "elastic_ejected": 0, "elastic_completed": 0,
+    "elastic_demoted": 0, "elastic_goodput": 0.0, "slo_violations": 0,
+    "slo_attainment": 1.0}
+DAY_1024_HOURS_SHA256 = (
+    "2252651ceae7922a4b4fc3fb15e7efc54a4ce4eaaabdea567a74400999978cf3")
+#: events of that day: the 1024-node row of ``BENCH_colocation.json``'s
+#: ``scale`` block
+DAY_1024_EVENTS = 107325
+#: the reference's host ``imp`` day at 128 nodes x 24 h, seed 0 (same
+#: origin, 10 s): the fields the port's day must give
+DAY_128 = {"scheduled_perf": 7408.0, "preemptions": 40, "hits": 40,
+           "placements": 5618, "requeued": 129, "requeue_replanned": 129,
+           "completed_jobs": 4975}
+#: the deterministic fields of one ``BENCH_colocation.json`` engine entry
+BENCH_DAY_FIELDS = ("scheduled_perf", "preemptor_perf", "offline_goodput",
+                    "hit_rate", "hits", "preemptions", "placements",
+                    "failures", "requeued", "requeue_replanned",
+                    "requeue_success_rate")
+#: ``[day-trace]``: plans traced from the first plan at or after this
+#: simulated hour of the 1024-node day (hour 8: the morning ramp, where
+#: scale-ups preempt)
+DAY_TRACE_HOUR, DAY_TRACE_PLANS = 8.0, 200
+
+
+def day_config(dev, nodes: int, engine: str = "imp_batched", **kw):
+    """``benchmarks/bench_colocation.py:day_config`` on ``dev``: 24 h, seed
+    0, warm-up on."""
+    from repro_torch.core.colocation import ColocationConfig
+
+    return ColocationConfig(num_nodes=nodes, seed=0, engine=engine,
+                            horizon_hours=24.0, warmup=True, device=dev,
+                            **kw)
+
+
+def scalars(km: dict) -> dict:
+    return {k: v for k, v in km.items() if k not in ("engine", "hours")}
+
+
+class PlanWindow:
+    """Traces a window of a running day: the device time of each kernel
+    (torch.profiler) over ``plans`` consecutive plans from the first plan
+    at or after simulated hour ``hour``, against the window's wall time,
+    then the host functions that take the most of the next ``plans`` plans
+    (cProfile).  A window in which the profiler recorded no device time is
+    traced again on the next plans, up to ``attempts`` times.  Installed
+    over ``sim.sched.plan``, which ``plan_batch`` calls once a request."""
+
+    def __init__(self, torch, sim, hour: float, plans: int,
+                 attempts: int = 3) -> None:
+        self.torch, self.sim, self.hour, self.plans = torch, sim, hour, plans
+        self.attempts = attempts
+        self.attempt = 0
+        self.n = 0
+        self.prof = self.host = None
+        self.stage = "wait"            # wait | device | host | done
+        self.result: dict | None = None
+        self._plan = sim.sched.plan
+        sim.sched.plan = self.plan
+
+    def plan(self, *args, **kwargs):
+        if self.stage == "wait" and self.sim._now >= self.hour:
+            self._start_device()
+        out = self._plan(*args, **kwargs)
+        if self.stage in ("device", "host"):
+            self.n += 1
+            if self.n == self.plans:
+                self._end_stage()
+        return out
+
+    def _start_device(self) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        self.attempt += 1
+        self.stage, self.n = "device", 0
+        self.log0 = len(self.sim.sched.sourcing_us_log)
+        self.counts0 = dict(self.sim.sched.plan_counts)
+        self.prof = profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+        self.prof.start()
+        self.t0 = time.perf_counter()
+
+    def _end_stage(self) -> None:
+        import cProfile
+        import pstats
+
+        if self.stage == "device":
+            self.torch.cuda.synchronize()
+            wall = time.perf_counter() - self.t0
+            self.prof.stop()
+            self.result = self._device_summary(wall)
+            if (self.result["device_us"]["total"] == 0
+                    and self.attempt < self.attempts):
+                self._start_device()
+                return
+            self.stage, self.n = "host", 0
+            self.host = cProfile.Profile()
+            self.host.enable()
+        else:
+            self.host.disable()
+            stats = pstats.Stats(self.host).stats.items()
+            top = sorted(stats, key=lambda kv: -kv[1][2])[:10]
+            self.result["host_top_tottime_s"] = [
+                [f"{os.path.basename(f)}:{line}({fn})", calls_, round(tt, 6)]
+                for (f, line, fn), (_, calls_, tt, _, _) in top]
+            # below the event loop: the plan's own functions by the time
+            # spent in them and what they call
+            inner = [kv for kv in stats if "repro_torch" in kv[0][0]
+                     and os.path.basename(kv[0][0]) not in (
+                         "colocation.py", "autoscale.py")]
+            top = sorted(inner, key=lambda kv: -kv[1][3])[:12]
+            self.result["host_top_cumtime_s"] = [
+                [f"{os.path.basename(f)}:{line}({fn})", calls_, round(ct, 6)]
+                for (f, line, fn), (_, calls_, _, ct, _) in top]
+            self.stage = "done"
+            self.sim.sched.plan = self._plan
+
+    def _device_summary(self, wall: float) -> dict:
+        from torch.autograd import DeviceType
+
+        kernels: dict[str, list] = {}
+        device = {"copy": 0.0, "other": 0.0}
+        for ev in self.prof.key_averages():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            names = [k for k in TRACE_KERNELS["imp_batched"] if k in ev.key]
+            if names:
+                got = kernels.setdefault(names[0], [0, 0.0])
+                got[0] += ev.count
+                got[1] += ev.device_time_total
+            else:
+                part = "copy" if "memcpy" in ev.key.lower() else "other"
+                device[part] += ev.device_time_total
+        device["kernels"] = sum(v[1] for v in kernels.values())
+        device["total"] = sum(device.values())
+        sched = self.sim.sched
+        counts = {k: v - self.counts0[k]
+                  for k, v in sched.plan_counts.items()}
+        plan_us = sched.sourcing_us_log[self.log0:]
+        return {
+            "nodes": self.sim.cluster.num_nodes, "from_hour": self.hour,
+            "at_hour": self.sim._now, "plans": self.plans,
+            "plans_by_kind": counts, "attempt": self.attempt,
+            "window_wall_us": wall * 1e6,
+            "plan_us_sum": sum(plan_us),
+            "device_us": device,
+            "kernel_launches_us": {k: {"launches": v[0], "device_us": v[1],
+                                       "us_a_launch": v[1] / max(1, v[0])}
+                                   for k, v in sorted(kernels.items())},
+            "device_busy_share": device["total"] / (wall * 1e6),
+            "device_share_of_plan_time": (device["total"] / sum(plan_us)
+                                          if plan_us else None),
+        }
+
+
+def day_run(torch, dev, cfg, trace: tuple[float, int] | None = None,
+            online_factors: list | None = None):
+    """One day through ``ColocationSim`` (what ``run_day_cycle`` runs).
+    The sim is built first (its scheduler's warm-up launches are not the
+    day's); the counts are set to 0 just before ``run()`` and read just
+    after.  For ``imp_batched``: one ``normal_cycle`` launch a plan that
+    the scheduler counts, and one ``fused_class`` and one
+    ``fused_argmax`` launch a plan that may preempt (the sweep and its
+    tail return at once on the device when the normal cycle placed; a
+    normal-only plan is K2 alone; the Table 3 mix holds at most 8 victims a
+    node, so no wide chunk runs); no lane-form K1.  Host engines launch
+    nothing."""
+    import numpy as np
+
+    from repro_torch.core.colocation import ColocationSim, default_policies
+    from repro_torch.core.perfmodel import relative_scheduled_factor
+    from repro_torch.core.placement import achieved_tier
+
+    sim = ColocationSim(cfg, policies=default_policies(cfg))
+    if online_factors is not None:
+        spec = sim.cluster.spec
+
+        def on_online(dec, event):
+            inst = dec.instance
+            if (event == "committed" and inst is not None
+                    and inst.workload.kind == "online"):
+                online_factors.append(relative_scheduled_factor(
+                    spec, achieved_tier(spec, inst.gpu_mask),
+                    inst.workload.gpus_per_instance))
+
+        sim.sched.add_listener(on_online)
+    window = (PlanWindow(torch, sim, *trace) if trace is not None else None)
+    torch_sync(dev)
+    reset_counts()                        # counts at 0 just before the day
+    t0 = time.perf_counter()
+    rep = sim.run()
+    torch_sync(dev)
+    wall = time.perf_counter() - t0
+    counts = read_counts()                # and read just after it
+    plans = dict(sim.sched.plan_counts)
+    n_plans = sum(plans.values())
+    what = f"day {cfg.num_nodes} nodes {cfg.engine}"
+    if cfg.engine == "imp_batched":
+        check(n_plans > 0 and counts["normal_cycle"] == n_plans,
+              f"{what}: {counts['normal_cycle']} normal_cycle launches for "
+              f"{n_plans} plans")
+        check(counts["fused_class"] == counts["fused_argmax"]
+              == plans["may_preempt"],
+              f"{what}: {counts['fused_class']} fused_class and "
+              f"{counts['fused_argmax']} fused_argmax launches for "
+              f"{plans['may_preempt']} plans that may preempt")
+        check(counts["topo_score_argmax"] == 0
+              and counts["imp_pallas_calls"] == 0,
+              f"{what}: the lane form of K1 was launched")
+    else:
+        check(not any(counts.values()),
+              f"{what}: a host engine launched kernels: {counts}")
+    plan_us = sim.auto.plan_us
+    out = {
+        "nodes": cfg.num_nodes, "engine": cfg.engine,
+        "horizon_hours": cfg.horizon_hours, "elastic": cfg.elastic,
+        "events": sim.events_processed, "wall_s": wall,
+        "events_per_s": sim.events_processed / wall,
+        "requests_planned": len(plan_us),
+        "plan_p50_us": float(np.percentile(plan_us, 50)),
+        "plan_p90_us": float(np.percentile(plan_us, 90)),
+        "fused_plans": plans if cfg.engine == "imp_batched" else None,
+        "fused_plan_p50_us": (float(np.percentile(sim.sched.sourcing_us_log,
+                                                   50))
+                              if cfg.engine == "imp_batched" else None),
+        "counts": counts, **scalars(rep.key_metrics()),
+    }
+    print(f"[day] {json.dumps(out)}", flush=True)
+    if window is not None:
+        check(window.stage == "done", f"{what}: the trace window did not "
+              f"close (stage {window.stage})")
+        print(f"[day-trace] {json.dumps(window.result)}", flush=True)
+        out["trace"] = window.result
+    return rep, out
+
+
+def day_phase(torch, dev) -> dict:
+    """``[day]``: the co-location day cycle on the card through
+    ``imp_batched``: the committed 24-node A/B and two-level A/B against
+    ``BENCH_colocation.json`` / ``BENCH_elastic.json``, the 128-node day
+    against the port's host ``imp`` day and the reference's numbers, and
+    the 1024-node day against the reference's host ``imp`` day, with
+    ``[day-trace]`` over one window of it."""
+    import hashlib
+
+    from repro_torch.core.colocation import (compare_day_cycle,
+                                             compare_two_level)
+    from repro_torch.serving.elastic import ElasticConfig
+
+    with open(os.path.join(ROOT, "BENCH_colocation.json")) as f:
+        bench = json.load(f)
+    with open(os.path.join(ROOT, "BENCH_elastic.json")) as f:
+        bench_el = json.load(f)
+    launches = {"normal_cycle": 0, "fused_class": 0, "fused_argmax": 0}
+    plans = 0
+    runs = []
+
+    def counted(rep_out):
+        nonlocal plans
+        rep, out = rep_out
+        for k in launches:
+            launches[k] += out["counts"][k]
+        if out["fused_plans"]:
+            plans += sum(out["fused_plans"].values())
+        runs.append(out)
+        return rep, out
+
+    # the committed A/B, 24 nodes: compare_day_cycle as a user calls it
+    cfg24 = day_config(dev, bench["num_nodes"])
+    t0 = time.perf_counter()
+    ab = compare_day_cycle(cfg24, engines=("imp_batched", "godel"))
+    ab_s = time.perf_counter() - t0
+    for name in ("imp_batched", "godel"):
+        rep = ab["reports"][name]
+        for field in BENCH_DAY_FIELDS:
+            check(getattr(rep, field) == bench["engines"][name][field],
+                  f"day 24 nodes {name}: {field} {getattr(rep, field)!r}, "
+                  f"BENCH_colocation.json {bench['engines'][name][field]!r}")
+    for field in ("uplift", "preemptor_uplift", "goodput_uplift"):
+        check(ab[field] == bench[field], f"day 24 nodes: {field} "
+              f"{ab[field]!r}, BENCH_colocation.json {bench[field]!r}")
+    # the same days again, counted, with their plan times
+    factors: dict[str, list[float]] = {}
+    for engine in ("imp_batched", "godel"):
+        rep, _ = counted(day_run(torch, dev, day_config(dev, 24, engine),
+                                 online_factors=factors.setdefault(engine,
+                                                                   [])))
+        check(rep.key_metrics() == ab["reports"][engine].key_metrics(),
+              f"day 24 nodes {engine}: a second run gave other metrics")
+        check(bool(factors[engine]),
+              f"day 24 nodes {engine}: no online instance committed")
+    # the two-level A/B on the same day
+    t0 = time.perf_counter()
+    two = compare_two_level(day_config(dev, 24, elastic_cfg=ElasticConfig()))
+    two_s = time.perf_counter() - t0
+    for mode, want in bench_el["modes"].items():
+        rep = two["reports"][mode]
+        for field, value in want.items():
+            got = (rep.slo_by_class() if field == "slo_by_class"
+                   else getattr(rep, field))
+            check(got == value, f"two-level 24 nodes {mode}: {field} "
+                  f"{got!r}, BENCH_elastic.json {value!r}")
+    for field in ("goodput_uplift", "preemption_delta"):
+        check(two[field] == bench_el[field], f"two-level 24 nodes: {field} "
+              f"{two[field]!r}, BENCH_elastic.json {bench_el[field]!r}")
+    print(f"[day] 24 nodes: compare_day_cycle (imp_batched, godel) gives "
+          f"BENCH_colocation.json (uplift {ab['uplift']}, preemptor uplift "
+          f"{ab['preemptor_uplift']}; {ab_s:.1f} s) and compare_two_level "
+          f"gives BENCH_elastic.json, both modes ({two_s:.1f} s)", flush=True)
+
+    # 128 nodes: imp_batched against host imp, and the reference's numbers
+    fused, _ = counted(day_run(torch, dev, day_config(dev, 128)))
+    host, _ = counted(day_run(torch, dev, day_config(dev, 128, "imp")))
+    check(scalars(fused.key_metrics()) == scalars(host.key_metrics())
+          and fused.key_metrics()["hours"] == host.key_metrics()["hours"],
+          "day 128 nodes: imp_batched and imp key metrics differ")
+    for field, value in DAY_128.items():
+        check(getattr(fused, field) == value, f"day 128 nodes: {field} "
+              f"{getattr(fused, field)!r}, the reference {value!r}")
+    print("[day] 128 nodes: imp_batched key metrics identical to host imp "
+          "and to the reference's", flush=True)
+
+    # 1024 nodes: imp_batched against the reference's host imp day
+    big, out = counted(day_run(torch, dev, day_config(dev, 1024),
+                               trace=(DAY_TRACE_HOUR, DAY_TRACE_PLANS)))
+    km = big.key_metrics()
+    check(out["events"] == DAY_1024_EVENTS, f"day 1024 nodes: "
+          f"{out['events']} events, the reference {DAY_1024_EVENTS}")
+    check(scalars(km) == DAY_1024, f"day 1024 nodes: {scalars(km)} against "
+          f"the reference's {DAY_1024}")
+    digest = hashlib.sha256(json.dumps(km["hours"], sort_keys=True)
+                            .encode()).hexdigest()
+    check(digest == DAY_1024_HOURS_SHA256,
+          f"day 1024 nodes: hour rows differ from the reference's ({digest})")
+    print("[day] 1024 nodes: imp_batched key metrics and hour rows "
+          "identical to the reference's host imp day", flush=True)
+    return {"runs": runs, "launches": launches, "plans": plans,
+            "factors": {k: (max(v), min(v)) for k, v in factors.items()},
+            "ab_s": ab_s, "two_level_s": two_s}
+
+
+def day_serve_line(day: dict, serve: dict) -> dict:
+    """The last step of ``examples/colocated_serving.py``: ``[serve]``'s
+    decode throughput (a batch's tokens over the decode step's P50) times
+    the Fig. 2 factor of the best- and the worst-placed online instance of
+    the 24-node ``imp_batched`` day, and of the ``godel`` day beside it."""
+    decode_tok_s = SERVE_BATCH * 1e3 / serve["decode_p50_ms"]
+    out = {"decode_tok_per_s": decode_tok_s,
+           "factors": {k: {"best": b, "worst": w}
+                       for k, (b, w) in day["factors"].items()},
+           "scheduled_tok_per_s": {
+               k: {"best": decode_tok_s * b, "worst": decode_tok_s * w}
+               for k, (b, w) in day["factors"].items()}}
+    print(f"[day-serve] {json.dumps(out)}", flush=True)
     return out
 
 
@@ -1412,8 +1803,13 @@ def run() -> int:
     fused_plans = sum(r["cycles"] * r["scaleups"] for r in runs
                       if r["engine"] == "imp_batched")
     commit_phase(dev)
+    day = day_phase(torch, dev)
+    for name, n in day["launches"].items():
+        launches[name] += n
+    fused_plans += day["plans"]
     flash_errs = flash_phase(torch)
     serve, api, params = serve_phase(torch, np)
+    day_serve = day_serve_line(day, serve)
     serve_trace(torch, api, params)
     check_errs = serve_check(torch, np, api, params)
     del api, params
@@ -1426,6 +1822,9 @@ def run() -> int:
                           serve["counts"]["flash_attention"]))
     rows.extend(fused_rows(torch, np, dev, errs, launches, fused_plans,
                            clusters))
+    for row in rows:
+        if row["name"] in day["launches"]:
+            row["day_launches"] = day["launches"][row["name"]]
     trace_phase(torch, dev)
     for n, cluster in clusters.items():
         trace_phase(torch, dev, "imp_batched", n, cluster, plans=20)
@@ -1434,7 +1833,16 @@ def run() -> int:
                 for r in runs}
     print(f"[sourcing] P50/P90 us {json.dumps(sourcing)}", flush=True)
     p50 = {k: v[0] for k, v in sourcing.items()}
+    day_keys = ("events", "wall_s", "events_per_s", "requests_planned",
+                "plan_p50_us", "plan_p90_us")
     print(json.dumps({"sourcing_p50_us": p50,
+                      "day": {f"{r['engine']}@{r['nodes']}":
+                              {k: r[k] for k in day_keys}
+                              for r in day["runs"]},
+                      "day_trace_busy_share":
+                          day["runs"][-1]["trace"]["device_busy_share"],
+                      "day_serve": day_serve["scheduled_tok_per_s"][
+                          "imp_batched"],
                       "serve": {k: serve[k] for k in (
                           "prefill_s", "decode_p50_ms", "decode_p90_ms",
                           "tok_per_s", "max_memory_allocated")},

@@ -86,7 +86,8 @@ class ShortlistConfig:
       returned even when uncertain.
 
     No engine of this package takes it yet: the shortlist front-end of the
-    fused engine is still to be ported.
+    fused engine is still to be ported, so `TopoScheduler` builds one only
+    for an engine registered with ``supports_shortlist``.
     """
 
     k: int = 128
@@ -104,12 +105,24 @@ class TopoScheduler:
     docstring above for the pipeline).
 
     Engine selection: pass a registered engine name, or ``engine="auto"``
-    to route by cluster size — ``imp_batched`` below
-    `AUTO_ENGINE_THRESHOLD` nodes, ``imp_sharded`` at or above it; that
-    engine is not ported yet, so there it raises
+    to route by cluster size — ``imp_batched`` below ``auto_threshold``
+    nodes (default `AUTO_ENGINE_THRESHOLD`), ``imp_sharded`` at or above
+    it; that engine is not ported yet, so there it raises
     `UnknownEngineError` rather than pick another.  The resolved name is in
     ``self.engine``; every decision carries the routing in
     ``sourcing_provenance``.
+
+    Shortlist sourcing knobs, as in the reference: ``shortlist_k``
+    representative rows for the exact sweep (0 disables the shortlist) and
+    ``shortlist_mode`` (``"guaranteed"`` or ``"best_effort"``).  They take
+    effect only for engines registered with ``supports_shortlist``; no
+    engine of this package has that flag yet, so ``self.shortlist`` is
+    ``None`` and the provenance carries ``shortlist_k`` 0 and
+    ``shortlist_mode`` None.
+
+    ``plan_counts`` counts the fused plans (``fused_place`` engines) by
+    kind: ``"normal_only"`` (``allow_preempt=False``: the normal cycle
+    alone) and ``"may_preempt"`` (both cycles).
     """
 
     def __init__(
@@ -119,9 +132,13 @@ class TopoScheduler:
         alpha: float = DEFAULT_ALPHA,
         topology_aware_placement: bool | None = None,
         warmup: bool = False,
+        shortlist_k: int = 128,
+        shortlist_mode: str = "guaranteed",
+        auto_threshold: int | None = None,
     ) -> None:
         self.cluster = cluster
-        self.auto_threshold = AUTO_ENGINE_THRESHOLD
+        self.auto_threshold = (AUTO_ENGINE_THRESHOLD if auto_threshold is None
+                               else auto_threshold)
         self._auto = engine == "auto"
         if self._auto:
             if cluster.num_nodes >= self.auto_threshold:
@@ -130,8 +147,18 @@ class TopoScheduler:
         self.engine: EngineName = engine
         self._engine: SourcingEngine = get_engine(engine)
         self.alpha = alpha
-        self._provenance = {"engine": engine, "auto": self._auto,
-                            "auto_threshold": self.auto_threshold}
+        self.shortlist = (
+            ShortlistConfig(k=shortlist_k, mode=shortlist_mode)
+            if (shortlist_k > 0
+                and getattr(self._engine, "supports_shortlist", False))
+            else None)
+        self._provenance = {
+            "engine": engine, "auto": self._auto,
+            "auto_threshold": self.auto_threshold,
+            "shortlist_k": (self.shortlist.k if self.shortlist else 0),
+            "shortlist_mode": (self.shortlist.mode if self.shortlist
+                               else None),
+        }
         # engines that fuse Guaranteed Filtering into their dispatch get
         # nodes=None and the host filter loop is skipped entirely
         self._fused_filter = bool(getattr(self._engine, "fused_filter",
@@ -152,6 +179,7 @@ class TopoScheduler:
                              and bool(getattr(self._engine, "fused_place",
                                               False)))
         self.sourcing_us_log: list[float] = []
+        self.plan_counts = {"normal_only": 0, "may_preempt": 0}
         self.listeners: list[Callable[[SchedulingDecision, str], None]] = []
         if warmup:
             warm = getattr(self._engine, "warmup", None)
@@ -325,6 +353,8 @@ class TopoScheduler:
         winner, both with the device scorer's placement masks — no host
         node loop, no host ``place()``.  The recorded ``sourcing_us`` spans
         the whole plan (normal cycle and Filtering are the same chain)."""
+        self.plan_counts["may_preempt" if allow_preempt
+                         else "normal_only"] += 1
         t0 = time.perf_counter()
         res = self._engine.plan_fused(view, workload, self.alpha,
                                       allow_preempt)

@@ -707,7 +707,8 @@ def test_auto_engine_routes_by_cluster_size(monkeypatch):
     dec = sched.plan(WL3["B"]).decision
     assert dec.sourcing_provenance == {
         "engine": "imp_batched", "auto": True,
-        "auto_threshold": AUTO_ENGINE_THRESHOLD}
+        "auto_threshold": AUTO_ENGINE_THRESHOLD,
+        "shortlist_k": 0, "shortlist_mode": None}
     assert AUTO_ENGINE_THRESHOLD == 4096
     monkeypatch.setattr(scheduler, "AUTO_ENGINE_THRESHOLD", 3)
     with pytest.raises(UnknownEngineError, match="imp_sharded"):
