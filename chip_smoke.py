@@ -12,7 +12,10 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    together), with each source's ``ptxas -v`` lines.  ``cuobjdump -sass``
    of the flash-attention library counts the ``HGMMA`` (wgmma) and
    ``UTMALDG`` (TMA load) instructions of each bf16 kernel; a count of 0
-   fails the run.
+   fails the run.  That of the topo-score library counts the global
+   atomics (``ATOMG``, ``ATOM``, ``RED``) of K2's normal-cycle form (both
+   its kernels) and K1's tail, which reduce across CTAs through a
+   thread-block cluster; a count above 0 fails the run.
 2. ``[kernels]``: each topo-score kernel against its plain PyTorch version on
    the card, bit for bit (tiers, per-tile argmax, scores), over all three
    server specs, several requests with the exactness traps in their inputs,
@@ -24,7 +27,14 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    on random resident states at 100, 1024 and 10240 nodes (m_res 4 and 8
    with 13 gathered rows) and a 16-slot state through the wide kernel, every
    ``REQUESTS`` entry (alpha 0, 0.3, 0.5, 1) at two preemptor priorities,
-   with and without patch rows; then the skip path.
+   with and without patch rows; then the skip path.  Then the two cluster
+   kernels alone (``cluster_phase``): N across the cluster geometry's
+   boundaries (``CLUSTER_NODES``, up to 40960), the RTX 4090, A100 and TPU
+   v5e host SKUs and the 16-slot state, 0, 1, 9 and ``MAX_PATCH_ROWS``
+   patch rows, K2 also in its split form at every N, the tail over the
+   resident segment and over 16-row chunks, class tables with forced exact
+   ties, more patch rows than the kernels take (must raise), and 50
+   back-to-back launches of each (bit-identical).
 4. ``[main]``: the scheduler path, ``run_hit_rate_experiment`` (the paper's
    Table 4 protocol, ``TopoScheduler.plan()`` per scale-up) with
    ``imp_pallas`` and then host ``imp`` on the 100-node Table 3 cluster (2
@@ -92,7 +102,11 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    the function's operations over the kernel's time (``tflops``), and the
    time of one PyTorch library call of the same function where there is
    one (the fused kernels at preemptor B on the saturated 1024- and
-   10240-node clusters).  Then ``[trace]`` lines: one traced
+   10240-node clusters, called as the engine calls them, their launch
+   states checked once; ``ms_checked`` when each call checks its tensors
+   anew).  ``[cluster-sweep]`` gives K2's (one cluster and split) and the
+   tail's device time a call from 128 to 40960 nodes, without and with
+   patch rows.  Then ``[trace]`` lines: one traced
    ``imp_pallas`` plan on 1024 nodes and one ``imp_batched`` plan on 1024
    and on 10240 nodes, each's device time against its sourcing wall time,
    and the host functions that dominate; a ``[sourcing]`` line with the
@@ -106,6 +120,7 @@ exits with a non-zero code and prints no result.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import os
 import statistics
@@ -1008,9 +1023,6 @@ def fused_phase(torch, np, dev) -> dict[str, float]:
                         "normal_cycle " + what))
                     normal_cases += 1
                 cases += 1
-    # every K2 launch leaves its scratch as it found it: no key, ticket 0
-    scratch = nck._SCRATCH[plans[0][2][0].device].tolist()
-    check(scratch == [-1, 0], f"normal_cycle: scratch left at {scratch}")
     # the skip path: out[0] set, the sweep returns, the tail writes zeros
     spec, n, (ns, v, dr), (pidx, pbuf), gidx = plans[0][:5]
     req = fc.FusedRequest(1000, *REQUESTS[0])
@@ -1028,6 +1040,181 @@ def fused_phase(torch, np, dev) -> dict[str, float]:
           f"{normal_cases} x normal_cycle bit-exact against the plain versions "
           f"(N {list(FUSED_NODES)} and a 16-slot state, patch rows on/off); "
           "skip path ok", flush=True)
+    return errs
+
+
+#: node counts across the cluster geometry's boundaries (a warp, one CTA of
+#: CTA_ROWS, 1024, the one-node-a-thread limits of 8 and 16 CTAs x 1024
+#: threads, and the loop beyond them)
+CLUSTER_NODES = (1, 2, 127, 128, 129, 1023, 1024, 1025, 8191, 8192, 8193,
+                 16385, 40960)
+#: patch rows a launch carries; "max" is MAX_PATCH_ROWS (where N allows)
+CLUSTER_PATCHES = (0, 1, 9, "max")
+BACK_TO_BACK = 50
+
+
+def tie_table(np, rows: int, seed: int):
+    """A class table that forces exact Eq. 1 ties: priority sums from {0,
+    1, 2, 4} (at alpha 0.5, tier 0 with sum 2 and tier 1 with sum 1 both
+    score 0.75; at alpha 0 every entry of a tier ties), k, node id and uid
+    mask from small sets, so the tie chain runs down to the flat index."""
+    rng = np.random.default_rng(seed)
+    cls = np.zeros((15, rows), np.int32)
+    cls[0:3] = rng.random((3, rows)) < 0.5
+    cls[3:6] = rng.integers(0, 256, (3, rows))
+    cls[6:9] = rng.choice(np.array([0, 1, 2, 4]), (3, rows))
+    cls[9:12] = rng.choice(np.array([1, 2, 1 << 15]), (3, rows))
+    cls[12] = rng.integers(1, 3, rows)
+    cls[13] = rng.integers(0, 2**31 - 1, rows)   # the sum wraps as int32
+    cls[14] = rng.integers(0, 4, rows)
+    return cls
+
+
+def cluster_phase(torch, np, dev) -> dict[str, float]:
+    """K2's normal-cycle form and K1's tail, the two kernels that run as
+    one thread-block cluster, against their plain versions on the card,
+    bit for bit: every CLUSTER_NODES size on the three SKUs and the 16-slot
+    state, with 0, 1, 9 and MAX_PATCH_ROWS patch rows, the tail over the
+    resident segment (with 13 gathered rows) and over 16-row chunks of
+    gathered rows, class tables with forced exact ties at alpha 0, 0.3 and
+    0.5, more patch rows than the kernels take (raises), and BACK_TO_BACK
+    launches of each that must agree bit for bit.  K2 runs in the geometry
+    its wrapper picks and, forced, in its split form (at least two
+    clusters and the merge kernel) at every N."""
+    from repro_torch.core.topology import (A100_SERVER, RTX4090_SERVER,
+                                           TPU_V5E_HOST, ServerSpec)
+    from repro_torch.kernels import fused_class as fc
+    from repro_torch.kernels import normal_cycle as nck
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    errs = {"fused_argmax": 0.0, "normal_cycle": 0.0}
+    n_normal = n_split = n_tail = n_tie = 0
+    specs = ((RTX4090_SERVER, 8), (A100_SERVER, 16), (TPU_V5E_HOST, 8),
+             (ServerSpec(**BIG_CG), 16))
+    requests = ((1000, 2, 2, 1, 0.5), (300, 1, 1, 1, 0.0))
+    empty = (t(np.zeros(0, np.int32)), t(np.zeros((0, 87), np.int32)))
+    keep = {}
+    for si, (spec, max_v) in enumerate(specs):
+        for n in CLUSTER_NODES:
+            ns, v, dr = (t(x) for x in resident_state(np, spec, n, max_v,
+                                                       1000 * si + n))
+            rng = np.random.default_rng(n + si)
+            n_g = min(13, n)
+            gidx = np.full(16, SENTINEL, np.int32)
+            gidx[:n_g] = rng.choice(n, n_g, replace=False)
+            gidx = t(gidx)
+            for count in CLUSTER_PATCHES:
+                count = fc.MAX_PATCH_ROWS if count == "max" else count
+                if count > n or (count == fc.MAX_PATCH_ROWS and si > 0):
+                    continue
+                if count:
+                    pidx, pbuf = (t(x) for x in patch_rows(
+                        np, spec, n, count, n + count, max_v))
+                else:
+                    pidx, pbuf = empty
+                for thresh, ng, ncg, cpb, alpha in requests:
+                    req = fc.FusedRequest(thresh, ng, ncg, cpb, alpha)
+                    what = (f"{spec.name} n={n} p={pidx.shape[0]} "
+                            f"req={thresh, ng, ncg, cpb, alpha}")
+                    want = nck.normal_cycle_plain(ns, v, dr, pidx, pbuf, req,
+                                                  spec)
+                    errs["normal_cycle"] = max(errs["normal_cycle"], compare(
+                        torch, [nck.normal_cycle(ns, v, dr, pidx, pbuf,
+                                                 req=req, spec=spec)],
+                        [want], "normal_cycle " + what))
+                    n_normal += 1
+                    st = fc.launch_state(ns, v, dr, pidx, pbuf, None,
+                                         resident=True)
+                    errs["normal_cycle"] = max(errs["normal_cycle"], compare(
+                        torch, [nck.launch(st, req, spec, geometry=(
+                            nck.normal_geometry(n, split_nodes=0)))],
+                        [want], "normal_cycle split " + what))
+                    n_split += 1
+                    kw = dict(m_res=8, resident=True, m_gather=8, req=req,
+                              spec=spec)
+                    cls = fc.fused_class(ns, v, dr, pidx, pbuf, gidx, **kw)
+                    tkw = dict(resident=True, seg=cls.shape[1], req=req,
+                               spec=spec)
+                    errs["fused_argmax"] = max(errs["fused_argmax"], compare(
+                        torch, [fc.fused_argmax(cls, ns, v, pidx, pbuf, gidx,
+                                                **tkw)],
+                        [fc.fused_argmax_plain(cls, ns, v, pidx, pbuf, gidx,
+                                               **tkw)],
+                        "fused_argmax resident " + what))
+                    n_tail += 1
+                    if n <= 1025:     # 16-row chunks of gathered rows
+                        chunks = np.full(48, SENTINEL, np.int32)
+                        chunks[:min(40, n)] = rng.choice(n, min(40, n),
+                                                         replace=False)
+                        chunks = t(chunks)
+                        gkw = dict(m_res=8, resident=False, m_gather=8,
+                                   req=req, spec=spec)
+                        gcls = fc.fused_class(ns, v, dr, pidx, pbuf, chunks,
+                                              **gkw)
+                        ckw = dict(resident=False, seg=16, req=req,
+                                   spec=spec)
+                        errs["fused_argmax"] = max(
+                            errs["fused_argmax"], compare(
+                                torch,
+                                [fc.fused_argmax(gcls, ns, v, pidx, pbuf,
+                                                 chunks, **ckw)],
+                                [fc.fused_argmax_plain(gcls, ns, v, pidx,
+                                                       pbuf, chunks, **ckw)],
+                                "fused_argmax chunks " + what))
+                        n_tail += 1
+                if spec is RTX4090_SERVER and n == 8193 and count == 9:
+                    keep = dict(ns=ns, v=v, dr=dr, pidx=pidx, pbuf=pbuf,
+                                gidx=gidx, spec=spec)
+            # class tables with forced exact ties, through the tail alone
+            if n in (1, 129, 1025, 8193, 40960):
+                for alpha in (0.0, 0.3, 0.5):
+                    req = fc.FusedRequest(1000, 1, 1, 1, alpha)
+                    cls = t(tie_table(np, n, 7 * n + si))
+                    tkw = dict(resident=True, seg=n, req=req, spec=spec)
+                    args = (cls, ns, v, *empty, empty[0])
+                    errs["fused_argmax"] = max(errs["fused_argmax"], compare(
+                        torch, [fc.fused_argmax(*args, **tkw)],
+                        [fc.fused_argmax_plain(*args, **tkw)],
+                        f"fused_argmax ties {spec.name} n={n} alpha={alpha}"))
+                    n_tie += 1
+    # more patch rows than the shared-memory budget: the wrapper raises
+    ns, v, dr, spec = keep["ns"], keep["v"], keep["dr"], keep["spec"]
+    big = torch.zeros(2 * fc.MAX_PATCH_ROWS, dtype=torch.int32, device=dev)
+    try:
+        nck.normal_cycle(ns, v, dr, big, torch.zeros(
+            (big.shape[0], 87), dtype=torch.int32, device=dev),
+            req=fc.FusedRequest(1000, 1, 1, 1, 0.5), spec=spec)
+        raised = False
+    except ValueError:
+        raised = True
+    check(raised, "normal_cycle took more patch rows than MAX_PATCH_ROWS")
+    # back to back: the same inputs give the same bits every launch, with
+    # nothing carried from one launch to the next
+    req = fc.FusedRequest(1000, 2, 2, 1, 0.5)
+    pidx, pbuf, gidx = keep["pidx"], keep["pbuf"], keep["gidx"]
+    cls = fc.fused_class(ns, v, dr, pidx, pbuf, gidx, m_res=8, resident=True,
+                         m_gather=8, req=req, spec=spec)
+    outs = {"normal_cycle": [], "fused_argmax": []}
+    for _ in range(BACK_TO_BACK):
+        outs["normal_cycle"].append(nck.normal_cycle(
+            ns, v, dr, pidx, pbuf, req=req, spec=spec))
+        outs["fused_argmax"].append(fc.fused_argmax(
+            cls, ns, v, pidx, pbuf, gidx, resident=True, seg=cls.shape[1],
+            req=req, spec=spec))
+    torch_sync(dev)
+    for name, got in outs.items():
+        check(all(torch.equal(got[0], x) for x in got[1:]),
+              f"{name}: {BACK_TO_BACK} back-to-back launches differ")
+    print(f"[fused] the cluster kernels: {n_normal} normal_cycle (and "
+          f"{n_split} in its split form) and "
+          f"{n_tail} + {n_tie} (tie tables) fused_argmax cases bit-exact "
+          f"against the plain versions (N {list(CLUSTER_NODES)}, "
+          f"{[s.name for s, _ in specs]}, patch rows 0/1/9/"
+          f"{fc.MAX_PATCH_ROWS}); {2 * fc.MAX_PATCH_ROWS} patch rows raise; "
+          f"{BACK_TO_BACK} back-to-back launches of each bit-identical",
+          flush=True)
     return errs
 
 
@@ -1352,10 +1539,12 @@ def event_ms(torch, fn, reps: int = 15, inner: int = 40) -> float:
     return statistics.median(samples)
 
 
-def profiled_kernel_ms(torch, fn, kernel: str, calls: int = 40,
+def profiled_kernel_ms(torch, fn, kernel, calls: int = 40,
                        attempts: int = 3):
     """Device time per launch of `kernel` from torch.profiler, or None where
-    the profiler records no device time for it.  The profiler has come back
+    the profiler records no device time for it; `kernel` a tuple of names,
+    each launched once a call of `fn`: the sum of their times a launch.
+    The profiler has come back
     without the device records of the ctypes-launched kernels now and then
     (one of six fused timings in a run), so an empty window is profiled
     again, up to ``attempts`` times."""
@@ -1368,14 +1557,17 @@ def profiled_kernel_ms(torch, fn, kernel: str, calls: int = 40,
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        total, count = 0.0, 0
+        names = kernel if isinstance(kernel, tuple) else (kernel,)
+        total = dict.fromkeys(names, 0.0)
+        count = dict.fromkeys(names, 0)
         for ev in prof.key_averages():
-            if kernel in ev.key:
-                total += getattr(ev, "device_time_total",
-                                 getattr(ev, "cuda_time_total", 0.0))
-                count += ev.count
-        if count and total > 0:
-            return total / count / 1e3
+            for k in names:
+                if k in ev.key:
+                    total[k] += getattr(ev, "device_time_total",
+                                        getattr(ev, "cuda_time_total", 0.0))
+                    count[k] += ev.count
+        if any(count.values()) and sum(total.values()) > 0:
+            return sum(total[k] / count[k] for k in names if count[k]) / 1e3
     return None
 
 
@@ -1478,10 +1670,14 @@ def sweep_ops(torch, ns, v, dr, m: int, gate: bool, req, spec) -> float:
     return float(ops.sum())
 
 
-def fused_rows(torch, np, dev, errs, launches, plans, clusters) -> list[dict]:
+def fused_rows(torch, np, dev, errs, launches, plans, clusters,
+               sweep) -> list[dict]:
     """The fused engine's kernels at the main path's shapes (preemptor B on
     the saturated 1024- and 10240-node clusters, no patch rows): time per
-    call, device time per launch, plain version, bound."""
+    call as the engine calls them (one launch state for the plan's chain;
+    ``ms_checked``: each call checks its tensors), device time per launch,
+    plain version, bound; K2's and the tail's rows carry ``sweep``
+    (`cluster_sweep`), and K2's shapes its device time in both forms."""
     from repro_torch.core.preemption_device import (_pad_idx, _request,
                                                     split_fused_nodes)
     from repro_torch.core.workload import table3_workloads
@@ -1521,41 +1717,65 @@ def fused_rows(torch, np, dev, errs, launches, plans, clusters) -> list[dict]:
         # free masks and the GPU and CG masks of its k victims; it writes 9
         k_win = bin(win[3] & 0xFFFFFFFF).count("1")
         tail_bytes = (12 * rows + 1 + (win[1] >= n) + 2 + 2 * k_win + 9) * 4
+        st = fc.launch_state(ns, v, dr, pidx, pbuf, None, resident=True)
         ops = sweep_ops(torch, ns, v, dr, split.m_res, True, req, spec)
         if split.mid:
             g = gidx[:len(split.mid)].long()
             ops += sweep_ops(torch, ns[:, g], v[:, g], dr[:, g], 8, False,
                              req, spec)
+        def fresh(fn):
+            """fn with its launch state checked anew each call."""
+            def call():
+                fc.launch_state.cache_clear()
+                return fn()
+            return call
+
+        cls_fn = lambda: fc.fused_class(ns, v, dr, pidx, pbuf, gidx, **kw)
+        tail_fn = lambda: fc.fused_argmax(cls, ns, v, pidx, pbuf, gidx,
+                                          **tkw)
+        k2_fn = lambda: nck.normal_cycle(ns, v, dr, pidx, pbuf, req=req,
+                                         spec=spec)
         work = {
             "fused_class": (
-                lambda: fc.fused_class(ns, v, dr, pidx, pbuf, gidx, **kw),
+                cls_fn, fresh(cls_fn),
                 lambda: fc.fused_class_plain(ns, v, dr, pidx, pbuf, gidx,
                                              **kw),
                 "fused_class_kernel", class_bytes, ops),
             "fused_argmax": (
-                lambda: fc.fused_argmax(cls, ns, v, pidx, pbuf, gidx, **tkw),
+                tail_fn, fresh(tail_fn),
                 lambda: fc.fused_argmax_plain(cls, ns, v, pidx, pbuf, gidx,
                                               **tkw),
                 "fused_argmax_kernel", tail_bytes, 3 * rows * 20),
             "normal_cycle": (
-                lambda: nck.normal_cycle(ns, v, dr, pidx, pbuf, req=req,
-                                         spec=spec),
+                k2_fn, fresh(k2_fn),
                 lambda: nck.normal_cycle_plain(ns, v, dr, pidx, pbuf, req,
                                                spec),
-                "normal_cycle_kernel", 3 * n * 4 + 20,
+                K2_KERNELS, 3 * n * 4 + 20,
                 n * (12 * spec.num_numa + 4 * spec.num_sockets + 20)),
         }
-        for name, (fn, plain, sym, n_bytes, n_ops) in work.items():
+        for name, (fn, checked, plain, sym, n_bytes, n_ops) in work.items():
             b_ms, b_by = bound_ms(n_bytes, n_ops, INT_OPS_PER_S)
             ms = event_ms(torch, fn)
             kernel_ms = profiled_kernel_ms(torch, fn, sym)
             shapes[name].append({
                 "nodes": n, "rows": rows, "m_res": split.m_res,
-                "mid_rows": len(split.mid), "ms": ms, "kernel_ms": kernel_ms,
+                "mid_rows": len(split.mid), "ms": ms,
+                "ms_checked": event_ms(torch, checked), "kernel_ms": kernel_ms,
                 "plain_ms": event_ms(torch, plain, reps=5, inner=3),
                 "bytes": n_bytes, "int_ops": n_ops, "bound_ms": b_ms,
                 "bound_by": b_by,
                 "bound_share": b_ms / (kernel_ms or ms)})
+        shapes["normal_cycle"][-1]["kernel_ms_tier"] = tier_forms(
+            torch, k2_fn, K2_KERNELS)
+        shapes["fused_argmax"][-1]["kernel_ms_tier"] = tier_forms(
+            torch, tail_fn, ("fused_argmax_kernel",))
+        most = fc.max_cluster_ctas(st.device)
+        shapes["normal_cycle"][-1]["kernel_ms_forms"] = {
+            form: profiled_kernel_ms(torch, lambda g=g: nck.launch(
+                st, req, spec, geometry=g), K2_KERNELS)
+            for form, g in (("one_cluster", nck.normal_geometry(
+                n, most, split_nodes=n)), ("split", nck.normal_geometry(
+                    n, most, split_nodes=0)))}
     ref = {"fused_class": ("topo_score_argmax_pallas", 214,
                            "resident form: preemption_jax.py:445 "
                            "_fused_class_core"),
@@ -1584,7 +1804,121 @@ def fused_rows(torch, np, dev, errs, launches, plans, clusters) -> list[dict]:
             "bound_share": main["bound_share"], "library_ms": None,
             "shapes": got,
         })
+        if name in sweep:
+            rows_out[-1]["geometry_sweep"] = sweep[name]
     return rows_out
+
+
+#: K2's kernels: the one-cluster form launches the first, the split form
+#: both
+K2_KERNELS = ("normal_cycle_kernel", "normal_merge_kernel")
+#: the define that builds K2's screen and the cluster kernels' placement on
+#: tier_of (the lane kernels' tier_score) in place of fused_tier: the
+#: yardstick the tier function is timed against
+TIER_YARDSTICK = ("FUSED_TIER_BY_TIER_SCORE",)
+
+
+@contextlib.contextmanager
+def launching_from(library):
+    """Inside the block the fused wrappers launch from ``library`` (a build
+    of csrc/topo_score.cu with the same interface)."""
+    from repro_torch.kernels import fused_class as fc
+    from repro_torch.kernels import normal_cycle as nck
+
+    saved = fc.lib, nck.lib
+    fc.lib = nck.lib = lambda: library
+    try:
+        yield
+    finally:
+        fc.lib, nck.lib = saved
+
+
+def yardstick_lib():
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_class as fc
+
+    return fc.bind(_build.load("topo_score", TIER_YARDSTICK))
+
+
+def tier_forms(torch, fn, kernels) -> dict[str, list]:
+    """Device time a call of ``fn`` launched from this build (fused_tier)
+    and from the yardstick build (tier_of), in the order A, B, B, A; the
+    two builds' outputs must agree bit for bit."""
+    yard = yardstick_lib()
+    got = {"fused_tier": [], "tier_of": []}
+    outs = {}
+    for form in ("fused_tier", "tier_of", "tier_of", "fused_tier"):
+        ctx = (launching_from(yard) if form == "tier_of"
+               else contextlib.nullcontext())
+        with ctx:
+            got[form].append(profiled_kernel_ms(torch, fn, kernels))
+            outs[form] = fn().clone()
+    check(torch.equal(outs["fused_tier"], outs["tier_of"]),
+          f"{kernels}: the fused_tier and tier_of builds disagree")
+    return got
+#: node counts of `cluster_sweep`
+SWEEP_NODES = (128, 1024, 4096, 8192, 10240, 12288, 16384, 24576, 40960)
+
+
+def cluster_sweep(torch, np, dev) -> dict[str, list]:
+    """Device time a call of K2's normal-cycle form (one cluster, and split)
+    and of K1's tail on random resident states from 128 to 40960 nodes (RTX
+    4090 servers, preemptor B's request), without and with 9 patch rows:
+    how the cluster kernels' time grows with N, where K2's split form
+    overtakes one cluster (`normal_cycle.SPLIT_NODES`), and what patch rows
+    add."""
+    from repro_torch.core.topology import RTX4090_SERVER as spec
+    from repro_torch.kernels import fused_class as fc
+    from repro_torch.kernels import normal_cycle as nck
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    req = fc.FusedRequest(1000, 2, 2, 1, 0.5)
+    out = {"normal_cycle": [], "fused_argmax": []}
+    for n in SWEEP_NODES:
+        ns, v, dr = (t(x) for x in resident_state(np, spec, n, 8, n))
+        gidx = t(np.zeros(0, np.int32))
+        for count in (0, 9):
+            if count:
+                pidx, pbuf = (t(x) for x in patch_rows(np, spec, n, count,
+                                                       n + 5, 8))
+            else:
+                pidx, pbuf = gidx, t(np.zeros((0, 87), np.int32))
+            cls = fc.fused_class(ns, v, dr, pidx, pbuf, gidx, m_res=8,
+                                 resident=True, m_gather=8, req=req,
+                                 spec=spec)
+            st = fc.launch_state(ns, v, dr, pidx, pbuf, None, resident=True)
+            most = fc.max_cluster_ctas(st.device)
+            k2 = {form: nck.normal_geometry(n, most, split_nodes=cut)
+                  for form, cut in (("one_cluster", n), ("split", 0))}
+            row = {"nodes": n, "patch_rows": count,
+                   "auto": list(nck.normal_geometry(n, most))}
+            for form, g in k2.items():
+                fn = (lambda g=g: nck.launch(st, req, spec, geometry=g))
+                row[form] = {"geometry": list(g),
+                             "ms": event_ms(torch, fn, reps=7),
+                             "kernel_ms": profiled_kernel_ms(torch, fn,
+                                                             K2_KERNELS)}
+            row["tier_forms"] = tier_forms(
+                torch, lambda: nck.normal_cycle(ns, v, dr, pidx, pbuf,
+                                                req=req, spec=spec),
+                K2_KERNELS)
+            out["normal_cycle"].append(row)
+            fn = (lambda: fc.fused_argmax(cls, ns, v, pidx, pbuf, gidx,
+                                          resident=True, seg=n, req=req,
+                                          spec=spec))
+            out["fused_argmax"].append({
+                "nodes": n, "patch_rows": count,
+                "ctas_threads": list(fc.cluster_geometry(
+                    n, fc.TAIL_THREADS, most)),
+                "ms": event_ms(torch, fn, reps=7),
+                "kernel_ms": profiled_kernel_ms(torch, fn,
+                                                "fused_argmax_kernel"),
+                "tier_forms": tier_forms(torch, fn,
+                                         ("fused_argmax_kernel",))})
+    print(f"[cluster-sweep] {json.dumps(out)}", flush=True)
+    return out
 
 
 def flash_timing(torch, shape, plain: bool) -> dict:
@@ -1647,7 +1981,7 @@ def flash_row(torch, errs, launches) -> dict:
 #: the CUDA kernels of each traced engine's plan
 TRACE_KERNELS = {"imp_pallas": ("topo_score_argmax_kernel",),
                  "imp_batched": ("fused_class_kernel", "fused_argmax_kernel",
-                                 "normal_cycle_kernel")}
+                                 "normal_cycle_kernel", "normal_merge_kernel")}
 
 
 def trace_phase(torch, dev, engine: str = "imp_pallas", nodes: int = 1024,
@@ -1719,17 +2053,20 @@ def build_all() -> None:
     then count the Hopper instructions of the bf16 flash-attention kernels."""
     from repro_torch.kernels import _build
 
-    def one(name):
+    def one(target):
         t0 = time.perf_counter()
-        log = _build.build(name)
-        return name, time.perf_counter() - t0, log
+        log = _build.build(*target)
+        return target, time.perf_counter() - t0, log
 
-    names = ("topo_score", "flash_attention")
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
-        for name, secs, log in pool.map(one, names):
-            print(f"[build] {name}.cu: {secs:.2f} s\n{log.strip()}",
+    targets = (("topo_score", ()), ("flash_attention", ()),
+               ("topo_score", TIER_YARDSTICK))
+    with concurrent.futures.ThreadPoolExecutor(len(targets)) as pool:
+        for (name, defines), secs, log in pool.map(one, targets):
+            flags = "".join(f" -D{d}" for d in defines)
+            print(f"[build] {name}.cu{flags}: {secs:.2f} s\n{log.strip()}",
                   flush=True)
-    counts = sass_counts(_build._target("flash_attention")[1])
+    counts = sass_counts(_build._target("flash_attention")[1],
+                         r"flash_bf16_kernelILi(\d+)E", SASS_OPS)
     print(f"[build] flash_bf16_kernel SASS (head dim: counts): "
           f"{json.dumps(counts)}", flush=True)
     check(len(counts) == 4, f"flash_bf16_kernel: {len(counts)} of 4 head "
@@ -1737,14 +2074,27 @@ def build_all() -> None:
     for d, c in counts.items():
         check(c["HGMMA"] > 0 and c["UTMALDG"] > 0,
               f"flash_bf16_kernel<{d}> has no wgmma or no TMA load: {c}")
+    counts = sass_counts(_build._target("topo_score")[1],
+                         r"(normal_cycle_kernel|normal_merge_kernel|"
+                         r"fused_argmax_kernel)", ATOMIC_OPS)
+    print(f"[build] cluster kernels SASS (kernel: counts): "
+          f"{json.dumps(counts)}", flush=True)
+    check(len(counts) == 3, f"{sorted(counts)} of the three cluster-form "
+          "kernels found in the SASS")
+    for name, c in counts.items():
+        check(c["ATOMG"] == 0 and c["RED"] == 0 and c["ATOM"] == 0,
+              f"{name} holds global atomics: {c}")
 
 
 SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG")
+#: global atomics and reductions (generic, global, fire-and-forget)
+ATOMIC_OPS = ("ATOMG", "ATOM", "RED")
 
 
-def sass_counts(lib) -> dict[str, dict[str, int]]:
-    """Per bf16 flash kernel (by head dim), the count of each SASS_OPS
-    instruction in ``cuobjdump -sass`` of the built library."""
+def sass_counts(lib, function: str, ops) -> dict[str, dict[str, int]]:
+    """Per function whose name matches ``function`` (keyed by its first
+    group), the count of each of ``ops`` in ``cuobjdump -sass`` of the
+    built library."""
     import re
     import shutil
 
@@ -1756,11 +2106,11 @@ def sass_counts(lib) -> dict[str, dict[str, int]]:
     cur = None
     for line in out.stdout.splitlines():
         if "Function :" in line:
-            m = re.search(r"flash_bf16_kernelILi(\d+)E", line)
-            cur = counts.setdefault(m.group(1), dict.fromkeys(SASS_OPS, 0)) \
+            m = re.search(function, line)
+            cur = counts.setdefault(m.group(1), dict.fromkeys(ops, 0)) \
                 if m else None
         elif cur is not None:
-            for op in SASS_OPS:
+            for op in ops:
                 if re.search(rf"\b{op}\b", line):
                     cur[op] += 1
     return counts
@@ -1792,6 +2142,8 @@ def run() -> int:
 
     errs = kernel_phase(torch, np, dev)
     errs.update(fused_phase(torch, np, dev))
+    for name, err in cluster_phase(torch, np, dev).items():
+        errs[name] = max(errs[name], err)
     t0 = time.perf_counter()
     big = {10240: build_saturated_cluster(SimConfig(num_nodes=10240, seed=0,
                                                     device=dev))}
@@ -1821,7 +2173,7 @@ def run() -> int:
     rows.append(flash_row(torch, flash_errs,
                           serve["counts"]["flash_attention"]))
     rows.extend(fused_rows(torch, np, dev, errs, launches, fused_plans,
-                           clusters))
+                           clusters, cluster_sweep(torch, np, dev)))
     for row in rows:
         if row["name"] in day["launches"]:
             row["day_launches"] = day["launches"][row["name"]]

@@ -93,6 +93,7 @@ def instance_rows(cluster) -> list[InstanceRow]:
 
 class Cluster:
     def __init__(self, spec: ServerSpec, num_nodes: int,
+                 node_index: bool = True,
                  device: str | torch.device = "cuda") -> None:
         self.spec = spec
         self.num_nodes = num_nodes
@@ -102,6 +103,9 @@ class Cluster:
         self._uid = itertools.count()
         # per-node instance index + cached free masks: turns victims_on /
         # free_masks from O(total instances) scans into O(node) lookups
+        # (node_index=False is the naive scan, the baseline it is measured
+        # against; both give the same answers)
+        self.node_index = node_index
         self._by_node: list[set[int]] = [set() for _ in range(num_nodes)]
         self._mask_cache: list[tuple[int, int] | None] = [None] * num_nodes
         # node-dirty fan-out: every mutation funnels through invalidate_node
@@ -233,15 +237,20 @@ class Cluster:
 
     # ---- queries --------------------------------------------------------------------
     def free_masks(self, node: int) -> tuple[int, int]:
-        cached = self._mask_cache[node]
-        if cached is None:
-            m = self.topos[node].as_masks()
-            cached = (m.free_gpu_mask, m.free_cg_mask)
-            self._mask_cache[node] = cached
-        return cached
+        if self.node_index:
+            cached = self._mask_cache[node]
+            if cached is None:
+                m = self.topos[node].as_masks()
+                cached = (m.free_gpu_mask, m.free_cg_mask)
+                self._mask_cache[node] = cached
+            return cached
+        m = self.topos[node].as_masks()
+        return m.free_gpu_mask, m.free_cg_mask
 
     def instances_on(self, node: int) -> list[Instance]:
-        return [self.instances[u] for u in self._by_node[node]]
+        if self.node_index:
+            return [self.instances[u] for u in self._by_node[node]]
+        return [i for i in self.instances.values() if i.node == node]
 
     def victims_on(self, node: int, preemptor_priority: int) -> list[Instance]:
         """Potential victims: strictly lower priority and preemptible."""

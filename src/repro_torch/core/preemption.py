@@ -173,3 +173,22 @@ def flextopo_imp(cluster: Cluster, workload: WorkloadSpec, node: int
         if feasible:
             return feasible  # early stop: no benefit in evicting more pods
     return []
+
+
+# ---------------------------------------------------------------------------------
+# Oracle for property tests: smallest feasible subset size by definition
+# ---------------------------------------------------------------------------------
+
+def brute_force_min_k(cluster: Cluster, workload: WorkloadSpec, node: int
+                      ) -> tuple[int, list[Candidate]] | None:
+    """The smallest subset size k that frees a feasible placement on
+    ``node`` and every feasible subset of that size, trying every size
+    from 0 up with no bound or early exit; None when no subset is
+    feasible."""
+    victims = cluster.victims_on(node, workload.priority)
+    for k in range(0, len(victims) + 1):
+        combos = [()] if k == 0 else list(itertools.combinations(victims, k))
+        feasible = _evaluate_combos(cluster, node, workload, combos)
+        if feasible:
+            return k, feasible
+    return None

@@ -71,6 +71,12 @@ from .workload import TopoPolicy, WorkloadSpec
 AUTO_ENGINE_THRESHOLD = 4096
 
 
+#: engines the reference registers with ``supports_shortlist``: a
+#: best-effort shortlist would cap their sweep at K rows, which the port
+#: cannot do yet
+SHORTLIST_ENGINES = ("imp_batched", "imp_sharded")
+
+
 @dataclasses.dataclass(frozen=True)
 class ShortlistConfig:
     """Knobs of the two-stage shortlist sourcing front-end.
@@ -87,7 +93,9 @@ class ShortlistConfig:
 
     No engine of this package takes it yet: the shortlist front-end of the
     fused engine is still to be ported, so `TopoScheduler` builds one only
-    for an engine registered with ``supports_shortlist``.
+    for an engine registered with ``supports_shortlist``, and refuses
+    ``"best_effort"`` for the engines the reference gives a shortlist
+    (`SHORTLIST_ENGINES`) rather than run their exact full sweep instead.
     """
 
     k: int = 128
@@ -118,7 +126,10 @@ class TopoScheduler:
     effect only for engines registered with ``supports_shortlist``; no
     engine of this package has that flag yet, so ``self.shortlist`` is
     ``None`` and the provenance carries ``shortlist_k`` 0 and
-    ``shortlist_mode`` None.
+    ``shortlist_mode`` None: guaranteed mode decides as the full sweep
+    does, which is what runs.  ``"best_effort"`` with ``shortlist_k > 0``
+    on an engine of `SHORTLIST_ENGINES` raises `NotImplementedError`, since
+    the reference's answer may differ from the full sweep's by design.
 
     ``plan_counts`` counts the fused plans (``fused_place`` engines) by
     kind: ``"normal_only"`` (``allow_preempt=False``: the normal cycle
@@ -146,6 +157,12 @@ class TopoScheduler:
             engine = "imp_batched"
         self.engine: EngineName = engine
         self._engine: SourcingEngine = get_engine(engine)
+        if (shortlist_mode == "best_effort" and shortlist_k > 0
+                and engine in SHORTLIST_ENGINES):
+            raise NotImplementedError(
+                f"shortlist_mode='best_effort' on {engine!r}: the shortlist "
+                "is not ported yet (ROADMAP.md §1 item 2), and the port "
+                "does not run the full sweep in its place")
         self.alpha = alpha
         self.shortlist = (
             ShortlistConfig(k=shortlist_k, mode=shortlist_mode)

@@ -321,6 +321,7 @@ def run_plan_latency_experiment(
     engine: EngineName,
     preemptor_name: str,
     samples: int = 50,
+    warmup: bool = False,
 ) -> HitRateReport:
     """Filtering-INCLUSIVE end-to-end ``plan()`` latency for one preemptor.
 
@@ -328,6 +329,7 @@ def run_plan_latency_experiment(
     sourcing phase), this times the whole transactional ``plan()`` call —
     normal cycle, Guaranteed Filtering, Sorting, and Eq. 2 selection.
     ``sourcing_us`` holds the plan wall times of preempted decisions.
+    ``warmup`` is passed to each cycle's ``TopoScheduler``.
     """
     report = HitRateReport(engine=engine)
     workloads = {w.name: w for w in table3_workloads()}
@@ -336,7 +338,8 @@ def run_plan_latency_experiment(
     while len(report.sourcing_us) < samples:
         cluster = build_saturated_cluster(
             dataclasses.replace(cfg, seed=cfg.seed + cycle))
-        sched = TopoScheduler(cluster, engine=engine, alpha=cfg.alpha)
+        sched = TopoScheduler(cluster, engine=engine, alpha=cfg.alpha,
+                              warmup=warmup)
         watch = CompileWatch.get()
         for _ in range(min(samples - len(report.sourcing_us), 10)):
             m = watch.mark()

@@ -58,9 +58,12 @@
 //    highest score, then the lowest flat index.  The flat index makes the
 //    order total, so the result does not depend on the reduction's order.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -81,8 +84,13 @@ constexpr int kVictimFields = 5;
 constexpr int kWinFields = 9;
 constexpr int kNarrowThreads = 256; // K1, m <= 8: 8 rows (warps) a CTA
 constexpr int kWideThreads = 512;   // K1, m = 16: one row a CTA
-constexpr int kTailThreads = 512;
-constexpr int kNormalThreads = 128;  // K2 normal cycle: a node a thread
+constexpr int kTailThreads = 512;     // K1's tail: most threads a CTA
+constexpr int kNormalThreads = 1024;  // K2 normal cycle: most threads a CTA
+constexpr int kNormalBatch = 4;       // K2: rows a thread loads together
+constexpr int kClusterCtas = 8;       // the portable thread-block cluster
+constexpr int kMaxClusterCtas = 16;   // the largest (non-portable) one
+constexpr int kMaxPatchRows = 16384;  // the patch index in shared memory
+constexpr int kMaxSplitClusters = 1024; // K2's split form: partial minima
 
 enum { NS_FREE_GPU, NS_FREE_CG, NS_NODE_ID, NS_OVERFLOW, NS_NEXT_PRIO };
 enum { VF_GPU, VF_CG, VF_PRIO, VF_RANK, VF_STORED };
@@ -361,17 +369,47 @@ __global__ void __launch_bounds__(kThreads)
 //    the subsets the data makes eligible times the integer work of one
 //    (chip_smoke.py computes both per run).  At 1024 nodes and m = 8 the
 //    launch, not the work, sets the time.
-//  * Tail: one CTA per segment of rows, two block reductions of integer/
-//    float keys, then one thread places the winner.  It reads 48-490 KB
-//    (1024-10240 rows) through one SM: launch- and latency-bound.
-//  * K2: one thread a node over a grid of 128-thread CTAs (80 CTAs at 10240
-//    nodes), the (tier, leftover, node, row) order packed into one 64-bit
-//    key, a warp-shuffle and CTA min, one atomicMin a CTA, and the last CTA
-//    to take a ticket (after __threadfence) places the winner with
-//    place_core.  Its 16 bytes of scratch go back to {no key, 0} at the end
-//    of every launch, so launches in one stream share it.
-//  * The tier of a subset or a node is the lane kernels' tier_score, on the
-//    request carried in FusedParams.t.
+//  * K2 and the tail are latency-bound: their bytes take 0.004-0.15 us at
+//    3.35 TB/s, so what sets their time is the chain of dependent steps
+//    after the launch.  Both run as ONE thread-block cluster a segment, of
+//    up to 8 CTAs (the portable size) or 16 where the card co-schedules
+//    them (cluster_ctas_max), launched with cudaLaunchKernelEx and a
+//    cluster-dimension attribute; the geometry (CTAs, threads a CTA) comes
+//    from fused_class.cluster_geometry.  A thread takes the rows rank x
+//    threads + thread + i x (CTAs x threads).  Each warp merges its lanes'
+//    values with redux.sync steps (a lexicographic key field by field),
+//    then the warps' values in warp 0, then the CTAs' values, which meet
+//    in rank 0's shared memory (distributed shared memory and one cluster
+//    barrier): no global atomic, no ticket, no fence and no scratch in
+//    device memory, so nothing carries from one launch to the next.  The
+//    patch index is staged into shared memory with cp.async while the
+//    first row loads are in flight (at most kMaxPatchRows, which the
+//    launchers check), and binary searches run there.
+//  * K2 carries the winner's free masks as the key's payload, so rank 0's
+//    warp 0 places it with no second fetch; with no candidate it places row
+//    0, whose masks block 0's thread 0 read itself.  One cluster has at
+//    most 16 SMs, so where most nodes pass the count screen the per-node
+//    tiers set K2's time as N grows.  Above normal_cycle.SPLIT_NODES nodes
+//    it runs split (normal_geometry): a grid of clusters (the rows
+//    blockIdx x threads + thread + i x (blocks x threads)), each writing
+//    its minimum and payload to a 16-byte record of a buffer the wrapper
+//    allocates, then one warp (normal_merge_kernel, the next launch on the
+//    stream) takes the least record and places it.  The records are all
+//    written before they are read, in stream order: still no atomic, and
+//    nothing carries from one call to the next.
+//  * The tail is one pass: a thread reads its rows' 12 class fields (each
+//    column coalesced), scores each (row, tier) entry once and folds it
+//    into an exact monoid (TailState, below) that carries the max score,
+//    the tiers at it, the count, and two tie keys; the tie chain's
+//    same-tier test picks one of the two at the end.  Rank 0's warp 0 then
+//    reads the winner's row (a lane a victim slot) and places it.
+//  * Placement (place_core) runs on one warp (warp_place): a lane a scope
+//    for the best-fit search, a lane a NUMA node for the lowest free bits.
+//  * The tier of a subset (K1) is the lane kernels' tier_score, on the
+//    request carried in FusedParams.t; that of a node (K2's screen) and of
+//    a winner's freed masks (placement) is the same rule from the per-NUMA
+//    counts that placement needs anyway (fused_tier), measured faster in
+//    both kernels (PERF.md).
 //
 // Exactness traps (each must hold for bit-identical decisions):
 //  * Eq. 1 in the tail: alpha is rounded to f32 and (1 - alpha) computed in
@@ -533,66 +571,164 @@ __device__ __forceinline__ int achieved_tier(unsigned gm, const FusedParams& p) 
   return __popc(socks) <= 1 ? 1 : 2;
 }
 
-__device__ void place_core(unsigned fg, unsigned fc, const FusedParams& p,
-                           bool& ok, int& tier, unsigned& gm, unsigned& cm) {
-  int cnt_c[kMaxNuma], units[kMaxNuma];
+// The multiplier of the bundle division, ceil(2^32 / d) for d >= 1 (0
+// without bundles): (cnt * m) >> 32 == cnt / d for every count a node's
+// 32-bit mask holds (0..32) and every d >= 1.  A kernel computes it once a
+// thread at its start, so no integer division sits on the per-node screen
+// or on the placement's serial chain.
+__device__ __forceinline__ unsigned long long bundle_magic(int d) {
+  return d > 0 ? static_cast<unsigned long long>(0xffffffffu /
+                                                 static_cast<unsigned>(d)) + 1
+               : 0ull;
+}
+
+// Per NUMA node u: units[u] (GPUs that come with their CoreGroup bundle, the
+// integer division of tier_score by `magic` = bundle_magic) and cnt_c[u]
+// (free CoreGroups), 0 past num_numa.
+__device__ __forceinline__ void numa_counts(unsigned g, unsigned c,
+                                            const FusedParams& p,
+                                            unsigned long long magic,
+                                            int (&units)[kMaxNuma],
+                                            int (&cnt_c)[kMaxNuma]) {
 #pragma unroll
   for (int u = 0; u < kMaxNuma; ++u) {
-    const int cg = u < p.t.num_numa
-                       ? __popc(fg & static_cast<unsigned>(p.t.numa_gpu[u])) : 0;
-    cnt_c[u] = u < p.t.num_numa
-                   ? __popc(fc & static_cast<unsigned>(p.t.numa_cg[u])) : 0;
-    units[u] = p.t.cgs_per_bundle > 0 ? min(cg, cnt_c[u] / p.t.cgs_per_bundle)
-                                    : cg;
+    const bool in = u < p.t.num_numa;
+    const int cg = in ? __popc(g & static_cast<unsigned>(p.t.numa_gpu[u])) : 0;
+    cnt_c[u] = in ? __popc(c & static_cast<unsigned>(p.t.numa_cg[u])) : 0;
+    const int q = static_cast<int>(
+        (static_cast<unsigned long long>(cnt_c[u]) * magic) >> 32);
+    units[u] = p.t.cgs_per_bundle > 0 ? min(cg, q) : cg;
   }
-  tier = tier_of(fg, fc, p);
-  int best_key = kIntMax, si = 0;
-  bool any = false;
-  for (int sc = 0; sc < p.n_scopes; ++sc) {
-    int s_units = 0, s_cg = 0;
+}
+
+// The placement tier of a node's free masks g, c from their per-NUMA counts
+// (numa_counts): tier_score's rule with the socket sums packed 8 bits a
+// socket into one 64-bit word (a socket holds at most 32 GPUs and 32
+// CoreGroups) in place of its per-socket arrays.  K2's per-node screen and
+// warp_place (K2's and the tail's placement) take the tier from here.
+// Built with -DFUSED_TIER_BY_TIER_SCORE it is tier_of(g, c) instead, the
+// yardstick chip_smoke.py times it against on the same inputs.
+__device__ __forceinline__ int fused_tier(unsigned g, unsigned c,
+                                          const int (&units)[kMaxNuma],
+                                          const int (&cnt_c)[kMaxNuma],
+                                          const FusedParams& p) {
+#ifdef FUSED_TIER_BY_TIER_SCORE
+  return tier_of(g, c, p);
+#else
+  unsigned long long su = 0, sc = 0;
+  int gu = 0, gc = 0;
+  bool numa_ok = false;
 #pragma unroll
-    for (int u = 0; u < kMaxNuma; ++u) {
-      if ((p.scope_members[sc] >> u) & 1) {
-        s_units += units[u];
-        s_cg += cnt_c[u];
-      }
-    }
-    if (s_units >= p.t.need_gpus && s_cg >= p.t.need_cgs &&
-        p.scope_tier[sc] == tier) {
-      any = true;
-      const int key = (s_units - p.t.need_gpus) * p.n_scopes + sc;
-      if (key < best_key) {
-        best_key = key;
-        si = sc;
-      }
+  for (int u = 0; u < kMaxNuma; ++u) {
+    if (u < p.t.num_numa) {
+      numa_ok |= units[u] >= p.t.need_gpus && cnt_c[u] >= p.t.need_cgs;
+      const int sh = 8 * p.t.socket_of_numa[u];
+      su += static_cast<unsigned long long>(units[u]) << sh;
+      sc += static_cast<unsigned long long>(cnt_c[u]) << sh;
+      gu += units[u];
+      gc += cnt_c[u];
     }
   }
-  const int member = p.scope_members[si];
+  bool sock_ok = false;
+#pragma unroll
+  for (int s = 0; s < kMaxSockets; ++s) {
+    if (s < p.t.num_sockets) {
+      sock_ok |= static_cast<int>((su >> (8 * s)) & 255u) >= p.t.need_gpus &&
+                 static_cast<int>((sc >> (8 * s)) & 255u) >= p.t.need_cgs;
+    }
+  }
+  return numa_ok ? 0
+                 : (sock_ok ? 1
+                            : (gu >= p.t.need_gpus && gc >= p.t.need_cgs ? 2
+                                                                         : 3));
+#endif
+}
+
+// v[lane] for a register array: a select per element, no local memory.
+__device__ __forceinline__ int pick(const int (&v)[kMaxNuma], int lane) {
+  int out = 0;
+#pragma unroll
+  for (int u = 0; u < kMaxNuma; ++u)
+    if (lane == u) out = v[u];
+  return out;
+}
+
+// place_core (placement_jax) over one warp.  Every lane holds all the
+// counts; lane sc judges scope sc, and one redux finds the best-fit scope
+// (the least leftover units, then the lowest index).  The takes walk the
+// scope's NUMA nodes in every lane, as the host's loop does; then lane u
+// picks NUMA node u's lowest free bits, and an OR across the warp joins
+// them.  The CoreGroup masks of the NUMA nodes are disjoint, so the second
+// pass over the CoreGroups left free sees only its node's first-pass bits.
+// Every lane must call it (full warp), and every collective in it runs in
+// every lane (none sits behind a condition); the results are the same in
+// all lanes.
+__device__ __forceinline__ void warp_place(unsigned fg, unsigned fc,
+                                           const FusedParams& p,
+                                           unsigned long long magic, bool& ok,
+                                           int& tier, unsigned& gm,
+                                           unsigned& cm) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  int units[kMaxNuma], cnt_c[kMaxNuma];
+  numa_counts(fg, fc, p, magic, units, cnt_c);
+  tier = fused_tier(fg, fc, units, cnt_c, p);
+  int member = 0, stier = 3;
+#pragma unroll
+  for (int sc = 0; sc < kMaxScopes; ++sc) {
+    if (lane == sc && sc < p.n_scopes) {
+      member = p.scope_members[sc];
+      stier = p.scope_tier[sc];
+    }
+  }
+  int s_units = 0, s_cg = 0;
+#pragma unroll
+  for (int u = 0; u < kMaxNuma; ++u) {
+    if ((member >> u) & 1) {
+      s_units += units[u];
+      s_cg += cnt_c[u];
+    }
+  }
+  const bool fits = lane < p.n_scopes && s_units >= p.t.need_gpus &&
+                    s_cg >= p.t.need_cgs && stier == tier;
+  const int key = fits ? (s_units - p.t.need_gpus) * p.n_scopes + lane
+                       : kIntMax;
+  const int best = __reduce_min_sync(kAll, key);
+  const unsigned at_best = __ballot_sync(kAll, fits && key == best);
+  const bool any = best != kIntMax;
+  const int scope = __shfl_sync(kAll, member, any ? __ffs(at_best) - 1 : 0);
+  // GPUs, then CoreGroups with them; then the scope's CoreGroups still free
+  int take[kMaxNuma], c_take[kMaxNuma], take2[kMaxNuma];
   int rem_g = p.t.need_gpus, rem_c = p.t.need_cgs;
-  gm = 0;
-  cm = 0;
 #pragma unroll
   for (int u = 0; u < kMaxNuma; ++u) {
-    if (u < p.t.num_numa) {
-      const int take = ((member >> u) & 1) ? min(rem_g, units[u]) : 0;
-      gm |= lowest_bits(fg & static_cast<unsigned>(p.t.numa_gpu[u]), take,
-                        p.num_gpus);
-      rem_g -= take;
-      const int c_take = min(take * p.t.cgs_per_bundle, rem_c);
-      cm |= lowest_bits(fc & static_cast<unsigned>(p.t.numa_cg[u]), c_take,
-                        p.num_cgs);
-      rem_c -= c_take;
-    }
+    const bool in = u < p.t.num_numa && ((scope >> u) & 1);
+    take[u] = in ? min(rem_g, units[u]) : 0;
+    rem_g -= take[u];
+    c_take[u] = min(take[u] * p.t.cgs_per_bundle, rem_c);
+    rem_c -= c_take[u];
   }
 #pragma unroll
   for (int u = 0; u < kMaxNuma; ++u) {
-    if (u < p.t.num_numa) {
-      const unsigned avail = fc & static_cast<unsigned>(p.t.numa_cg[u]) & ~cm;
-      const int take = ((member >> u) & 1) ? min(__popc(avail), rem_c) : 0;
-      cm |= lowest_bits(avail, take, p.num_cgs);
-      rem_c -= take;
+    const bool in = u < p.t.num_numa && ((scope >> u) & 1);
+    take2[u] = in ? min(cnt_c[u] - min(c_take[u], cnt_c[u]), rem_c) : 0;
+    rem_c -= take2[u];
+  }
+  unsigned gmask = 0, cmask = 0;
+#pragma unroll
+  for (int u = 0; u < kMaxNuma; ++u) {
+    if (lane == u && u < p.t.num_numa) {
+      gmask = static_cast<unsigned>(p.t.numa_gpu[u]);
+      cmask = static_cast<unsigned>(p.t.numa_cg[u]);
     }
   }
+  const unsigned gbits = lowest_bits(fg & gmask, pick(take, lane), p.num_gpus);
+  const unsigned cbits =
+      lowest_bits(fc & cmask, pick(c_take, lane), p.num_cgs);
+  const unsigned cbits2 =
+      lowest_bits(fc & cmask & ~cbits, pick(take2, lane), p.num_cgs);
+  gm = __reduce_or_sync(kAll, gbits);
+  cm = __reduce_or_sync(kAll, cbits | cbits2);
   ok = tier < 3 && any && rem_g == 0 && rem_c == 0;
 }
 
@@ -779,36 +915,72 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// ---- K1's tail: Eq. 2 argmax over class winners, then the placement --------
+// ---- thread-block clusters: the cross-CTA reductions of K2 and the tail ------
 
-__device__ __forceinline__ float eq1_score(int pp, int t, const FusedParams& p) {
-  const float prio_term =
-      pp > 0 ? __fdiv_rn(1.0f, __int2float_rn(max(pp, 1))) : 1.0f;
-  const float tv = t == 0 ? 1.0f : (t == 1 ? 0.5f : 0.1f);
-  return __fadd_rn(__fmul_rn(p.t.alpha, prio_term),
-                   __fmul_rn(p.t.one_minus_alpha, tv));
-}
-
-struct ScoreKey {  // max score; the lowest and highest tier at that score
-  float score;
-  int tmin;
-  int tmax;
-  int cnt;         // n_candidates, summed alongside
-};
-
-__device__ __forceinline__ void merge_score(ScoreKey& a, const ScoreKey& b) {
-  if (b.score > a.score) {
-    a.score = b.score;
-    a.tmin = b.tmin;
-    a.tmax = b.tmax;
-  } else if (b.score == a.score) {
-    a.tmin = min(a.tmin, b.tmin);
-    a.tmax = max(a.tmax, b.tmax);
+// A plan's patch index, staged from device memory into shared memory with
+// cp.async, one 4-byte copy a thread in turn (coalesced); each thread waits
+// for its own copies with stage_wait(), and a __syncthreads() after it makes
+// them the CTA's.
+__device__ __forceinline__ void stage_async(int* dst, const int* src, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst + i));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src + i)
+                 : "memory");
   }
-  a.cnt += b.cnt;
 }
 
-struct TieKey {  // (ppe_key asc, k asc, node id asc, umask desc, flat asc)
+__device__ __forceinline__ void stage_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The split cluster barrier (CUTLASS's cluster_arrive_relaxed / cluster_wait):
+// every thread arrives at the kernel's start and waits before its CTA's first
+// store into another CTA's shared memory, which proves that every CTA of the
+// cluster has started (distributed shared memory exists only then).
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// Merges v over the cluster with warp_merge, which merges the 32 lanes'
+// values of a warp and leaves the result in every lane: each warp, then the
+// warps' values in warp 0, then (when ctas > 1) the CTAs' values, which
+// each CTA's thread 0 stores into slot [rank] of rank 0's s_rank through
+// distributed shared memory, one cluster barrier (release / acquire)
+// before rank 0's warp 0 reads them.  Every thread of every CTA of the
+// cluster calls it, after cluster_arrive_relaxed() at the kernel's start
+// when ctas > 1.  Returns true in rank 0's warp 0, every lane of which
+// then holds the cluster's value.  No global memory, no atomic, no fence.
+template <typename T, typename WarpMerge>
+__device__ __forceinline__ bool cluster_reduce(T& v, T* s_warp, T* s_rank,
+                                               int ctas, const T& identity,
+                                               WarpMerge warp_merge) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  v = warp_merge(v);
+  if (blockDim.x > 32) {
+    if (lane == 0) s_warp[warp] = v;
+    __syncthreads();
+    if (warp == 0)
+      v = warp_merge(lane < static_cast<int>(blockDim.x >> 5) ? s_warp[lane]
+                                                              : identity);
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  if (ctas > 1) {
+    cluster_wait();
+    if (threadIdx.x == 0) *cluster.map_shared_rank(s_rank + rank, 0) = v;
+    cluster.sync();
+  }
+  if (rank != 0 || warp != 0) return false;
+  if (ctas > 1) v = warp_merge(lane < ctas ? s_rank[lane] : identity);
+  return true;
+}
+
+struct TieKey {  // (ppe asc, k asc, node id asc, umask desc, flat asc)
   int ppe;
   int k;
   int nid;
@@ -824,109 +996,213 @@ __device__ __forceinline__ bool tie_better(const TieKey& a, const TieKey& b) {
   return a.flat < b.flat;
 }
 
-template <typename T, typename Merge, typename Shfl>
-__device__ T block_reduce(T v, T* smem, Merge merge_fn, Shfl shfl) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) merge_fn(v, shfl(v, off));
-  const int warp = threadIdx.x / 32;
-  if ((threadIdx.x & 31) == 0) smem[warp] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    v = smem[0];
-    for (int w = 1; w < static_cast<int>(blockDim.x / 32); ++w)
-      merge_fn(v, smem[w]);
-    smem[0] = v;
-  }
-  __syncthreads();
-  v = smem[0];
-  __syncthreads();
-  return v;
+// ---- K1's tail: Eq. 2 argmax over class winners, then the placement --------
+
+// 1 / x rounded to nearest is __frcp_rn(x): the same bits as
+// __fdiv_rn(1.0f, x), the lane kernels' form.
+__device__ __forceinline__ float eq1_score(int pp, int t, const FusedParams& p) {
+  const float prio_term = pp > 0 ? __frcp_rn(__int2float_rn(max(pp, 1))) : 1.0f;
+  const float tv = t == 0 ? 1.0f : (t == 1 ? 0.5f : 0.1f);
+  return __fadd_rn(__fmul_rn(p.t.alpha, prio_term),
+                   __fmul_rn(p.t.one_minus_alpha, tv));
 }
 
+// The tail's one-pass state, an exact monoid: merge_tail is associative, and
+// each entry's flat index makes every tie key's order total, so no partition
+// of the rows and no order of merging changes the result.
+//   score        the max Eq. 1 score over the entries seen
+//   tmin, tmax   the lowest and highest tier of the entries at that score
+//   cnt          the sum of n_candidates (unsigned: wraps as the int32 sum)
+//   a, b         the best entry at that score by (ppe, k, node id, -umask,
+//                flat), with ppe = its priority sum (a) and ppe = 0 (b)
+// The tie chain's priority-sum step applies only when every entry at the max
+// score shares one tier and alpha > 0, which is known only at the end: then
+// the winner is a, else b.
+struct TailState {
+  float score;
+  int tmin;
+  int tmax;
+  unsigned cnt;
+  TieKey a;
+  TieKey b;
+};
+
+__device__ __forceinline__ TailState tail_identity() {
+  const TieKey none = {kIntMax, kIntMax, kIntMax, -1, kIntMax};
+  return {-CUDART_INF_F, 3, -1, 0u, none, none};
+}
+
+__device__ __forceinline__ void merge_tail(TailState& x, const TailState& y) {
+  if (y.score > x.score) {
+    x.score = y.score;
+    x.tmin = y.tmin;
+    x.tmax = y.tmax;
+    x.a = y.a;
+    x.b = y.b;
+  } else if (y.score == x.score) {
+    x.tmin = min(x.tmin, y.tmin);
+    x.tmax = max(x.tmax, y.tmax);
+    if (tie_better(y.a, x.a)) x.a = y.a;
+    if (tie_better(y.b, x.b)) x.b = y.b;
+  }
+  x.cnt += y.cnt;
+}
+
+// A float's order as a signed int (-0 taken as +0; scores are never NaN).
+// The map is its own inverse.
+__device__ __forceinline__ int ordered(float f) {
+  const int i = __float_as_int(__fadd_rn(f, 0.0f));
+  return i ^ ((i >> 31) & 0x7fffffff);
+}
+
+__device__ __forceinline__ float unordered(int i) {
+  return __int_as_float(i ^ ((i >> 31) & 0x7fffffff));
+}
+
+// The least tie key over the lanes where c holds, field by field (one redux
+// each); every lane gets it.
+__device__ __forceinline__ TieKey warp_min_tie(const TieKey& k, bool c) {
+  constexpr unsigned kAll = 0xffffffffu;
+  TieKey m;
+  m.ppe = __reduce_min_sync(kAll, c ? k.ppe : kIntMax);
+  c = c && k.ppe == m.ppe;
+  m.k = __reduce_min_sync(kAll, c ? k.k : kIntMax);
+  c = c && k.k == m.k;
+  m.nid = __reduce_min_sync(kAll, c ? k.nid : kIntMax);
+  c = c && k.nid == m.nid;
+  m.um = __reduce_max_sync(kAll, c ? k.um : -kIntMax - 1);
+  c = c && k.um == m.um;
+  m.flat = __reduce_min_sync(kAll, c ? k.flat : kIntMax);
+  return m;
+}
+
+// merge_tail over the 32 lanes of a warp, in redux steps: the max score,
+// then the tiers and tie keys of the lanes at it, and the count.
+__device__ __forceinline__ TailState warp_merge_tail(const TailState& x) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int sk = ordered(x.score);
+  const int top = __reduce_max_sync(kAll, sk);
+  const bool at = sk == top;
+  TailState y;
+  y.score = unordered(top);
+  y.tmin = __reduce_min_sync(kAll, at ? x.tmin : 3);
+  y.tmax = __reduce_max_sync(kAll, at ? x.tmax : -1);
+  y.cnt = __reduce_add_sync(kAll, x.cnt);
+  y.a = warp_min_tie(x.a, at);
+  y.b = warp_min_tie(x.b, at);
+  return y;
+}
+
+// Folds one row's three (row, tier) entries into st: a row's 12 class
+// fields are any[3], pp[3], um[3], k, cnt and node id.
+__device__ __forceinline__ void fold_row(TailState& st, const int* f, int row,
+                                         const FusedParams& p) {
+  st.cnt += static_cast<unsigned>(f[10]);
+#pragma unroll
+  for (int t = 0; t < 3; ++t) {
+    if (!f[t]) continue;
+    TailState e;
+    e.score = eq1_score(f[3 + t], t, p);
+    e.tmin = e.tmax = t;
+    e.cnt = 0u;
+    e.a = {f[3 + t], f[9], f[11], f[6 + t], row * 3 + t};
+    e.b = {0, f[9], f[11], f[6 + t], row * 3 + t};
+    merge_tail(st, e);
+  }
+}
+
+__device__ __forceinline__ void load_row(int* f, const int* cls, int R,
+                                         int r) {
+#pragma unroll
+  for (int t = 0; t < 3; ++t) {
+    f[t] = cls[(0 + t) * R + r];
+    f[3 + t] = cls[(6 + t) * R + r];
+    f[6 + t] = cls[(9 + t) * R + r];
+  }
+  f[9] = cls[12 * R + r];
+  f[10] = cls[13 * R + r];
+  f[11] = cls[14 * R + r];
+}
+
+// One cluster of `ctas` CTAs a segment of `seg` rows (grid = segments x
+// ctas).  A thread a row, strided over the cluster, two rows' loads in
+// flight at a time: it reads a row's 12 class fields (each column coalesced
+// across the warp), scores each of the three (row, tier) entries once and
+// folds them into its TailState.  The CTA and then the cluster merge the
+// states; rank 0's warp 0 picks a or b, reads the winner's row (lane s its
+// victim slot s) and places it (warp_place), with the patch index that rank
+// 0 staged in shared memory while the pass ran.
 __global__ void __launch_bounds__(kTailThreads)
     fused_argmax_kernel(State s, FusedParams p, const int* __restrict__ cls,
-                        int R, int seg, const int* __restrict__ skip,
+                        int R, int seg, int ctas, const int* __restrict__ skip,
                         int* __restrict__ out) {
-  int* o = out + blockIdx.x * kWinFields;
+  extern __shared__ int s_pidx[];
+  __shared__ TailState s_warp[kTailThreads / 32];
+  __shared__ TailState s_rank[kMaxClusterCtas];
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  int* o = out + (blockIdx.x / ctas) * kWinFields;
   if (skip != nullptr && *skip != 0) {  // the normal cycle placed
-    if (threadIdx.x < kWinFields) o[threadIdx.x] = 0;
-    return;
+    if (rank == 0 && threadIdx.x < kWinFields) o[threadIdx.x] = 0;
+    return;  // every CTA of the cluster, before any cluster barrier
   }
-  __shared__ ScoreKey s_score[kTailThreads / 32];
-  __shared__ TieKey s_tie[kTailThreads / 32];
-  const int r0 = blockIdx.x * seg;
+  if (ctas > 1) cluster_arrive_relaxed();
+  if (rank == 0 && s.p > 0) stage_async(s_pidx, s.pidx, s.p);
+  const unsigned long long magic = bundle_magic(p.t.cgs_per_bundle);
+  const int r0 = (blockIdx.x / ctas) * seg;
   const int r1 = min(R, r0 + seg);
-  const int n_ent = (r1 - r0) * 3;
-
-  ScoreKey sk = {-CUDART_INF_F, 3, -1, 0};
-  for (int r = r0 + threadIdx.x; r < r1; r += blockDim.x) sk.cnt += cls[13 * R + r];
-  for (int e = threadIdx.x; e < n_ent; e += blockDim.x) {
-    const int r = r0 + e / 3, t = e % 3;
-    if (cls[t * R + r]) {
-      const ScoreKey c = {eq1_score(cls[(6 + t) * R + r], t, p), t, t, 0};
-      merge_score(sk, c);
-    }
+  const int stride = ctas * blockDim.x;
+  TailState st = tail_identity();
+  for (int r = r0 + rank * blockDim.x + threadIdx.x; r < r1; r += 2 * stride) {
+    int f[12], g[12];
+    const bool two = r + stride < r1;
+    load_row(f, cls, R, r);
+    if (two) load_row(g, cls, R, r + stride);
+    fold_row(st, f, r - r0, p);
+    if (two) fold_row(st, g, r + stride - r0, p);
   }
-  sk = block_reduce(
-      sk, s_score, merge_score, [](const ScoreKey& a, int off) {
-        ScoreKey b;
-        b.score = __shfl_xor_sync(0xffffffffu, a.score, off);
-        b.tmin = __shfl_xor_sync(0xffffffffu, a.tmin, off);
-        b.tmax = __shfl_xor_sync(0xffffffffu, a.tmax, off);
-        b.cnt = __shfl_xor_sync(0xffffffffu, a.cnt, off);
-        return b;
-      });
-  const bool found = sk.score > -CUDART_INF_F;  // some class is non-empty
-  const bool same_tier = sk.tmin == sk.tmax;
-
-  TieKey tk = {kIntMax, kIntMax, kIntMax, -1, kIntMax};
-  for (int e = threadIdx.x; e < n_ent; e += blockDim.x) {
-    const int r = r0 + e / 3, t = e % 3;
-    if (!cls[t * R + r]) continue;
-    const int pp = cls[(6 + t) * R + r];
-    if (eq1_score(pp, t, p) != sk.score) continue;
-    const TieKey c = {same_tier && p.alpha_pos ? pp : 0, cls[12 * R + r],
-                      cls[14 * R + r], cls[(9 + t) * R + r], e};
-    if (tie_better(c, tk)) tk = c;
+  if (rank == 0 && s.p > 0) {  // the finale's lanes read each other's copies
+    stage_wait();
+    __syncthreads();
   }
-  tk = block_reduce(
-      tk, s_tie,
-      [](TieKey& a, const TieKey& b) {
-        if (tie_better(b, a)) a = b;
-      },
-      [](const TieKey& a, int off) {
-        TieKey b;
-        b.ppe = __shfl_xor_sync(0xffffffffu, a.ppe, off);
-        b.k = __shfl_xor_sync(0xffffffffu, a.k, off);
-        b.nid = __shfl_xor_sync(0xffffffffu, a.nid, off);
-        b.um = __shfl_xor_sync(0xffffffffu, a.um, off);
-        b.flat = __shfl_xor_sync(0xffffffffu, a.flat, off);
-        return b;
-      });
+  if (!cluster_reduce(st, s_warp, s_rank, ctas, tail_identity(),
+                      [](const TailState& x) { return warp_merge_tail(x); }))
+    return;
 
-  if (threadIdx.x == 0) {
-    const int flat = found ? tk.flat : 0;  // no survivor: argmax -> 0
-    const int row = flat / 3, t = flat % 3, r = r0 + row;
-    const int cb = cls[(3 + t) * R + r];
-    const Row w = fetch_row(s, r);
-    unsigned fg = static_cast<unsigned>(w.node(NS_FREE_GPU));
-    unsigned fc = static_cast<unsigned>(w.node(NS_FREE_CG));
-    for (unsigned b = static_cast<unsigned>(cb); b; b &= b - 1) {
-      const int sl = __ffs(b) - 1;
-      fg |= static_cast<unsigned>(w.slot(VF_GPU, sl));
-      fc |= static_cast<unsigned>(w.slot(VF_CG, sl));
-    }
-    bool ok;
-    int tier;
-    unsigned gm, cm;
-    place_core(fg, fc, p, ok, tier, gm, cm);
+  // rank 0's warp 0; every lane holds the segment's state
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x;
+  const bool found = st.score > -CUDART_INF_F;  // some class is non-empty
+  const TieKey tk = (st.tmin == st.tmax && p.alpha_pos) ? st.a : st.b;
+  const int flat = found ? tk.flat : 0;  // no survivor: argmax -> 0
+  const int row = flat / 3, t = flat % 3, r = r0 + row;
+  State ls = s;
+  ls.pidx = s_pidx;
+  const int cb = cls[(3 + t) * R + r];
+  const int pp = cls[(6 + t) * R + r];
+  const int k = cls[12 * R + r];
+  const Row w = fetch_row(ls, r);
+  unsigned sg = 0, sc = 0;
+  if (lane < s.cap) {
+    sg = static_cast<unsigned>(w.slot(VF_GPU, lane));
+    sc = static_cast<unsigned>(w.slot(VF_CG, lane));
+  }
+  const bool on = (static_cast<unsigned>(cb) >> lane) & 1u;
+  const unsigned fg = static_cast<unsigned>(w.node(NS_FREE_GPU)) |
+                      __reduce_or_sync(kAll, on ? sg : 0u);
+  const unsigned fc = static_cast<unsigned>(w.node(NS_FREE_CG)) |
+                      __reduce_or_sync(kAll, on ? sc : 0u);
+  bool ok;
+  int tier;
+  unsigned gm, cm;
+  warp_place(fg, fc, p, magic, ok, tier, gm, cm);
+  if (lane == 0) {
     o[0] = found;
     o[1] = row;
     o[2] = t;
     o[3] = cb;
-    o[4] = cls[(6 + t) * R + r];
-    o[5] = cls[12 * R + r];
-    o[6] = sk.cnt;
+    o[4] = pp;
+    o[5] = k;
+    o[6] = static_cast<int>(st.cnt);
     o[7] = static_cast<int>(gm);
     o[8] = static_cast<int>(cm);
   }
@@ -950,82 +1226,278 @@ __device__ __forceinline__ unsigned long long normal_key(int tier, int left,
          static_cast<unsigned long long>(row);
 }
 
-// The grid's running minimum and its ticket, in device memory that the
-// wrapper sets to {kNoKey, 0} once; the last block sets it back.
-struct NormalScratch {
+// A node's key with its row's free masks as payload (the keys are distinct,
+// so the payload follows the minimum exactly).
+struct NormalBest {
   unsigned long long key;
-  unsigned int ticket;
+  unsigned fg;
+  unsigned fc;
 };
 
-// One thread a node over a grid of CTAs: each node's key, a CTA min
-// reduction, one atomicMin a CTA; the last CTA to take a ticket places the
-// winner.
-__global__ void __launch_bounds__(kNormalThreads)
-    normal_cycle_kernel(State s, FusedParams p, NormalScratch* scr,
-                        int* __restrict__ out) {
-  __shared__ unsigned long long s_key[kNormalThreads / 32];
-  __shared__ bool s_last;
-  unsigned long long key = kNoKey;
-  const int r = blockIdx.x * kNormalThreads + threadIdx.x;
-  if (r < s.n) {
-    const Row row = fetch_row(s, r);
-    const unsigned fg = static_cast<unsigned>(row.node(NS_FREE_GPU));
-    const unsigned fc = static_cast<unsigned>(row.node(NS_FREE_CG));
-    const int nid = row.node(NS_NODE_ID);
-    const int cnt_g = __popc(fg);
-    // count screen; sentinel rows never win
-    if (cnt_g >= p.t.need_gpus && __popc(fc) >= p.t.need_cgs &&
-        nid < kIntMax) {
-      const int tier = tier_of(fg, fc, p);
-      const int eff = tier < 3 ? tier
-                               : achieved_tier(lowest_bits(fg, p.t.need_gpus,
-                                                           p.num_gpus), p);
-      key = normal_key(eff, cnt_g - p.t.need_gpus, nid, r);
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    key = min(key, __shfl_xor_sync(0xffffffffu, key, off));
-  if ((threadIdx.x & 31) == 0) s_key[threadIdx.x / 32] = key;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int w = 1; w < kNormalThreads / 32; ++w) key = min(key, s_key[w]);
-    if (key != kNoKey) atomicMin(&scr->key, key);
-    __threadfence();
-    s_last = atomicAdd(&scr->ticket, 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!s_last || threadIdx.x != 0) return;
+__device__ __forceinline__ void merge_normal(NormalBest& x,
+                                             const NormalBest& y) {
+  if (y.key < x.key) x = y;
+}
 
-  // the last CTA: every other CTA's atomicMin is visible
-  const unsigned long long best = atomicExch(&scr->key, kNoKey);
-  scr->ticket = 0;
-  if (s.n == 0) {
-    for (int i = 0; i < 5; ++i) out[i] = 0;
+// The least key over the 32 lanes of a warp (the high word, then the low
+// word among the lanes at it, one redux each) with its lane's payload;
+// every lane gets it.
+__device__ __forceinline__ NormalBest warp_min_normal(const NormalBest& x) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const unsigned hi = static_cast<unsigned>(x.key >> 32);
+  const unsigned lo = static_cast<unsigned>(x.key);
+  const unsigned m_hi = __reduce_min_sync(kAll, hi);
+  const unsigned m_lo = __reduce_min_sync(kAll, hi == m_hi ? lo : ~0u);
+  const int src =
+      __ffs(__ballot_sync(kAll, hi == m_hi && lo == m_lo)) - 1;
+  NormalBest y;
+  y.key = (static_cast<unsigned long long>(m_hi) << 32) | m_lo;
+  y.fg = __shfl_sync(kAll, x.fg, src);
+  y.fc = __shfl_sync(kAll, x.fc, src);
+  return y;
+}
+
+// The normal cycle's outcome from the least key, which every lane of the
+// calling warp holds, and row 0's free masks and node id (the outcome when
+// no node is a candidate: the argmin of an all-ones key is row 0), written
+// to out[0..4].  Every lane of one warp calls it.
+__device__ __forceinline__ void normal_place(const NormalBest& best,
+                                             unsigned fg0, unsigned fc0,
+                                             int nid0, int n,
+                                             const FusedParams& p,
+                                             unsigned long long magic,
+                                             int* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  if (n == 0) {
+    if (lane < 5) out[lane] = 0;
     return;
   }
-  const bool found = best != kNoKey;
-  // no candidate: argmin -> row 0
-  const int w = found ? static_cast<int>(best & ((1ull << kRowBits) - 1)) : 0;
-  const Row row = fetch_row(s, w);
-  const unsigned fg = static_cast<unsigned>(row.node(NS_FREE_GPU));
-  const unsigned fc = static_cast<unsigned>(row.node(NS_FREE_CG));
+  const unsigned long long key = best.key;
+  const bool found = key != kNoKey;
+  const unsigned fg = found ? best.fg : fg0;
+  const unsigned fc = found ? best.fc : fc0;
   bool p_ok;
   int p_tier;
   unsigned pg, pc;
-  place_core(fg, fc, p, p_ok, p_tier, pg, pc);
-  const unsigned bg = lowest_bits(fg, p.t.need_gpus, p.num_gpus);
-  const unsigned bc = lowest_bits(fc, p.t.need_cgs, p.num_cgs);
-  const bool use_place = p_tier < 3 && p_ok;
-  out[0] = found;
-  out[1] = row.node(NS_NODE_ID);
-  out[2] = use_place ? p_tier : achieved_tier(bg, p);
-  out[3] = static_cast<int>(use_place ? pg : bg);
-  out[4] = static_cast<int>(use_place ? pc : bc);
+  warp_place(fg, fc, p, magic, p_ok, p_tier, pg, pc);
+  if (lane == 0) {
+    const int nid =
+        found ? static_cast<int>(static_cast<unsigned>(key >> kRowBits) ^
+                                 0x80000000u)
+              : nid0;
+    const unsigned bg = lowest_bits(fg, p.t.need_gpus, p.num_gpus);
+    const unsigned bc = lowest_bits(fc, p.t.need_cgs, p.num_cgs);
+    const bool use_place = p_tier < 3 && p_ok;
+    out[0] = found;
+    out[1] = nid;
+    out[2] = use_place ? p_tier : achieved_tier(bg, p);
+    out[3] = static_cast<int>(use_place ? pg : bg);
+    out[4] = static_cast<int>(use_place ? pc : bc);
+  }
+}
+
+// Clusters of `ctas` CTAs over every node.  Every CTA stages the patch
+// index into shared memory (cp.async, overlapped with its first batch of
+// row loads); each thread takes the rows blockIdx * blockDim + thread + i *
+// (gridDim * blockDim), kNormalBatch at a time with their loads issued
+// together, resolves each row's patch by a binary search in shared memory,
+// and folds the row's key and free masks.  The warps, the CTA and then the
+// cluster (distributed shared memory) take the minimum.  With one cluster
+// (`part` null), rank 0's warp 0 places the winner from its payload, or row
+// 0 (whose masks block 0's thread 0 read itself) when no node is a
+// candidate.  With more (the split form), rank 0's thread 0 of cluster c
+// writes the cluster's minimum to part[c], and cluster 0 also row 0's masks
+// and node id to part[clusters]; normal_merge_kernel, launched next on the
+// stream, places from them.
+__global__ void __launch_bounds__(kNormalThreads)
+    normal_cycle_kernel(State s, FusedParams p, int ctas,
+                        NormalBest* __restrict__ part, int* __restrict__ out) {
+  extern __shared__ int s_pidx[];
+  __shared__ NormalBest s_warp[kNormalThreads / 32];
+  __shared__ NormalBest s_rank[kMaxClusterCtas];
+  if (ctas > 1) cluster_arrive_relaxed();
+  if (s.p > 0) stage_async(s_pidx, s.pidx, s.p);
+  const unsigned long long magic = bundle_magic(p.t.cgs_per_bundle);
+  State ls = s;
+  ls.pidx = s_pidx;
+  const int width = kNodeFields + kVictimFields * s.cap + 2;
+  const int stride = gridDim.x * blockDim.x;
+  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  const int iters =
+      max(1, (s.n + kNormalBatch * stride - 1) / (kNormalBatch * stride));
+  NormalBest best = {kNoKey, 0u, 0u};
+  unsigned fg0 = 0, fc0 = 0;  // row 0 (block 0, thread 0, the first batch)
+  int nid0 = 0;
+  for (int it = 0; it < iters; ++it) {  // the same count in every thread
+    unsigned fg[kNormalBatch], fc[kNormalBatch];
+    int nid[kNormalBatch];
+#pragma unroll
+    for (int j = 0; j < kNormalBatch; ++j) {
+      const int r = first + (it * kNormalBatch + j) * stride;
+      if (r < s.n) {
+        fg[j] = static_cast<unsigned>(s.ns[NS_FREE_GPU * s.n + r]);
+        fc[j] = static_cast<unsigned>(s.ns[NS_FREE_CG * s.n + r]);
+        nid[j] = s.ns[NS_NODE_ID * s.n + r];
+      }
+    }
+    if (it == 0 && s.p > 0) {
+      stage_wait();
+      __syncthreads();
+    }
+#pragma unroll
+    for (int j = 0; j < kNormalBatch; ++j) {
+      const int r = first + (it * kNormalBatch + j) * stride;
+      if (r >= s.n) continue;
+      if (s.p > 0) {
+        const int k = find_patch(ls, r);
+        if (k >= 0) {
+          const int* b = s.pbuf + static_cast<long>(k) * width;
+          fg[j] = static_cast<unsigned>(b[NS_FREE_GPU]);
+          fc[j] = static_cast<unsigned>(b[NS_FREE_CG]);
+          nid[j] = b[NS_NODE_ID];
+        }
+      }
+      if (r == 0) {
+        fg0 = fg[j];
+        fc0 = fc[j];
+        nid0 = nid[j];
+      }
+      const int cnt_g = __popc(fg[j]);
+      // count screen; sentinel rows never win
+      if (cnt_g >= p.t.need_gpus && __popc(fc[j]) >= p.t.need_cgs &&
+          nid[j] < kIntMax) {
+        int units[kMaxNuma], cnt_c[kMaxNuma];
+        numa_counts(fg[j], fc[j], p, magic, units, cnt_c);
+        const int tier = fused_tier(fg[j], fc[j], units, cnt_c, p);
+        const int eff =
+            tier < 3 ? tier
+                     : achieved_tier(lowest_bits(fg[j], p.t.need_gpus,
+                                                 p.num_gpus), p);
+        merge_normal(best, {normal_key(eff, cnt_g - p.t.need_gpus, nid[j], r),
+                            fg[j], fc[j]});
+      }
+    }
+  }
+  if (!cluster_reduce(best, s_warp, s_rank, ctas, NormalBest{kNoKey, 0u, 0u},
+                      [](const NormalBest& x) { return warp_min_normal(x); }))
+    return;
+
+  // rank 0's warp 0: every lane holds the cluster's minimum; in cluster 0,
+  // lane 0 holds row 0's masks
+  if (part == nullptr) {
+    constexpr unsigned kAll = 0xffffffffu;
+    normal_place(best, __shfl_sync(kAll, fg0, 0), __shfl_sync(kAll, fc0, 0),
+                 __shfl_sync(kAll, nid0, 0), s.n, p, magic, out);
+    return;
+  }
+  if (threadIdx.x == 0) {
+    const int c = blockIdx.x / ctas;
+    part[c] = best;
+    if (c == 0)
+      part[gridDim.x / ctas] = {static_cast<unsigned>(nid0), fg0, fc0};
+  }
+}
+
+// The split form's second launch, one warp: the least of the `clusters`
+// minima in part[0..clusters-1], placed with row 0 from part[clusters].
+__global__ void __launch_bounds__(32)
+    normal_merge_kernel(const NormalBest* __restrict__ part, int clusters,
+                        int n, FusedParams p, int* __restrict__ out) {
+  NormalBest best = {kNoKey, 0u, 0u};
+  for (int c = threadIdx.x; c < clusters; c += 32) merge_normal(best, part[c]);
+  best = warp_min_normal(best);
+  const NormalBest row0 = part[clusters];
+  normal_place(best, row0.fg, row0.fc, static_cast<int>(row0.key), n, p,
+               bundle_magic(p.t.cgs_per_bundle), out);
 }
 
 static inline int grid_for(int n) { return (n + kTile - 1) / kTile; }
+
+// Sets the calling thread's device for one launch and puts the previous one
+// back, so a launch goes to its tensors' card without the caller switching.
+struct DeviceGuard {
+  int prev = -1;
+  cudaError_t err = cudaSuccess;
+  explicit DeviceGuard(int device) {
+    int cur = 0;
+    err = cudaGetDevice(&cur);
+    if (err == cudaSuccess && cur != device) {
+      err = cudaSetDevice(device);
+      prev = cur;
+    }
+  }
+  ~DeviceGuard() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
+};
+
+// A 1-D grid of `blocks` CTAs in thread-block clusters of `ctas`.
+static cudaLaunchConfig_t cluster_config(int blocks, int ctas, int threads,
+                                         size_t smem, cudaStream_t st,
+                                         cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = ctas;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// The geometry the Python wrappers compute (fused_class.cluster_geometry)
+// and the patch index's shared-memory budget, checked before a launch.
+static bool bad_cluster(int ctas, int threads, int max_threads, int p) {
+  return ctas < 1 || ctas > kMaxClusterCtas || threads < 32 ||
+         threads > max_threads || threads % 32 != 0 || p < 0 ||
+         p > kMaxPatchRows;
+}
+
+// The cluster kernels' opt-ins, set once a device: dynamic shared memory up
+// to the patch index's budget (above the default 48 KB), and clusters above
+// the portable 8 CTAs.  A card that refuses the second keeps clusters of 8
+// (cluster_ctas_max), so its refusal is not an error here.
+constexpr int kMaxDevices = 64;
+
+static cudaError_t prepare_cluster_kernels(int device) {
+  static bool done[kMaxDevices] = {};
+  const bool known = device >= 0 && device < kMaxDevices;
+  if (known && done[device]) return cudaSuccess;
+  const int smem = kMaxPatchRows * static_cast<int>(sizeof(int));
+  cudaError_t err = cudaFuncSetAttribute(
+      normal_cycle_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fused_argmax_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncSetAttribute(normal_cycle_kernel,
+                       cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  cudaFuncSetAttribute(fused_argmax_kernel,
+                       cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  cudaGetLastError();
+  if (known) done[device] = true;
+  return cudaSuccess;
+}
+
+// Whether the card co-schedules a cluster of kMaxClusterCtas CTAs of the
+// kernel at its most threads and shared memory (after
+// prepare_cluster_kernels).
+template <typename Kernel>
+static bool fits_max_cluster(Kernel kernel, int threads) {
+  const size_t smem = kMaxPatchRows * sizeof(int);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(
+      kMaxClusterCtas, kMaxClusterCtas, threads, smem, nullptr, &attr);
+  int clusters = 0;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  return err == cudaSuccess && clusters > 0;
+}
 
 // Plain C interface for ctypes.  Pointers are device pointers of contiguous
 // int32/float32 tensors, `params` and `state` host pointers to the structs
@@ -1073,7 +1545,7 @@ int placement_tier_launch(const void* free_gpu, const void* free_cg,
 
 int fused_class_launch(const State* state, const FusedParams* params,
                        int m_res, int m_gather, int R, int wide,
-                       const void* skip, void* cls, void* stream) {
+                       const void* skip, void* cls, int device, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* sk = static_cast<const int*>(skip);
   int* out = static_cast<int*>(cls);
@@ -1081,6 +1553,8 @@ int fused_class_launch(const State* state, const FusedParams* params,
       m_res > min(state->cap, kMaxDenseVictims) ||
       m_gather > min(state->cap, kMaxDenseVictims) || R <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
   if (wide) {
     fused_class_kernel<kWideThreads, kWideThreads>
         <<<R, kWideThreads, 0, st>>>(*state, *params, m_res, m_gather, R, sk,
@@ -1094,29 +1568,72 @@ int fused_class_launch(const State* state, const FusedParams* params,
   return static_cast<int>(cudaGetLastError());
 }
 
+// One cluster of `ctas` CTAs of `threads` each a segment of `seg` rows.
 int fused_argmax_launch(const State* state, const FusedParams* params,
-                        const void* cls, int R, int seg, const void* skip,
-                        void* out, void* stream) {
-  const int segs = (R + seg - 1) / seg;
-  fused_argmax_kernel<<<segs, kTailThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      *state, *params, static_cast<const int*>(cls), R, seg,
-      static_cast<const int*>(skip), static_cast<int*>(out));
-  return static_cast<int>(cudaGetLastError());
+                        const void* cls, int R, int seg, int ctas,
+                        int threads, const void* skip, void* out, int device,
+                        void* stream) {
+  if (R <= 0 || seg <= 0 || bad_cluster(ctas, threads, kTailThreads, state->p))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
+  cudaError_t err = prepare_cluster_kernels(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = static_cast<size_t>(state->p) * sizeof(int);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config((R + seg - 1) / seg * ctas, ctas, threads, smem,
+                     static_cast<cudaStream_t>(stream), &attr);
+  err = cudaLaunchKernelEx(&cfg, fused_argmax_kernel, *state, *params,
+                           static_cast<const int*>(cls), R, seg, ctas,
+                           static_cast<const int*>(skip),
+                           static_cast<int*>(out));
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
-// `scratch` is 16 bytes of device memory holding {kNoKey, 0}; launches that
-// share it must run in one stream.
+// `clusters` clusters of `ctas` CTAs of `threads` each over every node.
+// With more than one cluster (the split form) `part` holds clusters + 1
+// 16-byte records, which the first launch writes and normal_merge_kernel,
+// the second, reads.
 int normal_cycle_launch(const State* state, const FusedParams* params,
-                        void* scratch, void* out, void* stream) {
-  if (state->n < 0 || state->n > (1 << kRowBits))
+                        int clusters, int ctas, int threads, void* part,
+                        void* out, int device, void* stream) {
+  if (state->n < 0 || state->n > (1 << kRowBits) || clusters < 1 ||
+      clusters > kMaxSplitClusters || (clusters > 1 && part == nullptr) ||
+      bad_cluster(ctas, threads, kNormalThreads, state->p))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int grid = max(1, (state->n + kNormalThreads - 1) / kNormalThreads);
-  normal_cycle_kernel<<<grid, kNormalThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      *state, *params, static_cast<NormalScratch*>(scratch),
-      static_cast<int*>(out));
-  return static_cast<int>(cudaGetLastError());
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
+  cudaError_t err = prepare_cluster_kernels(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t smem = static_cast<size_t>(state->p) * sizeof(int);
+  NormalBest* pb = clusters > 1 ? static_cast<NormalBest*>(part) : nullptr;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(clusters * ctas, ctas, threads, smem, st, &attr);
+  err = cudaLaunchKernelEx(&cfg, normal_cycle_kernel, *state, *params, ctas,
+                           pb, static_cast<int*>(out));
+  if (err == cudaSuccess && pb != nullptr)
+    normal_merge_kernel<<<1, 32, 0, st>>>(pb, clusters, state->n, *params,
+                                          static_cast<int*>(out));
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
+// The most CTAs a cluster of K2's normal-cycle form and of K1's tail may
+// take on `device`: kMaxClusterCtas (16, non-portable) where
+// cudaOccupancyMaxActiveClusters finds room for such a cluster of each at
+// its most threads and shared memory, else the portable kClusterCtas (8).
+int cluster_ctas_max(int device) {
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess || prepare_cluster_kernels(device) != cudaSuccess)
+    return kClusterCtas;
+  const bool big = fits_max_cluster(normal_cycle_kernel, kNormalThreads) &&
+                   fits_max_cluster(fused_argmax_kernel, kTailThreads);
+  cudaGetLastError();  // a refused query leaves no error behind
+  return big ? kMaxClusterCtas : kClusterCtas;
 }
 
 const char* topo_score_error_string(int code) {

@@ -26,7 +26,9 @@ sweep's output ``cls`` is int32[`CLS_FIELDS`, rows]: per row the (row,
 tier) class winners (any, combo id, priority sum, uid-rank mask for each
 of the three tiers), the smallest feasible subset size, the count of
 feasible subsets at that size, and the node id.  The tail reduces each
-segment of ``seg`` rows to one int32[`WIN_FIELDS`] winner.
+segment of ``seg`` rows to one int32[`WIN_FIELDS`] winner, in one pass
+over the rows by one thread-block cluster a segment (`cluster_geometry`),
+the CTAs merging through distributed shared memory.
 
 A wrapper runs the plain version for tensors on the CPU and launches its
 kernel for tensors on a CUDA device; anything else raises.  Each wrapper
@@ -67,6 +69,19 @@ WIN_FIELDS = 9
 NARROW_KERNEL_M = 8
 _INT32_MAX = 2**31 - 1
 _MAX_SCOPES = 8 + 8 + 1     # FusedParams.scope_* widths in csrc/topo_score.cu
+#: CTAs of the portable thread-block cluster (kClusterCtas), and the most
+#: threads a CTA of K2's normal-cycle form and of K1's tail take
+#: (kNormalThreads, kTailThreads in csrc/topo_score.cu)
+CLUSTER_CTAS = 8
+NORMAL_THREADS = 1024
+TAIL_THREADS = 512
+#: rows a CTA takes before the cluster grows by another CTA: the per-row
+#: work of K2 (the node's tier) and of the tail (three Eq. 1 scores) is
+#: spread over SMs, against one more CTA at the cluster barrier
+CTA_ROWS = 128
+#: the most patch rows a launch takes: K2 and the tail stage the patch
+#: index in shared memory (kMaxPatchRows, 64 KB)
+MAX_PATCH_ROWS = 16384
 
 
 @dataclasses.dataclass(frozen=True)
@@ -312,7 +327,8 @@ class _State(ctypes.Structure):
 
 @functools.lru_cache(maxsize=256)
 def params(spec: ServerSpec, req: FusedRequest) -> _FusedParams:
-    """The kernels' FusedParams for one SKU and request."""
+    """The kernels' FusedParams for one SKU and request, built once per
+    ``(spec, req)``."""
     p = _FusedParams()
     p.t = ts._params(spec, ts.TopoRequest(req.need_gpus, req.need_cgs,
                                           req.cgs_per_bundle, req.alpha))
@@ -329,32 +345,99 @@ def params(spec: ServerSpec, req: FusedRequest) -> _FusedParams:
     return p
 
 
-def state(nodestate, victims, drain, pidx, pbuf, gidx,
-          resident: bool) -> _State:
-    """The kernels' State over contiguous int32 CUDA tensors."""
+@functools.lru_cache(maxsize=1024)
+def cluster_geometry(rows: int, max_threads: int,
+                     max_ctas: int = CLUSTER_CTAS) -> tuple[int, int]:
+    """``(ctas, threads)`` of the one thread-block cluster that K2's
+    normal-cycle form and K1's tail run over ``rows`` rows (the tail: a
+    segment's): a CTA for every `CTA_ROWS` rows, at most ``max_ctas``
+    (`max_cluster_ctas` on the card), and threads a CTA in whole warps, as
+    many as give each row a thread, at most ``max_threads``.  A thread
+    takes the rows ``rank * threads + thread + i * ctas * threads`` for
+    i = 0, 1, ..., so every row is taken once (rows beyond ``ctas *
+    threads`` loop)."""
+    ctas = min(max_ctas, max(1, -(-rows // CTA_ROWS)))
+    threads = min(max_threads, max(32, (-(-rows // ctas) + 31) // 32 * 32))
+    return ctas, threads
+
+
+@functools.lru_cache(maxsize=None)
+def max_cluster_ctas(device: int) -> int:
+    """The most CTAs a cluster of K2's normal-cycle form and of K1's tail
+    takes on CUDA device ``device``: 16 where the card co-schedules such a
+    cluster at the kernels' most threads and shared memory, else the
+    portable `CLUSTER_CTAS`."""
+    return lib().cluster_ctas_max(device)
+
+
+#: checked launch states of recent calls (`launch_state`), oldest first
+_STATES: dict = {}
+_MAX_STATES = 8
+
+
+def launch_state(nodestate, victims, drain, pidx, pbuf, gidx,
+                 resident: bool) -> _State:
+    """The kernels' State over contiguous int32 tensors on one CUDA device
+    (``drain`` or ``gidx`` None where the kernel does not read it).  It is
+    checked once and kept by the tensors' identities and version counters,
+    so a plan's launches and later plans on unchanged tensors reuse it,
+    while any in-place change to one of them (data or shape) checks anew.
+    It holds the tensors, so their memory and identities outlive it."""
+    xs = (nodestate, victims, drain, pidx, pbuf, gidx)
+    try:
+        key = (resident, *[(id(x), x._version) if x is not None else None
+                           for x in xs])
+    except RuntimeError:        # an inference tensor has no version counter
+        key = None
+    st = _STATES.get(key) if key is not None else None
+    if st is None:
+        st = _checked_state(*xs, resident)
+        if key is not None:
+            if len(_STATES) >= _MAX_STATES:
+                del _STATES[next(iter(_STATES))]
+            _STATES[key] = st
+    return st
+
+
+launch_state.cache_clear = _STATES.clear
+
+
+def _checked_state(nodestate, victims, drain, pidx, pbuf, gidx,
+                   resident: bool) -> _State:
+    dev = nodestate.device
     n = nodestate.shape[1]
     cap = victims.shape[2]
+    if dev.type != "cuda":
+        raise ValueError(f"the kernels take CUDA tensors, not {dev}")
     if pbuf.shape[0] and pbuf.shape[1] != 5 + 5 * cap + 2:
         raise ValueError(f"patch rows are {pbuf.shape[1]} wide, expected "
                          f"{5 + 5 * cap + 2}")
     for name, x in (("nodestate", nodestate), ("victims", victims),
                     ("drain", drain), ("pidx", pidx), ("pbuf", pbuf),
                     ("gidx", gidx)):
+        if x is None:
+            continue
         if x.dtype != torch.int32 or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous int32 tensor")
-        if x.device != nodestate.device:
-            raise ValueError(f"{name} is on {x.device}, the state on "
-                             f"{nodestate.device}")
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, the state on {dev}")
     if pidx.shape[0] != pbuf.shape[0]:
         raise ValueError("pidx and pbuf name different row counts")
+    if pidx.shape[0] > MAX_PATCH_ROWS:
+        raise ValueError(f"{pidx.shape[0]} patch rows; the kernels stage at "
+                         f"most {MAX_PATCH_ROWS} in shared memory")
     s = _State()
-    s.ns, s.v, s.dr = (nodestate.data_ptr(), victims.data_ptr(),
-                       drain.data_ptr())
+    s.ns, s.v = nodestate.data_ptr(), victims.data_ptr()
+    s.dr = drain.data_ptr() if drain is not None else None
     s.pidx = pidx.data_ptr() if pidx.shape[0] else None
     s.pbuf = pbuf.data_ptr() if pbuf.shape[0] else None
-    s.gidx = gidx.data_ptr() if gidx.shape[0] else None
-    s.n, s.cap, s.p, s.g = n, cap, pidx.shape[0], gidx.shape[0]
+    s.gidx = gidx.data_ptr() if gidx is not None and gidx.shape[0] else None
+    s.n, s.cap, s.p = n, cap, pidx.shape[0]
+    s.g = gidx.shape[0] if gidx is not None else 0
     s.n_res = n if resident else 0
+    s.device = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    s.tensors = (nodestate, victims, drain, pidx, pbuf, gidx)
     return s
 
 
@@ -362,30 +445,44 @@ def state(nodestate, victims, drain, pidx, pbuf, gidx,
 def lib() -> ctypes.CDLL:
     """The built ``csrc/topo_score.cu`` with the fused launchers' argument
     types declared."""
-    out = ts._lib()
+    return bind(ts._lib())
+
+
+def bind(out: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the fused launchers' argument types on a loaded build of
+    ``csrc/topo_score.cu``."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     sp, pp = ctypes.POINTER(_State), ctypes.POINTER(_FusedParams)
-    out.fused_class_launch.argtypes = [sp, pp, ci, ci, ci, ci, vp, vp, vp]
-    out.fused_argmax_launch.argtypes = [sp, pp, vp, ci, ci, vp, vp, vp]
-    out.normal_cycle_launch.argtypes = [sp, pp, vp, vp, vp]
+    out.fused_class_launch.argtypes = [sp, pp, ci, ci, ci, ci, vp, vp, ci, vp]
+    out.fused_argmax_launch.argtypes = [sp, pp, vp, ci, ci, ci, ci, vp, vp,
+                                        ci, vp]
+    out.normal_cycle_launch.argtypes = [sp, pp, ci, ci, ci, vp, vp, ci, vp]
+    out.cluster_ctas_max.argtypes = [ci]
     for fn in (out.fused_class_launch, out.fused_argmax_launch,
-               out.normal_cycle_launch):
+               out.normal_cycle_launch, out.cluster_ctas_max):
         fn.restype = ci
+    out.topo_score_error_string.argtypes = [ci]
+    out.topo_score_error_string.restype = ctypes.c_char_p
     return out
 
 
 def on_cuda(*xs: torch.Tensor) -> bool:
-    """Whether the tensors lie on a CUDA device (all on one device)."""
-    dev = xs[0].device
-    if any(x.device != dev for x in xs):
+    """Whether the tensors lie on a CUDA device; raises where some do and
+    some do not, or where they lie on neither a CUDA device nor the CPU.
+    That they share one CUDA device `launch_state` checks."""
+    cuda = xs[0].is_cuda
+    if any(x.is_cuda != cuda for x in xs):
         raise ValueError("tensors on different devices")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev.type == "cuda"
+    if not cuda:
+        for x in xs:
+            if x.device.type != "cpu":
+                raise ValueError(f"unsupported device {x.device}")
+    return cuda
 
 
-def stream_of(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
+def stream_of(st: _State) -> int:
+    """PyTorch's current stream on the state's device."""
+    return torch.cuda.current_stream(st.device).cuda_stream
 
 
 def fused_class(nodestate, victims, drain, pidx, pbuf, gidx, *, m_res: int,
@@ -403,20 +500,18 @@ def fused_class(nodestate, victims, drain, pidx, pbuf, gidx, *, m_res: int,
         return fused_class_plain(nodestate, victims, drain, pidx, pbuf, gidx,
                                  m_res=m_res, resident=resident,
                                  m_gather=m_gather, req=req, spec=spec)
+    st = launch_state(nodestate, victims, drain, pidx, pbuf, gidx, resident)
     cls = torch.empty((CLS_FIELDS, rows), dtype=torch.int32,
                       device=nodestate.device)
     if rows == 0:
         return cls
-    st = state(nodestate, victims, drain, pidx, pbuf, gidx, resident)
     wide = int(max(m_res if resident else 0,
                    m_gather if gidx.shape[0] else 0) > NARROW_KERNEL_M)
     out = lib()
-    with torch.cuda.device(nodestate.device):
-        code = out.fused_class_launch(
-            ctypes.byref(st), ctypes.byref(params(spec, req)), m_res,
-            m_gather, rows, wide,
-            None if skip is None else skip.data_ptr(), cls.data_ptr(),
-            stream_of(nodestate))
+    code = out.fused_class_launch(
+        ctypes.byref(st), ctypes.byref(params(spec, req)), m_res,
+        m_gather, rows, wide, None if skip is None else skip.data_ptr(),
+        cls.data_ptr(), st.device, stream_of(st))
     ts._raise_on(out, code, "fused_class")
     fused_class.launches += 1
     return cls
@@ -446,24 +541,27 @@ def fused_argmax(cls, nodestate, victims, pidx, pbuf, gidx, *,
             return got
         out.view(segs, WIN_FIELDS).copy_(got)
         return out
+    st = launch_state(nodestate, victims, None, pidx, pbuf, gidx, resident)
     if out is None:
         out = torch.empty((segs, WIN_FIELDS), dtype=torch.int32,
                           device=cls.device)
-    if out.numel() != segs * WIN_FIELDS or not out.is_contiguous():
+    if (out.numel() != segs * WIN_FIELDS or out.dtype != torch.int32
+            or not out.is_contiguous()):
         raise ValueError(f"out must hold {segs} x {WIN_FIELDS} int32")
     if rows == 0:
         return out
-    if cls.dtype != torch.int32 or not cls.is_contiguous():
-        raise ValueError("cls must be a contiguous int32 tensor")
-    drain = nodestate[:2]       # not read by the tail; any int32 [2, N]
-    st = state(nodestate, victims, drain, pidx, pbuf, gidx, resident)
+    if (cls.dtype != torch.int32 or not cls.is_contiguous()
+            or not cls.device == out.device == nodestate.device):
+        raise ValueError("cls must be a contiguous int32 tensor beside out "
+                         "and the state")
+    ctas, threads = cluster_geometry(min(seg, rows), TAIL_THREADS,
+                                     max_cluster_ctas(st.device))
     lb = lib()
-    with torch.cuda.device(cls.device):
-        code = lb.fused_argmax_launch(
-            ctypes.byref(st), ctypes.byref(params(spec, req)),
-            cls.data_ptr(), rows, seg,
-            None if skip is None else skip.data_ptr(), out.data_ptr(),
-            stream_of(cls))
+    code = lb.fused_argmax_launch(
+        ctypes.byref(st), ctypes.byref(params(spec, req)),
+        cls.data_ptr(), rows, seg, ctas, threads,
+        None if skip is None else skip.data_ptr(), out.data_ptr(),
+        st.device, stream_of(st))
     ts._raise_on(lb, code, "fused_argmax")
     fused_argmax.launches += 1
     return out
@@ -474,7 +572,9 @@ fused_argmax.launches = 0
 #: this module's kernel wrappers (their ``launches`` counters)
 WRAPPERS = (fused_class, fused_argmax)
 
-__all__ = ["CLS_FIELDS", "FusedRequest", "IDX_SENTINEL", "WIN_FIELDS",
-           "WRAPPERS", "class_sweep_plain", "fused_argmax",
-           "fused_argmax_plain", "fused_class", "fused_class_plain",
-           "plan_rows"]
+__all__ = ["CLS_FIELDS", "CLUSTER_CTAS", "FusedRequest", "IDX_SENTINEL",
+           "CTA_ROWS", "MAX_PATCH_ROWS", "NORMAL_THREADS", "TAIL_THREADS",
+           "WIN_FIELDS", "WRAPPERS", "bind", "class_sweep_plain",
+           "cluster_geometry", "fused_argmax", "fused_argmax_plain",
+           "fused_class", "fused_class_plain", "launch_state",
+           "max_cluster_ctas", "plan_rows"]

@@ -116,7 +116,11 @@ class ServeEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def run(self, requests: list[Request]) -> list[Request]:
+    def run(self, requests: list[Request], greedy: bool = True
+            ) -> list[Request]:
+        """Serve every request to its ``max_new_tokens``; decoding is
+        greedy (``greedy`` is accepted for the reference's signature, which
+        also always decodes greedily)."""
         with torch.inference_mode():
             for r in requests:
                 self.queue.submit(r)

@@ -42,7 +42,8 @@ from repro_torch.core.autoscale import (AutoscalePolicy,  # noqa: E402
                                         Autoscaler)
 from repro_torch.core.colocation import _SUBMIT, default_policies  # noqa: E402
 from repro_torch.core.placement import achieved_tier  # noqa: E402
-from repro_torch.core.scheduler import ShortlistConfig  # noqa: E402
+from repro_torch.core.scheduler import (SHORTLIST_ENGINES,  # noqa: E402
+                                        ShortlistConfig)
 from repro_torch.core.workload import table3_workloads  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -412,10 +413,17 @@ def test_allocation_snapshot_matches_reference(engine):
 def test_scheduler_shortlist_is_none_on_every_engine(engine):
     """No port engine is registered with ``supports_shortlist`` yet: the
     shortlist stays None, invalid knobs go unvalidated (as in the
-    reference for such engines), and the provenance carries 0 / None."""
+    reference for such engines), and the provenance carries 0 / None.
+    A best-effort shortlist on an engine the reference gives one raises:
+    the port would otherwise run the full sweep in its place."""
     cluster = Cluster(RTX4090_SERVER, 3, device="cpu")
     for kw in ({}, {"shortlist_k": 4, "shortlist_mode": "best_effort"},
                {"shortlist_k": 0}, {"shortlist_mode": "bogus"}):
+        if (engine in SHORTLIST_ENGINES
+                and kw.get("shortlist_mode") == "best_effort"):
+            with pytest.raises(NotImplementedError):
+                TopoScheduler(cluster, engine=engine, **kw)
+            continue
         sched = TopoScheduler(cluster, engine=engine, **kw)
         assert sched.shortlist is None
     dec = TopoScheduler(cluster, engine=engine).plan(WL3["B"]).decision
