@@ -15,7 +15,11 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    fails the run.  That of the topo-score library counts the global
    atomics (``ATOMG``, ``ATOM``, ``RED``) of K2's normal-cycle form (both
    its kernels) and K1's tail, which reduce across CTAs through a
-   thread-block cluster; a count above 0 fails the run.
+   thread-block cluster; a count above 0 fails the run.  In K1's class
+   sweep (its three builds) and lane form it counts ``REDUX`` (none fails
+   the run), ``SHFL``, ``MUFU.RCP`` (one in the sweep fails it; the lane
+   form's are the Eq. 1 score's IEEE reciprocal), the ``I2F...RP`` that
+   opens an integer division (one fails it) and local-memory traffic.
 2. ``[kernels]``: each topo-score kernel against its plain PyTorch version on
    the card, bit for bit (tiers, per-tile argmax, scores), over all three
    server specs, several requests with the exactness traps in their inputs,
@@ -27,14 +31,18 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    on random resident states at 100, 1024 and 10240 nodes (m_res 4 and 8
    with 13 gathered rows) and a 16-slot state through the wide kernel, every
    ``REQUESTS`` entry (alpha 0, 0.3, 0.5, 1) at two preemptor priorities,
-   with and without patch rows; then the skip path.  Then the two cluster
-   kernels alone (``cluster_phase``): N across the cluster geometry's
-   boundaries (``CLUSTER_NODES``, up to 40960), the RTX 4090, A100 and TPU
-   v5e host SKUs and the 16-slot state, 0, 1, 9 and ``MAX_PATCH_ROWS``
+   with and without patch rows, the class sweep also in every geometry its
+   launcher takes (``sweep_geometries``), forced one by one; then the skip
+   path.  Every state's free and victim masks are checked disjoint.  Then
+   the two cluster kernels alone (``cluster_phase``): N across the cluster
+   geometry's boundaries (``CLUSTER_NODES``, up to 40960), the RTX 4090,
+   A100 and TPU v5e host SKUs and the 16-slot state, 0, 1, 9 and
+   ``MAX_PATCH_ROWS``
    patch rows, K2 also in its split form at every N, the tail over the
    resident segment and over 16-row chunks, class tables with forced exact
    ties, more patch rows than the kernels take (must raise), and 50
-   back-to-back launches of each (bit-identical).
+   back-to-back launches of each and of the sweep (bit-identical); the
+   sweeps that feed the tail there are held to their plain version too.
 4. ``[main]``: the scheduler path, ``run_hit_rate_experiment`` (the paper's
    Table 4 protocol, ``TopoScheduler.plan()`` per scale-up) with
    ``imp_pallas`` and then host ``imp`` on the 100-node Table 3 cluster (2
@@ -106,7 +114,11 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    states checked once; ``ms_checked`` when each call checks its tensors
    anew).  ``[cluster-sweep]`` gives K2's (one cluster and split) and the
    tail's device time a call from 128 to 40960 nodes, without and with
-   patch rows.  Then ``[trace]`` lines: one traced
+   patch rows.  The sweep's row carries its device time in every geometry
+   at the main shapes, against the yardstick build (A B B A), on states
+   with exactly e = 1..8 eligible victims a row and in the wide form
+   (``[sweep-timing]``); ``[floor]`` times an empty kernel launched through
+   the same ctypes path.  Then ``[trace]`` lines: one traced
    ``imp_pallas`` plan on 1024 nodes and one ``imp_batched`` plan on 1024
    and on 10240 nodes, each's device time against its sourcing wall time,
    and the host functions that dominate; a ``[sourcing]`` line with the
@@ -898,14 +910,16 @@ SENTINEL = 2**31 - 1
 
 
 def resident_state(np, spec, rows: int, max_victims: int, seed: int,
-                   cap: int = 16):
+                   cap: int = 16, min_victims: int = 0):
     """Seeded resident rows (nodestate, victims, drain) as the allocator
     leaves them: every GPU and CoreGroup free, held by one stored victim,
-    or held by a non-preemptible instance (one node's masks disjoint);
-    victims sorted by priority, ranks a permutation; some rows sentinels,
-    some truncated."""
+    or held by a non-preemptible instance (one node's masks disjoint,
+    checked: K1 adds the per-NUMA counts of a subset's masks); victims
+    sorted by priority, ranks a permutation; some rows sentinels, some
+    truncated.  Each row stores ``min_victims`` to ``max_victims``
+    victims."""
     rng = np.random.default_rng(seed)
-    s = rng.integers(0, max_victims + 1, rows)
+    s = rng.integers(min_victims, max_victims + 1, rows)
     own_g = (rng.random((rows, spec.num_gpus)) * (s[:, None] + 2)).astype(
         np.int64) - 1                                  # -1 held, 0 free
     own_c = (rng.random((rows, spec.num_coregroups)) * (s[:, None] + 2)
@@ -934,6 +948,10 @@ def resident_state(np, spec, rows: int, max_victims: int, seed: int,
     ns[4] = np.where(over, rng.integers(0, 1600, rows), SENTINEL)
     dr = np.stack([ns[0] | np.bitwise_or.reduce(v[0], axis=1),
                    ns[1] | np.bitwise_or.reduce(v[1], axis=1)])
+    for f in (0, 1):         # free and victim masks pairwise disjoint
+        masks = np.concatenate([ns[f][:, None], v[f]], axis=1)
+        check((masks.sum(1) == np.bitwise_or.reduce(masks, axis=1)).all(),
+              "resident_state: a row's masks overlap")
     return [x.astype(np.int32) for x in (ns, v, dr)]
 
 
@@ -953,6 +971,20 @@ def patch_rows(np, spec, n: int, count: int, seed: int, max_victims: int):
     return pidx, pbuf
 
 
+def sweep_geometries(fc, m_res: int, n_res: int, m_gather: int,
+                     n_gather: int) -> list[tuple[int, int, int]]:
+    """Every geometry the class sweep's launcher takes for these sections,
+    the wrapper's own first: up to 8 slots, 1 to 8 warps a CTA with rows
+    sharing warps and with a warp a row; and the wide CTA."""
+    auto = fc.sweep_geometry(m_res, n_res, m_gather, n_gather)
+    out = [auto]
+    if auto[0] != fc.WIDE_THREADS:
+        out += [(32 * w, g, g) for g in (fc.SHARED_GROUP, 32)
+                for w in range(1, 9)]
+    out.append((fc.WIDE_THREADS,) * 3)
+    return list(dict.fromkeys(out))
+
+
 def fused_phase(torch, np, dev) -> dict[str, float]:
     """K1's resident form, its tail and K2's normal-cycle form against
     their plain versions on the card, bit for bit: random resident states
@@ -968,7 +1000,7 @@ def fused_phase(torch, np, dev) -> dict[str, float]:
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
     errs = {"fused_class": 0.0, "fused_argmax": 0.0, "normal_cycle": 0.0}
-    cases = normal_cases = 0
+    cases = normal_cases = forced = 0
     plans = []      # (spec, n, state, patches, gidx, m_res, m_gather, res)
     for n in FUSED_NODES:
         state = [t(x) for x in resident_state(np, RTX4090_SERVER, n, 8, n)]
@@ -1005,6 +1037,13 @@ def fused_phase(torch, np, dev) -> dict[str, float]:
                 want = fc.fused_class_plain(ns, v, dr, pidx, pbuf, gidx, **kw)
                 errs["fused_class"] = max(errs["fused_class"], compare(
                     torch, [cls], [want], "fused_class " + what))
+                st = fc.launch_state(ns, v, dr, pidx, pbuf, gidx, res)
+                for geo in sweep_geometries(fc, m_res, st.n_res, m_g, st.g):
+                    errs["fused_class"] = max(errs["fused_class"], compare(
+                        torch, [fc.launch_class(st, m_res, m_g, req, spec,
+                                                geometry=geo)], [want],
+                        f"fused_class geometry={geo} " + what))
+                    forced += 1
                 seg = cls.shape[1] if res else 16
                 kw = dict(resident=res, seg=seg, req=req, spec=spec)
                 errs["fused_argmax"] = max(errs["fused_argmax"], compare(
@@ -1039,7 +1078,8 @@ def fused_phase(torch, np, dev) -> dict[str, float]:
     print(f"[fused] {cases} cases x (fused_class, fused_argmax) and "
           f"{normal_cases} x normal_cycle bit-exact against the plain versions "
           f"(N {list(FUSED_NODES)} and a 16-slot state, patch rows on/off); "
-          "skip path ok", flush=True)
+          f"fused_class also in every geometry its launcher takes, forced "
+          f"({forced} launches); skip path ok", flush=True)
     return errs
 
 
@@ -1089,8 +1129,8 @@ def cluster_phase(torch, np, dev) -> dict[str, float]:
     def t(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
-    errs = {"fused_argmax": 0.0, "normal_cycle": 0.0}
-    n_normal = n_split = n_tail = n_tie = 0
+    errs = {"fused_class": 0.0, "fused_argmax": 0.0, "normal_cycle": 0.0}
+    n_normal = n_split = n_tail = n_tie = n_sweep = 0
     specs = ((RTX4090_SERVER, 8), (A100_SERVER, 16), (TPU_V5E_HOST, 8),
              (ServerSpec(**BIG_CG), 16))
     requests = ((1000, 2, 2, 1, 0.5), (300, 1, 1, 1, 0.0))
@@ -1135,6 +1175,11 @@ def cluster_phase(torch, np, dev) -> dict[str, float]:
                     kw = dict(m_res=8, resident=True, m_gather=8, req=req,
                               spec=spec)
                     cls = fc.fused_class(ns, v, dr, pidx, pbuf, gidx, **kw)
+                    errs["fused_class"] = max(errs["fused_class"], compare(
+                        torch, [cls], [fc.fused_class_plain(
+                            ns, v, dr, pidx, pbuf, gidx, **kw)],
+                        "fused_class " + what))
+                    n_sweep += 1
                     tkw = dict(resident=True, seg=cls.shape[1], req=req,
                                spec=spec)
                     errs["fused_argmax"] = max(errs["fused_argmax"], compare(
@@ -1153,6 +1198,12 @@ def cluster_phase(torch, np, dev) -> dict[str, float]:
                                    req=req, spec=spec)
                         gcls = fc.fused_class(ns, v, dr, pidx, pbuf, chunks,
                                               **gkw)
+                        errs["fused_class"] = max(
+                            errs["fused_class"], compare(
+                                torch, [gcls], [fc.fused_class_plain(
+                                    ns, v, dr, pidx, pbuf, chunks, **gkw)],
+                                "fused_class chunks " + what))
+                        n_sweep += 1
                         ckw = dict(resident=False, seg=16, req=req,
                                    spec=spec)
                         errs["fused_argmax"] = max(
@@ -1196,8 +1247,11 @@ def cluster_phase(torch, np, dev) -> dict[str, float]:
     pidx, pbuf, gidx = keep["pidx"], keep["pbuf"], keep["gidx"]
     cls = fc.fused_class(ns, v, dr, pidx, pbuf, gidx, m_res=8, resident=True,
                          m_gather=8, req=req, spec=spec)
-    outs = {"normal_cycle": [], "fused_argmax": []}
+    outs = {"normal_cycle": [], "fused_argmax": [], "fused_class": []}
     for _ in range(BACK_TO_BACK):
+        outs["fused_class"].append(fc.fused_class(
+            ns, v, dr, pidx, pbuf, gidx, m_res=8, resident=True, m_gather=8,
+            req=req, spec=spec))
         outs["normal_cycle"].append(nck.normal_cycle(
             ns, v, dr, pidx, pbuf, req=req, spec=spec))
         outs["fused_argmax"].append(fc.fused_argmax(
@@ -1209,11 +1263,13 @@ def cluster_phase(torch, np, dev) -> dict[str, float]:
               f"{name}: {BACK_TO_BACK} back-to-back launches differ")
     print(f"[fused] the cluster kernels: {n_normal} normal_cycle (and "
           f"{n_split} in its split form) and "
-          f"{n_tail} + {n_tie} (tie tables) fused_argmax cases bit-exact "
+          f"{n_tail} + {n_tie} (tie tables) fused_argmax cases, and the "
+          f"{n_sweep} class sweeps that feed the tail, bit-exact "
           f"against the plain versions (N {list(CLUSTER_NODES)}, "
           f"{[s.name for s, _ in specs]}, patch rows 0/1/9/"
           f"{fc.MAX_PATCH_ROWS}); {2 * fc.MAX_PATCH_ROWS} patch rows raise; "
-          f"{BACK_TO_BACK} back-to-back launches of each bit-identical",
+          f"{BACK_TO_BACK} back-to-back launches of each (and of the sweep) "
+          "bit-identical",
           flush=True)
     return errs
 
@@ -1767,6 +1823,15 @@ def fused_rows(torch, np, dev, errs, launches, plans, clusters,
                 "bound_share": b_ms / (kernel_ms or ms)})
         shapes["normal_cycle"][-1]["kernel_ms_tier"] = tier_forms(
             torch, k2_fn, K2_KERNELS)
+        shapes["fused_class"][-1]["kernel_ms_tier"] = tier_forms(
+            torch, cls_fn, ("fused_class_kernel",))
+        sweep_st = fc.launch_state(ns, v, dr, pidx, pbuf, gidx, True)
+        shapes["fused_class"][-1]["kernel_ms_geometry"] = {
+            str(list(g)): profiled_kernel_ms(
+                torch, lambda g=g: fc.launch_class(
+                    sweep_st, split.m_res, 8, req, spec, geometry=g),
+                "fused_class_kernel")
+            for g in sweep_geometries(fc, split.m_res, n, 8, sweep_st.g)}
         shapes["fused_argmax"][-1]["kernel_ms_tier"] = tier_forms(
             torch, tail_fn, ("fused_argmax_kernel",))
         most = fc.max_cluster_ctas(st.device)
@@ -1807,6 +1872,91 @@ def fused_rows(torch, np, dev, errs, launches, plans, clusters,
         if name in sweep:
             rows_out[-1]["geometry_sweep"] = sweep[name]
     return rows_out
+
+
+#: eligible victims a row of `sweep_timing`'s states, and their rows
+SWEEP_E = (1, 2, 3, 4, 5, 6, 7, 8)
+SWEEP_ROWS = 10240
+
+
+def sweep_timing(torch, np, dev) -> dict:
+    """The class sweep's device time a launch on random RTX 4090 states of
+    `SWEEP_ROWS` rows in which every row stores exactly e victims, all
+    eligible (preemptor priority 2000), for e in `SWEEP_E` (m_res 8, no
+    patch or gathered rows); and the wide form on three 16-row chunks of
+    A100 rows with 9 to 16 eligible victims (m 16), as the engine
+    dispatches them.  Each beside its bound (`sweep_ops`, the bytes of
+    ``fused_rows``) and checked against the plain version."""
+    from repro_torch.core.topology import A100_SERVER, RTX4090_SERVER
+    from repro_torch.kernels import fused_class as fc
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    empty = (t(np.zeros(0, np.int32)), t(np.zeros((0, 87), np.int32)))
+    out = {"e_states": [], "wide": None}
+    req = fc.FusedRequest(2000, 2, 2, 1, 0.5)
+    spec = RTX4090_SERVER
+    for e in SWEEP_E:
+        ns, v, dr = (t(x) for x in resident_state(
+            np, spec, SWEEP_ROWS, e, 77 + e, min_victims=e))
+        kw = dict(m_res=8, resident=True, m_gather=8, req=req, spec=spec)
+        fn = lambda: fc.fused_class(ns, v, dr, *empty, empty[0], **kw)
+        compare(torch, [fn()], [fc.fused_class_plain(ns, v, dr, *empty,
+                                                     empty[0], **kw)],
+                f"fused_class e={e}")
+        n_bytes = (SWEEP_ROWS * (5 + 2 + 2 * v.shape[2] + 3 * 8)
+                   + 15 * SWEEP_ROWS) * 4
+        b_ms, b_by = bound_ms(n_bytes, sweep_ops(torch, ns, v, dr, 8, True,
+                                                 req, spec), INT_OPS_PER_S)
+        out["e_states"].append({
+            "e": e, "rows": SWEEP_ROWS,
+            "geometry": list(fc.sweep_geometry(8, SWEEP_ROWS, 8, 0,
+                                               fc.sm_count(0))),
+            "ms": event_ms(torch, fn, reps=7),
+            "kernel_ms": profiled_kernel_ms(torch, fn, "fused_class_kernel"),
+            "bound_ms": b_ms, "bound_by": b_by})
+    spec = A100_SERVER
+    ns, v, dr = (t(x) for x in resident_state(np, spec, 64, 16, 91,
+                                              min_victims=9))
+    gidx = t(np.arange(0, 64, 4, dtype=np.int32).repeat(3)[:48] + np.tile(
+        np.arange(3, dtype=np.int32), 16))
+    kw = dict(m_res=16, resident=False, m_gather=16, req=req, spec=spec)
+    fn = lambda: fc.fused_class(ns, v, dr, *empty, gidx, **kw)
+    compare(torch, [fn()], [fc.fused_class_plain(ns, v, dr, *empty, gidx,
+                                                 **kw)], "fused_class wide")
+    g = gidx.long()
+    n_bytes = (48 * (1 + 2 + 2 + 2 * v.shape[2] + 3 * 16) + 15 * 48) * 4
+    b_ms, b_by = bound_ms(n_bytes, sweep_ops(torch, ns[:, g], v[:, g],
+                                             dr[:, g], 16, False, req, spec),
+                          INT_OPS_PER_S)
+    out["wide"] = {
+        "spec": spec.name, "rows": 48, "m": 16,
+        "eligible": [int(x) for x in (v[4, g] != 0).sum(1).tolist()],
+        "ms": event_ms(torch, fn, reps=7),
+        "kernel_ms": profiled_kernel_ms(torch, fn, "fused_class_kernel"),
+        "bound_ms": b_ms, "bound_by": b_by}
+    print(f"[sweep-timing] {json.dumps(out)}", flush=True)
+    return out
+
+
+def launch_floor(torch) -> dict:
+    """An empty kernel (one warp), launched through the same ctypes path
+    as the kernels and timed the same ways: how much of a kernel's few
+    microseconds is the launch."""
+    from repro_torch.kernels import fused_class as fc
+
+    lib = fc.lib()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def fn():
+        code = lib.empty_launch(stream)
+        check(code == 0, f"empty_launch: CUDA error {code}")
+
+    out = {"ms": event_ms(torch, fn),
+           "kernel_ms": profiled_kernel_ms(torch, fn, "empty_kernel")}
+    print(f"[floor] empty kernel {json.dumps(out)}", flush=True)
+    return out
 
 
 #: K2's kernels: the one-cluster form launches the first, the split form
@@ -2084,11 +2234,30 @@ def build_all() -> None:
     for name, c in counts.items():
         check(c["ATOMG"] == 0 and c["RED"] == 0 and c["ATOM"] == 0,
               f"{name} holds global atomics: {c}")
+    counts = sass_counts(_build._target("topo_score")[1],
+                         r"(fused_class_kernelILb[01]ELb[01]E|"
+                         r"topo_score_argmax_kernel)", K1_OPS)
+    print(f"[build] K1 SASS (kernel: counts): {json.dumps(counts)}",
+          flush=True)
+    check(len(counts) == 4, f"{sorted(counts)} of K1's four kernels found "
+          "in the SASS")
+    for name, c in counts.items():
+        # REDUX: the redux.sync merges; I2F...RP: the conversion that opens
+        # an integer division; MUFU.RCP in the lane form is the Eq. 1
+        # score's IEEE reciprocal (__fdiv_rn), which the sweep lacks
+        check(c["REDUX"] > 0 and c["I2F_RP"] == 0,
+              f"{name}: no redux or an integer division: {c}")
+        check(name == "topo_score_argmax_kernel" or c["MUFU.RCP"] == 0,
+              f"{name} holds a reciprocal: {c}")
 
 
 SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG")
 #: global atomics and reductions (generic, global, fire-and-forget)
 ATOMIC_OPS = ("ATOMG", "ATOM", "RED")
+#: K1's kernels: warp reductions, shuffles, reciprocals, the rounding
+#: conversion (I2F...RP) with which nvcc opens an integer division, and
+#: local-memory loads and stores
+K1_OPS = ("REDUX", "SHFL", "MUFU.RCP", "I2F_RP", "LDL", "STL")
 
 
 def sass_counts(lib, function: str, ops) -> dict[str, dict[str, int]]:
@@ -2111,7 +2280,9 @@ def sass_counts(lib, function: str, ops) -> dict[str, dict[str, int]]:
                 if m else None
         elif cur is not None:
             for op in ops:
-                if re.search(rf"\b{op}\b", line):
+                pat = (r"\bI2F(\.\w+)*\.RP\b" if op == "I2F_RP"
+                       else rf"\b{re.escape(op)}\b")
+                if re.search(pat, line):
                     cur[op] += 1
     return counts
 
@@ -2174,9 +2345,13 @@ def run() -> int:
                           serve["counts"]["flash_attention"]))
     rows.extend(fused_rows(torch, np, dev, errs, launches, fused_plans,
                            clusters, cluster_sweep(torch, np, dev)))
+    sweep = sweep_timing(torch, np, dev)
+    floor = launch_floor(torch)
     for row in rows:
         if row["name"] in day["launches"]:
             row["day_launches"] = day["launches"][row["name"]]
+        if row["name"] == "fused_class":
+            row.update(sweep)
     trace_phase(torch, dev)
     for n, cluster in clusters.items():
         trace_phase(torch, dev, "imp_batched", n, cluster, plans=20)
@@ -2198,7 +2373,8 @@ def run() -> int:
                       "serve": {k: serve[k] for k in (
                           "prefill_s", "decode_p50_ms", "decode_p90_ms",
                           "tok_per_s", "max_memory_allocated")},
-                      "serve_check": check_errs, "card": smi}),
+                      "serve_check": check_errs,
+                      "empty_kernel_ms": floor["kernel_ms"], "card": smi}),
           flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi(), flush=True)

@@ -28,7 +28,10 @@ of the three tiers), the smallest feasible subset size, the count of
 feasible subsets at that size, and the node id.  The tail reduces each
 segment of ``seg`` rows to one int32[`WIN_FIELDS`] winner, in one pass
 over the rows by one thread-block cluster a segment (`cluster_geometry`),
-the CTAs merging through distributed shared memory.
+the CTAs merging through distributed shared memory.  The sweep gives each
+row a group of threads chosen from its section's width and the plan's rows
+(`sweep_geometry`): 16 or 32 threads up to 8 slots, a CTA of
+`WIDE_THREADS` above.
 
 A wrapper runs the plain version for tensors on the CPU and launches its
 kernel for tensors on a CUDA device; anything else raises.  Each wrapper
@@ -64,9 +67,24 @@ C_ANY, C_CB, C_PP, C_UM, C_K, C_CNT, C_NID = 0, 3, 6, 9, 12, 13, 14
 #: width of one decoded winner: (found, row, tier, combo id, priority sum,
 #: k, n_candidates) + the placement's (gpu_mask, cg_mask)
 WIN_FIELDS = 9
-#: widest slot count of the one-warp-a-row kernel; wider rows take the
-#: one-CTA-a-row kernel
+#: widest slot count of the narrow sweep (a group of at most a warp a row);
+#: wider rows take the one-CTA-a-row kernel
 NARROW_KERNEL_M = 8
+#: the most threads a CTA of the narrow sweep takes, and the threads of the
+#: wide sweep's CTA (kNarrowThreads, kWideThreads in csrc/topo_score.cu)
+SWEEP_THREADS = 256
+WIDE_THREADS = 512
+#: CTAs of the narrow sweep an SM should find in the first wave
+SWEEP_CTAS_PER_SM = 2
+#: threads a row where two rows share a warp (a large plan's narrow sweep):
+#: where both have at most 4 eligible slots (one subset a thread) each group
+#: sweeps its own row, else the warp sweeps them one after the other; the
+#: group's last two lanes fold the row's free and drained masks
+SHARED_GROUP = 16
+#: rows a SM up to which the narrow sweep gives each row a warp (on an H100
+#: a warp a row is faster at 1024 saturated rows, two rows a warp at 10240:
+#: PERF.md)
+SWEEP_WARP_ROWS = 16
 _INT32_MAX = 2**31 - 1
 _MAX_SCOPES = 8 + 8 + 1     # FusedParams.scope_* widths in csrc/topo_score.cu
 #: CTAs of the portable thread-block cluster (kClusterCtas), and the most
@@ -361,6 +379,34 @@ def cluster_geometry(rows: int, max_threads: int,
     return ctas, threads
 
 
+@functools.lru_cache(maxsize=1024)
+def sweep_geometry(m_res: int, res_rows: int, m_gather: int,
+                   gather_rows: int, sms: int = 132) -> tuple[int, int, int]:
+    """``(threads, group_res, group_gather)`` of the class sweep: a CTA of
+    `WIDE_THREADS` a row when a section with rows is wider than
+    `NARROW_KERNEL_M`.  Else a warp a row while the rows number at most
+    `SWEEP_WARP_ROWS` a SM (the time is then one warp's chain, which two
+    rows a warp would lengthen), and `SHARED_GROUP` threads a row above
+    (fewer warps where the card is full); and as many warps a CTA (1 to 8)
+    as put about `SWEEP_CTAS_PER_SM` CTAs on each of ``sms`` SMs, so a
+    small plan spreads over the card and a large one fills it with few,
+    full CTAs."""
+    if max(m_res if res_rows else 0,
+           m_gather if gather_rows else 0) > NARROW_KERNEL_M:
+        return WIDE_THREADS, WIDE_THREADS, WIDE_THREADS
+    group = (32 if res_rows + gather_rows <= SWEEP_WARP_ROWS * sms
+             else SHARED_GROUP)
+    warps = -(-(res_rows + gather_rows) * group // (32 * SWEEP_CTAS_PER_SM
+                                                   * sms))
+    return 32 * min(SWEEP_THREADS // 32, max(1, warps)), group, group
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: int) -> int:
+    """Streaming multiprocessors of CUDA device ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 @functools.lru_cache(maxsize=None)
 def max_cluster_ctas(device: int) -> int:
     """The most CTAs a cluster of K2's normal-cycle form and of K1's tail
@@ -453,13 +499,15 @@ def bind(out: ctypes.CDLL) -> ctypes.CDLL:
     ``csrc/topo_score.cu``."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     sp, pp = ctypes.POINTER(_State), ctypes.POINTER(_FusedParams)
-    out.fused_class_launch.argtypes = [sp, pp, ci, ci, ci, ci, vp, vp, ci, vp]
+    out.fused_class_launch.argtypes = [sp, pp] + [ci] * 6 + [vp, vp, ci, vp]
     out.fused_argmax_launch.argtypes = [sp, pp, vp, ci, ci, ci, ci, vp, vp,
                                         ci, vp]
     out.normal_cycle_launch.argtypes = [sp, pp, ci, ci, ci, vp, vp, ci, vp]
     out.cluster_ctas_max.argtypes = [ci]
+    out.empty_launch.argtypes = [vp]
     for fn in (out.fused_class_launch, out.fused_argmax_launch,
-               out.normal_cycle_launch, out.cluster_ctas_max):
+               out.normal_cycle_launch, out.cluster_ctas_max,
+               out.empty_launch):
         fn.restype = ci
     out.topo_score_error_string.argtypes = [ci]
     out.topo_score_error_string.restype = ctypes.c_char_p
@@ -501,17 +549,31 @@ def fused_class(nodestate, victims, drain, pidx, pbuf, gidx, *, m_res: int,
                                  m_res=m_res, resident=resident,
                                  m_gather=m_gather, req=req, spec=spec)
     st = launch_state(nodestate, victims, drain, pidx, pbuf, gidx, resident)
+    return launch_class(st, m_res, m_gather, req, spec, skip)
+
+
+def launch_class(st, m_res: int, m_gather: int, req: FusedRequest,
+                 spec: ServerSpec, skip: torch.Tensor | None = None,
+                 geometry: tuple[int, int, int] | None = None
+                 ) -> torch.Tensor:
+    """The sweep on a `launch_state`, in `sweep_geometry` unless
+    ``geometry`` ``(threads, group_res, group_gather)`` is given (every
+    geometry the launcher takes gives the same bits; a forced one serves
+    the checks and measurements of each)."""
+    n_res, n_gather = st.n_res, st.g
+    rows = n_res + n_gather
     cls = torch.empty((CLS_FIELDS, rows), dtype=torch.int32,
-                      device=nodestate.device)
+                      device=st.tensors[0].device)
     if rows == 0:
         return cls
-    wide = int(max(m_res if resident else 0,
-                   m_gather if gidx.shape[0] else 0) > NARROW_KERNEL_M)
+    threads, g_res, g_gather = geometry or sweep_geometry(
+        m_res, n_res, m_gather, n_gather, sm_count(st.device))
     out = lib()
     code = out.fused_class_launch(
-        ctypes.byref(st), ctypes.byref(params(spec, req)), m_res,
-        m_gather, rows, wide, None if skip is None else skip.data_ptr(),
-        cls.data_ptr(), st.device, stream_of(st))
+        ctypes.byref(st), ctypes.byref(params(spec, req)), m_res, m_gather,
+        rows, threads, g_res, g_gather,
+        None if skip is None else skip.data_ptr(), cls.data_ptr(), st.device,
+        stream_of(st))
     ts._raise_on(out, code, "fused_class")
     fused_class.launches += 1
     return cls
@@ -577,4 +639,6 @@ __all__ = ["CLS_FIELDS", "CLUSTER_CTAS", "FusedRequest", "IDX_SENTINEL",
            "WIN_FIELDS", "WRAPPERS", "bind", "class_sweep_plain",
            "cluster_geometry", "fused_argmax", "fused_argmax_plain",
            "fused_class", "fused_class_plain", "launch_state",
-           "max_cluster_ctas", "plan_rows"]
+           "launch_class", "max_cluster_ctas", "plan_rows", "sm_count",
+           "sweep_geometry", "SHARED_GROUP", "SWEEP_THREADS",
+           "SWEEP_WARP_ROWS", "WIDE_THREADS"]

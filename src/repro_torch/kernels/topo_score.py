@@ -15,8 +15,11 @@ wrapper               plain version              replaces (repro.kernels.topo_sc
 ====================  =========================  ===============================
 
 A wrapper runs the plain version for tensors on the CPU and launches its
-kernel for tensors on a CUDA device; anything else raises.  Each wrapper
-counts its kernel launches in ``<wrapper>.launches``.
+kernel for tensors on a CUDA device; anything else raises.  The
+``topo_score_argmax`` kernel takes one lane a thread and the tier from
+per-NUMA counts with no division, the rule of the fused kernels; the other
+two take four lanes a thread through the reference's ``tier_score``.  Each
+wrapper counts its kernel launches in ``<wrapper>.launches``.
 
 ``topo_score_argmax`` also reduces each tile of ``TILE = 8 * 128`` lanes to
 (smallest feasible subset size, best tier, best score, flat index of that
@@ -84,6 +87,11 @@ def _params(spec: ServerSpec, req: TopoRequest) -> _Params:
     if spec.num_numa > _MAX_NUMA or spec.num_sockets > _MAX_SOCKETS:
         raise ValueError(f"{spec.name}: the kernels take at most {_MAX_NUMA} "
                          f"NUMA nodes and {_MAX_SOCKETS} sockets")
+    # the kernels' tier rule sums a socket's NUMA nodes as k adjacent bytes
+    k = max(1, sum(spec.socket_of_numa(u) == 0 for u in range(spec.num_numa)))
+    if any(spec.socket_of_numa(u) != u // k for u in range(spec.num_numa)):
+        raise ValueError(f"{spec.name}: the kernels take sockets of "
+                         "consecutive NUMA nodes")
     p = _Params()
     p.num_numa = spec.num_numa
     p.num_sockets = spec.num_sockets
@@ -243,7 +251,7 @@ def _lib() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     pp = ctypes.POINTER(_Params)
     lib.topo_score_launch.argtypes = [vp, vp, vp, vp, vp, ci, pp, ci, vp]
-    lib.topo_score_argmax_launch.argtypes = [vp] * 11 + [ci, pp, ci, vp]
+    lib.topo_score_argmax_launch.argtypes = [vp] * 11 + [ci, pp, vp]
     lib.placement_tier_launch.argtypes = [vp, vp, vp, ci, pp, ci, vp]
     for fn in (lib.topo_score_launch, lib.topo_score_argmax_launch,
                lib.placement_tier_launch):
@@ -323,7 +331,6 @@ def topo_score_argmax(combo_gpu: torch.Tensor, combo_cg: torch.Tensor,
             k.data_ptr(), ok.data_ptr(), tier.data_ptr(), score.data_ptr(),
             kmin.data_ptr(), btier.data_ptr(), bscore.data_ptr(),
             bidx.data_ptr(), n, ctypes.byref(_params(spec, req)),
-            _vec(combo_gpu, combo_cg, prio, k, ok, tier, score),
             _stream(combo_gpu))
     _raise_on(lib, code, "topo_score_argmax")
     topo_score_argmax.launches += 1

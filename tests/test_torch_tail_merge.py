@@ -15,8 +15,8 @@
   every row of 0..70000 (sampled) taken exactly once, in clusters of at
   most 8 and 16 CTAs.
 * The wrappers' mirrors of the kernel source's constants agree with it,
-  and the kernels' bundle division by multiply (``bundle_magic``) is
-  exact.
+  and the kernels' bundle division by multiply (``bundle_magic``, a
+  constant table) is exact.
 """
 import pathlib
 import random
@@ -198,7 +198,8 @@ _CU = (pathlib.Path(fc.__file__).parent / "csrc" / "topo_score.cu").read_text()
 @pytest.mark.parametrize("name, const", [
     ("CLUSTER_CTAS", "kClusterCtas"), ("NORMAL_THREADS", "kNormalThreads"),
     ("TAIL_THREADS", "kTailThreads"), ("MAX_PATCH_ROWS", "kMaxPatchRows"),
-    ("MAX_SPLIT_CLUSTERS", "kMaxSplitClusters")])
+    ("MAX_SPLIT_CLUSTERS", "kMaxSplitClusters"),
+    ("SWEEP_THREADS", "kNarrowThreads"), ("WIDE_THREADS", "kWideThreads")])
 def test_wrapper_constants_mirror_the_kernel_source(name, const):
     got = re.search(rf"constexpr int {const} = (\d+);", _CU)
     assert got, const
@@ -213,10 +214,14 @@ def test_fused_params_mirror_the_kernel_struct():
 
 
 def test_bundle_division_is_exact():
-    """bundle_magic's (cnt * (0xffffffff // d + 1)) >> 32 == cnt // d for
-    every count a node's 32-bit masks hold and every bundle size d >= 1."""
-    assert "0xffffffffu /" in _CU
+    """bundle_magic's (cnt * m) >> 32 == cnt // d for every count a node's
+    32-bit masks hold and every bundle size d >= 1: the kernels' constant
+    table holds m = 0xffffffff // d + 1 at d = 1..32 (0 at index 0, no
+    bundle), and above 32, where every count is below d, m = 0."""
+    body = re.search(r"kBundleMagic\[33\] = \{(.*?)\};", _CU, re.S).group(1)
+    table = [int(x, 16) for x in re.findall(r"0x[0-9a-f]+", body)]
+    assert table == [0] + [0xFFFFFFFF // d + 1 for d in range(1, 33)]
     cnt = np.arange(33, dtype=object)
     for d in [*range(1, 4097), 1 << 16, (1 << 27) + 1, 1 << 31, 2**32 - 1]:
-        m = 0xFFFFFFFF // d + 1
+        m = table[d] if d <= 32 else 0
         assert all((c * m) >> 32 == c // d for c in cnt), d
