@@ -19,11 +19,15 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    sweep (its three builds) and lane form it counts ``REDUX`` (none fails
    the run), ``SHFL``, ``MUFU.RCP`` (one in the sweep fails it; the lane
    form's are the Eq. 1 score's IEEE reciprocal), the ``I2F...RP`` that
-   opens an integer division (one fails it) and local-memory traffic.
+   opens an integer division (one fails it) and local-memory traffic.  In
+   K2's and K3's lane forms (both layouts each) an integer division, local
+   memory, a reciprocal in K2 or more in K3 than its Eq. 1 scores need
+   fails the run.
 2. ``[kernels]``: each topo-score kernel against its plain PyTorch version on
    the card, bit for bit (tiers, per-tile argmax, scores), over all three
    server specs, several requests with the exactness traps in their inputs,
-   and n in {256, 1500, 65536}; ``placement_tier`` also against host
+   and n in {256, 1500, 65536}; K2 and K3 also at ``BIG_LANES`` (2,621,440
+   lanes, aligned and not); ``placement_tier`` also against host
    ``best_tier``.
 3. ``[fused]``: the fused engine's kernels against their plain versions
    on the card, bit for bit: K1's resident form (``fused_class``), its
@@ -106,7 +110,10 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
 10. One ``{"kernels": [...]}`` line: per kernel its launches on its path,
    the largest difference against the plain version, the time per call
    from CUDA events (kernel and plain version), the device time per launch
-   from torch.profiler, the bound and the share of it the kernel reaches,
+   from torch.profiler (K2's and K3's lane forms also at ``BIG_LANES``,
+   each launch after a write that evicts the L2, and at 1024 and
+   ``BIG_LANES`` against the yardstick build, A B B A),
+   the bound and the share of it the kernel reaches,
    the function's operations over the kernel's time (``tflops``), and the
    time of one PyTorch library call of the same function where there is
    one (the fused kernels at preemptor B on the saturated 1024- and
@@ -149,6 +156,13 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
 SIZES = (256, 1500, 65536)
+#: K2's and K3's bandwidth shape: the lanes of all 2^8 subsets of every
+#: node of the reference's 10240-node scale block, in one launch (31-52 MB
+#: of inputs and outputs, about the card's 50 MB L2)
+BIG_LANES = 10240 * 2**8
+#: the scratch write that evicts the L2 before each timed launch at
+#: BIG_LANES (more than twice the L2)
+L2_FLUSH_BYTES = 256 << 20
 #: (need_gpus, need_cgs, cgs_per_bundle, alpha): every need size, a
 #: zero-need request, an unbundled one, cnt_cg // 2, and alpha 0 / 1
 REQUESTS = ((1, 1, 1, 0.5), (2, 2, 1, 0.0), (4, 4, 0, 1.0), (8, 8, 1, 0.5),
@@ -226,7 +240,7 @@ def kernel_phase(torch, np, dev) -> dict[str, float]:
 
     errs = {"topo_score_argmax": 0.0, "topo_score": 0.0,
             "placement_tier": 0.0}
-    cases = 0
+    cases = big_cases = 0
     for si, name in enumerate(sorted(SPECS)):
         spec = SPECS[name]
         for ri, (ng, nc, cpb, alpha) in enumerate(REQUESTS):
@@ -256,6 +270,22 @@ def kernel_phase(torch, np, dev) -> dict[str, float]:
                             [ts.placement_tier_plain(x[0], x[1], spec, req)],
                             "placement_tier " + what))
                     cases += 1
+            # K2 and K3 at their bandwidth shape, aligned and 4 bytes off
+            g, c, p = lanes(torch, np, spec, BIG_LANES + 1,
+                            seed=1000 + 100 * si + 10 * ri, dev=dev)[:3]
+            for off in (0, 1):
+                x = [t[off:off + BIG_LANES] for t in (g, c, p)]
+                what = (f"{name} req={ng, nc, cpb, alpha} n={BIG_LANES} "
+                        f"off={off}")
+                errs["topo_score"] = max(errs["topo_score"], compare(
+                    torch, ts.topo_score(*x, spec, req),
+                    ts.topo_score_plain(*x, spec, req), "topo_score " + what))
+                errs["placement_tier"] = max(errs["placement_tier"], compare(
+                    torch, [ts.placement_tier(x[0], x[1], spec, req)],
+                    [ts.placement_tier_plain(x[0], x[1], spec, req)],
+                    "placement_tier " + what))
+                big_cases += 1
+            del g, c, p, x
             # placement_tier against host best_tier, every lane of n = 1500
             g, c = lanes(torch, np, spec, 1500, seed=7 + si, dev=dev)[:2]
             tier = ts.placement_tier(g, c, spec, req).cpu().tolist()
@@ -267,8 +297,9 @@ def kernel_phase(torch, np, dev) -> dict[str, float]:
                 check(tier == want, f"placement_tier {name} "
                       f"req={ng, nc, cpb} differs from host best_tier")
     torch_sync(dev)
-    print(f"[kernels] {cases} cases x 3 kernels bit-exact against the plain "
-          f"versions; placement_tier == host best_tier", flush=True)
+    print(f"[kernels] {cases} cases x 3 kernels and {big_cases} x "
+          f"(topo_score, placement_tier) at n = {BIG_LANES} bit-exact against "
+          f"the plain versions; placement_tier == host best_tier", flush=True)
     return errs
 
 
@@ -1595,12 +1626,41 @@ def event_ms(torch, fn, reps: int = 15, inner: int = 40) -> float:
     return statistics.median(samples)
 
 
+def l2_flush(torch):
+    """A function that writes L2_FLUSH_BYTES of scratch on the card, so
+    that the next launch finds none of its inputs in the L2."""
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                          device="cuda")
+    return lambda: scratch.fill_(1)
+
+
+def flushed_event_ms(torch, fn, flush, reps: int = 30) -> float:
+    """Median CUDA-event time of one call of `fn`, each after `flush`
+    (outside the events)."""
+    for _ in range(3):
+        flush()
+        fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        flush()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end))
+    return statistics.median(samples)
+
+
 def profiled_kernel_ms(torch, fn, kernel, calls: int = 40,
-                       attempts: int = 3):
+                       attempts: int = 3, before=None):
     """Device time per launch of `kernel` from torch.profiler, or None where
     the profiler records no device time for it; `kernel` a tuple of names,
     each launched once a call of `fn`: the sum of their times a launch.
-    The profiler has come back
+    `before`, where given, runs ahead of each call (an L2 flush, whose
+    kernel is not counted).  The profiler has come back
     without the device records of the ctypes-launched kernels now and then
     (one of six fused timings in a run), so an empty window is profiled
     again, up to ``attempts`` times."""
@@ -1611,6 +1671,8 @@ def profiled_kernel_ms(torch, fn, kernel, calls: int = 40,
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
+                if before is not None:
+                    before()
                 fn()
             torch.cuda.synchronize()
         names = kernel if isinstance(kernel, tuple) else (kernel,)
@@ -1658,9 +1720,12 @@ def timing_phase(torch, np, dev, errs, launches, plans) -> list[dict]:
         "placement_tier": ("placement_tier_pallas", 285,
                            "placement_tier_kernel", 12, 0, 1024),
     }
+    flush = l2_flush(torch)
     for name, (ref_fn, ref_line, sym, bpl, fpl, main_n) in per_kernel.items():
         shapes = []
-        for n in sorted({main_n, *SIZES}):
+        # K2 and K3 also at 1024 lanes and their bandwidth shape
+        big = (1024, BIG_LANES) if name != "topo_score_argmax" else ()
+        for n in sorted({main_n, *SIZES, *big}):
             g, c, p, k, ok = lanes(torch, np, spec, n, seed=n, dev=dev)
             if name == "topo_score_argmax":
                 def fn(): return ts.topo_score_argmax(g, c, p, k, spec, req, ok=ok)
@@ -1675,12 +1740,21 @@ def timing_phase(torch, np, dev, errs, launches, plans) -> list[dict]:
                 def plain(): return ts.placement_tier_plain(g, c, spec, req)
                 extra = 0
             b_ms, b_by = bound_ms(bpl * n + extra, fpl * n)
-            ms = event_ms(torch, fn)
-            kernel_ms = profiled_kernel_ms(torch, fn, sym)
+            cold = n == BIG_LANES       # each launch after an L2 flush
+            if cold:
+                ms = flushed_event_ms(torch, fn, flush)
+                plain_ms = event_ms(torch, plain, reps=5, inner=2)
+            else:
+                ms, plain_ms = event_ms(torch, fn), event_ms(torch, plain)
+            before = flush if cold else None
+            kernel_ms = profiled_kernel_ms(torch, fn, sym, before=before)
             shapes.append({
-                "n": n, "ms": ms, "kernel_ms": kernel_ms,
-                "plain_ms": event_ms(torch, plain), "bound_ms": b_ms,
+                "n": n, "l2_flushed": cold, "ms": ms, "kernel_ms": kernel_ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms,
                 "bound_by": b_by, **rates(fpl * n, b_ms, ms, kernel_ms)})
+            if big and n in (1024, BIG_LANES):
+                shapes[-1]["kernel_ms_tier"] = tier_forms(
+                    torch, fn, (sym,), before=before)
         main = next(s for s in shapes if s["n"] == main_n)
         rows.append({
             "name": name, "route": "cuda",
@@ -1962,38 +2036,41 @@ def launch_floor(torch) -> dict:
 #: K2's kernels: the one-cluster form launches the first, the split form
 #: both
 K2_KERNELS = ("normal_cycle_kernel", "normal_merge_kernel")
-#: the define that builds K2's screen and the cluster kernels' placement on
-#: tier_of (the lane kernels' tier_score) in place of fused_tier: the
-#: yardstick the tier function is timed against
+#: the define that builds every kernel of csrc/topo_score.cu on tier_of
+#: (the reference's rule written out, tier_score) in place of fused_tier:
+#: the yardstick the tier function is timed against
 TIER_YARDSTICK = ("FUSED_TIER_BY_TIER_SCORE",)
 
 
 @contextlib.contextmanager
 def launching_from(library):
-    """Inside the block the fused wrappers launch from ``library`` (a build
-    of csrc/topo_score.cu with the same interface)."""
+    """Inside the block every wrapper of csrc/topo_score.cu's kernels
+    launches from ``library`` (a build of it with the same interface)."""
     from repro_torch.kernels import fused_class as fc
     from repro_torch.kernels import normal_cycle as nck
+    from repro_torch.kernels import topo_score as ts
 
-    saved = fc.lib, nck.lib
-    fc.lib = nck.lib = lambda: library
+    saved = fc.lib, nck.lib, ts._lib
+    fc.lib = nck.lib = ts._lib = lambda: library
     try:
         yield
     finally:
-        fc.lib, nck.lib = saved
+        fc.lib, nck.lib, ts._lib = saved
 
 
 def yardstick_lib():
     from repro_torch.kernels import _build
     from repro_torch.kernels import fused_class as fc
+    from repro_torch.kernels import topo_score as ts
 
-    return fc.bind(_build.load("topo_score", TIER_YARDSTICK))
+    return fc.bind(ts.bind(_build.load("topo_score", TIER_YARDSTICK)))
 
 
-def tier_forms(torch, fn, kernels) -> dict[str, list]:
+def tier_forms(torch, fn, kernels, before=None) -> dict[str, list]:
     """Device time a call of ``fn`` launched from this build (fused_tier)
-    and from the yardstick build (tier_of), in the order A, B, B, A; the
-    two builds' outputs must agree bit for bit."""
+    and from the yardstick build (tier_of), in the order A, B, B, A, each
+    call after ``before`` where given; the two builds' outputs must agree
+    bit for bit."""
     yard = yardstick_lib()
     got = {"fused_tier": [], "tier_of": []}
     outs = {}
@@ -2001,9 +2078,14 @@ def tier_forms(torch, fn, kernels) -> dict[str, list]:
         ctx = (launching_from(yard) if form == "tier_of"
                else contextlib.nullcontext())
         with ctx:
-            got[form].append(profiled_kernel_ms(torch, fn, kernels))
-            outs[form] = fn().clone()
-    check(torch.equal(outs["fused_tier"], outs["tier_of"]),
+            got[form].append(profiled_kernel_ms(torch, fn, kernels,
+                                                before=before))
+            out = fn()
+            outs[form] = [x.clone() for x in (
+                out if isinstance(out, tuple) else (out,))]
+    check(all(torch.equal(*(x.view(torch.int32) if x.is_floating_point()
+                            else x for x in pair))
+              for pair in zip(outs["fused_tier"], outs["tier_of"])),
           f"{kernels}: the fused_tier and tier_of builds disagree")
     return got
 #: node counts of `cluster_sweep`
@@ -2249,6 +2331,24 @@ def build_all() -> None:
               f"{name}: no redux or an integer division: {c}")
         check(name == "topo_score_argmax_kernel" or c["MUFU.RCP"] == 0,
               f"{name} holds a reciprocal: {c}")
+    lane = sass_counts(_build._target("topo_score")[1],
+                       r"((?:topo_score|placement_tier)_kernelILb[01]E)",
+                       K1_OPS)
+    print(f"[build] K2/K3 lane SASS (kernel: counts): {json.dumps(lane)}",
+          flush=True)
+    check(len(lane) == 4, f"{sorted(lane)} of the lane kernels' four forms "
+          "found in the SASS")
+    rcp = counts["topo_score_argmax_kernel"]["MUFU.RCP"]
+    for name, c in lane.items():
+        check(c["I2F_RP"] == 0 and c["LDL"] == 0 and c["STL"] == 0,
+              f"{name}: an integer division or local memory: {c}")
+        # K2 has no reciprocal; K3's are the Eq. 1 score's, as many as K1's
+        # lane form has for its one score (at most that for each of the
+        # five the vector form writes: four a step and the last lanes)
+        most = 0 if name.startswith("placement") else (
+            rcp if name.endswith("ILb0E") else 5 * rcp)
+        check(c["MUFU.RCP"] <= most and (most == 0) == (c["MUFU.RCP"] == 0),
+              f"{name} holds a reciprocal beyond the score's: {c}")
 
 
 SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG")

@@ -9,9 +9,11 @@
 //   topo_score_kernel        <- topo_score_pallas         (_kernel)
 //   topo_score_argmax_kernel <- topo_score_argmax_pallas  (_argmax_kernel)
 //   placement_tier_kernel    <- placement_tier_pallas     (_place_tier_kernel)
-// The counterpart of the reference's _tier_score is tier_score() in K2 and
-// K3, and in K1 the counts-based rule of the fused kernels (numa_counts +
-// fused_tier, the same tier with no integer division).
+// The counterpart of the reference's _tier_score is one rule in every
+// kernel: the lane's per-NUMA counts packed a byte a NUMA node (numa_words)
+// and the tier from those whole words (fused_tier), with no integer
+// division.  The reference's rule written out (tier_score) exists only in
+// the yardstick build, -DFUSED_TIER_BY_TIER_SCORE.
 //
 // One lane is one victim subset (or, for placement_tier, one node): its
 // freed-GPU and freed-CoreGroup int32 bitmasks.  Per NUMA node the kernel
@@ -19,21 +21,28 @@
 // (0 = one NUMA, 1 = one socket, 2 = cross-socket, 3 = infeasible) and the
 // Eq. 1 score.
 //
-// Layout of K2 and K3: one block of 256 threads per tile of 1024 lanes (the
-// reference's (8, 128) tile), 4 consecutive lanes per thread, loaded and
-// stored as one 16-byte vector where the tensors are 16-byte aligned and
-// the 4 lanes lie inside n; the ragged edge is masked lane by lane here,
-// not padded by the caller.  K1 takes one lane a thread, a block a tile
-// (n rounded up to a warp when n < 1024), and reduces the tile by redux.sync
-// steps (one key field a step) in each warp and then in one warp.
+// Layout of K2 and K3: one lane a thread in blocks of kLaneThreads (n
+// rounded up to a warp below one block) while one grid of kLaneBlocksPerSm
+// blocks an SM covers the lanes (every size a plan or chip_smoke.py's
+// tile shapes give them); above it, where every pointer is 16-byte aligned,
+// that grid strides over the lanes four a thread a step, as 16-byte
+// vectors (lane_geometry).  The ragged edge is masked here, not padded by
+// the caller.  K1 takes one lane a thread, a block a tile (n rounded up to
+// a warp when n < 1024), and reduces the tile by redux.sync steps (one key
+// field a step) in each warp and then in one warp.
 //
-// Bound: bytes.  K1 moves 28 B per lane (five int32 in, int32 tier and f32
-// score out) for a few dozen integer operations, far below Hopper's
-// operations-per-byte balance, so the design keeps every lane to one read
-// and one write and does the per-tile argmax in registers and shared memory
-// instead of a second pass.  At the main path's n <= 256 lanes (one tile)
-// the launch and one thread's chain of dependent steps set the time, so K1
-// keeps that chain short: one lane a thread, no division, no serial loop.
+// Bound: bytes on paper.  K3 moves 20 B a lane (three int32 in, int32 tier
+// and f32 score out), K2 12 B (two in, one out), K1 28 B, each for about a
+// hundred integer operations, so each lane is read once and written once,
+// and K1 does its per-tile argmax in registers and shared memory instead of
+// a second pass.  At a few tiles the launch and one thread's chain of
+// dependent steps set the time, so a thread takes one lane: no division,
+// no serial loop.  At millions of lanes the integer pipes come close to
+// the bytes (16 popcounts a lane at 16 a clock an SM, and the tier's word
+// arithmetic at 64 a clock), so the tier rule is one pass over 32-bit
+// halves with no branch a lane, a thread builds the request's rule
+// (tier_rule) once for all its lanes, and four lanes a step give each
+// thread independent work and one load an input (PERF.md, section 6).
 //
 // Exactness traps (each must hold for bit-identical results against the
 // reference and against the plain PyTorch versions):
@@ -51,13 +60,14 @@
 //    kmin = K_INFEASIBLE, btier = 3, bscore = -inf and
 //    bidx = tile * 1024 + K_INFEASIBLE; the reduction's identity key is
 //    exactly (K_INFEASIBLE, 3, -inf, K_INFEASIBLE), so those values fall out.
-//  * Padding.  Lanes past n read as mask 0, prio 0, k = K_INFEASIBLE and
-//    ok = 0.  A zero-need request makes a zero-mask lane feasible, so it is
-//    the ok = 0 of a pad lane that keeps it out of the argmax.
-//  * cnt_cg / cgs_per_bundle is integer division, taken only when
-//    cgs_per_bundle > 0 (counts are non-negative, so C's truncation equals
-//    Python's floor division); the fused kernels and K1 multiply by
-//    bundle_magic instead, exact for every count a 32-bit mask holds.
+//  * Padding.  In K1 lanes past n read as mask 0, prio 0, k = K_INFEASIBLE
+//    and ok = 0.  A zero-need request makes a zero-mask lane feasible, so
+//    it is the ok = 0 of a pad lane that keeps it out of the argmax.  In K2
+//    and K3 they are neither read nor written.
+//  * The reference's cnt_cg // cgs_per_bundle, taken only when
+//    cgs_per_bundle > 0, is a multiply by bundle_magic here, exact for
+//    every count a 32-bit mask holds (0 above 32, where every count is
+//    below the divisor).
 //  * The reduction selects as the reference does: the smallest k among
 //    feasible lanes with k <= K_INFEASIBLE, then the lowest tier, then the
 //    highest score, then the lowest flat index.  The flat index makes the
@@ -74,9 +84,9 @@ namespace {
 
 constexpr int kMaxNuma = 8;
 constexpr int kMaxSockets = 8;
-constexpr int kThreads = 256;
-constexpr int kLanesPerThread = 4;
-constexpr int kTile = kThreads * kLanesPerThread;  // 1024 = 8 x 128
+constexpr int kTile = 8 * 128;       // K1's block: the reference's tile
+constexpr int kLaneThreads = 256;    // K2's and K3's block
+constexpr int kLaneBlocksPerSm = 8;  // K2's and K3's grid: at most 8 an SM
 constexpr int kInfeasible = 1 << 30;                // K_INFEASIBLE
 
 constexpr int kMaxScopes = kMaxNuma + kMaxSockets + 1;
@@ -99,13 +109,16 @@ constexpr int kClusterCtas = 8;       // the portable thread-block cluster
 constexpr int kMaxClusterCtas = 16;   // the largest (non-portable) one
 constexpr int kMaxPatchRows = 16384;  // the patch index in shared memory
 constexpr int kMaxSplitClusters = 1024; // K2's split form: partial minima
+constexpr int kMaxDevices = 64;       // devices whose launch facts are kept
 
 enum { NS_FREE_GPU, NS_FREE_CG, NS_NODE_ID, NS_OVERFLOW, NS_NEXT_PRIO };
 enum { VF_GPU, VF_CG, VF_PRIO, VF_RANK, VF_STORED };
 
 }  // namespace
 
-// Mirrored by ctypes.Structure _Params in repro_torch/kernels/topo_score.py.
+// Mirrored by ctypes.Structure _Params in repro_torch/kernels/topo_score.py,
+// which leaves numa_gpu and numa_cg 0 past num_numa (numa_words relies on
+// it, as does numa_counts).
 struct TopoParams {
   int num_numa;
   int num_sockets;
@@ -131,6 +144,10 @@ __device__ __forceinline__ float lane_score(int tier, int prio,
   return tier < 3 ? s : -CUDART_INF_F;
 }
 
+#ifdef FUSED_TIER_BY_TIER_SCORE
+// The reference's _tier_score written out: per NUMA node two popcounts, an
+// integer division for the bundle units, and a socket's sums in registers.
+// Only the yardstick build has it (through tier_of, in fused_tier).
 __device__ __forceinline__ void tier_score(int g, int c, int prio,
                                            const TopoParams& p, int& tier,
                                            float& score) {
@@ -149,7 +166,7 @@ __device__ __forceinline__ void tier_score(int g, int c, int prio,
     if (u < p.num_numa) {
       const int cnt_gpu = __popc(static_cast<unsigned>(g & p.numa_gpu[u]));
       const int cnt_cg = __popc(static_cast<unsigned>(c & p.numa_cg[u]));
-      // integer division, and only for a bundled request (trap 4)
+      // integer division, and only for a bundled request
       const int units = p.cgs_per_bundle > 0
                             ? min(cnt_gpu, cnt_cg / p.cgs_per_bundle)
                             : cnt_gpu;
@@ -187,6 +204,7 @@ __device__ __forceinline__ int tier_of(unsigned g, unsigned c,
   tier_score(static_cast<int>(g), static_cast<int>(c), 0, p, tier, unused);
   return tier;
 }
+#endif  // FUSED_TIER_BY_TIER_SCORE
 
 // ceil(2^32 / d) for the bundle sizes d = 1..32, and 0 at d = 0 (index 0,
 // no bundle): (cnt * m) >> 32 == cnt / d for every count a node's 32-bit
@@ -210,7 +228,7 @@ __device__ __forceinline__ unsigned long long bundle_magic(int d) {
 }
 
 // Bundle units of one NUMA node: the GPUs that come with their CoreGroup
-// bundle (tier_score's integer division, by the multiplier `magic`).
+// bundle (the reference's integer division, by the multiplier `magic`).
 __device__ __forceinline__ int bundle_units(int cnt_g, int cnt_c,
                                             const TopoParams& p,
                                             unsigned long long magic) {
@@ -231,9 +249,8 @@ __device__ __forceinline__ void numa_counts(unsigned g, unsigned c,
   wg = wc = 0ull;
 #pragma unroll
   for (int u = 0; u < kMaxNuma; ++u) {
-    const bool in = u < p.num_numa;
-    const int cg = in ? __popc(g & static_cast<unsigned>(p.numa_gpu[u])) : 0;
-    cnt_c[u] = in ? __popc(c & static_cast<unsigned>(p.numa_cg[u])) : 0;
+    const int cg = __popc(g & static_cast<unsigned>(p.numa_gpu[u]));
+    cnt_c[u] = __popc(c & static_cast<unsigned>(p.numa_cg[u]));
     units[u] = bundle_units(cg, cnt_c[u], p, magic);
     wg |= static_cast<unsigned long long>(cg) << (8 * u);
     wc |= static_cast<unsigned long long>(cnt_c[u]) << (8 * u);
@@ -243,22 +260,25 @@ __device__ __forceinline__ void numa_counts(unsigned g, unsigned c,
 // The per-NUMA GPU and CoreGroup counts of masks g, c packed 8 bits a NUMA
 // node into one 64-bit word each (a count is at most 32).  Counts of
 // disjoint masks add, so the words of a union are the sums of the words.
+// No branch: a NUMA node past num_numa has empty masks (TopoParams), so
+// its count is 0.
 __device__ __forceinline__ void numa_words(unsigned g, unsigned c,
                                            const TopoParams& p,
                                            unsigned long long& wg,
                                            unsigned long long& wc) {
-  wg = wc = 0ull;
+  unsigned half_g[2] = {0u, 0u}, half_c[2] = {0u, 0u};
 #pragma unroll
   for (int u = 0; u < kMaxNuma; ++u) {
-    if (u < p.num_numa) {
-      wg |= static_cast<unsigned long long>(
-                __popc(g & static_cast<unsigned>(p.numa_gpu[u])))
-            << (8 * u);
-      wc |= static_cast<unsigned long long>(
-                __popc(c & static_cast<unsigned>(p.numa_cg[u])))
-            << (8 * u);
-    }
+    const int shift = 8 * (u & 3);
+    half_g[u >> 2] |=
+        static_cast<unsigned>(__popc(g & static_cast<unsigned>(p.numa_gpu[u])))
+        << shift;
+    half_c[u >> 2] |=
+        static_cast<unsigned>(__popc(c & static_cast<unsigned>(p.numa_cg[u])))
+        << shift;
   }
+  wg = static_cast<unsigned long long>(half_g[1]) << 32 | half_g[0];
+  wc = static_cast<unsigned long long>(half_c[1]) << 32 | half_c[0];
 }
 
 // The constants of the tier rule for one request and SKU (tier_rule), read
@@ -314,28 +334,54 @@ __device__ __forceinline__ TierRule tier_rule(const TopoParams& p,
 }
 
 // The bytes of x that are >= the same byte of n (bytes below 128): 0x80 in
-// each such byte.
-__device__ __forceinline__ unsigned long long bytes_ge(unsigned long long x,
-                                                       unsigned long long n) {
-  constexpr unsigned long long kHigh = 0x8080808080808080ull;
+// each such byte.  No byte borrows from the next, so the two 32-bit halves
+// of a word are independent.
+__device__ __forceinline__ unsigned bytes_ge(unsigned x, unsigned n) {
+  constexpr unsigned kHigh = 0x80808080u;
   return ((x | kHigh) - n) & kHigh;
 }
 
-// The sum of the bytes of x (at most 255).
+__device__ __forceinline__ unsigned long long bytes_ge(unsigned long long x,
+                                                       unsigned long long n) {
+  return static_cast<unsigned long long>(
+             bytes_ge(static_cast<unsigned>(x >> 32),
+                      static_cast<unsigned>(n >> 32)))
+             << 32 |
+         bytes_ge(static_cast<unsigned>(x), static_cast<unsigned>(n));
+}
+
+// The sum of the bytes of x (at most 32 for the counts of one node's
+// masks), two byte dot products.
 __device__ __forceinline__ int byte_sum(unsigned long long x) {
-  return static_cast<int>((x * 0x0101010101010101ull) >> 56);
+  return static_cast<int>(
+      __dp4a(static_cast<unsigned>(x), 0x01010101u,
+             __dp4a(static_cast<unsigned>(x >> 32), 0x01010101u, 0u)));
+}
+
+// Per byte of four packed counts, the bundle units min(g, c /
+// cgs_per_bundle): the division (c * m16) >> 10 in 16-bit lanes (a product
+// is at most 32 * 1024, so no lane carries into the next).
+__device__ __forceinline__ unsigned bundle_bytes(unsigned g, unsigned c,
+                                                 unsigned m16) {
+  constexpr unsigned kLow16 = 0x00ff00ffu;
+  constexpr unsigned kQuot = 0x003f003fu;
+  const unsigned q = ((((c & kLow16) * m16) >> 10) & kQuot) |
+                     (((((c >> 8) & kLow16) * m16) >> 10) & kQuot) << 8;
+  const unsigned keep_q = (bytes_ge(g, q) >> 7) * 0xffu;  // where g >= q
+  return (q & keep_q) | (g & ~keep_q);
 }
 
 // The placement tier of masks g, c from their per-NUMA counts packed 8 bits
-// a NUMA node (numa_words, or sums of them for disjoint masks): tier_score's
-// rule on whole words.  Per NUMA node the bundle units are min(GPUs,
-// CoreGroups / cgs_per_bundle), the division a multiply in 16-bit lanes
-// (exact for counts up to 32); one NUMA node, one socket (the sums of k
-// adjacent bytes, one multiply) or the node (all bytes) must hold need_gpus
-// units and need_cgs CoreGroups.  Every fused kernel, K1's lane form and
-// the placement (warp_place) take the tier from here.  Built with
-// -DFUSED_TIER_BY_TIER_SCORE it is tier_of(g, c) instead, the yardstick
-// chip_smoke.py times it against on the same inputs.
+// a NUMA node (numa_words, or sums of them for disjoint masks): the
+// reference's _tier_score rule on whole words.  Per NUMA node the bundle
+// units are min(GPUs, CoreGroups / cgs_per_bundle), the division a
+// multiply in 16-bit lanes (exact for counts up to 32); one NUMA node, one
+// socket (the sums of k adjacent bytes, one multiply) or the node (all
+// bytes) must hold need_gpus units and need_cgs CoreGroups.  The three
+// tests are all taken and the tier selected, with no branch a lane.  Every
+// kernel of this file takes the tier from here (the lane forms through
+// lane_tier).  Built with -DFUSED_TIER_BY_TIER_SCORE it is tier_of(g, c)
+// instead, the yardstick chip_smoke.py times it against on the same inputs.
 __device__ __forceinline__ int fused_tier(unsigned g, unsigned c,
                                           unsigned long long wg,
                                           unsigned long long wc,
@@ -344,89 +390,109 @@ __device__ __forceinline__ int fused_tier(unsigned g, unsigned c,
 #ifdef FUSED_TIER_BY_TIER_SCORE
   return tier_of(g, c, p);
 #else
-  constexpr unsigned long long kLow16 = 0x00ff00ff00ff00ffull;
-  constexpr unsigned long long kQuot = 0x003f003f003f003full;
-  if (r.never) return 3;
   unsigned long long wu = wg;  // bundle units a NUMA node
   if (r.bundle) {
-    const unsigned long long q =
-        ((((wc & kLow16) * r.m16) >> 10) & kQuot) |
-        (((((wc >> 8) & kLow16) * r.m16) >> 10) & kQuot) << 8;
-    const unsigned long long ge = bytes_ge(wg, q) >> 7;  // 1 where g >= q
-    const unsigned long long keep_q = ge * 0xffull;
-    wu = (q & keep_q) | (wg & ~keep_q);
+    const unsigned m16 = static_cast<unsigned>(r.m16);
+    wu = static_cast<unsigned long long>(
+             bundle_bytes(static_cast<unsigned>(wg >> 32),
+                          static_cast<unsigned>(wc >> 32), m16))
+             << 32 |
+         bundle_bytes(static_cast<unsigned>(wg), static_cast<unsigned>(wc),
+                      m16);
   }
-  if (bytes_ge(wu, r.need_g) & bytes_ge(wc, r.need_c) & r.numa) return 0;
-  if (bytes_ge(wu * r.spread, r.need_g) & bytes_ge(wc * r.spread, r.need_c) &
-      r.sock_end)
-    return 1;
-  return byte_sum(wu) >= r.ng && byte_sum(wc) >= r.nc ? 2 : 3;
+  const bool numa_ok =
+      (bytes_ge(wu, r.need_g) & bytes_ge(wc, r.need_c) & r.numa) != 0ull;
+  const bool sock_ok = (bytes_ge(wu * r.spread, r.need_g) &
+                        bytes_ge(wc * r.spread, r.need_c) & r.sock_end) != 0;
+  const bool node_ok = (byte_sum(wu) >= r.ng) & (byte_sum(wc) >= r.nc);
+  const int tier = numa_ok ? 0 : (sock_ok ? 1 : (node_ok ? 2 : 3));
+  return r.never ? 3 : tier;
 #endif
 }
 
-// Loads 4 consecutive lanes from `base`; lanes >= n read as `fill` (trap 3).
-__device__ __forceinline__ void load4(const int* __restrict__ x, int base,
-                                      int n, bool vec, int fill, int out[4]) {
-  if (vec && base + 3 < n) {
-    const int4 v = *reinterpret_cast<const int4*>(x + base);
-    out[0] = v.x;
-    out[1] = v.y;
-    out[2] = v.z;
-    out[3] = v.w;
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) out[j] = base + j < n ? x[base + j] : fill;
-  }
+// The tier of one lane's masks on the request of `r`: its per-NUMA counts
+// (numa_words) on the word-wise rule (fused_tier).
+__device__ __forceinline__ int lane_tier(unsigned g, unsigned c,
+                                         const TierRule& r,
+                                         const TopoParams& p) {
+  unsigned long long wg, wc;
+  numa_words(g, c, p, wg, wc);
+  return fused_tier(g, c, wg, wc, r, p);
 }
 
-template <typename T, typename V>
-__device__ __forceinline__ void store4(T* __restrict__ y, int base, int n,
-                                       bool vec, const T in[4]) {
-  if (vec && base + 3 < n) {
-    V v;
-    v.x = in[0];
-    v.y = in[1];
-    v.z = in[2];
-    v.w = in[3];
-    *reinterpret_cast<V*>(y + base) = v;
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (base + j < n) y[base + j] = in[j];
-  }
+// The tiers of four lanes (one 16-byte vector of each input).
+__device__ __forceinline__ int4 lane_tier4(int4 g, int4 c, const TierRule& r,
+                                           const TopoParams& p) {
+  return make_int4(lane_tier(g.x, c.x, r, p), lane_tier(g.y, c.y, r, p),
+                   lane_tier(g.z, c.z, r, p), lane_tier(g.w, c.w, r, p));
 }
 
-__global__ void __launch_bounds__(kThreads)
+// K3, replacing topo_score_pallas (repro/kernels/topo_score.py:178): per
+// lane its tier (lane_tier) and Eq. 1 score (lane_score).  With kVec
+// (every pointer 16-byte aligned, n above one grid of lane_geometry) a
+// thread takes four consecutive lanes a step as 16-byte vectors and
+// strides over the grid, then the last n % 4 lanes one a thread; without,
+// one lane a thread (striding only where unaligned inputs exceed the
+// grid).  A thread builds the request's rule once for all its lanes.
+// Lanes past n are neither read nor written.  The launch sets its time at
+// a few tiles; at millions of lanes its bound is the bytes (20 B a lane),
+// of which the tier's integer work leaves it about two thirds.
+template <bool kVec>
+__global__ void __launch_bounds__(kLaneThreads)
     topo_score_kernel(const int* __restrict__ gmask,
                       const int* __restrict__ cmask,
                       const int* __restrict__ prio, int* __restrict__ tier_out,
-                      float* __restrict__ score_out, int n, TopoParams p,
-                      int vec) {
-  const int base = blockIdx.x * kTile + threadIdx.x * kLanesPerThread;
-  int g[4], c[4], pr[4], tier[4];
-  float score[4];
-  load4(gmask, base, n, vec, 0, g);
-  load4(cmask, base, n, vec, 0, c);
-  load4(prio, base, n, vec, 0, pr);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) tier_score(g[j], c[j], pr[j], p, tier[j], score[j]);
-  store4<int, int4>(tier_out, base, n, vec, tier);
-  store4<float, float4>(score_out, base, n, vec, score);
+                      float* __restrict__ score_out, int n, TopoParams p) {
+  const TierRule rule = tier_rule(p, bundle_magic(p.cgs_per_bundle));
+  const int stride = gridDim.x * blockDim.x;
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (kVec) {
+#pragma unroll 1
+    for (int v = i; v < n >> 2; v += stride) {
+      const int4 tier =
+          lane_tier4(reinterpret_cast<const int4*>(gmask)[v],
+                     reinterpret_cast<const int4*>(cmask)[v], rule, p);
+      const int4 pr = reinterpret_cast<const int4*>(prio)[v];
+      reinterpret_cast<int4*>(tier_out)[v] = tier;
+      reinterpret_cast<float4*>(score_out)[v] = make_float4(
+          lane_score(tier.x, pr.x, p), lane_score(tier.y, pr.y, p),
+          lane_score(tier.z, pr.z, p), lane_score(tier.w, pr.w, p));
+    }
+    i += n & ~3;
+  }
+#pragma unroll 1
+  for (; i < n; i += stride) {
+    const int tier = lane_tier(static_cast<unsigned>(gmask[i]),
+                               static_cast<unsigned>(cmask[i]), rule, p);
+    tier_out[i] = tier;
+    score_out[i] = lane_score(tier, prio[i], p);
+  }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// K2's lane form, replacing placement_tier_pallas
+// (repro/kernels/topo_score.py:285): per node its placement tier
+// (lane_tier), in K3's layouts.  Its bytes bound (12 B a node) is half
+// the time the tier's integer work takes at millions of nodes.
+template <bool kVec>
+__global__ void __launch_bounds__(kLaneThreads)
     placement_tier_kernel(const int* __restrict__ free_gpu,
                           const int* __restrict__ free_cg,
-                          int* __restrict__ tier_out, int n, TopoParams p,
-                          int vec) {
-  const int base = blockIdx.x * kTile + threadIdx.x * kLanesPerThread;
-  int g[4], c[4], tier[4];
-  float unused;
-  load4(free_gpu, base, n, vec, 0, g);
-  load4(free_cg, base, n, vec, 0, c);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) tier_score(g[j], c[j], 0, p, tier[j], unused);
-  store4<int, int4>(tier_out, base, n, vec, tier);
+                          int* __restrict__ tier_out, int n, TopoParams p) {
+  const TierRule rule = tier_rule(p, bundle_magic(p.cgs_per_bundle));
+  const int stride = gridDim.x * blockDim.x;
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (kVec) {
+#pragma unroll 1
+    for (int v = i; v < n >> 2; v += stride)
+      reinterpret_cast<int4*>(tier_out)[v] =
+          lane_tier4(reinterpret_cast<const int4*>(free_gpu)[v],
+                     reinterpret_cast<const int4*>(free_cg)[v], rule, p);
+    i += n & ~3;
+  }
+#pragma unroll 1
+  for (; i < n; i += stride)
+    tier_out[i] = lane_tier(static_cast<unsigned>(free_gpu[i]),
+                            static_cast<unsigned>(free_cg[i]), rule, p);
 }
 
 // A float's order as a signed int (-0 taken as +0; scores are never NaN).
@@ -467,10 +533,10 @@ __device__ __forceinline__ LaneKey warp_min_lane(bool cand, const LaneKey& x) {
 }
 
 // One block a tile of kTile lanes, one lane a thread (blockDim = n rounded
-// up to a warp when n < kTile).  A lane's tier comes from its per-NUMA
-// counts (numa_counts + fused_tier), its score from lane_score.  Feasible
-// lanes (tier < 3, k <= K_INFEASIBLE) compete in warp_min_lane; warp 0
-// merges the warps' keys the same way and thread 0 writes the tile's.
+// up to a warp when n < kTile).  A lane's tier comes from lane_tier, its
+// score from lane_score.  Feasible lanes (tier < 3, k <= K_INFEASIBLE)
+// compete in warp_min_lane; warp 0 merges the warps' keys the same way and
+// thread 0 writes the tile's.
 __global__ void __launch_bounds__(kTile)
     topo_score_argmax_kernel(const int* __restrict__ gmask,
                              const int* __restrict__ cmask,
@@ -494,9 +560,7 @@ __global__ void __launch_bounds__(kTile)
   const int k = in ? kk[i] : kInfeasible;
   const int ok = in ? okm[i] : 0;
   const TierRule rule = tier_rule(p, bundle_magic(p.cgs_per_bundle));
-  unsigned long long wg, wc;
-  numa_words(g, c, p, wg, wc);
-  int tier = fused_tier(g, c, wg, wc, rule, p);
+  int tier = lane_tier(g, c, rule, p);
   float score = lane_score(tier, pr, p);
   if (ok == 0) {  // filtering mask: masked lanes never win
     tier = 3;
@@ -1958,6 +2022,37 @@ __global__ void __launch_bounds__(32)
 
 static inline int grid_for(int n) { return (n + kTile - 1) / kTile; }
 
+// K2's and K3's lane forms: one lane a thread in blocks of kLaneThreads (n
+// rounded up to a warp below one block) while one grid of at most
+// kLaneBlocksPerSm blocks an SM of the current device covers n; above it,
+// where `vec` (every pointer 16-byte aligned), four lanes a thread a step
+// over at most that grid, else one lane a thread a step.  A failed SM
+// query leaves its error for the launcher's cudaGetLastError().
+struct LaneGeometry {
+  int blocks, threads;
+  bool vectors;
+};
+
+static LaneGeometry lane_geometry(int n, bool vec) {
+  static int sms[kMaxDevices] = {};
+  int device = 0;
+  cudaGetDevice(&device);
+  const bool known = device >= 0 && device < kMaxDevices;
+  int count = known ? sms[device] : 0;
+  if (count == 0) {
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, device);
+    if (known) sms[device] = count;
+  }
+  const int most = kLaneBlocksPerSm * (count > 0 ? count : 1);
+  const int blocks = (n + kLaneThreads - 1) / kLaneThreads;
+  if (blocks <= most)
+    return {blocks, n >= kLaneThreads ? kLaneThreads : (n + 31) / 32 * 32,
+            false};
+  if (!vec) return {most, kLaneThreads, false};
+  const int quads = (n / 4 + kLaneThreads - 1) / kLaneThreads;
+  return {quads < most ? quads : most, kLaneThreads, true};
+}
+
 __global__ void empty_kernel() {}
 
 // Sets the calling thread's device for one launch and puts the previous one
@@ -2008,8 +2103,6 @@ static bool bad_cluster(int ctas, int threads, int max_threads, int p) {
 // to the patch index's budget (above the default 48 KB), and clusters above
 // the portable 8 CTAs.  A card that refuses the second keeps clusters of 8
 // (cluster_ctas_max), so its refusal is not an error here.
-constexpr int kMaxDevices = 64;
-
 static cudaError_t prepare_cluster_kernels(int device) {
   static bool done[kMaxDevices] = {};
   const bool known = device >= 0 && device < kMaxDevices;
@@ -2055,11 +2148,13 @@ extern "C" {
 int topo_score_launch(const void* gmask, const void* cmask, const void* prio,
                       void* tier, void* score, int n, const TopoParams* params,
                       int vec, void* stream) {
-  topo_score_kernel<<<grid_for(n), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+  const LaneGeometry geo = lane_geometry(n, vec != 0);
+  auto kernel =
+      geo.vectors ? topo_score_kernel<true> : topo_score_kernel<false>;
+  kernel<<<geo.blocks, geo.threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(gmask), static_cast<const int*>(cmask),
       static_cast<const int*>(prio), static_cast<int*>(tier),
-      static_cast<float*>(score), n, *params, vec);
+      static_cast<float*>(score), n, *params);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2084,10 +2179,12 @@ int topo_score_argmax_launch(const void* gmask, const void* cmask,
 int placement_tier_launch(const void* free_gpu, const void* free_cg,
                           void* tier, int n, const TopoParams* params, int vec,
                           void* stream) {
-  placement_tier_kernel<<<grid_for(n), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+  const LaneGeometry geo = lane_geometry(n, vec != 0);
+  auto kernel =
+      geo.vectors ? placement_tier_kernel<true> : placement_tier_kernel<false>;
+  kernel<<<geo.blocks, geo.threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(free_gpu), static_cast<const int*>(free_cg),
-      static_cast<int*>(tier), n, *params, vec);
+      static_cast<int*>(tier), n, *params);
   return static_cast<int>(cudaGetLastError());
 }
 

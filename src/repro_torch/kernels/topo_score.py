@@ -15,11 +15,13 @@ wrapper               plain version              replaces (repro.kernels.topo_sc
 ====================  =========================  ===============================
 
 A wrapper runs the plain version for tensors on the CPU and launches its
-kernel for tensors on a CUDA device; anything else raises.  The
-``topo_score_argmax`` kernel takes one lane a thread and the tier from
-per-NUMA counts with no division, the rule of the fused kernels; the other
-two take four lanes a thread through the reference's ``tier_score``.  Each
-wrapper counts its kernel launches in ``<wrapper>.launches``.
+kernel for tensors on a CUDA device; anything else raises.  Each kernel
+takes the tier from the lane's per-NUMA counts with no division, the rule
+of the fused kernels, and one lane a thread at the sizes a plan gives it;
+``topo_score`` and ``placement_tier`` take four lanes a thread as 16-byte
+vectors where the lanes exceed one grid of the card and every tensor is
+16-byte aligned.  Each wrapper counts its kernel launches in
+``<wrapper>.launches``.
 
 ``topo_score_argmax`` also reduces each tile of ``TILE = 8 * 128`` lanes to
 (smallest feasible subset size, best tier, best score, flat index of that
@@ -92,7 +94,7 @@ def _params(spec: ServerSpec, req: TopoRequest) -> _Params:
     if any(spec.socket_of_numa(u) != u // k for u in range(spec.num_numa)):
         raise ValueError(f"{spec.name}: the kernels take sockets of "
                          "consecutive NUMA nodes")
-    p = _Params()
+    p = _Params()       # zero-filled: no NUMA mask past num_numa
     p.num_numa = spec.num_numa
     p.num_sockets = spec.num_sockets
     p.need_gpus = req.need_gpus
@@ -235,7 +237,8 @@ def _checked(*xs: torch.Tensor) -> tuple[int, bool]:
 
 
 def _vec(*xs: torch.Tensor) -> int:
-    """1 when every tensor is 16-byte aligned (4-lane vector access)."""
+    """1 when every tensor is 16-byte aligned: K2's and K3's kernels may
+    then take four lanes a step as one vector."""
     return int(all(x.data_ptr() % 16 == 0 for x in xs))
 
 
@@ -247,7 +250,12 @@ def _raise_on(lib, code: int, what: str) -> None:
 
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("topo_score")
+    return bind(_build.load("topo_score"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the lane launchers' argument types on a loaded build of
+    ``csrc/topo_score.cu``."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     pp = ctypes.POINTER(_Params)
     lib.topo_score_launch.argtypes = [vp, vp, vp, vp, vp, ci, pp, ci, vp]
