@@ -47,6 +47,16 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    ties, more patch rows than the kernels take (must raise), and 50
    back-to-back launches of each and of the sweep (bit-identical); the
    sweeps that feed the tail there are held to their plain version too.
+   ``[delta]``: the view-delta encoder (``encode_delta``) against its plain
+   version on the same inputs and against host ``encode_row`` of every
+   delta and pending row, bit for bit, on 48 random views of a 1024-server
+   cluster (rows past cap, more than 8 adds and pending rows among them:
+   the host rows it copies), then the host time of a plan's patch rows
+   both ways and the encoder's time.  ``[shortlist]``: the prescreen
+   (``prescreen``) against its plain version, bit for bit (the top-K rows
+   in order and ``excl_ub``), at 1024 and 10240 rows of two SKUs, random
+   and tie-heavy, with and without patch rows, forced representatives,
+   k = 1, 128 and every row; then its skip path.
 4. ``[main]``: the scheduler path, ``run_hit_rate_experiment`` (the paper's
    Table 4 protocol, ``TopoScheduler.plan()`` per scale-up) with
    ``imp_pallas`` and then host ``imp`` on the 100-node Table 3 cluster (2
@@ -58,10 +68,19 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    20-node 3 x 10 protocol must give 30/30/0.  Then ``imp_batched`` (the
    fused engine over the device-resident state) at 100 nodes (2 x 50,
    100/100/0/0), 1024 nodes (1 x 20) and 10240 nodes (1 x 10), decision
-   for decision against host ``imp``: one ``normal_cycle`` launch a plan,
-   one ``fused_class`` and one ``fused_argmax`` launch a plan (every plan
-   of a saturated cluster fails its normal cycle; the Table 3 mix needs no
-   wide chunk), and no lane-form K1 launch.
+   for decision against host ``imp`` and against ``imp_batched_full`` (the
+   full sweep: at 1024 and 10240 nodes ``imp_batched`` runs the shortlist,
+   k = 128): one ``normal_cycle`` launch a plan, one ``prescreen`` a
+   shortlisted plan, one ``fused_class`` and ``fused_argmax`` a plan and
+   one more of each for a plan whose winner the shortlist could not prove
+   (every plan of a saturated cluster fails its normal cycle; the Table 3
+   mix needs no wide chunk), every launch count equal to what the engine's
+   recorded paths launch (``PATH_COUNTS``), and no lane-form K1 launch.
+   ``[batch]``: an 8-request ``plan_batch`` on the saturated 1024- and
+   10240-node clusters through the session, decision for decision against
+   sequential single plans (and, with candidate counts, against
+   ``imp_batched_full``'s; at 1024 also host ``imp``), twice: the second
+   reuses the session; launches held to the paths.
 5. ``[commit]``: twin 1024-node clusters, 200 steps of
    ``schedule_or_preempt``, rollbacks and releases: ``imp_batched`` against
    host ``imp`` with identical decisions and masks at every step (the row
@@ -77,8 +96,9 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    rows must equal the reference's host ``imp`` day (``DAY_1024``).  Each
    counted day is built, then its counts are set to 0 just before
    ``run()`` and read just after: one ``normal_cycle`` launch a plan the
-   scheduler counts, one ``fused_class`` and one ``fused_argmax`` launch a
-   plan that may preempt, no lane-form K1 launch.  Each ``[day]`` line
+   scheduler counts, every fused launch count equal to what the recorded
+   paths launch (single plans, the shortlist above 128 rows, batch
+   sessions, the delta encoder), no lane-form K1 launch.  Each ``[day]`` line
    carries events, wall time, events/s and the plan P50/P90.
    ``[day-trace]`` profiles 200 plans of the 1024-node day from simulated
    hour 8 (the morning ramp): device time per kernel against the window's
@@ -308,6 +328,7 @@ def kernel_phase(torch, np, dev) -> dict[str, float]:
 # ---------------------------------------------------------------------------------
 
 def reset_counts() -> None:
+    from repro_torch.core.preemption_device import PATH_COUNTS
     from repro_torch.kernels import WRAPPERS
     from repro_torch.kernels import topo_score as ts
 
@@ -315,16 +336,34 @@ def reset_counts() -> None:
         w.launches = 0
     ts.flextopo_imp_pallas.calls = 0
     ts.flextopo_imp_pallas.overflow = 0
+    for key in PATH_COUNTS:
+        PATH_COUNTS[key] = 0
 
 
-def read_counts() -> dict[str, int]:
+def read_counts() -> dict:
+    """Each wrapper's launches, ``imp_pallas``' calls and host fallbacks,
+    and under ``path`` what the fused engine ran (``PATH_COUNTS``)."""
+    from repro_torch.core.preemption_device import PATH_COUNTS
     from repro_torch.kernels import WRAPPERS
     from repro_torch.kernels import topo_score as ts
 
     out = {w.__name__: w.launches for w in WRAPPERS}
     out["imp_pallas_calls"] = ts.flextopo_imp_pallas.calls
     out["imp_pallas_overflow"] = ts.flextopo_imp_pallas.overflow
+    out["path"] = dict(PATH_COUNTS)
     return out
+
+
+def check_fused_launches(c: dict, what: str) -> None:
+    """The fused kernels' launches in counts ``c`` equal what the engine's
+    paths in ``c["path"]`` launch, and no lane-form K1 ran."""
+    from repro_torch.core.preemption_device import expected_launches
+
+    for name, k in expected_launches(c["path"]).items():
+        check(c[name] == k, f"{what}: {c[name]} {name} launches, the paths "
+              f"give {k} ({c['path']})")
+    check(c["topo_score_argmax"] == 0 and c["imp_pallas_calls"] == 0,
+          f"{what}: the lane form of K1 was launched")
 
 
 def protocol(num_nodes, cycles, scaleups, engine, dev):
@@ -458,18 +497,32 @@ def batched_runs(dev, runs: list, launches: dict, host_keys: dict,
         check(c["normal_cycle"] == plans,
               f"{nodes} nodes: {c['normal_cycle']} normal_cycle launches for "
               f"{plans} plans (one each)")
+        check_fused_launches(c, f"{nodes} nodes imp_batched")
         # saturated clusters: the normal cycle fails on every plan, so the
-        # sweep and its tail run on every plan; the Table 3 mix has at most
-        # 8 victims a node, so no wide chunk is dispatched
-        check(fused.placements == 0 and c["fused_class"] == plans
-              and c["fused_argmax"] == plans,
-              f"{nodes} nodes: {c['fused_class']} fused_class and "
-              f"{c['fused_argmax']} fused_argmax launches for {plans} plans "
-              f"with {fused.placements} placed")
-        check(c["topo_score_argmax"] == 0 and c["imp_pallas_calls"] == 0,
-              f"{nodes} nodes: imp_batched launched the lane form of K1")
+        # sweep and its tail run on every plan (over the shortlist's rows
+        # above 128 rows, and over every row after an uncertain one); the
+        # Table 3 mix has at most 8 victims a node, so no wide chunk runs
+        path = c["path"]
+        shortlisted = nodes > 128
+        check(fused.placements == 0 and c["fused_argmax"]
+              == plans + path["fallback"]
+              and path["shortlist_plan2"] == (plans if shortlisted else 0)
+              and path["certain"] + path["fallback"]
+              == (plans if shortlisted else 0),
+              f"{nodes} nodes: {c['fused_argmax']} fused_argmax launches "
+              f"for {plans} plans with {fused.placements} placed ({path})")
         for name in launches:
             launches[name] += c[name]
+        full, s_full = run(nodes, cycles, scaleups, "imp_batched_full")
+        check(full.decision_keys == fused.decision_keys,
+              f"{nodes} nodes: imp_batched and imp_batched_full decisions "
+              "differ")
+        check(s_full["counts"]["path"]["shortlist_plan2"] == 0
+              and s_full["counts"]["prescreen"] == 0,
+              f"{nodes} nodes: imp_batched_full ran the shortlist")
+        check_fused_launches(s_full["counts"], f"{nodes} nodes "
+                             "imp_batched_full")
+        runs.append(s_full)
         got = (fused.preemptions, fused.hits, fused.failures,
                fused.placements)
         if expect is not None:
@@ -483,7 +536,9 @@ def batched_runs(dev, runs: list, launches: dict, host_keys: dict,
         check(fused.decision_keys == host_keys[nodes],
               f"{nodes} nodes: imp_batched and imp decisions differ")
         print(f"[main] {nodes} nodes: {len(fused.decision_keys)} decisions "
-              f"identical between imp_batched and imp", flush=True)
+              f"identical between imp_batched, imp_batched_full and imp "
+              f"(shortlist: {path['certain']} certain, {path['fallback']} "
+              f"fell back to the full sweep)", flush=True)
 
 
 def commit_phase(dev, steps: int = 200, nodes: int = 1024) -> dict:
@@ -545,11 +600,10 @@ def commit_phase(dev, steps: int = 200, nodes: int = 1024) -> dict:
     check(counts["normal_cycle"] == ops["plan"],
           f"commit: {counts['normal_cycle']} normal_cycle launches for "
           f"{ops['plan']} plans")
-    check(counts["fused_class"] == counts["fused_argmax"] == ops["plan"],
-          f"commit: {counts['fused_class']} fused_class launches for "
-          f"{ops['plan']} plans")
-    check(counts["topo_score_argmax"] == 0,
-          "commit: imp_batched launched the lane form of K1")
+    check(counts["fused_argmax"] == ops["plan"] + counts["path"]["fallback"],
+          f"commit: {counts['fused_argmax']} fused_argmax launches for "
+          f"{ops['plan']} plans ({counts['path']})")
+    check_fused_launches(counts, "commit")
     out = {"nodes": nodes, "steps": steps, "ops": ops, "decisions": kinds,
            "identical": True, "wall_s": wall, "counts": counts,
            "sweep_launches_that_exit_at_once": kinds["placed"]}
@@ -771,16 +825,14 @@ def day_run(torch, dev, cfg, trace: tuple[float, int] | None = None,
         check(n_plans > 0 and counts["normal_cycle"] == n_plans,
               f"{what}: {counts['normal_cycle']} normal_cycle launches for "
               f"{n_plans} plans")
-        check(counts["fused_class"] == counts["fused_argmax"]
-              == plans["may_preempt"],
-              f"{what}: {counts['fused_class']} fused_class and "
-              f"{counts['fused_argmax']} fused_argmax launches for "
+        check(counts["fused_argmax"] <= plans["may_preempt"]
+              + counts["path"]["fallback"],
+              f"{what}: {counts['fused_argmax']} fused_argmax launches for "
               f"{plans['may_preempt']} plans that may preempt")
-        check(counts["topo_score_argmax"] == 0
-              and counts["imp_pallas_calls"] == 0,
-              f"{what}: the lane form of K1 was launched")
+        check_fused_launches(counts, what)
     else:
-        check(not any(counts.values()),
+        check(not any(v for k, v in counts.items() if k != "path")
+              and not any(counts["path"].values()),
               f"{what}: a host engine launched kernels: {counts}")
     plan_us = sim.auto.plan_us
     out = {
@@ -823,7 +875,8 @@ def day_phase(torch, dev) -> dict:
         bench = json.load(f)
     with open(os.path.join(ROOT, "BENCH_elastic.json")) as f:
         bench_el = json.load(f)
-    launches = {"normal_cycle": 0, "fused_class": 0, "fused_argmax": 0}
+    launches = dict.fromkeys(("normal_cycle", "fused_class", "fused_argmax",
+                              "prescreen", "encode_delta"), 0)
     plans = 0
     runs = []
 
@@ -1605,6 +1658,406 @@ def serve_check(torch, np, api, params) -> dict:
 
 
 # ---------------------------------------------------------------------------------
+# Phase 3c: the view-delta encoder, the prescreen, batch sessions
+# ---------------------------------------------------------------------------------
+
+#: ``[delta]``: servers of the random cluster, random views drawn on it
+DELTA_NODES, DELTA_VIEWS = 1024, 48
+#: ``[shortlist]``: rows of the random resident states, and the k each
+#: prescreen case takes (every row as the last)
+PRESCREEN_ROWS = (1024, 10240)
+PRESCREEN_K = (1, 128, None)
+#: ``[batch]``: the batch of preemptors (Table 3 B and C)
+BATCH_NAMES = ("B", "C", "B", "B", "C", "B", "C", "B")
+
+
+def delta_cluster(dev, nodes: int, seed: int):
+    """A seeded cluster of ``nodes`` 24-CoreGroup servers (`BIG_CG`):
+    Table 3 C and D instances on the GPUs, with holes, and one-CoreGroup
+    preemptible jobs on most free CoreGroups, so that some rows hold more
+    than 16 victims (the encoder's host fallback).  Returns the cluster and
+    the workloads a view binds: ``{"D": ..., "cpu": ...}``."""
+    import random
+
+    from repro_torch.core.cluster import Cluster
+    from repro_torch.core.placement import Placement
+    from repro_torch.core.topology import ServerSpec
+    from repro_torch.core.workload import WorkloadSpec, table3_workloads
+
+    wl = {w.name: w for w in table3_workloads()}
+    cpu = WorkloadSpec("cpu-only", priority=150, gpus_per_instance=0,
+                       cores_per_instance=8, preemptible=True,
+                       critical=False, kind="offline")
+    rng = random.Random(seed)
+    cluster = Cluster(ServerSpec(**BIG_CG), nodes, device=dev)
+    for node in range(nodes):
+        free = list(range(8))
+        rng.shuffle(free)
+        while free:
+            two = len(free) >= 2 and rng.random() < 0.4
+            g = [free.pop(), free.pop()] if two else [free.pop()]
+            if rng.random() < 0.2:
+                continue
+            mask = sum(1 << x for x in g)
+            cluster.bind(wl["C" if two else "D"], node,
+                         Placement(mask, mask, 0))
+        for c in range(8, 24):
+            if rng.random() < 0.6:
+                cluster.bind(cpu, node, Placement(0, 1 << c, 0))
+    return cluster, {"D": wl["D"], "cpu": cpu}
+
+
+def random_view(rng, cluster, wls, ops: int):
+    """A `ClusterView` with ``ops`` random planned evictions, binds (a D
+    instance or a one-CoreGroup job on free bits) and cancelled binds."""
+    from repro_torch.core.cluster import ClusterView
+    from repro_torch.core.placement import Placement
+
+    view = ClusterView(cluster)
+    uids = sorted(cluster.instances)
+    added: list[int] = []
+    for _ in range(ops):
+        op = rng.random()
+        if op < 0.4:
+            uid = rng.choice(uids)
+            if uid not in view._evicted:
+                view.plan_evict(uid)
+        elif op < 0.55 and added:
+            view.plan_evict(added.pop(rng.randrange(len(added))))
+        else:
+            node = rng.randrange(cluster.num_nodes)
+            fg, fc = view.free_masks(node)
+            if rng.random() < 0.5 and fg & fc:
+                bit = (fg & fc) & -(fg & fc)
+                added.append(view.plan_bind(wls["D"], node, Placement(
+                    bit, bit, 0)).uid)
+            elif fc >> 8:
+                bit = (fc >> 8 & -(fc >> 8)) << 8
+                added.append(view.plan_bind(wls["cpu"], node, Placement(
+                    0, bit, 0)).uid)
+    return view
+
+
+def delta_phase(torch, np, dev) -> dict:
+    """``[delta]``: the view-delta encoder on the card against its plain
+    version on the same inputs and against the host ``encode_row``
+    packing of every delta and pending row, bit for bit, on
+    `DELTA_VIEWS` random views of a `DELTA_NODES`-server cluster (rows past
+    cap and pending rows among them); then the host time of a plan's patch
+    rows through a `ViewDelta` (descriptors, one upload, one launch)
+    against ``encode_row`` of every delta row and a packed upload, and the
+    encoder's time at a typical shape."""
+    import random
+
+    from repro_torch.core.cluster import ViewDelta, encode_row
+    from repro_torch.core.preemption_device import (_patch_plan, _patch_rows,
+                                                    _stage, _upload)
+    from repro_torch.kernels import view_delta as vdk
+
+    cluster, wls = delta_cluster(dev, DELTA_NODES, seed=5)
+    dcs = cluster.device_state().sync()
+    cap = dcs.cap
+    rng = random.Random(9)
+    err = 0.0
+    cases = dense = host = pending = 0
+    vd_us, host_us = [], []
+    shape = None
+    for case in range(DELTA_VIEWS):
+        if case % 4 == 3:           # committed changes, left pending
+            for uid in rng.sample(sorted(cluster.instances), 5):
+                cluster.evict(uid)
+            dcs.sync(flush=False)
+        view = random_view(rng, cluster, wls, rng.randrange(2, 60))
+        torch_sync(dev)
+        t0 = time.perf_counter()
+        vd = ViewDelta(view, dcs.mirror, dcs.pending)
+        st = _stage(dcs, vd)
+        torch_sync(dev)
+        vd_us.append((time.perf_counter() - t0) * 1e6)
+        t0 = time.perf_counter()
+        rows = {n: encode_row(view, n, cap) for n in view.delta_nodes()}
+        left = sorted(set(dcs.pending) - set(rows))
+        p, pidx, pbuf = _patch_rows(rows, dcs.mirror, left, cap)
+        _upload(dcs, np.concatenate([pidx, pbuf.ravel()]))
+        torch_sync(dev)
+        host_us.append((time.perf_counter() - t0) * 1e6)
+        check(st.pidx_host.tolist() == pidx.tolist()
+              and np.array_equal(st.pbuf.cpu().numpy(), pbuf),
+              f"delta view {case}: the staged patch rows differ from host "
+              "encode_row")
+        hidx, desc, adds, hpos, hbuf = _patch_plan(dcs, vd)
+        if desc is None:
+            continue
+        up = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+              for x in (desc, adds, hpos, hbuf)]
+        got = vdk.encode_delta(dcs.nodestate, dcs.victims, *up, p=len(hidx))
+        want = vdk.encode_delta_plain(dcs.nodestate, dcs.victims, *up,
+                                      p=len(hidx))
+        err = max(err, compare(torch, [got], [want],
+                               f"encode_delta view {case}"))
+        check(np.array_equal(got.cpu().numpy(), pbuf),
+              f"encode_delta view {case}: differs from host encode_row")
+        cases += 1
+        dense += desc.shape[1]
+        host += len(hpos)
+        pending += len(left)
+        if shape is None and desc.shape[1] >= 4 and len(hpos):
+            shape = (up, len(hidx), desc.shape[1], adds.shape[2], len(hpos))
+    check(cases > 0 and host > 0 and pending > 0,
+          f"delta: {cases} encoded views, {host} host rows, {pending} "
+          "pending rows (the draw must hold each)")
+    out = {"nodes": DELTA_NODES, "views": DELTA_VIEWS, "encoded_views": cases,
+           "dense_rows": dense, "host_rows": host, "pending_rows": pending,
+           "max_abs_err": err,
+           "host_us_view_delta_p50": float(np.percentile(vd_us, 50)),
+           "host_us_encode_row_p50": float(np.percentile(host_us, 50))}
+    up, p, d, a, h = shape
+    fn = lambda: vdk.encode_delta(dcs.nodestate, dcs.victims, *up, p=p)
+    plain = lambda: vdk.encode_delta_plain(dcs.nodestate, dcs.victims, *up,
+                                           p=p)
+    width = 5 + 5 * cap + 2
+    # read: a dense row's descriptors, adds, resident free masks and every
+    # slot's five fields; a host row and its place; written: p rows
+    n_bytes = 4 * (d * (7 + 4 * a + 2 + 5 * cap) + h * (width + 1)
+                   + p * width)
+    b_ms, b_by = bound_ms(n_bytes, d * 32 * 32 * 4)
+    kernel_ms = profiled_kernel_ms(torch, fn, "encode_delta_kernel")
+    out["timing"] = {"p": p, "dense_rows": d, "adds": a, "host_rows": h,
+                     "ms": event_ms(torch, fn), "kernel_ms": kernel_ms,
+                     "plain_ms": event_ms(torch, plain, reps=5, inner=5),
+                     "bytes": n_bytes, "bound_ms": b_ms, "bound_by": b_by}
+    print(f"[delta] {json.dumps(out)}", flush=True)
+    return out
+
+
+def tie_state(np, spec, rows: int, seed: int):
+    """`resident_state` with three rows in four copies of a row before
+    them (node ids kept): exact ties of the prescreen's bound."""
+    ns, v, dr = resident_state(np, spec, rows, 10, seed)
+    rng = np.random.default_rng(seed + 3)
+    for r in range(1, rows):
+        if rng.random() < 0.75:
+            ns[[0, 1, 3, 4], r] = ns[[0, 1, 3, 4], r - 1]
+            v[:, r], dr[:, r] = v[:, r - 1], dr[:, r - 1]
+    return ns, v, dr
+
+
+def shortlist_kernel_phase(torch, np, dev) -> dict:
+    """``[shortlist]``, the kernel: the prescreen on the card against its
+    plain version on the same inputs, bit for bit (the top-K rows in
+    order and the bits of ``excl_ub``), at `PRESCREEN_ROWS` rows of the
+    RTX 4090 and the 24-CoreGroup SKU, random and tie-heavy states,
+    without and with patch rows, random representatives with 37 forced
+    rows, every REQUESTS entry at two preemptor priorities, k in
+    `PRESCREEN_K`; then the skip path."""
+    from repro_torch.core.topology import RTX4090_SERVER, ServerSpec
+    from repro_torch.kernels import fused_class as fc
+    from repro_torch.kernels import prescreen as psk
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    err = 0.0
+    cases = 0
+    for rows in PRESCREEN_ROWS:
+        for spec in (RTX4090_SERVER, ServerSpec(**BIG_CG)):
+            for tie in (False, True):
+                seed = rows + 7 * tie + (spec.name == "bigcg")
+                ns, v, _ = (tie_state if tie else
+                            lambda np_, sp, r, s: resident_state(
+                                np_, sp, r, 10, s))(np, spec, rows, seed)
+                rng = np.random.default_rng(seed)
+                rep = t((rng.random(rows) < 0.6).astype(np.int32))
+                forced = t(np.sort(rng.choice(rows, 37, replace=False))
+                           .astype(np.int32))
+                ns, v = t(ns), t(v)
+                for patched in (False, True):
+                    pidx, pbuf = (patch_rows(np, spec, rows, 19, seed, 10)
+                                  if patched else
+                                  (np.zeros(0, np.int32),
+                                   np.zeros((0, 87), np.int32)))
+                    pidx, pbuf = t(pidx), t(pbuf)
+                    for ng, ncg, cpb, alpha in REQUESTS:
+                        for thresh in FUSED_THRESH:
+                            req = fc.FusedRequest(thresh, ng, ncg, cpb,
+                                                  alpha)
+                            for k in PRESCREEN_K:
+                                k = k or rows
+                                args = (ns, v, pidx, pbuf, rep, forced)
+                                kw = dict(k=k, req=req, spec=spec)
+                                err = max(err, compare(
+                                    torch, [psk.prescreen(*args, **kw)],
+                                    [psk.prescreen_plain(*args, **kw)],
+                                    f"prescreen {spec.name} rows={rows} "
+                                    f"tie={tie} p={pidx.shape[0]} k={k} "
+                                    f"req={thresh, ng, ncg, cpb, alpha}"))
+                                cases += 1
+    # the skip path: nothing is written
+    out = torch.full((129,), 7, dtype=torch.int32, device=dev)
+    psk.prescreen(ns, v, pidx, pbuf, rep, forced, k=128, req=req, spec=spec,
+                  skip=torch.ones(1, dtype=torch.int32, device=dev), out=out)
+    check(out.tolist() == [7] * 129, "prescreen: the skip path wrote")
+    torch_sync(dev)
+    print(f"[shortlist] prescreen: {cases} cases bit-exact against the plain "
+          f"version (rows {list(PRESCREEN_ROWS)}, k 1 / 128 / every row, "
+          f"patch rows on/off, ties, forced rows); skip path ok", flush=True)
+    return {"prescreen": err}
+
+
+def prescreen_row(torch, np, dev, clusters, err, launches, plans) -> dict:
+    """The prescreen's row of the ``{"kernels"}`` line: at the main path's
+    shape (preemptor B on the saturated 1024- and 10240-node clusters,
+    their class representatives, k = 128, no patch rows)."""
+    from repro_torch.core.preemption_device import _request
+    from repro_torch.core.workload import table3_workloads
+    from repro_torch.kernels import prescreen as psk
+
+    wl = {w.name: w for w in table3_workloads()}["B"]
+    shapes = []
+    for n in sorted(clusters):
+        dcs = clusters[n].device_state().sync()
+        spec = clusters[n].spec
+        req = _request(spec, wl, 0.5)
+        rep = dcs.rep_classes()[1]
+        empty = torch.zeros(0, dtype=torch.int32, device=dev)
+        pbuf = torch.zeros((0, 87), dtype=torch.int32, device=dev)
+        args = (dcs.nodestate, dcs.victims, empty, pbuf, rep, empty)
+        fn = lambda: psk.prescreen(*args, k=128, req=req, spec=spec)
+        plain = lambda: psk.prescreen_plain(*args, k=128, req=req, spec=spec)
+        stored = (dcs.victims[4] != 0)
+        elig = int((stored & (dcs.victims[2] < wl.priority)).sum())
+        cap = dcs.cap
+        # read: a row's 5 node fields, priority and stored flag of every
+        # slot, the masks of its eligible slots, its representative flag;
+        # written: k + 1 int32
+        n_bytes = 4 * (n * (5 + 2 * cap + 1) + 2 * elig + 129)
+        # two tiers a row: per NUMA node two popcounts and a few word ops
+        n_ops = n * 2 * (12 * spec.num_numa + 20)
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        kernel_ms = profiled_kernel_ms(
+            torch, fn, ("prescreen_kernel", "prescreen_select_kernel"))
+        shapes.append({"rows": n, "k": 128,
+                       "classes": int(dcs.rep_classes()[0].sum()),
+                       "ms": event_ms(torch, fn), "kernel_ms": kernel_ms,
+                       "kernel_ms_parts": {
+                           part: profiled_kernel_ms(torch, fn, part)
+                           for part in ("prescreen_kernel",
+                                        "prescreen_select_kernel")},
+                       "plain_ms": event_ms(torch, plain, reps=5, inner=3),
+                       "bytes": n_bytes, "int_ops": n_ops, "bound_ms": b_ms,
+                       "bound_by": b_by,
+                       "bound_share": b_ms / (kernel_ms or 1e9)})
+    main = shapes[0]
+    return {"name": "prescreen", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/topo_score.cu",
+            "replaces": "src/repro/core/preemption_jax.py:839",
+            "replaces_fn": "_prescreen_core (an XLA program; no Pallas "
+                           "kernel)",
+            "launches": launches["prescreen"],
+            "on_main_path": launches["prescreen"] > 0,
+            "launches_per_plan": launches["prescreen"] / plans,
+            "max_abs_err": err, "shape": [main["rows"]], "ms": main["ms"],
+            "kernel_ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "bound_share": main["bound_share"], "library_ms": None,
+            "shapes": shapes}
+
+
+def delta_row(delta: dict, launches, plans) -> dict:
+    """The encoder's row of the ``{"kernels"}`` line (`delta_phase`)."""
+    tm = delta["timing"]
+    return {"name": "encode_delta", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/topo_score.cu",
+            "replaces": "src/repro/core/cluster.py:810",
+            "replaces_fn": "encode_delta_core (an XLA program; no Pallas "
+                           "kernel)",
+            "launches": launches["encode_delta"],
+            "on_main_path": launches["encode_delta"] > 0,
+            "launches_per_plan": launches["encode_delta"] / plans,
+            "max_abs_err": delta["max_abs_err"],
+            "shape": [tm["p"], tm["dense_rows"], tm["host_rows"]],
+            "ms": tm["ms"], "kernel_ms": tm["kernel_ms"],
+            "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
+            "bound_by": tm["bound_by"],
+            "bound_share": tm["bound_ms"] / (tm["kernel_ms"] or tm["ms"]),
+            "library_ms": None}
+
+
+def batch_phase(torch, dev, clusters) -> dict:
+    """``[batch]``: an 8-request ``plan_batch`` (`BATCH_NAMES`) on the
+    saturated 1024- and 10240-node clusters through ``imp_batched``'s
+    session, decision for decision against sequential single plans on a
+    shared view (and candidate count for candidate count against
+    ``imp_batched_full``'s, which sweep every row as the session does; at
+    1024 nodes also against host ``imp``'s ``plan_batch``); the counts set to 0 just
+    before each batch and read just after, held to the paths' launches.
+    A second identical batch reuses the session."""
+    from repro_torch.core.cluster import ClusterView
+    from repro_torch.core.preemption_device import expected_launches
+    from repro_torch.core.scheduler import TopoScheduler
+    from repro_torch.core.simulator import decision_key
+    from repro_torch.core.workload import table3_workloads
+
+    wl = {w.name: w for w in table3_workloads()}
+    batch = [wl[n] for n in BATCH_NAMES]
+    out = {}
+    launches = dict.fromkeys(("normal_cycle", "fused_class", "fused_argmax",
+                              "prescreen", "encode_delta"), 0)
+    for n in sorted(clusters):
+        cluster = clusters[n]
+        sched = TopoScheduler(cluster, engine="imp_batched", alpha=0.5)
+        rows = []
+        for rep in range(2):
+            torch_sync(dev)
+            reset_counts()
+            t0 = time.perf_counter()
+            txns = sched.plan_batch(batch)
+            torch_sync(dev)
+            wall = time.perf_counter() - t0
+            c = read_counts()
+            want = expected_launches(c["path"])
+            for name, k in want.items():
+                check(c[name] == k, f"batch {n} nodes: {c[name]} {name} "
+                      f"launches, the paths give {k} ({c['path']})")
+            check(c["path"]["merge"] + c["path"]["merge_normal"] > 0,
+                  f"batch {n} nodes: no session plan ({c['path']})")
+            check(c["path"]["sessions"] == (1 if rep == 0 else 0),
+                  f"batch {n} nodes: {c['path']['sessions']} sessions built "
+                  f"in round {rep}")
+            for name in launches:
+                launches[name] += c[name]
+            rows.append({"wall_us_per_plan": wall * 1e6 / len(batch),
+                         "counts": c})
+        keys = [decision_key(t.decision) for t in txns]
+        cands = [t.decision.num_candidates for t in txns]
+        view = ClusterView(cluster)
+        t0 = time.perf_counter()
+        singles = [sched.plan(w, view=view) for w in batch]
+        seq_us = (time.perf_counter() - t0) * 1e6 / len(batch)
+        check(keys == [decision_key(t.decision) for t in singles],
+              f"batch {n} nodes: session decisions differ from sequential "
+              "single plans")
+        # the full sweep's single plans count every row's candidates, as
+        # the session does (a shortlisted plan counts its k rows')
+        full = TopoScheduler(cluster, engine="imp_batched_full", alpha=0.5)
+        view = ClusterView(cluster)
+        singles = [full.plan(w, view=view) for w in batch]
+        check(keys == [decision_key(t.decision) for t in singles]
+              and cands == [t.decision.num_candidates for t in singles],
+              f"batch {n} nodes: session decisions or candidate counts "
+              "differ from imp_batched_full's sequential single plans")
+        if n <= 1024:
+            host = TopoScheduler(cluster, engine="imp", alpha=0.5)
+            check(keys == [decision_key(t.decision)
+                           for t in host.plan_batch(batch)],
+                  f"batch {n} nodes: session decisions differ from host imp")
+        out[n] = {"plans": len(batch), "kinds": [k[0] for k in keys],
+                  "rounds": rows, "sequential_us_per_plan": seq_us}
+        print(f"[batch] {n} nodes: {json.dumps(out[n])}", flush=True)
+    return {"runs": out, "launches": launches}
+
+
+# ---------------------------------------------------------------------------------
 # Phase 7: timing and bounds
 # ---------------------------------------------------------------------------------
 
@@ -2213,7 +2666,10 @@ def flash_row(torch, errs, launches) -> dict:
 #: the CUDA kernels of each traced engine's plan
 TRACE_KERNELS = {"imp_pallas": ("topo_score_argmax_kernel",),
                  "imp_batched": ("fused_class_kernel", "fused_argmax_kernel",
-                                 "normal_cycle_kernel", "normal_merge_kernel")}
+                                 "normal_cycle_kernel", "normal_merge_kernel",
+                                 "prescreen_kernel",
+                                 "prescreen_select_kernel",
+                                 "encode_delta_kernel")}
 
 
 def trace_phase(torch, dev, engine: str = "imp_pallas", nodes: int = 1024,
@@ -2415,6 +2871,9 @@ def run() -> int:
     errs.update(fused_phase(torch, np, dev))
     for name, err in cluster_phase(torch, np, dev).items():
         errs[name] = max(errs[name], err)
+    delta = delta_phase(torch, np, dev)
+    errs["encode_delta"] = delta["max_abs_err"]
+    errs.update(shortlist_kernel_phase(torch, np, dev))
     t0 = time.perf_counter()
     big = {10240: build_saturated_cluster(SimConfig(num_nodes=10240, seed=0,
                                                     device=dev))}
@@ -2425,11 +2884,21 @@ def run() -> int:
                 if r["engine"] == "imp_pallas")
     fused_plans = sum(r["cycles"] * r["scaleups"] for r in runs
                       if r["engine"] == "imp_batched")
+    clusters = {1024: build_saturated_cluster(SimConfig(num_nodes=1024,
+                                                        seed=0, device=dev)),
+                **big}
+    batch = batch_phase(torch, dev, clusters)
+    for name, n in batch["launches"].items():
+        launches[name] += n
+    fused_plans += sum(r["plans"] * len(r["rounds"])
+                       for r in batch["runs"].values())
     commit_phase(dev)
     day = day_phase(torch, dev)
     for name, n in day["launches"].items():
         launches[name] += n
     fused_plans += day["plans"]
+    for name in ("prescreen", "encode_delta"):
+        check(launches[name] > 0, f"the main path never launched {name}")
     flash_errs = flash_phase(torch)
     serve, api, params = serve_phase(torch, np)
     day_serve = day_serve_line(day, serve)
@@ -2437,14 +2906,14 @@ def run() -> int:
     check_errs = serve_check(torch, np, api, params)
     del api, params
     torch.cuda.empty_cache()
-    clusters = {1024: build_saturated_cluster(SimConfig(num_nodes=1024,
-                                                        seed=0, device=dev)),
-                **big}
     rows = timing_phase(torch, np, dev, errs, launches, plans)
     rows.append(flash_row(torch, flash_errs,
                           serve["counts"]["flash_attention"]))
     rows.extend(fused_rows(torch, np, dev, errs, launches, fused_plans,
                            clusters, cluster_sweep(torch, np, dev)))
+    rows.append(prescreen_row(torch, np, dev, clusters, errs["prescreen"],
+                              launches, fused_plans))
+    rows.append(delta_row(delta, launches, fused_plans))
     sweep = sweep_timing(torch, np, dev)
     floor = launch_floor(torch)
     for row in rows:
@@ -2474,7 +2943,28 @@ def run() -> int:
                           "prefill_s", "decode_p50_ms", "decode_p90_ms",
                           "tok_per_s", "max_memory_allocated")},
                       "serve_check": check_errs,
-                      "empty_kernel_ms": floor["kernel_ms"], "card": smi}),
+                      "empty_kernel_ms": floor["kernel_ms"],
+                      "shortlist": {f"{r['engine']}@{r['nodes']}":
+                                    {k: r["counts"]["path"][k]
+                                     for k in ("certain", "fallback")}
+                                    for r in runs
+                                    if r["engine"] == "imp_batched"},
+                      "day_shortlist": {f"{r['engine']}@{r['nodes']}":
+                                        {k: r["counts"]["path"][k] for k in (
+                                            "shortlist_plan2", "certain",
+                                            "fallback", "sessions",
+                                            "merge", "merge_normal",
+                                            "encoded")}
+                                        for r in day["runs"]
+                                        if r["engine"] == "imp_batched"},
+                      "delta_host_us": {k: delta[k] for k in (
+                          "host_us_view_delta_p50",
+                          "host_us_encode_row_p50")},
+                      "batch_us_per_plan": {
+                          n: [r["wall_us_per_plan"] for r in b["rounds"]]
+                          + [b["sequential_us_per_plan"]]
+                          for n, b in batch["runs"].items()},
+                      "card": smi}),
           flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi(), flush=True)

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import hashlib
 import itertools
 from typing import Callable, Iterable
 
@@ -439,6 +440,10 @@ class SourcingContext:
     of that order, so a truncated row stays on the fused path whenever
     ``next_prio >= preemptor``; callers fall back to per-node sourcing only
     when eligible victims really exceed the row.
+
+    ``fp`` is each row's equivalence-class fingerprint (`refingerprint`),
+    kept at the same refresh points as the rows: the shortlist sweeps one
+    representative row a class.
     """
 
     #: replay gate: a single row accumulating more preemptible additions
@@ -461,6 +466,7 @@ class SourcingContext:
         self.count = np.zeros(n, np.int32)          # preemptible instances
         self.overflow = np.zeros(n, bool)           # count > cap: truncated
         self.next_prio = np.full(n, 2**31 - 1, np.int32)  # 1st unstored prio
+        self.fp = np.zeros(n, np.int64)             # equivalence-class hash
         self._dirty: set[int] = set(range(n))
         # journal-driven refresh: the exact mutation stream since the last
         # refresh, plus a per-node dirty-mark counter.  A dirty row whose
@@ -590,6 +596,27 @@ class SourcingContext:
         ukey = np.where(st, su[:, :cap], np.iinfo(np.int64).max)
         rank = np.argsort(np.argsort(ukey, axis=1, kind="stable"), axis=1)
         self.rank[idx] = np.where(st, rank, 0)
+        self.refingerprint(rows)
+
+    def refingerprint(self, rows) -> None:
+        """Recompute the 64-bit equivalence-class fingerprint of ``rows``:
+        blake2b (8-byte digest) over the bytes of the fields the fused
+        sweep scores, in this order: free masks, count, overflow, next
+        priority, the victim GPU/CG/priority columns and the stored flags.
+        Uids and uid-ranks are left out: rows that differ only in WHICH
+        instances fill the slots are interchangeable up to the winner's uid
+        tie-break, which comes after the node-id one and so never decides
+        between nodes.  Each row is hashed once, over its fields' bytes
+        joined (the digest of the reference's field-by-field updates)."""
+        for node in rows:
+            raw = b"".join((
+                self.free_gpu[node].tobytes(), self.free_cg[node].tobytes(),
+                self.count[node].tobytes(), self.overflow[node].tobytes(),
+                self.next_prio[node].tobytes(), self.vg[node].tobytes(),
+                self.vc[node].tobytes(), self.vp[node].tobytes(),
+                self.stored[node].tobytes()))
+            self.fp[node] = np.frombuffer(
+                hashlib.blake2b(raw, digest_size=8).digest(), np.int64)[0]
 
     def refresh_row(self, node: int, source) -> None:
         """Fill one row from ``source`` (the base cluster or a ClusterView)."""
@@ -606,6 +633,7 @@ class SourcingContext:
         self.vp[node] = row.vp
         self.vu[node] = row.vu
         self.rank[node] = row.rank
+        self.refingerprint((node,))
 
 
 @dataclasses.dataclass
@@ -804,6 +832,182 @@ def pad_idx(ids, floor: int = 1) -> np.ndarray:
     return out
 
 
+#: the most net-new victims a row of a `ViewDelta` takes on the device;
+#: a row with more is encoded on the host
+VIEW_DELTA_MAX_ADDS = 8
+#: rows of `ViewDelta.descriptors`' dense block: per dense row its node,
+#: the removed-slot bitmask, the freed and newly occupied masks, and the
+#: row of the patch buffer it is written to
+DD_NODE, DD_REM, DD_FOG, DD_FOC, DD_OG, DD_OC, DD_POS = range(7)
+DENSE_FIELDS = 7
+#: rows of its adds block: per dense row and add, GPU and CG masks,
+#: priority, valid flag
+ADD_FIELDS = 4
+
+
+class ViewDelta:
+    """The delta rows of one plan's `ClusterView`, as descriptors for the
+    device delta encoder (counterpart of the reference's
+    ``repro.core.cluster.ViewDelta``).
+
+    Built once per fused plan from the view's planned evictions and binds
+    (O(delta instances) host work, no per-node victim sort): a node whose
+    patch row the device can rebuild exactly from its resident row gets a
+    few descriptor values (`descriptors`); a node behind a gate — its
+    resident row pending-stale or never encoded, its base row truncated,
+    more than ``a_max`` adds, or more than ``cap`` victims after the merge —
+    is encoded on the host by `encode_row` (``fallback``).  Winner uids
+    stay on the host: `row` encodes one node on demand.
+    """
+
+    def __init__(self, view, ctx: SourcingContext, pending,
+                 a_max: int = VIEW_DELTA_MAX_ADDS) -> None:
+        self.view = view
+        self.cap = cap = ctx.cap
+        self.fallback: dict[int, VictimRow] = {}
+        self._rows: dict[int, VictimRow] = {}
+        dense: list[int] = []
+        descs: list[tuple] = []
+        max_adds = 1
+        per: dict[int, list] = {}
+        for inst in view._evicted.values():
+            per.setdefault(inst.node, []).append((False, inst))
+        for inst in view._added.values():
+            per.setdefault(inst.node, []).append((True, inst))
+        big = 2**31 - 1
+        for node, insts in per.items():
+            bad = (node in pending or bool(ctx.overflow[node])
+                   or node in ctx._fresh)
+            fog = foc = og = oc = 0
+            removed: set[int] = set()
+            adds: list[tuple] = []
+            for is_add, inst in insts:
+                if is_add:
+                    og |= inst.gpu_mask
+                    oc |= inst.cg_mask
+                    if inst.preemptible:
+                        adds.append((inst.uid, inst.priority,
+                                     inst.gpu_mask, inst.cg_mask))
+                else:
+                    fog |= inst.gpu_mask
+                    foc |= inst.cg_mask
+                    if inst.preemptible:
+                        removed.add(inst.uid)
+            # the kept base slots: stored and not evicted (a few slots: a
+            # python pass is cheaper than numpy's per-call cost here)
+            rem = kept = 0
+            kept_vp = []
+            for j, (st, uid, vp) in enumerate(zip(
+                    ctx.stored[node].tolist(), ctx.vu[node].tolist(),
+                    ctx.vp[node].tolist())):
+                if st and uid not in removed:
+                    kept += 1
+                    kept_vp.append(vp)
+                else:
+                    rem |= (1 << j) if st else 0
+                    kept_vp.append(big)
+            count = kept + len(adds)
+            if bad or len(adds) > a_max or count > cap:
+                self.fallback[node] = self.row(node)
+                continue
+            adds.sort()     # uid ascending: planned binds' uids are < 0
+            dense.append(node)
+            descs.append((rem, fog, foc, og, oc, adds, kept_vp, count))
+            max_adds = max(max_adds, len(adds))
+        self.a = _pad_pow2(max_adds)
+        d = len(dense)
+        self.dense = np.asarray(dense, np.int32)
+        self._desc = np.zeros((DENSE_FIELDS, d), np.int32)
+        self._adds = np.zeros((ADD_FIELDS, d, self.a), np.int32)
+        # host routing metadata: surviving base priorities (2^31 - 1 where
+        # no victim stays) + add priorities, and the rows' victim counts
+        self._vp = np.asarray([x[6] for x in descs],
+                              np.int32).reshape(d, cap)
+        self._count = np.asarray([x[7] for x in descs], np.int32)
+        for i, (node, (rem, fog, foc, og, oc, adds, _, _)) in enumerate(
+                zip(dense, descs)):
+            self._desc[:DD_POS, i] = (node, rem, _i32(fog), _i32(foc),
+                                      _i32(og), _i32(oc))
+            for j, (_, prio, gm, cm) in enumerate(adds):
+                self._adds[:, i, j] = (_i32(gm), _i32(cm), prio, 1)
+        self._addp_m = np.where(self._adds[3] != 0, self._adds[2],
+                                2**31 - 1)
+        self._pos = {int(n): i for i, n in enumerate(dense)}
+
+    # -- container interface (the delta-node set) ---------------------------------
+    def __len__(self) -> int:
+        return len(self._pos) + len(self.fallback)
+
+    def __contains__(self, node: int) -> bool:
+        return node in self._pos or node in self.fallback
+
+    def __iter__(self):
+        yield from self._pos
+        yield from self.fallback
+
+    # -- host routing metadata ----------------------------------------------------
+    def elig_bad(self, thresh: int):
+        """Per delta node: eligible stored victims under ``thresh`` and
+        whether truncation could hide eligible victims (dense rows never
+        truncate by construction)."""
+        elig = {node: int(((row.vp < thresh) & row.stored).sum())
+                for node, row in self.fallback.items()}
+        bad = {node: bool(row.overflow) and row.next_priority < thresh
+               for node, row in self.fallback.items()}
+        if self._pos:
+            cnt = ((self._vp < thresh).sum(axis=1)
+                   + (self._addp_m < thresh).sum(axis=1))
+            for node, i in self._pos.items():
+                elig[node] = int(cnt[i])
+                bad[node] = False
+        return elig, bad
+
+    def count(self, node: int) -> int:
+        i = self._pos.get(node)
+        if i is not None:
+            return int(self._count[i])
+        return self.fallback[node].count
+
+    def row(self, node: int) -> VictimRow:
+        """Exact host row for one delta node (winner uid decode, wide
+        re-dispatches): encoded on demand and cached."""
+        row = self._rows.get(node)
+        if row is None:
+            row = self._rows[node] = encode_row(self.view, node, self.cap)
+        return row
+
+    # -- device path ---------------------------------------------------------------
+    def descriptors(self, pos) -> tuple[np.ndarray, np.ndarray]:
+        """The dense rows' descriptors for the delta encoder: int32
+        ``[DENSE_FIELDS, D]`` (node, removed-slot bitmask, freed and
+        occupied masks, and ``pos``, the patch-buffer row each is written
+        to) and int32 ``[ADD_FIELDS, D, a]`` (the net-new victims in uid
+        order)."""
+        desc = self._desc.copy()
+        desc[DD_POS] = pos
+        return desc, self._adds
+
+    def device_rows(self, dcs: "DeviceClusterState"):
+        """Every dense delta row encoded on the device: ``(didx
+        int32[Dp], buf int32[Dp, row_width])`` with ``Dp`` the power of two
+        `pad_idx` gives (rows past ``D`` zero), ``buf`` on the state's
+        device; None when every delta node fell back."""
+        d = len(self.dense)
+        if d == 0:
+            return None
+        didx = pad_idx(self.dense)
+        desc, adds = self.descriptors(np.arange(d, dtype=np.int32))
+        up = dcs._upload(np.concatenate([desc.ravel(), adds.ravel()]))
+        buf = dcs.delta_encode(up[:desc.size].view(desc.shape),
+                               up[desc.size:].view(adds.shape), p=len(didx))
+        return didx, buf
+
+
+def _i32(mask: int) -> int:
+    """A 32-bit mask as the int32 the device tensors hold."""
+    return mask - (1 << 32) if mask >= 1 << 31 else mask
+
+
 class DeviceClusterState:
     """Struct-of-arrays view of the cluster's sourcing state, resident on
     ``cluster.device`` (counterpart of the reference's
@@ -848,6 +1052,9 @@ class DeviceClusterState:
         #: once it moves
         self.version = 0
         self.plan_cache: dict = {}
+        #: per-version equivalence-class cache: (version, rep bool[N] host
+        #: mask, int32[N] device copy), rebuilt lazily by `rep_classes`
+        self._rep_cache: tuple | None = None
         self._dirty: set[int] = set(range(cluster.num_nodes))
         cluster.add_dirty_listener(self._mark_dirty)
 
@@ -893,6 +1100,39 @@ class DeviceClusterState:
     def n_rows(self) -> int:
         """Length of the device node axis (``num_nodes``)."""
         return self.cluster.num_nodes
+
+    def rep_classes(self):
+        """Equivalence-class representatives over the node axis:
+        ``(rep_host bool[N], rep_dev int32[N])``, true exactly at the
+        LOWEST-index row of every fingerprint class
+        (`SourcingContext.refingerprint`).  The winner's tie chain prefers
+        the lower node id before any uid comparison, so within a class the
+        full sweep's winner is always its lowest row: sweeping the
+        representatives alone is exact.  Call after ``sync()`` (the
+        mirror's fingerprints must be fresh); cached per ``version``."""
+        cache = self._rep_cache
+        if cache is not None and cache[0] == self.version:
+            return cache[1], cache[2]
+        n = self.cluster.num_nodes
+        rep = np.zeros(n, bool)
+        _, first = np.unique(self.mirror.fp[:n], return_index=True)
+        rep[first] = True
+        rep_dev = self._upload(rep.astype(np.int32))
+        self._rep_cache = (self.version, rep, rep_dev)
+        return rep, rep_dev
+
+    def delta_encode(self, dense, adds, *, p: int, hpos=None, hrows=None):
+        """The view-delta encoder over the resident tensors
+        (`repro_torch.kernels.view_delta.encode_delta`): the dense rows
+        described by ``dense``/``adds`` (`ViewDelta.descriptors`, on this
+        state's device) rebuilt from their resident rows, and the
+        host-encoded rows ``hrows`` copied, each to its row of a new
+        int32[p, row_width] patch buffer (``dense``'s ``pos`` row and
+        ``hpos``); the other rows are zero."""
+        from repro_torch.kernels.view_delta import encode_delta
+
+        return encode_delta(self.nodestate, self.victims, dense, adds,
+                            hpos, hrows, p=p)
 
     @property
     def pending(self) -> set[int]:

@@ -88,34 +88,61 @@ class EngineSpec:
     #: fn(cluster_or_view, workload) -> (node, Placement) | None — the
     #: normal cycle alone as one dispatch
     normal_fn: Callable | None = None
+    #: fn(cluster, workloads, alpha) -> batch-sourcing session for
+    #: ``plan_batch`` (the class data of every request against one
+    #: snapshot); its ``plan``/``source(view, workload, i)`` replace
+    #: ``plan_fused``/``source_all`` for request i
+    batch_factory: Callable | None = None
     #: fn(cluster, alpha): build kernels and fill caches at
     #: ``TopoScheduler(..., warmup=True)`` construction
     warmup_fn: Callable | None = None
+    #: the engine's ``plan_fn``/``source_nodes``/``warmup_fn`` take a
+    #: ``shortlist=`` `scheduler.ShortlistConfig`: the two-stage
+    #: equivalence-class + top-K front-end.  Full-sweep oracle
+    #: registrations (``*_full``) share the functions with the flag off.
+    supports_shortlist: bool = False
 
     def source(self, cluster, workload, node: int) -> list[Candidate]:
         if self.source_node is not None:
             return list(self.source_node(cluster, workload, node))
         return self.source_all(cluster, workload, [node])
 
+    def start_batch(self, cluster, workloads, alpha: float):
+        """A batch-sourcing session for ``plan_batch``, or None."""
+        if self.batch_factory is None:
+            return None
+        return self.batch_factory(cluster, workloads, alpha)
+
     def plan_fused(self, cluster, workload, alpha: float,
-                   allow_preempt: bool = True):
+                   allow_preempt: bool = True, shortlist=None):
         """Both Algorithm 1 cycles in one dispatch (``fused_place``)."""
+        if self.supports_shortlist and shortlist is not None:
+            return self.plan_fn(cluster, workload, alpha, allow_preempt,
+                                shortlist=shortlist)
         return self.plan_fn(cluster, workload, alpha, allow_preempt)
 
     def plan_normal(self, cluster, workload):
         """The normal cycle alone as one dispatch."""
         return self.normal_fn(cluster, workload)
 
-    def warmup(self, cluster, alpha: float) -> None:
+    def warmup(self, cluster, alpha: float, shortlist=None) -> None:
         """Build kernels and fill caches (no-op without ``warmup_fn``)."""
-        if self.warmup_fn is not None:
+        if self.warmup_fn is None:
+            return
+        if self.supports_shortlist and shortlist is not None:
+            self.warmup_fn(cluster, alpha, shortlist=shortlist)
+        else:
             self.warmup_fn(cluster, alpha)
 
     def source_all(self, cluster, workload, nodes: list[int] | None,
-                   alpha: float | None = None) -> list[Candidate]:
+                   alpha: float | None = None,
+                   shortlist=None) -> list[Candidate]:
         if self.source_nodes is not None:
-            kw = {"alpha": alpha} if (self.needs_alpha
-                                      and alpha is not None) else {}
+            kw = {}
+            if self.needs_alpha and alpha is not None:
+                kw["alpha"] = alpha
+            if self.supports_shortlist and shortlist is not None:
+                kw["shortlist"] = shortlist
             got = self.source_nodes(cluster, workload, nodes, **kw)
             # keep list subclasses intact (CandidateShortlist.n_candidates)
             return got if isinstance(got, list) else list(got)
@@ -163,7 +190,9 @@ def register_engine(
     fused_place: bool = False,
     plan_fn: Callable | None = None,
     normal_fn: Callable | None = None,
+    batch_factory: Callable | None = None,
     warmup_fn: Callable | None = None,
+    supports_shortlist: bool = False,
 ):
     """Decorator: register a sourcing function.
 
@@ -175,7 +204,9 @@ def register_engine(
     fuses Guaranteed Filtering: the scheduler passes ``nodes=None``.
     ``fused_place=True`` (with ``plan_fn``/``normal_fn``) runs both
     Algorithm 1 cycles, placement masks included, inside the engine's
-    dispatch.  ``warmup_fn`` is the opt-in build/cache warm-up.
+    dispatch.  ``batch_factory`` makes ``plan_batch``'s session (see
+    `EngineSpec`), ``warmup_fn`` is the opt-in build/cache warm-up, and
+    ``supports_shortlist`` marks functions that take ``shortlist=``.
     """
 
     def deco(fn):
@@ -186,7 +217,8 @@ def register_engine(
             topology_aware=topology_aware, selector=selector,
             needs_alpha=needs_alpha, fused_filter=fused_filter,
             fused_place=fused_place, plan_fn=plan_fn, normal_fn=normal_fn,
-            warmup_fn=warmup_fn)
+            batch_factory=batch_factory, warmup_fn=warmup_fn,
+            supports_shortlist=supports_shortlist)
         _LAZY.pop(name, None)
         return fn
 

@@ -1,9 +1,9 @@
 """The fused ``imp_batched`` engine: Algorithm 1 over the device-resident state.
 
-Counterpart of the single-request path of the reference's
-``repro.core.preemption_jax``.  One plan runs over the cluster's
-`DeviceClusterState` (``Cluster.device_state``) as a chain of three kernel
-launches in stream order and ONE readback of ``int32[5 + WIN_FIELDS]``:
+Counterpart of the single-request, shortlist and batch-session paths of the
+reference's ``repro.core.preemption_jax``.  One plan runs over the
+cluster's `DeviceClusterState` (``Cluster.device_state``) as a chain of
+kernel launches in stream order and ONE readback:
 
 1. ``kernels.normal_cycle`` (K2, normal-cycle form): the normal cycle over
    every node — count screen, placement tier, blind tier, the exact
@@ -14,11 +14,33 @@ launches in stream order and ONE readback of ``int32[5 + WIN_FIELDS]``:
 3. ``kernels.fused_class.fused_argmax`` (K1's tail): the Eq. 2 argmax with
    its exact tie chain and the winner's placement.
 
-Launches 2 and 3 read the normal cycle's ``found`` on the device and return
-at once when it is set (the reference's ``lax.cond``).  A copy-on-write
-`ClusterView`'s delta rows (encoded on the host by ``encode_row``) and the
-rows ``sync(flush=False)`` left pending ride the launches as patch rows;
-the resident tensors are never written by a plan.
+Launches after the first read the normal cycle's ``found`` on the device
+and return at once when it is set (the reference's ``lax.cond``).  A
+copy-on-write `ClusterView`'s delta rows and the rows ``sync(flush=False)``
+left pending ride the launches as patch rows: the view's rows are
+described by a `ViewDelta` and rebuilt on the device by
+``kernels.view_delta.encode_delta`` straight into the plan's patch buffer
+(rows it cannot rebuild exactly are encoded on the host by ``encode_row``
+and copied in by the same launch); the resident tensors are never written
+by a plan.
+
+**The shortlist** (``shortlist=ShortlistConfig``, above ``k`` rows):
+``kernels.prescreen.prescreen`` bounds every row's Eq. 2 score from its
+aggregates and keeps the top ``k`` class representatives
+(`DeviceClusterState.rep_classes`, with the patched rows and the promoted
+members of their old classes forced in, `_forced_rows`); the sweep and the
+tail then run over those ``k`` rows only.  The readback holds the bound
+left out, and the host checks that the winner's exact score beats it
+strictly; in ``"guaranteed"`` mode a plan that cannot prove it runs the
+full sweep (two more launches on the same patch tensors).
+
+**Batch sessions** (`BatchSourcingSession`, ``plan_batch``): the resident
+sweep once per distinct request of the batch against one snapshot; each
+plan then merges its request's class data, with the view's delta rows
+masked out, with a `NARROW_M`-wide sweep of the patched delta rows and the
+untouched rows above the session's gate, behind the normal cycle.
+Sessions persist across ``plan_batch`` calls until the cluster changes
+(`persistent_batch_session`).
 
 The host routes rows by their eligible victims (`split_fused_nodes`): the
 main launch sweeps every resident row at an adaptive width ``m_res`` (4 or
@@ -42,16 +64,19 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.fused_class import (C_ANY, C_CB, C_CNT, C_K, C_PP,
-                                             C_UM, WIN_FIELDS, FusedRequest,
-                                             fused_argmax, fused_class)
+                                             C_UM, CLS_FIELDS, WIN_FIELDS,
+                                             FusedRequest, fused_argmax,
+                                             fused_class)
 from repro_torch.kernels.normal_cycle import NORMAL_FIELDS, normal_cycle
+from repro_torch.kernels.prescreen import prescreen
 
 from .cluster import (IDX_SENTINEL, Cluster, DeviceClusterState, VictimRow,
-                      encode_row, flatten_rows, pack_context_rows, pack_rows,
-                      pad_idx, row_width)
+                      ViewDelta, encode_row, flatten_rows, pack_context_rows,
+                      pack_rows, pad_idx, row_width)
 from .engines import register_engine
 from .placement import Placement
-from .scoring import DEFAULT_ALPHA, Candidate, select_best
+from .scheduler import ShortlistConfig
+from .scoring import DEFAULT_ALPHA, TIER_SCORES, Candidate, select_best
 from .topology import ServerSpec
 from .workload import TopoPolicy, WorkloadSpec
 
@@ -62,11 +87,45 @@ NARROW_M = 8
 MIN_M = 4
 #: rows per wide (16-slot, 65536-subset) chunk; each chunk has its own winner
 MAX_ROWS_WIDE = 16
+#: class-data fields a batch plan zeroes at the view's delta rows
+_MASKED = (C_ANY, C_ANY + 1, C_ANY + 2, C_CNT)
 
-__all__ = ["CandidateShortlist", "ClassWinners", "FusedPlanResult",
-           "FusedSplit", "IDX_SENTINEL", "MAX_ROWS_WIDE", "MIN_M", "NARROW_M",
-           "WIN_FIELDS", "plan_fused", "plan_normal_fused",
+__all__ = ["BatchSourcingSession", "CandidateShortlist", "ClassWinners",
+           "FusedPlanResult", "FusedSplit", "IDX_SENTINEL", "MAX_ROWS_WIDE",
+           "MIN_M", "NARROW_M", "PATH_COUNTS", "ShortlistConfig",
+           "WIN_FIELDS", "expected_launches", "persistent_batch_session", "plan_fused", "plan_normal_fused",
            "source_candidates_fused", "split_fused_nodes", "warmup_fused"]
+
+#: what the engine ran since the counters were last set to 0, recorded
+#: where it decides, not where a kernel launches (``chip_smoke.py`` holds
+#: the kernels' launch counts to them): each pipeline by name
+#: (``plan2``: K2, the sweep, the tail; ``shortlist_plan2``: K2, the
+#: prescreen, the sweep, the tail; ``shortlist``: the prescreen, the sweep,
+#: the tail; ``sweep``: the sweep and the tail; ``normal``: K2; ``gathered``:
+#: a gathered sweep and its tail; ``merge``/``merge_normal``: a batch
+#: plan's gathered sweep and tail, behind K2 for the latter;
+#: ``session_requests``: the sweeps that build a session's class data;
+#: ``encoded``: the delta encoder), and what the shortlist decided:
+#: ``certain`` plans proved their winner, ``fallback`` plans re-ran the
+#: full sweep; ``sessions`` built
+PATH_COUNTS = dict.fromkeys((
+    "plan2", "shortlist_plan2", "shortlist", "sweep", "normal", "gathered",
+    "merge", "merge_normal", "session_requests", "encoded", "certain",
+    "fallback", "sessions"), 0)
+
+
+def expected_launches(counts: dict) -> dict[str, int]:
+    """The launches of each fused kernel that the paths in ``counts`` (a
+    `PATH_COUNTS` record) make on a CUDA device."""
+    c = counts
+    tail = (c["plan2"] + c["shortlist_plan2"] + c["shortlist"] + c["sweep"]
+            + c["gathered"] + c["merge"] + c["merge_normal"])
+    return {"normal_cycle": (c["plan2"] + c["shortlist_plan2"] + c["normal"]
+                             + c["merge_normal"]),
+            "prescreen": c["shortlist_plan2"] + c["shortlist"],
+            "fused_class": tail + c["session_requests"],
+            "fused_argmax": tail,
+            "encode_delta": c["encoded"]}
 
 
 class ClassWinners(NamedTuple):
@@ -145,8 +204,9 @@ def _pack_patches(patches: dict[int, VictimRow], cap: int):
     return _patch_rows(patches, None, (), cap)
 
 
-def _patch_rows(rows: dict[int, VictimRow], ctx, pending, cap: int):
-    width = row_width(cap)
+def _host_rows(rows: dict[int, VictimRow], ctx, pending, cap: int):
+    """``(ids, int32[len(ids), row_width])``: the host-encoded ``rows``
+    (ascending) and then the mirror's ``pending`` rows."""
     ids, bufs = [], []
     if rows:
         nodes = sorted(rows)
@@ -156,9 +216,16 @@ def _patch_rows(rows: dict[int, VictimRow], ctx, pending, cap: int):
     if pending:
         ids.extend(pending)
         bufs.append(flatten_rows(*pack_context_rows(ctx, pending)))
+    if not bufs:
+        return ids, np.zeros((0, row_width(cap)), np.int32)
+    return ids, (np.concatenate(bufs) if len(bufs) > 1 else bufs[0])
+
+
+def _patch_rows(rows: dict[int, VictimRow], ctx, pending, cap: int):
+    width = row_width(cap)
+    ids, buf = _host_rows(rows, ctx, pending, cap)
     if not ids:
         return 0, np.zeros(0, np.int32), np.zeros((0, width), np.int32)
-    buf = np.concatenate(bufs) if len(bufs) > 1 else bufs[0]
     order = np.argsort(np.asarray(ids, np.int64), kind="stable")
     idx = _pad_idx(np.asarray(ids, np.int32)[order])
     pbuf = np.zeros((len(idx), width), np.int32)
@@ -166,15 +233,108 @@ def _patch_rows(rows: dict[int, VictimRow], ctx, pending, cap: int):
     return len(idx), idx, pbuf
 
 
-def _patch_args(dcs: DeviceClusterState, patches: dict[int, VictimRow]):
-    """One patch buffer covering the view's delta rows (``patches``, a
-    ``{node: VictimRow}`` dict) AND the device state's unflushed
-    ``pending`` rows: both classes of stale row ride the same launches,
-    so a plan pays one host→device upload and no standalone scatter.
-    Returns ``(p, pidx, pbuf)`` as host arrays, ``pidx`` ascending (the
-    kernels search it) and padded with `IDX_SENTINEL`."""
-    pending = sorted(set(dcs.pending) - set(patches))
-    return _patch_rows(patches, dcs.mirror, pending, dcs.cap)
+def _patch_row(patches, node: int) -> VictimRow:
+    """Exact host row for one delta node (`ViewDelta` encodes lazily)."""
+    if isinstance(patches, ViewDelta):
+        return patches.row(node)
+    return patches[node]
+
+
+def _patch_elig(patches, thresh: int):
+    """``(eligible-count, truncation-risk)`` dicts over the delta nodes:
+    from a `ViewDelta`'s descriptor metadata (no host encode of its dense
+    rows), or row by row from a ``{node: VictimRow}`` dict."""
+    if isinstance(patches, ViewDelta):
+        return patches.elig_bad(thresh)
+    return ({n: int(((r.vp < thresh) & r.stored).sum())
+             for n, r in patches.items()},
+            {n: bool(r.overflow and r.next_priority < thresh)
+             for n, r in patches.items()})
+
+
+class _Staged(NamedTuple):
+    """A plan's patch rows on the state's device: ``p`` rows (a power of
+    two, `IDX_SENTINEL` pads last), their ascending index ``pidx`` (host
+    copy ``pidx_host``) and flattened rows ``pbuf``, and the ``tail`` index
+    vector that rode the same upload (gathered or forced rows)."""
+
+    p: int
+    pidx_host: np.ndarray
+    pidx: torch.Tensor
+    pbuf: torch.Tensor
+    tail: torch.Tensor
+
+
+def _patch_plan(dcs: DeviceClusterState, patches, pending: bool = True):
+    """The host side of a plan's patch rows — the view's delta rows
+    (``patches``, a `ViewDelta` or a ``{node: VictimRow}`` dict) and, with
+    ``pending``, the state's unflushed rows: ``(pidx, desc, adds, hpos,
+    hbuf)``.  ``pidx`` is the ascending patch index padded with
+    `IDX_SENTINEL` to a power of two; ``desc``/``adds`` the `ViewDelta`'s
+    dense-row descriptors with each row's place in it (None without dense
+    rows); ``hbuf`` the host-encoded rows (fallback, then pending) and
+    ``hpos`` their places."""
+    cap = dcs.cap
+    if isinstance(patches, ViewDelta):
+        dense, host = patches.dense, patches.fallback
+    else:
+        dense, host = np.zeros(0, np.int32), patches
+    left = sorted(set(dcs.pending) - set(patches)) if pending else []
+    hids, hbuf = _host_rows(host, dcs.mirror, left, cap)
+    ids = np.concatenate([dense, np.asarray(hids, np.int32)]).astype(
+        np.int64)
+    if not len(ids):
+        return np.zeros(0, np.int32), None, None, np.zeros(0, np.int32), hbuf
+    order = np.argsort(ids, kind="stable")
+    pidx = _pad_idx(ids[order].astype(np.int32))
+    pos = np.empty(len(ids), np.int32)
+    pos[order] = np.arange(len(ids), dtype=np.int32)
+    d = len(dense)
+    desc = adds = None
+    if d:
+        desc, adds = patches.descriptors(pos[:d])
+    return pidx, desc, adds, pos[d:], hbuf
+
+
+def _stage(dcs: DeviceClusterState, patches, tail=None,
+           pending: bool = True) -> _Staged:
+    """The patch rows of a plan (`_patch_plan`) plus the index vector
+    ``tail``, in ONE host→device upload.  A `ViewDelta`'s dense rows
+    travel as descriptors and one ``encode_delta`` launch writes every row
+    to its place in the patch buffer; without dense rows the buffer
+    travels packed."""
+    if not len(patches) and not (pending and dcs.pending) and tail is None:
+        pidx_d, pbuf_d = _empty_patch_args(dcs)
+        return _Staged(0, np.zeros(0, np.int32), pidx_d, pbuf_d, pidx_d)
+    width = row_width(dcs.cap)
+    tail = np.zeros(0, np.int32) if tail is None else np.asarray(tail,
+                                                                 np.int32)
+    nt = len(tail)
+    pidx, desc, adds, hpos, hbuf = _patch_plan(dcs, patches, pending)
+    p = len(pidx)
+    if p == 0:
+        pidx_d, pbuf_d = _empty_patch_args(dcs)
+        return _Staged(0, pidx, pidx_d, pbuf_d,
+                       _upload(dcs, tail) if nt else pidx_d)
+    if desc is None:
+        pbuf = np.zeros((p, width), np.int32)
+        pbuf[hpos] = hbuf
+        up = _upload(dcs, np.concatenate([pidx, tail, pbuf.ravel()]))
+        return _Staged(p, pidx, up[:p], up[p + nt:].view(p, width),
+                       up[p:p + nt])
+    up = _upload(dcs, np.concatenate([pidx, tail, desc.ravel(), adds.ravel(),
+                                      hpos, hbuf.ravel()]))
+    o = p + nt
+    desc_d = up[o:o + desc.size].view(desc.shape)
+    o += desc.size
+    adds_d = up[o:o + adds.size].view(adds.shape)
+    o += adds.size
+    hpos_d = up[o:o + len(hpos)]
+    hrows_d = up[o + len(hpos):].view(len(hpos), width)
+    pbuf_d = dcs.delta_encode(desc_d, adds_d, p=p, hpos=hpos_d,
+                              hrows=hrows_d)
+    PATH_COUNTS["encoded"] += 1
+    return _Staged(p, pidx, up[:p], pbuf_d, up[p:p + nt])
 
 
 class FusedSplit(NamedTuple):
@@ -193,34 +353,42 @@ class FusedSplit(NamedTuple):
     overflow: list
 
 
-def split_fused_nodes(dcs: DeviceClusterState, patches: dict, thresh: int,
-                      nodes=None) -> FusedSplit:
+def split_fused_nodes(dcs: DeviceClusterState, patches, thresh: int,
+                      nodes=None, gate: int | None = None) -> FusedSplit:
     """Route rows between the main sweep and its re-dispatch tiers.
 
     Eligible victims are a prefix of each (priority, uid)-sorted row, so
     every row is classified by one vectorized count over the host mirror
-    (patched rows overridden); the main sweep's width adapts.  When no
+    (patched rows overridden).  ``gate`` pins the main sweep's width (the
+    shortlist's and the batch session's); when None it adapts.  When no
     node stores more than `MIN_M` victims (``dcs.count_max``) the scan is
     skipped.
     """
     ctx = dcs.mirror
-    patch_big = [n for n, r in patches.items() if r.count > MIN_M]
+    if isinstance(patches, ViewDelta):
+        patch_big = [n for n in patches if patches.count(n) > MIN_M]
+    else:
+        patch_big = [n for n, r in patches.items() if r.count > MIN_M]
     if dcs.count_max <= MIN_M and not patch_big:
         return FusedSplit(MIN_M, [], [], [])
     n = dcs.cluster.num_nodes
     elig = ((ctx.vp < thresh) & ctx.stored).sum(axis=1)
     bad = ctx.overflow & (ctx.next_prio < thresh)
-    for node, r in patches.items():
-        elig[node] = int(((r.vp < thresh) & r.stored).sum())
-        bad[node] = bool(r.overflow and r.next_priority < thresh)
+    p_elig, p_bad = _patch_elig(patches, thresh)
+    for node, e in p_elig.items():
+        elig[node] = e
+    for node, b in p_bad.items():
+        bad[node] = b
     if nodes is None:
         allowed = np.ones(n, bool)
     else:
         allowed = np.zeros(n, bool)
         allowed[list(nodes)] = True
     ok = allowed & ~bad
-    m_res = (MIN_M if int((ok & (elig > MIN_M)).sum()) <= MAX_ROWS_WIDE
-             else NARROW_M)
+    m_res = gate
+    if m_res is None:
+        m_res = (MIN_M if int((ok & (elig > MIN_M)).sum()) <= MAX_ROWS_WIDE
+                 else NARROW_M)
     mid = np.nonzero(ok & (elig > m_res) & (elig <= NARROW_M))[0].tolist()
     wide = np.nonzero(ok & (elig > NARROW_M))[0].tolist()
     overflow = np.nonzero(allowed & bad)[0].tolist()
@@ -238,10 +406,10 @@ def _append_winner(out: CandidateShortlist, vals, sel_nodes, patches, ctx):
     if sel_nodes is None:
         node = row                            # resident row index == node
     elif isinstance(sel_nodes, dict):
-        node = int(sel_nodes.get(row, row))   # resident + mid rows
+        node = int(sel_nodes.get(row, row))   # resident + gathered rows
     else:
         node = int(sel_nodes[row])            # gathered chunk
-    vu = patches[node].vu if node in patches else ctx.vu[node]
+    vu = _patch_row(patches, node).vu if node in patches else ctx.vu[node]
     uids = [int(vu[j]) for j in range(len(vu)) if (combo >> j) & 1]
     victims = tuple(sorted(uids))
     out.append(Candidate(node=node, victims=victims, tier=tier,
@@ -251,7 +419,7 @@ def _append_winner(out: CandidateShortlist, vals, sel_nodes, patches, ctx):
 
 
 def _upload(dcs: DeviceClusterState, x: np.ndarray) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(x)).to(dcs.device)
+    return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(dcs.device)
 
 
 def _empty_patch_args(dcs: DeviceClusterState):
@@ -264,24 +432,78 @@ def _empty_patch_args(dcs: DeviceClusterState):
     return got
 
 
-def _fast_plan_args(dcs: DeviceClusterState, patches: dict, thresh: int,
-                    p: int, pidx, pbuf):
-    """Routing split + the device index/patch tensors of a ``nodes=None``
-    plan: ``(split, pidx_d, pbuf_d, gidx_d)``.  The patch-free case
-    (``p`` == 0) is cached per preemptor priority on the
-    `DeviceClusterState`, keyed by its invalidation ``version``: repeated
-    plans against unchanged state skip the host eligibility scan and the
-    uploads."""
-    cached = dcs.plan_cache.get(thresh) if p == 0 else None
+def _fast_plan_args(dcs: DeviceClusterState, patches, thresh: int):
+    """Routing split + the staged patch rows of a ``nodes=None`` plan, the
+    mid rows as the tail: ``(split, staged)``.  The patch-free case is
+    cached per preemptor priority on the `DeviceClusterState`, keyed by
+    its invalidation ``version``: repeated plans against unchanged state
+    skip the host eligibility scan and the upload."""
+    clean = not len(patches) and not dcs.pending
+    cached = dcs.plan_cache.get(thresh) if clean else None
     if cached is not None and cached[0] == dcs.version:
         return cached[1:]
     split = split_fused_nodes(dcs, patches, thresh)
-    gidx = _pad_idx(split.mid) if split.mid else np.zeros(0, np.int32)
-    aux = _upload(dcs, np.concatenate([pidx, gidx]).astype(np.int32))
-    got = (split, aux[:p], _upload(dcs, pbuf), aux[p:])
-    if p == 0:
-        dcs.plan_cache[thresh] = (dcs.version,) + got
-    return got
+    gidx = _pad_idx(split.mid) if split.mid else None
+    staged = _stage(dcs, patches, gidx)
+    if clean:
+        dcs.plan_cache[thresh] = (dcs.version, split, staged)
+    return split, staged
+
+
+def _full_args(dcs: DeviceClusterState, patches, thresh: int,
+               staged: _Staged):
+    """`_fast_plan_args` for the full sweep that follows an uncertain
+    shortlist, on the patch tensors already staged: only the mid rows'
+    index travels."""
+    if staged.p == 0:
+        return _fast_plan_args(dcs, patches, thresh)
+    split = split_fused_nodes(dcs, patches, thresh)
+    gidx = (_upload(dcs, _pad_idx(split.mid)) if split.mid
+            else _empty_patch_args(dcs)[0])
+    return split, staged._replace(tail=gidx)
+
+
+def _forced_rows(dcs: DeviceClusterState, patches) -> list[int]:
+    """Representative-mask corrections for the view's delta rows.
+
+    The rep mask comes from the MIRROR's fingerprints, but a patched row
+    is read with other content, so (a) every patched row is taken as its
+    own (possibly new) class, and (b) where a patched row represented its
+    old class, the lowest unpatched member of that class is promoted.
+    Extra representatives only add rows to the prescreen; a MISSING one
+    could hide the argmax, and these two corrections close the ways one
+    can go missing.  Pending rows need nothing: their mirror fingerprints
+    are fresh."""
+    pset = {int(n) for n in patches} if patches else set()
+    if not pset:
+        return []
+    fp = dcs.mirror.fp
+    forced = set(pset)
+    for d in pset:
+        for mbr in np.nonzero(fp == fp[d])[0]:
+            if int(mbr) not in pset:
+                forced.add(int(mbr))
+                break
+    return sorted(forced)
+
+
+def _shortlist_plan_args(dcs: DeviceClusterState, patches, thresh: int):
+    """`_fast_plan_args`'s shortlist twin: the wide/overflow split at gate
+    `NARROW_M` (the second stage sweeps `NARROW_M` wide, so only truly wide
+    and overflow rows route out) and the staged patch rows with the forced
+    representatives as the tail, cached per preemptor priority while the
+    state version holds."""
+    clean = not len(patches) and not dcs.pending
+    key = ("shortlist", thresh)
+    cached = dcs.plan_cache.get(key) if clean else None
+    if cached is not None and cached[0] == dcs.version:
+        return cached[1:]
+    split = split_fused_nodes(dcs, patches, thresh, gate=NARROW_M)
+    forced = _forced_rows(dcs, patches)
+    staged = _stage(dcs, patches, _pad_idx(forced) if forced else None)
+    if clean:
+        dcs.plan_cache[key] = (dcs.version, split, staged)
+    return split, staged
 
 
 # ---------------------------------------------------------------------------------
@@ -307,6 +529,7 @@ def _sorting_winner(dcs, pidx, pbuf, gidx, req: FusedRequest, spec, m: int,
 
 def _plan_pipeline(dcs, pidx, pbuf, gidx, req, spec, m) -> torch.Tensor:
     """The preemption phase alone: two launches, int32[`WIN_FIELDS`]."""
+    PATH_COUNTS["sweep"] += 1
     return _sorting_winner(dcs, pidx, pbuf, gidx, req, spec, m)[0]
 
 
@@ -314,6 +537,7 @@ def _plan2_pipeline(dcs, pidx, pbuf, gidx, req, spec, m) -> torch.Tensor:
     """BOTH cycles of Algorithm 1: the normal cycle writes out[:5]; the
     sweep and its tail read out[0] on the device and return at once when
     it is set.  Returns int32[5 + `WIN_FIELDS`]."""
+    PATH_COUNTS["plan2"] += 1
     ns, v, dr = _state(dcs)
     out = torch.empty(NORMAL_FIELDS + WIN_FIELDS, dtype=torch.int32,
                       device=ns.device)
@@ -326,8 +550,100 @@ def _plan2_pipeline(dcs, pidx, pbuf, gidx, req, spec, m) -> torch.Tensor:
 
 def _normal_pipeline(dcs, pidx, pbuf, req, spec) -> torch.Tensor:
     """The normal cycle alone: one launch, int32[5]."""
+    PATH_COUNTS["normal"] += 1
     ns, v, dr = _state(dcs)
     return normal_cycle(ns, v, dr, pidx, pbuf, req=req, spec=spec)
+
+
+class _ShortlistOut(NamedTuple):
+    """A shortlisted plan's readback buffer, int32[5 + `WIN_FIELDS` + k +
+    1] (the normal cycle, the winner, ``gidx``, ``excl_ub``), and its
+    views.  One per state and ``k``, reused plan after plan (each plan
+    reads it back before the next is launched): the sweep and the tail
+    then see the same ``gidx`` tensor every plan, so their checked launch
+    states are kept (`fused_class.launch_state`)."""
+
+    out: torch.Tensor
+    normal: torch.Tensor
+    skip: torch.Tensor
+    tail: torch.Tensor      # the winner onwards: _shortlist_winner's result
+    win: torch.Tensor
+    sl: torch.Tensor
+    gidx: torch.Tensor
+
+
+def _shortlist_out(dcs: DeviceClusterState, k: int) -> _ShortlistOut:
+    got = dcs.plan_cache.get(("shortlist_out", k))
+    if got is None:
+        out = torch.empty(NORMAL_FIELDS + WIN_FIELDS + k + 1,
+                          dtype=torch.int32, device=dcs.device)
+        tail = out[NORMAL_FIELDS:]
+        got = dcs.plan_cache[("shortlist_out", k)] = _ShortlistOut(
+            out, out[:NORMAL_FIELDS], out[:1], tail, tail[:WIN_FIELDS],
+            tail[WIN_FIELDS:], tail[WIN_FIELDS:WIN_FIELDS + k])
+    return got
+
+
+def _shortlist_winner(dcs, staged: _Staged, rep, req, spec, k: int,
+                      skip=None) -> torch.Tensor:
+    """Stage 1 (the prescreen) → the exact sweep and tail over its ``k``
+    rows: int32[`WIN_FIELDS` + k + 1], the winner (its row indexes
+    ``gidx``), then ``gidx`` and the bits of ``excl_ub`` (a view of the
+    state's `_ShortlistOut`)."""
+    ns, v, dr = _state(dcs)
+    if skip is None:
+        PATH_COUNTS["shortlist"] += 1
+    buf = _shortlist_out(dcs, k)
+    prescreen(ns, v, staged.pidx, staged.pbuf, rep, staged.tail, k=k,
+              req=req, spec=spec, skip=skip, out=buf.sl)
+    cls = fused_class(ns, v, dr, staged.pidx, staged.pbuf, buf.gidx,
+                      m_res=NARROW_M, resident=False, m_gather=NARROW_M,
+                      req=req, spec=spec, skip=skip)
+    fused_argmax(cls, ns, v, staged.pidx, staged.pbuf, buf.gidx,
+                 resident=False, seg=k, req=req, spec=spec, skip=skip,
+                 out=buf.win)
+    return buf.tail
+
+
+def _shortlist_plan2_pipeline(dcs, staged: _Staged, rep, req, spec,
+                              k: int) -> torch.Tensor:
+    """The shortlisted chained plan: the normal cycle, then
+    `_shortlist_winner` behind its ``found``.  Returns int32[5 +
+    `WIN_FIELDS` + k + 1]."""
+    PATH_COUNTS["shortlist_plan2"] += 1
+    ns, v, dr = _state(dcs)
+    buf = _shortlist_out(dcs, k)
+    normal_cycle(ns, v, dr, staged.pidx, staged.pbuf, req=req, spec=spec,
+                 out=buf.normal)
+    _shortlist_winner(dcs, staged, rep, req, spec, k, skip=buf.skip)
+    return buf.out
+
+
+def _eq1(pp: int, tier: int, alpha: float) -> np.float32:
+    """The Eq. 1 score in f32, one rounding an operation (the kernels'
+    and `kernels.fused_class._scores`' rule)."""
+    one = np.float32(1.0)
+    term = one / np.float32(max(pp, 1)) if pp > 0 else one
+    return (np.float32(alpha) * term
+            + np.float32(1.0 - alpha) * np.float32(TIER_SCORES[tier]))
+
+
+def _shortlist_decode(vals, k: int, alpha: float):
+    """``(win, sel, certain)`` of a shortlist readback ``vals``
+    (int32[`WIN_FIELDS` + k + 1] as host ints): the winner, its row →
+    real node id, and the certainty bit — the winner's exact score beats
+    every excluded row's bound strictly, or there is no winner and
+    nothing was excluded."""
+    win = vals[:WIN_FIELDS]
+    gidx = vals[WIN_FIELDS:WIN_FIELDS + k]
+    excl = np.array([vals[WIN_FIELDS + k]], np.int32).view(np.float32)[0]
+    if win[0]:
+        certain = bool(_eq1(win[4], win[2], alpha) > excl)
+        sel = {win[1]: gidx[win[1]]}
+    else:
+        certain = bool(excl == -np.inf)
+        sel = None
+    return win, sel, certain
 
 
 def _gathered_pipeline(dcs, pidx, pbuf, gidx, req, spec, m: int,
@@ -335,6 +651,7 @@ def _gathered_pipeline(dcs, pidx, pbuf, gidx, req, spec, m: int,
     """The rows named by ``gidx`` (no resident section, no gate) at width
     ``m``, one winner per segment of ``seg`` rows: int32[segs,
     `WIN_FIELDS`].  `IDX_SENTINEL` entries are zero rows that never win."""
+    PATH_COUNTS["gathered"] += 1
     ns, v, dr = _state(dcs)
     cls = fused_class(ns, v, dr, pidx, pbuf, gidx, m_res=m, resident=False,
                       m_gather=m, req=req, spec=spec)
@@ -362,13 +679,14 @@ def _chunked(dcs, pidx_d, pbuf_d, rows: list[int], req, spec, m: int):
 # Engine entry points
 # ---------------------------------------------------------------------------------
 
-def _view_patches_of(cluster, dcs: DeviceClusterState) -> dict:
-    """Delta rows of a `ClusterView` as ``{node: VictimRow}`` ({} for the
-    base cluster), encoded on the host by ``encode_row``."""
-    if not hasattr(cluster, "delta_nodes"):
-        return {}
-    return {d: encode_row(cluster, d, dcs.cap)
-            for d in sorted(cluster.delta_nodes())}
+def _view_patches_of(cluster, dcs: DeviceClusterState):
+    """The delta rows of a `ClusterView` as a `ViewDelta` (its dense rows
+    rebuilt on the device by the delta encoder); ``{}`` for the base
+    cluster."""
+    if not (getattr(cluster, "_evicted", None)
+            or getattr(cluster, "_added", None)):
+        return {}       # the base cluster, or a view with no planned change
+    return ViewDelta(cluster, dcs.mirror, dcs.pending)
 
 
 def _device_state(cluster) -> DeviceClusterState:
@@ -378,19 +696,35 @@ def _device_state(cluster) -> DeviceClusterState:
     return base.device_state().sync(flush=False)
 
 
+def _shortlisted(dcs, shortlist: ShortlistConfig | None) -> bool:
+    return shortlist is not None and dcs.n_rows > shortlist.k
+
+
+def _mid_sel(dcs, split: FusedSplit):
+    """Row → node of a full sweep's gathered mid rows (after the N
+    resident rows), or None."""
+    n = dcs.n_rows
+    return ({n + j: node for j, node in enumerate(split.mid)}
+            if split.mid else None)
+
+
 def source_candidates_fused(cluster, workload: WorkloadSpec,
                             nodes: list[int] | None = None,
-                            alpha: float = DEFAULT_ALPHA
+                            alpha: float = DEFAULT_ALPHA,
+                            shortlist: ShortlistConfig | None = None
                             ) -> CandidateShortlist:
     """Fused cluster-wide IMP over the device-resident state.
 
     ``nodes=None`` (the scheduler's ``fused_filter`` path) runs Guaranteed
     Filtering, the subset sweep and the Eq. 2 argmax over ALL rows: the
-    resident sweep and its tail (two launches), then the wide chunks.  An
-    explicit node list gathers exactly those rows instead (narrow, mid and
-    wide dispatches).  Returns the winning `Candidate` of each dispatch
-    (plus host candidates of overflow rows) as a `CandidateShortlist`
-    carrying the true evaluated-candidate count.
+    resident sweep and its tail (two launches), then the wide chunks; with
+    a ``shortlist`` (and more rows than its ``k``) the prescreen and the
+    sweep over its rows instead, the full sweep only where guaranteed mode
+    cannot prove the shortlist's winner.  An explicit node list gathers
+    exactly those rows instead (narrow, mid and wide dispatches).  Returns
+    the winning `Candidate` of each dispatch (plus host candidates of
+    overflow rows) as a `CandidateShortlist` carrying the true
+    evaluated-candidate count.
     """
     if nodes is not None and not nodes:
         return CandidateShortlist()
@@ -398,49 +732,64 @@ def source_candidates_fused(cluster, workload: WorkloadSpec,
     dcs = _device_state(cluster)
     ctx = dcs.mirror
     req = _request(spec, workload, alpha)
+    pending = []      # (vals, sel) per dispatch, decoded together
     if nodes is None:
         patches = _view_patches_of(cluster, dcs)
+        sl = None
+        if _shortlisted(dcs, shortlist):
+            split, staged = _shortlist_plan_args(dcs, patches,
+                                                 workload.priority)
+            res = _shortlist_winner(dcs, staged, dcs.rep_classes()[1], req,
+                                    spec, shortlist.k).tolist()
+            win, sel, certain = _shortlist_decode(res, shortlist.k, alpha)
+            _count_shortlist(certain, shortlist)
+            if certain or shortlist.mode != "guaranteed":
+                sl = (win, sel)
+            else:
+                split, staged = _full_args(dcs, patches, workload.priority,
+                                           staged)
+        else:
+            split, staged = _fast_plan_args(dcs, patches, workload.priority)
+        out = CandidateShortlist(_overflow_candidates(cluster, workload,
+                                                      split.overflow))
+        if sl is not None:
+            pending.append(sl)
+        else:
+            res = _plan_pipeline(dcs, staged.pidx, staged.pbuf, staged.tail,
+                                 req, spec, split.m_res)
+            pending.append((res.tolist(), _mid_sel(dcs, split)))
+        pending.extend(_chunked(dcs, staged.pidx, staged.pbuf, split.wide,
+                                req, spec, ctx.cap))
     else:
         delta = (set(cluster.delta_nodes()) & set(nodes)
                  if hasattr(cluster, "delta_nodes") else set())
         patches = {d: encode_row(cluster, d, ctx.cap) for d in sorted(delta)}
-    p, pidx, pbuf = _patch_args(dcs, patches)
-    pending = []      # (vals, sel) per dispatch, decoded together
-    if nodes is None:
-        split, pidx_d, pbuf_d, gidx_d = _fast_plan_args(dcs, patches,
-                                                        workload.priority,
-                                                        p, pidx, pbuf)
-        out = CandidateShortlist(_overflow_candidates(cluster, workload,
-                                                      split.overflow))
-        res = _plan_pipeline(dcs, pidx_d, pbuf_d, gidx_d, req, spec,
-                             split.m_res)
-        n = dcs.n_rows
-        sel = ({n + j: node for j, node in enumerate(split.mid)}
-               if split.mid else None)
-        pending.append((res.tolist(), sel))
-        pending.extend(_chunked(dcs, pidx_d, pbuf_d, split.wide, req, spec,
-                                ctx.cap))
-    else:
         split = split_fused_nodes(dcs, patches, workload.priority, nodes)
         out = CandidateShortlist(_overflow_candidates(cluster, workload,
                                                       split.overflow))
-        pidx_d, pbuf_d = _upload(dcs, pidx), _upload(dcs, pbuf)
+        staged = _stage(dcs, patches)
         excluded = set(split.mid) | set(split.wide) | set(split.overflow)
         narrow = [c for c in nodes if c not in excluded]
         if narrow:
-            res = _gathered_pipeline(dcs, pidx_d, pbuf_d,
+            res = _gathered_pipeline(dcs, staged.pidx, staged.pbuf,
                                      _upload(dcs, _pad_idx(narrow)), req,
                                      spec, split.m_res,
                                      len(_pad_idx(narrow)))
             pending.append((res[0].tolist(), narrow))
-        pending.extend(_chunked(dcs, pidx_d, pbuf_d, split.mid, req, spec,
-                                NARROW_M))
-        pending.extend(_chunked(dcs, pidx_d, pbuf_d, split.wide, req, spec,
-                                ctx.cap))
+        pending.extend(_chunked(dcs, staged.pidx, staged.pbuf, split.mid,
+                                req, spec, NARROW_M))
+        pending.extend(_chunked(dcs, staged.pidx, staged.pbuf, split.wide,
+                                req, spec, ctx.cap))
     out.n_candidates = len(out)
     for vals, sel in pending:
         _append_winner(out, vals, sel, patches, ctx)
     return out
+
+
+def _count_shortlist(certain: bool, shortlist: ShortlistConfig) -> None:
+    PATH_COUNTS["certain"] += certain
+    PATH_COUNTS["fallback"] += (not certain
+                                and shortlist.mode == "guaranteed")
 
 
 @dataclasses.dataclass
@@ -464,13 +813,8 @@ def plan_normal_fused(cluster, workload: WorkloadSpec):
     ``(node, Placement)`` or ``None``."""
     spec = cluster.spec
     dcs = _device_state(cluster)
-    patches = _view_patches_of(cluster, dcs)
-    p, pidx, pbuf = _patch_args(dcs, patches)
-    if p == 0:
-        pidx_d, pbuf_d = _empty_patch_args(dcs)
-    else:
-        pidx_d, pbuf_d = _upload(dcs, pidx), _upload(dcs, pbuf)
-    res = _normal_pipeline(dcs, pidx_d, pbuf_d,
+    staged = _stage(dcs, _view_patches_of(cluster, dcs))
+    res = _normal_pipeline(dcs, staged.pidx, staged.pbuf,
                            _request(spec, workload, DEFAULT_ALPHA), spec)
     found, node, tier, gm, cm = res.tolist()
     if not found:
@@ -505,13 +849,19 @@ def _finalize_plan(vals, sel, patches, ctx, shortlist_fn, wide_chunks_fn,
 
 
 def plan_fused(cluster, workload: WorkloadSpec, alpha: float = DEFAULT_ALPHA,
-               allow_preempt: bool = True) -> FusedPlanResult:
+               allow_preempt: bool = True,
+               shortlist: ShortlistConfig | None = None) -> FusedPlanResult:
     """BOTH cycles of Algorithm 1 (the engine hook for ``fused_place``).
 
     Three launches — the normal cycle, the sweep, the tail — and one
     readback decide the plan; wide rows re-dispatch afterwards and only
     when the normal cycle failed, and overflow rows fall back to host
-    ``flextopo_imp``, as in `source_candidates_fused`.
+    ``flextopo_imp``, as in `source_candidates_fused`.  With a
+    ``shortlist`` (and more rows than its ``k``) the preemptive chain is
+    the prescreen, the sweep over its ``k`` rows and the tail; in
+    guaranteed mode a plan whose winner the certainty check cannot prove
+    runs the full sweep and its tail on the patch tensors already on the
+    device, so decisions stay those of ``shortlist=None``.
     """
     if not allow_preempt:
         got = plan_normal_fused(cluster, workload)
@@ -522,40 +872,284 @@ def plan_fused(cluster, workload: WorkloadSpec, alpha: float = DEFAULT_ALPHA,
     dcs = _device_state(cluster)
     ctx = dcs.mirror
     req = _request(spec, workload, alpha)
+    thresh = workload.priority
     patches = _view_patches_of(cluster, dcs)
-    p, pidx, pbuf = _patch_args(dcs, patches)
-    split, pidx_d, pbuf_d, gidx_d = _fast_plan_args(dcs, patches,
-                                                    workload.priority, p,
-                                                    pidx, pbuf)
-    vals = _plan2_pipeline(dcs, pidx_d, pbuf_d, gidx_d, req, spec,
-                           split.m_res).tolist()     # the one readback
-    n = dcs.n_rows
-    sel = ({n + j: node for j, node in enumerate(split.mid)}
-           if split.mid else None)
+    if _shortlisted(dcs, shortlist):
+        split, staged = _shortlist_plan_args(dcs, patches, thresh)
+        res = _shortlist_plan2_pipeline(dcs, staged, dcs.rep_classes()[1],
+                                        req, spec, shortlist.k).tolist()
+        vals, sel = res[:NORMAL_FIELDS + WIN_FIELDS], None
+        if not res[0]:
+            win, sel, certain = _shortlist_decode(res[NORMAL_FIELDS:],
+                                                  shortlist.k, alpha)
+            _count_shortlist(certain, shortlist)
+            if not certain and shortlist.mode == "guaranteed":
+                # the normal cycle failed: the full sweep and its tail decide
+                split, staged = _full_args(dcs, patches, thresh, staged)
+                vals = res[:NORMAL_FIELDS] + _plan_pipeline(
+                    dcs, staged.pidx, staged.pbuf, staged.tail, req, spec,
+                    split.m_res).tolist()
+                sel = _mid_sel(dcs, split)
+    else:
+        split, staged = _fast_plan_args(dcs, patches, thresh)
+        vals = _plan2_pipeline(dcs, staged.pidx, staged.pbuf, staged.tail,
+                               req, spec, split.m_res).tolist()
+        sel = _mid_sel(dcs, split)
 
-    def shortlist():
+    def shortlist_out():
         out = CandidateShortlist(_overflow_candidates(cluster, workload,
                                                       split.overflow))
         out.n_candidates = len(out)
         return out
 
     def wide_chunks():
-        return _chunked(dcs, pidx_d, pbuf_d, split.wide, req, spec, ctx.cap)
+        return _chunked(dcs, staged.pidx, staged.pbuf, split.wide, req, spec,
+                        ctx.cap)
 
-    return _finalize_plan(vals, sel, patches, ctx, shortlist, wide_chunks,
-                          alpha)
+    return _finalize_plan(vals, sel, patches, ctx, shortlist_out,
+                          wide_chunks, alpha)
+
+
+class BatchSourcingSession:
+    """``plan_batch`` sourcing against one snapshot (counterpart of the
+    reference's ``BatchSourcingSession``).
+
+    At construction the resident sweep runs once per distinct request of
+    the batch (its ``(priority, needs)``; alpha is the batch's) into one
+    ``int32[R, CLS_FIELDS, N]`` tensor of class data, R launches with no
+    host sync between them; the reference's one vmapped dispatch.  A plan
+    of request *i* against the batch's view then keeps the sequential
+    planned-eviction semantics exactly: request *i*'s class data with the
+    view's delta rows masked out (their ``anyc`` and ``cnt`` zeroed on the
+    device) is merged with a `NARROW_M`-wide sweep of the patched delta
+    rows and of the untouched rows above the session's gate, and reduced
+    by the tail.  Untouched rows are never swept again.
+
+    Sessions persist across ``plan_batch`` calls
+    (`persistent_batch_session`) until a mutation reaches the cluster's
+    ``invalidate_node``; ``reset_view_caches`` drops the per-view row
+    cache on reuse.
+    """
+
+    def __init__(self, cluster: Cluster, workloads, alpha: float) -> None:
+        self.cluster = cluster
+        self.spec = cluster.spec
+        self.alpha = float(alpha)
+        self.dcs = cluster.device_state().sync()
+        self.ctx = self.dcs.mirror
+        self._row_cache: dict[int, tuple[int, VictimRow]] = {}
+        self.reqs = [(wl.priority,) + _req_scalars(self.spec, wl)
+                     for wl in workloads]
+        #: reuse key of `persistent_batch_session` (alpha + request scalars)
+        self.cache_key = (self.alpha, tuple(self.reqs))
+        # adaptive gate, as the single-request path: the class data at
+        # MIN_M when every request leaves at most MAX_ROWS_WIDE rows above
+        # it (those ride each plan's gathered sweep)
+        self.gate = MIN_M
+        self._split_cache: dict[int, FusedSplit] = {}
+        if self.dcs.count_max > MIN_M:
+            for t in {t for t, _, _, _ in self.reqs}:
+                elig = ((self.ctx.vp < t) & self.ctx.stored).sum(axis=1)
+                if int((elig > MIN_M).sum()) > MAX_ROWS_WIDE:
+                    self.gate = NARROW_M
+                    break
+        distinct = list(dict.fromkeys(self.reqs))
+        self._slot = [distinct.index(r) for r in self.reqs]
+        ns, v, dr = _state(self.dcs)
+        empty, empty_buf = _empty_patch_args(self.dcs)
+        self.class_data = torch.empty((len(distinct), CLS_FIELDS,
+                                       self.dcs.n_rows), dtype=torch.int32,
+                                      device=ns.device)
+        for j, r in enumerate(distinct):
+            fused_class(ns, v, dr, empty, empty_buf, empty, m_res=self.gate,
+                        resident=True, m_gather=NARROW_M,
+                        req=FusedRequest(*r, self.alpha), spec=self.spec,
+                        out=self.class_data[j])
+        PATH_COUNTS["sessions"] += 1
+        PATH_COUNTS["session_requests"] += len(distinct)
+
+    def reset_view_caches(self) -> None:
+        """Drop per-view state before serving a new ``plan_batch`` call
+        (row encodings are keyed by `ClusterView.node_version`, which a
+        fresh view restarts at zero)."""
+        self._row_cache.clear()
+
+    def _view_patches(self, view, delta) -> dict:
+        """Encode the view's delta rows, re-encoding ONLY rows a later plan
+        touched since they were last cached (`ClusterView.node_version`)."""
+        patches = {}
+        for d in delta:
+            ver = view.node_version(d)
+            hit = self._row_cache.get(d)
+            if hit is None or hit[0] != ver:
+                hit = (ver, encode_row(view, d, self.ctx.cap))
+                self._row_cache[d] = hit
+            patches[d] = hit[1]
+        return patches
+
+    def _route(self, view, thresh: int):
+        """Delta routing shared by ``source`` and ``plan``: the view's
+        delta rows encoded, the session's split for this priority (cached:
+        the snapshot is fixed) less the delta rows, and the delta rows
+        split into overflow (host fallback), wide (16-slot chunks) and
+        dense (the plan's gathered sweep)."""
+        delta = sorted(view.delta_nodes())
+        patches = self._view_patches(view, delta)
+        dset = set(delta)
+        split = self._split_cache.get(thresh)
+        if split is None:
+            split = split_fused_nodes(self.dcs, {}, thresh, gate=self.gate)
+            self._split_cache[thresh] = split
+        mid = [w for w in split.mid if w not in dset]
+        wide = [w for w in split.wide if w not in dset]
+        overflow = [o for o in split.overflow if o not in dset]
+        over = {d for d in delta if patches[d].overflow
+                and patches[d].next_priority < thresh}
+        elig = {d: int(((patches[d].vp < thresh) & patches[d].stored).sum())
+                for d in delta if d not in over}
+        return (delta, patches, mid, wide, overflow, sorted(over),
+                [d for d in elig if elig[d] > NARROW_M],
+                [d for d in elig if elig[d] <= NARROW_M])
+
+    def _merge(self, i: int, view, req: FusedRequest, normal: bool):
+        """One plan of request ``i``: the staged delta rows, then (behind
+        the normal cycle when ``normal``) the gathered sweep, the masked
+        class data and the tail.  Returns ``(vals, sel, route, staged)``
+        after one readback; ``vals`` int32[5 + `WIN_FIELDS`] with
+        ``normal``, else int32[`WIN_FIELDS`]."""
+        route = self._route(view, req.thresh)
+        delta, patches, mid, _, _, _, _, d_dense = route
+        gather = sorted(d_dense) + mid
+        gidx = _pad_idx(gather)     # at least 4 (sentinel rows never win)
+        nd = len(delta)
+        # every delta row rides the patch buffer (the normal cycle needs the
+        # view's exact free masks; the class data's winners are untouched
+        # rows, which no patch row covers)
+        staged = _stage(self.dcs, patches,
+                        np.concatenate([np.asarray(delta, np.int32), gidx]),
+                        pending=False)
+        ns, v, dr = _state(self.dcs)
+        head = NORMAL_FIELDS if normal else 0
+        out = torch.empty(head + WIN_FIELDS, dtype=torch.int32,
+                          device=ns.device)
+        skip = None
+        if normal:
+            normal_cycle(ns, v, dr, staged.pidx, staged.pbuf, req=req,
+                         spec=self.spec, out=out[:NORMAL_FIELDS])
+            skip = out[:1]
+        gidx_d = staged.tail[nd:]
+        cls_g = fused_class(ns, v, dr, staged.pidx, staged.pbuf, gidx_d,
+                            m_res=NARROW_M, resident=False,
+                            m_gather=NARROW_M, req=req, spec=self.spec,
+                            skip=skip)
+        merged = torch.cat([self.class_data[self._slot[i]], cls_g], dim=1)
+        if nd:
+            merged[self._masked_rows(ns.device)[:, None],
+                   staged.tail[None, :nd]] = 0
+        fused_argmax(merged, ns, v, staged.pidx, staged.pbuf, gidx_d,
+                     resident=True, seg=merged.shape[1], req=req,
+                     spec=self.spec, skip=skip, out=out[head:])
+        n = self.dcs.n_rows
+        sel = {n + j: node for j, node in enumerate(gather)}
+        PATH_COUNTS["merge_normal" if normal else "merge"] += 1
+        return out.tolist(), sel, route, staged
+
+    def _masked_rows(self, device) -> torch.Tensor:
+        rows = getattr(self, "_masked", None)
+        if rows is None:
+            rows = self._masked = torch.tensor(_MASKED, device=device)
+        return rows
+
+    def _wide(self, staged: _Staged, d_wide, wide, req):
+        return _chunked(self.dcs, staged.pidx, staged.pbuf, d_wide + wide,
+                        req, self.spec, self.ctx.cap)
+
+    def source(self, view, workload: WorkloadSpec,
+               i: int) -> CandidateShortlist:
+        """Request ``i``'s sourcing against ``view`` (the preemption phase
+        alone): the merge and the wide chunks."""
+        req = FusedRequest(*self.reqs[i], self.alpha)
+        vals, sel, route, staged = self._merge(i, view, req, normal=False)
+        _, patches, _, wide, overflow, d_over, d_wide, _ = route
+        out = CandidateShortlist(_overflow_candidates(
+            view, workload, overflow + d_over))
+        out.n_candidates = len(out)
+        _append_winner(out, vals, sel, patches, self.ctx)
+        for chunk_vals, chunk in self._wide(staged, d_wide, wide, req):
+            _append_winner(out, chunk_vals, chunk, patches, self.ctx)
+        return out
+
+    def plan(self, view, workload: WorkloadSpec, i: int,
+             normal: bool = True) -> FusedPlanResult:
+        """Both Algorithm 1 cycles for request ``i``: the normal cycle over
+        the view-patched node state, then the merge behind its ``found``,
+        one readback; the wide chunks only when the normal cycle failed.
+        ``normal=False`` is for a plan whose normal cycle already failed
+        on this view: the merge alone."""
+        req = FusedRequest(*self.reqs[i], self.alpha)
+        vals, sel, route, staged = self._merge(i, view, req, normal=normal)
+        if not normal:
+            vals = [0] * NORMAL_FIELDS + vals
+        _, patches, _, wide, overflow, d_over, d_wide, _ = route
+
+        def shortlist():
+            out = CandidateShortlist(_overflow_candidates(
+                view, workload, overflow + d_over))
+            out.n_candidates = len(out)
+            return out
+
+        def wide_chunks():
+            return self._wide(staged, d_wide, wide, req)
+
+        return _finalize_plan(vals, sel, patches, self.ctx, shortlist,
+                              wide_chunks, self.alpha)
+
+
+def persistent_batch_session(cluster: Cluster, workloads,
+                             alpha: float) -> BatchSourcingSession:
+    """The engine's ``batch_factory``, with reuse across calls.
+
+    The first call on a cluster registers one ``invalidate_node`` listener
+    that voids the cached session on ANY mutation (bind/evict/restore), the
+    choke point that keeps the resident state coherent.  A ``plan_batch``
+    with unchanged cluster state, the same request classes and the same
+    alpha reuses the session: its class data is served again and only the
+    per-plan launches run.  The slot lives on the cluster, so a dropped
+    cluster and its session are collected together.
+    """
+    entry = getattr(cluster, "_batch_session_slot", None)
+    if entry is None:
+        entry = {"session": None}
+
+        def _void(node, _entry=entry):
+            _entry["session"] = None
+
+        cluster.add_dirty_listener(_void)
+        cluster._batch_session_slot = entry
+    spec = cluster.spec
+    key = (float(alpha),
+           tuple((wl.priority,) + _req_scalars(spec, wl) for wl in workloads))
+    session = entry["session"]
+    if session is not None and session.cache_key == key:
+        session.reset_view_caches()
+        return session
+    session = BatchSourcingSession(cluster, workloads, alpha)
+    entry["session"] = session
+    return session
 
 
 def warmup_fused(cluster: Cluster, alpha: float = DEFAULT_ALPHA,
-                 workloads=None) -> None:
+                 batch: int = 8, workloads=None,
+                 shortlist: ShortlistConfig | None = None) -> None:
     """Build the kernels and fill the caches before the first plan.
 
     Opt-in via ``TopoScheduler(..., warmup=True)``: drives real sourcing
     (pure reads against copy-on-write views, so cluster state is
     untouched) for each preemptor class, once against the clean state and
-    once against a view with a delta, so the kernels' build, the resident
-    upload and the routing caches are paid at construction instead of on
-    the first plans.  ``workloads`` defaults to the Table 3 classes.
+    once against a view with a delta (the shortlist too when given), plus
+    one batch session, so the kernels' build, the resident upload and the
+    routing caches are paid at construction instead of on the first
+    plans.  ``workloads`` defaults to the Table 3 classes.
     """
     from .workload import table3_workloads
 
@@ -565,6 +1159,8 @@ def warmup_fused(cluster: Cluster, alpha: float = DEFAULT_ALPHA,
         source_candidates_fused(cluster, wl, None, alpha=alpha)
         plan_fused(cluster, wl, alpha=alpha)
         plan_normal_fused(cluster, wl)
+        if shortlist is not None:
+            plan_fused(cluster, wl, alpha=alpha, shortlist=shortlist)
         view = cluster.view()
         for node in range(cluster.num_nodes):    # fabricate one view delta
             victims = view.victims_on(node, wl.priority)
@@ -573,17 +1169,27 @@ def warmup_fused(cluster: Cluster, alpha: float = DEFAULT_ALPHA,
                 source_candidates_fused(view, wl, None, alpha=alpha)
                 plan_fused(view, wl, alpha=alpha)
                 plan_normal_fused(view, wl)
+                if shortlist is not None:
+                    plan_fused(view, wl, alpha=alpha, shortlist=shortlist)
                 break
+    if batch > 1 and workloads:
+        session = BatchSourcingSession(
+            cluster, tuple((workloads * batch)[:batch]), alpha)
+        session.source(cluster.view(), workloads[0], 0)
+        session.plan(cluster.view(), workloads[0], 0)
 
 
 register_engine("imp_batched", batched=True, needs_alpha=True,
                 fused_filter=True, fused_place=True, plan_fn=plan_fused,
                 normal_fn=plan_normal_fused,
-                warmup_fn=warmup_fused)(source_candidates_fused)
+                batch_factory=persistent_batch_session,
+                warmup_fn=warmup_fused,
+                supports_shortlist=True)(source_candidates_fused)
 
-# full-sweep parity oracle of the reference (where imp_batched also takes a
-# shortlist); here the two registrations are the same functions
+# the full-sweep oracle: the same functions with the shortlist off (the
+# scheduler's shortlist arguments are ignored), as in the reference
 register_engine("imp_batched_full", batched=True, needs_alpha=True,
                 fused_filter=True, fused_place=True, plan_fn=plan_fused,
                 normal_fn=plan_normal_fused,
+                batch_factory=persistent_batch_session,
                 warmup_fn=warmup_fused)(source_candidates_fused)

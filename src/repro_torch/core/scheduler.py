@@ -26,8 +26,11 @@ kernel launches and one readback (`repro_torch.core.preemption_device`).
 ``fused_filter`` engines fuse Filtering into sourcing (``nodes=None``).
 ``invalidate_node`` (hit by every bind/evict/restore) marks single device
 rows stale; they are written on the next plan, so cluster state never
-leaves the device wholesale.  Pass ``warmup=True`` to build the engine's
-kernels and fill its caches at construction.
+leaves the device wholesale.  Above ``shortlist_k`` rows ``imp_batched``
+sweeps only the top ``k`` class representatives of a prescreen (the
+two-stage shortlist), and ``plan_batch`` runs through a persistent batch
+session.  Pass ``warmup=True`` to build the engine's kernels and fill its
+caches at construction.
 
 Transactional protocol
 ----------------------
@@ -71,10 +74,41 @@ from .workload import TopoPolicy, WorkloadSpec
 AUTO_ENGINE_THRESHOLD = 4096
 
 
-#: engines the reference registers with ``supports_shortlist``: a
-#: best-effort shortlist would cap their sweep at K rows, which the port
-#: cannot do yet
-SHORTLIST_ENGINES = ("imp_batched", "imp_sharded")
+class _LazyBatchSession:
+    """Defers the engine's batch session (the snapshot and the class data
+    of every request) until a plan reaches the preemption phase: a batch
+    the normal cycle satisfies never pays for it.  Safe because the
+    session snapshots the BASE cluster, which planning never mutates.
+
+    For ``fused_place`` engines, ``plan`` keeps that laziness on the
+    device path: while no plan has needed preemption, each plan is one
+    standalone normal-cycle launch (``normal_fn``); the first normal-cycle
+    failure builds the session (that plan's merge runs without a second
+    normal cycle), and every plan from then on is the session's chained
+    normal + preemptive plan."""
+
+    def __init__(self, factory, normal_fn=None) -> None:
+        self._factory = factory
+        self._normal_fn = normal_fn
+        self._session = None
+
+    def source(self, view, workload, index):
+        if self._session is None:
+            self._session = self._factory()
+        return self._session.source(view, workload, index)
+
+    def plan(self, view, workload, index):
+        if self._session is None and self._normal_fn is not None:
+            got = self._normal_fn(view, workload)
+            if got is not None:
+                from .preemption_device import FusedPlanResult
+
+                return FusedPlanResult("placed", got[0], got[1])
+            self._session = self._factory()
+            return self._session.plan(view, workload, index, normal=False)
+        if self._session is None:
+            self._session = self._factory()
+        return self._session.plan(view, workload, index)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,13 +123,13 @@ class ShortlistConfig:
       cannot PROVE the winner beats every excluded row's upper bound, the
       caller re-dispatches the full sweep.
     * ``"best_effort"`` — fixed-K latency cap: the shortlist winner is
-      returned even when uncertain.
+      returned even when uncertain (admission under a latency cap; the
+      winner is still an exactly evaluated feasible candidate, merely not
+      provably the global argmax).
 
-    No engine of this package takes it yet: the shortlist front-end of the
-    fused engine is still to be ported, so `TopoScheduler` builds one only
-    for an engine registered with ``supports_shortlist``, and refuses
-    ``"best_effort"`` for the engines the reference gives a shortlist
-    (`SHORTLIST_ENGINES`) rather than run their exact full sweep instead.
+    `TopoScheduler` builds one for engines registered with
+    ``supports_shortlist`` (``imp_batched``); the ``imp_batched_full``
+    oracle and the host engines ignore it.
     """
 
     k: int = 128
@@ -120,16 +154,22 @@ class TopoScheduler:
     ``self.engine``; every decision carries the routing in
     ``sourcing_provenance``.
 
-    Shortlist sourcing knobs, as in the reference: ``shortlist_k``
-    representative rows for the exact sweep (0 disables the shortlist) and
-    ``shortlist_mode`` (``"guaranteed"`` or ``"best_effort"``).  They take
-    effect only for engines registered with ``supports_shortlist``; no
-    engine of this package has that flag yet, so ``self.shortlist`` is
-    ``None`` and the provenance carries ``shortlist_k`` 0 and
-    ``shortlist_mode`` None: guaranteed mode decides as the full sweep
-    does, which is what runs.  ``"best_effort"`` with ``shortlist_k > 0``
-    on an engine of `SHORTLIST_ENGINES` raises `NotImplementedError`, since
-    the reference's answer may differ from the full sweep's by design.
+    Shortlist sourcing knobs (engines registered with
+    ``supports_shortlist``, i.e. ``imp_batched``; the ``imp_batched_full``
+    oracle and the host engines ignore them, and their provenance carries
+    ``shortlist_k`` 0 and mode None):
+
+    * ``shortlist_k`` — representative rows the stage-1 prescreen keeps
+      for the exact stage-2 subset sweep (0 disables the shortlist).  Only
+      active when the cluster has more rows than ``k``.
+    * ``shortlist_mode`` — ``"guaranteed"`` (default) runs the full sweep
+      whenever the certainty check cannot prove the shortlist's winner
+      globally optimal, so decisions are those of the full sweep;
+      ``"best_effort"`` returns the ``k``-row winner regardless.
+
+    ``plan_batch`` with more than one request runs through the engine's
+    batch session where it has one (``batch_factory``), built lazily at
+    the first plan that reaches the preemption phase.
 
     ``plan_counts`` counts the fused plans (``fused_place`` engines) by
     kind: ``"normal_only"`` (``allow_preempt=False``: the normal cycle
@@ -157,12 +197,6 @@ class TopoScheduler:
             engine = "imp_batched"
         self.engine: EngineName = engine
         self._engine: SourcingEngine = get_engine(engine)
-        if (shortlist_mode == "best_effort" and shortlist_k > 0
-                and engine in SHORTLIST_ENGINES):
-            raise NotImplementedError(
-                f"shortlist_mode='best_effort' on {engine!r}: the shortlist "
-                "is not ported yet (ROADMAP.md §1 item 2), and the port "
-                "does not run the full sweep in its place")
         self.alpha = alpha
         self.shortlist = (
             ShortlistConfig(k=shortlist_k, mode=shortlist_mode)
@@ -201,7 +235,10 @@ class TopoScheduler:
         if warmup:
             warm = getattr(self._engine, "warmup", None)
             if callable(warm):
-                warm(cluster, self.alpha)
+                if self.shortlist is not None:
+                    warm(cluster, self.alpha, shortlist=self.shortlist)
+                else:
+                    warm(cluster, self.alpha)
 
     # ---- commit/rollback observers ------------------------------------------------
     def add_listener(self, fn: Callable[[SchedulingDecision, str], None]) -> None:
@@ -305,14 +342,25 @@ class TopoScheduler:
                 nodes.append(node)
         return nodes
 
-    def _plan_preempt(self, workload: WorkloadSpec, view: ClusterView
+    def _plan_preempt(self, workload: WorkloadSpec, view: ClusterView,
+                      session=None, index: int = 0
                       ) -> tuple[SchedulingDecision, int | None]:
-        if self._fused_filter:
+        if session is not None:
+            # plan_batch: the session's class data of request `index`
+            # merged with the view's delta rows (Filtering included)
+            t0 = time.perf_counter()
+            candidates = session.source(view, workload, index)
+        elif self._fused_filter:
             # Guaranteed Filtering runs inside the engine's dispatch over
             # the device-resident state: no host node loop, nodes=None
             t0 = time.perf_counter()
-            candidates = self._engine.source_all(view, workload, None,
-                                                 alpha=self.alpha)
+            if self.shortlist is not None:
+                candidates = self._engine.source_all(
+                    view, workload, None, alpha=self.alpha,
+                    shortlist=self.shortlist)
+            else:
+                candidates = self._engine.source_all(view, workload, None,
+                                                     alpha=self.alpha)
         else:
             nodes = self._guaranteed_filter(workload, view)
             if not nodes:
@@ -362,19 +410,27 @@ class TopoScheduler:
         ), planned.uid
 
     def _plan_fused(self, workload: WorkloadSpec, view: ClusterView,
-                    allow_preempt: bool
+                    allow_preempt: bool, session=None, index: int = 0
                     ) -> tuple[SchedulingDecision, int | None]:
         """Algorithm 1 in one chained dispatch for ``fused_place`` engines.
 
-        The engine returns the normal-cycle winner or the preemption
-        winner, both with the device scorer's placement masks — no host
-        node loop, no host ``place()``.  The recorded ``sourcing_us`` spans
-        the whole plan (normal cycle and Filtering are the same chain)."""
+        The engine (or the batch session, for request ``index``) returns
+        the normal-cycle winner or the preemption winner, both with the
+        device scorer's placement masks — no host node loop, no host
+        ``place()``.  The recorded ``sourcing_us`` spans the whole plan
+        (normal cycle and Filtering are the same chain)."""
         self.plan_counts["may_preempt" if allow_preempt
                          else "normal_only"] += 1
         t0 = time.perf_counter()
-        res = self._engine.plan_fused(view, workload, self.alpha,
-                                      allow_preempt)
+        if session is not None:
+            res = session.plan(view, workload, index)
+        elif self.shortlist is not None:
+            res = self._engine.plan_fused(view, workload, self.alpha,
+                                          allow_preempt,
+                                          shortlist=self.shortlist)
+        else:
+            res = self._engine.plan_fused(view, workload, self.alpha,
+                                          allow_preempt)
         sourcing_us = (time.perf_counter() - t0) * 1e6
         self.sourcing_us_log.append(sourcing_us)
         if res.kind == "rejected":
@@ -396,7 +452,8 @@ class TopoScheduler:
     # ---- the transactional entry points --------------------------------------------
     def plan(self, workload: WorkloadSpec, *, view: ClusterView | None = None,
              allow_normal: bool = True,
-             allow_preempt: bool = True) -> Transaction:
+             allow_preempt: bool = True,
+             _session=None, _index: int = 0) -> Transaction:
         """Evaluate one request Filtering → Sorting without mutating the cluster.
 
         Returns a `Transaction` whose ``decision`` is fully evaluated (node,
@@ -409,9 +466,11 @@ class TopoScheduler:
         decision: SchedulingDecision | None = None
         planned_uid: int | None = None
         if self._fused_place and allow_normal:
-            # device-resident Algorithm 1: both cycles in one chain
-            decision, planned_uid = self._plan_fused(workload, view,
-                                                     allow_preempt)
+            # device-resident Algorithm 1: both cycles in one chain (the
+            # engine's, or the batch session's for request `_index`)
+            decision, planned_uid = self._plan_fused(
+                workload, view, allow_preempt, session=_session,
+                index=_index)
         else:
             if allow_normal:
                 normal = self._plan_normal(workload, view)
@@ -425,7 +484,8 @@ class TopoScheduler:
                         hit=self._hit(workload, placement),
                     )
             if decision is None and allow_preempt:
-                decision, planned_uid = self._plan_preempt(workload, view)
+                decision, planned_uid = self._plan_preempt(
+                    workload, view, session=_session, index=_index)
         if decision is None:
             decision = SchedulingDecision(kind="rejected", workload=workload)
         decision.sourcing_provenance = dict(self._provenance)
@@ -439,11 +499,28 @@ class TopoScheduler:
 
         All plans share a copy-on-write view: request *i+1* sees request
         *i*'s planned evictions and binds, so the returned transactions can
-        be committed together in order.
+        be committed together in order.  With a ``batch_factory`` engine
+        (``imp_batched``) the batch's sweep runs once per request against
+        the resident snapshot, in a session built at the first plan that
+        reaches the preemption phase and kept across calls until the
+        cluster changes; each plan then merges its request's class data
+        with the view's delta rows on the device, which keeps the
+        sequential decisions exactly.
         """
+        workloads = list(workloads)
         view = ClusterView(self.cluster)
-        return [self.plan(wl, view=view, allow_preempt=allow_preempt)
-                for wl in workloads]
+        session = None
+        if (allow_preempt and len(workloads) > 1
+                and getattr(self._engine, "batch_factory", None) is not None):
+            batch = tuple(workloads)
+            session = _LazyBatchSession(
+                lambda: self._engine.start_batch(self.cluster, batch,
+                                                 self.alpha),
+                normal_fn=(self._engine.plan_normal if self._fused_place
+                           else None))
+        return [self.plan(wl, view=view, allow_preempt=allow_preempt,
+                          _session=session, _index=i)
+                for i, wl in enumerate(workloads)]
 
     # ---- plan-and-commit conveniences ----------------------------------------------
     def schedule(self, workload: WorkloadSpec) -> SchedulingDecision:

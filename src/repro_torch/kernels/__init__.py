@@ -6,14 +6,19 @@ fused_class, normal_cycle — the fused ``imp_batched`` engine's kernels over
 the device-resident cluster state, in the same source: K1's resident form
 (the class sweep of every row of a plan in one launch) and its tail, and
 K2's normal-cycle form.
+view_delta, prescreen — the rest of that engine's default path, in the same
+source: the view-delta encoder (a plan's patch rows rebuilt on the device)
+and the shortlist's prescreen (a bound per row and the top K).
 flash_attention — blocked causal / sliding-window GQA attention, the
 serving path's prefill attention (``csrc/flash_attention.cu``).
 """
-from . import flash_attention, fused_class, normal_cycle, ops, topo_score
+from . import (flash_attention, fused_class, normal_cycle, ops, prescreen,
+               topo_score, view_delta)
 
 #: every kernel wrapper of the package (their ``launches`` counters)
 WRAPPERS = (topo_score.WRAPPERS + fused_class.WRAPPERS + normal_cycle.WRAPPERS
+            + view_delta.WRAPPERS + prescreen.WRAPPERS
             + (flash_attention.flash_attention,))
 
 __all__ = ["WRAPPERS", "flash_attention", "fused_class", "normal_cycle", "ops",
-           "topo_score"]
+           "prescreen", "topo_score", "view_delta"]

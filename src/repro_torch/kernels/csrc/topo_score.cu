@@ -2020,6 +2020,303 @@ __global__ void __launch_bounds__(32)
                tier_rule(p.t, bundle_magic(p.t.cgs_per_bundle)), out);
 }
 
+// ---- The view-delta encoder and the shortlist's prescreen ------------------
+//
+// Two kernels of the fused engine's default path that the reference runs as
+// XLA programs (repro/core/cluster.py:810 encode_delta_core,
+// repro/core/preemption_jax.py:839 _prescreen_core).  Both read the
+// resident row layout above (State, Row, fetch_row), and the prescreen takes
+// its tiers from the shared rule (numa_words + fused_tier through
+// lane_tier) and its bounds from the Eq. 1 arithmetic of trap 1.
+
+// Rows of the delta encoder's dense descriptor block, per dense row
+// (ViewDelta.descriptors in repro_torch/core/cluster.py), and of its adds
+// block, per dense row and add.
+enum { DD_NODE, DD_REM, DD_FOG, DD_FOC, DD_OG, DD_OC, DD_POS };
+enum { DA_GPU, DA_CG, DA_PRIO, DA_VALID };
+constexpr int kDeltaThreads = 128;  // the encoder: four jobs (warps) a CTA
+constexpr int kPrescreenThreads = 256;
+constexpr int kSelectThreads = 1024;  // the top-K selection: one CTA
+constexpr int kRadixBins = 256;       // 8-bit digits, eight passes
+
+// The view-delta encoder, replacing encode_delta_core (and the host's
+// flatten of the patch rows it rebuilds): one warp a job, P jobs, writing
+// the plan's patch buffer out[P, 5 + 5 cap + 2] in place.
+//  * Job i < D rebuilds dense row i from its resident row: lane s < cap
+//    holds base slot s (kept when stored and not in the removed bitmask
+//    `rem`), lane cap + j holds add j (a planned bind, uid order).  A slot's
+//    key is a + uid-rank for a base slot and j for an add, so every add
+//    sorts before every base victim (planned binds carry negative uids)
+//    and the keys of a row are unique.  A kept slot goes to position =
+//    the count of kept slots with a smaller (priority, key): the two
+//    stable argsorts of the reference, since the keys are unique; its
+//    uid-rank is the count of kept slots with a smaller key.  Free masks
+//    are (free | freed) & ~occupied, the drain masks their OR with every
+//    kept slot's (a redux).  The row is written to out[pos] (dense[DD_POS]);
+//    the caller keeps the kept slots at most cap (ViewDelta's gate).
+//  * Job D + h copies the host-encoded row hrows[h] to out[hpos[h]].
+//  * Job j >= D + H zeroes out[j].
+// The positions of the first D + H jobs are a permutation of 0 .. D + H - 1
+// (the caller sorts the patch index); one outside [0, P) is not written.
+__global__ void __launch_bounds__(kDeltaThreads)
+    encode_delta_kernel(const int* __restrict__ ns, const int* __restrict__ v,
+                        int n, int cap, const int* __restrict__ dense, int D,
+                        const int* __restrict__ adds, int a,
+                        const int* __restrict__ hpos,
+                        const int* __restrict__ hrows, int H, int P,
+                        int* __restrict__ out) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int job = static_cast<int>((blockIdx.x * blockDim.x + threadIdx.x) >> 5);
+  const int lane = threadIdx.x & 31;
+  if (job >= P) return;  // whole warps
+  const int W = kNodeFields + kVictimFields * cap + 2;
+  if (job >= D + H) {
+    int* o = out + static_cast<long>(job) * W;
+    for (int i = lane; i < W; i += 32) o[i] = 0;
+    return;
+  }
+  if (job >= D) {
+    const int h = job - D, to = hpos[h];
+    if (to < 0 || to >= P) return;
+    const int* src = hrows + static_cast<long>(h) * W;
+    int* o = out + static_cast<long>(to) * W;
+    for (int i = lane; i < W; i += 32) o[i] = src[i];
+    return;
+  }
+  const int node = dense[DD_NODE * D + job];
+  const unsigned rem = static_cast<unsigned>(dense[DD_REM * D + job]);
+  const int to = dense[DD_POS * D + job];
+  const bool inr = node >= 0 && node < n;
+  int g = 0, c = 0, prio = 0, key = kIntMax;
+  bool kept = false;
+  if (lane < cap) {
+    int rank = 0, stored = 0;
+    if (inr) {
+      const long fs = static_cast<long>(n) * cap;
+      const long at = static_cast<long>(node) * cap + lane;
+      g = v[VF_GPU * fs + at];
+      c = v[VF_CG * fs + at];
+      prio = v[VF_PRIO * fs + at];
+      rank = v[VF_RANK * fs + at];
+      stored = v[VF_STORED * fs + at];
+    }
+    kept = stored != 0 && ((rem >> lane) & 1u) == 0u;
+    key = a + rank;
+  } else if (lane < cap + a) {
+    const int j = lane - cap;
+    const long at = static_cast<long>(job) * a + j;
+    const long fs = static_cast<long>(D) * a;
+    g = adds[DA_GPU * fs + at];
+    c = adds[DA_CG * fs + at];
+    prio = adds[DA_PRIO * fs + at];
+    kept = adds[DA_VALID * fs + at] != 0;
+    key = j;
+  }
+  const unsigned keptm = __ballot_sync(kAll, kept);
+  int pos = 0, rk = 0;
+  for (unsigned m = keptm; m; m &= m - 1u) {  // warp-uniform
+    const int src = __ffs(m) - 1;
+    const int op = __shfl_sync(kAll, prio, src);
+    const int ok = __shfl_sync(kAll, key, src);
+    pos += op < prio || (op == prio && ok < key);
+    rk += ok < key;
+  }
+  const int count = __popc(keptm);
+  const unsigned og = __reduce_or_sync(kAll, kept ? static_cast<unsigned>(g) : 0u);
+  const unsigned oc = __reduce_or_sync(kAll, kept ? static_cast<unsigned>(c) : 0u);
+  if (to < 0 || to >= P) return;
+  int* o = out + static_cast<long>(to) * W;
+  if (lane == 0) {
+    const unsigned base_g = inr ? static_cast<unsigned>(ns[NS_FREE_GPU * n + node]) : 0u;
+    const unsigned base_c = inr ? static_cast<unsigned>(ns[NS_FREE_CG * n + node]) : 0u;
+    const unsigned fg = (base_g | static_cast<unsigned>(dense[DD_FOG * D + job])) &
+                        ~static_cast<unsigned>(dense[DD_OG * D + job]);
+    const unsigned fc = (base_c | static_cast<unsigned>(dense[DD_FOC * D + job])) &
+                        ~static_cast<unsigned>(dense[DD_OC * D + job]);
+    o[NS_FREE_GPU] = static_cast<int>(fg);
+    o[NS_FREE_CG] = static_cast<int>(fc);
+    o[NS_NODE_ID] = node;
+    o[NS_OVERFLOW] = 0;
+    o[NS_NEXT_PRIO] = kIntMax;
+    o[W - 2] = static_cast<int>(fg | og);
+    o[W - 1] = static_cast<int>(fc | oc);
+  }
+  int* vs = o + kNodeFields;
+  if (kept && pos < cap) {
+    vs[VF_GPU * cap + pos] = g;
+    vs[VF_CG * cap + pos] = c;
+    vs[VF_PRIO * cap + pos] = prio;
+    vs[VF_RANK * cap + pos] = rk;
+    vs[VF_STORED * cap + pos] = 1;
+  }
+  if (lane >= count && lane < cap) {
+#pragma unroll
+    for (int f = 0; f < kVictimFields; ++f) vs[f * cap + lane] = 0;
+  }
+}
+
+// An f32 bound's order as an unsigned 32-bit key (ordered(), sign flipped).
+__device__ __forceinline__ unsigned ordered_u(float f) {
+  return static_cast<unsigned>(ordered(f)) ^ 0x80000000u;
+}
+
+__device__ __forceinline__ float unordered_u(unsigned u) {
+  return unordered(static_cast<int>(u ^ 0x80000000u));
+}
+
+__device__ __forceinline__ bool in_sorted(const int* __restrict__ xs, int n,
+                                          int x) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (xs[mid] < x) lo = mid + 1; else hi = mid;
+  }
+  return lo < n && xs[lo] == x;
+}
+
+// The prescreen's first launch, replacing the per-row half of
+// _prescreen_core: one thread a resident row (its patch row read in its
+// place), an admissible upper bound on the row's Eq. 2 score: the exact
+// score of the empty subset (the tier of the free masks, priority term 1)
+// against the tier of the free masks with EVERY eligible victim freed
+// (masks added: one node's masks are disjoint) with the term of the least
+// eligible priority.  A row enters when it is its class's representative
+// (rep, or in the sorted forced list), has at most 8 eligible victims, is
+// not truncated below the preemptor, has a real node id and a finite bound.
+// Its key is (ordered_u(bound) << 32) | ~row, largest first, lowest row on
+// a tie (lax.top_k's order); 0 for a row that does not enter.
+__global__ void __launch_bounds__(kPrescreenThreads)
+    prescreen_kernel(State s, FusedParams p, const int* __restrict__ rep,
+                     const int* __restrict__ forced, int n_forced,
+                     const int* __restrict__ skip,
+                     unsigned long long* __restrict__ keys) {
+  if (skip != nullptr && *skip != 0) return;  // the normal cycle placed
+  const int r = static_cast<int>(blockIdx.x * blockDim.x + threadIdx.x);
+  if (r >= s.n) return;
+  const TierRule rule = tier_rule(p.t, bundle_magic(p.t.cgs_per_bundle));
+  const Row w = fetch_row(s, r);
+  const unsigned fg = static_cast<unsigned>(w.node(NS_FREE_GPU));
+  const unsigned fc = static_cast<unsigned>(w.node(NS_FREE_CG));
+  unsigned eg = fg, ec = fc;
+  int elig = 0, min_p = kIntMax;
+  for (int j = 0; j < s.cap; ++j) {
+    const int vp = w.slot(VF_PRIO, j);
+    if (w.slot(VF_STORED, j) != 0 && vp < p.thresh) {
+      eg += static_cast<unsigned>(w.slot(VF_GPU, j));
+      ec += static_cast<unsigned>(w.slot(VF_CG, j));
+      ++elig;
+      min_p = min(min_p, vp);
+    }
+  }
+  const int ft = lane_tier(fg, fc, rule, p.t);
+  const int et = lane_tier(eg, ec, rule, p.t);
+  const float ub0 = ft < 3 ? eq1_score(0, ft, p) : -CUDART_INF_F;
+  const float ubk = elig > 0 && et < 3 ? eq1_score(min_p, et, p) : -CUDART_INF_F;
+  const float ub = fmaxf(ub0, ubk);
+  const bool is_rep = rep[r] != 0 || in_sorted(forced, n_forced, r);
+  const bool ok = w.node(NS_NODE_ID) < kIntMax && is_rep && elig <= 8 &&
+                  !(w.node(NS_OVERFLOW) != 0 && w.node(NS_NEXT_PRIO) < p.thresh) &&
+                  ub > -CUDART_INF_F;
+  keys[r] = ok ? (static_cast<unsigned long long>(ordered_u(ub)) << 32 |
+                  (0xffffffffu - static_cast<unsigned>(r)))
+               : 0ull;
+}
+
+// The largest of x over the CTA; every thread gets it.
+__device__ __forceinline__ unsigned long long cta_max64(unsigned long long x,
+                                                        unsigned long long* s_warp) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int off = 16; off; off >>= 1) {
+    const unsigned long long y = __shfl_xor_sync(0xffffffffu, x, off);
+    x = y > x ? y : x;
+  }
+  __syncthreads();
+  if (lane == 0) s_warp[warp] = x;
+  __syncthreads();
+  x = 0ull;
+  for (int i = 0; i < static_cast<int>(blockDim.x >> 5); ++i)
+    x = s_warp[i] > x ? s_warp[i] : x;
+  return x;
+}
+
+// The prescreen's second launch, one CTA: the top k of the n keys.  A radix
+// select (eight passes of 8-bit digits, most significant first, a
+// shared-memory histogram and suffix sums a pass) finds T, the k-th largest
+// key (0 when fewer than k rows entered); the rows with a key >= T, > 0,
+// are gathered into sel, and each is written to out[rank] with rank the
+// count of gathered keys above its own: gidx = out[0 .. k-1] in key order,
+// IDX_SENTINEL past the entries.  out[k] holds the bits of excl_ub, the
+// bound of the largest key below T (the (k+1)-th), or -inf.  Any
+// 1 <= k <= n.
+__global__ void __launch_bounds__(kSelectThreads)
+    prescreen_select_kernel(const unsigned long long* __restrict__ keys,
+                            int n, int k, const int* __restrict__ skip,
+                            unsigned long long* __restrict__ sel,
+                            int* __restrict__ out) {
+  if (skip != nullptr && *skip != 0) return;
+  __shared__ unsigned s_hist[kRadixBins];
+  __shared__ unsigned long long s_warp[kSelectThreads / 32];
+  __shared__ int s_bin, s_left, s_count;
+  const int t = threadIdx.x, T = blockDim.x;
+  unsigned long long prefix = 0ull, mask = 0ull;
+  int left = k;  // the rank of T among the keys that match prefix
+  for (int shift = 56; shift >= 0; shift -= 8) {
+    for (int b = t; b < kRadixBins; b += T) s_hist[b] = 0u;
+    __syncthreads();
+    for (int i = t; i < n; i += T) {
+      const unsigned long long key = keys[i];
+      if ((key & mask) == prefix)
+        atomicAdd(&s_hist[(key >> shift) & 0xffu], 1u);
+    }
+    __syncthreads();
+    // suffix sums over the bins, in place (Hillis-Steele, 8 steps)
+    for (int off = 1; off < kRadixBins; off <<= 1) {
+      const unsigned add = t < kRadixBins && t + off < kRadixBins ? s_hist[t + off] : 0u;
+      __syncthreads();
+      if (t < kRadixBins) s_hist[t] += add;
+      __syncthreads();
+    }
+    if (t < kRadixBins) {
+      const unsigned above = t + 1 < kRadixBins ? s_hist[t + 1] : 0u;
+      if (s_hist[t] >= static_cast<unsigned>(left) && above < static_cast<unsigned>(left)) {
+        s_bin = t;
+        s_left = left - static_cast<int>(above);
+      }
+    }
+    __syncthreads();
+    prefix |= static_cast<unsigned long long>(s_bin) << shift;
+    mask |= 0xffull << shift;
+    left = s_left;
+    __syncthreads();
+  }
+  const unsigned long long th = prefix;  // the k-th largest key
+  unsigned long long below = 0ull;
+  for (int i = t; i < n; i += T) {
+    const unsigned long long key = keys[i];
+    if (key < th && key > below) below = key;
+  }
+  below = cta_max64(below, s_warp);
+  if (t == 0) s_count = 0;
+  __syncthreads();
+  for (int i = t; i < n; i += T) {
+    const unsigned long long key = keys[i];
+    if (key != 0ull && key >= th) sel[atomicAdd(&s_count, 1)] = key;
+  }
+  __syncthreads();
+  const int got = s_count;
+  for (int i = t; i < got; i += T) {
+    const unsigned long long key = sel[i];
+    int rank = 0;
+    for (int j = 0; j < got; ++j) rank += sel[j] > key;
+    out[rank] = static_cast<int>(0xffffffffu - static_cast<unsigned>(key));
+  }
+  for (int i = got + t; i < k; i += T) out[i] = kIntMax;
+  if (t == 0)
+    out[k] = __float_as_int(below != 0ull ? unordered_u(static_cast<unsigned>(below >> 32))
+                                          : -CUDART_INF_F);
+}
+
 static inline int grid_for(int n) { return (n + kTile - 1) / kTile; }
 
 // K2's and K3's lane forms: one lane a thread in blocks of kLaneThreads (n
@@ -2303,6 +2600,58 @@ int normal_cycle_launch(const State* state, const FusedParams* params,
                                           static_cast<int*>(out));
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
+// The view-delta encoder: P jobs, one warp each (encode_delta_kernel).
+int encode_delta_launch(const void* ns, const void* v, int n, int cap,
+                        const void* dense, int D, const void* adds, int a,
+                        const void* hpos, const void* hrows, int H, int P,
+                        void* out, int device, void* stream) {
+  if (n < 0 || cap < 1 || cap > kMaxDenseVictims || D < 0 || H < 0 || a < 1 ||
+      cap + a > 32 || P < D + H || (D > 0 && (dense == nullptr || adds == nullptr)) ||
+      (H > 0 && (hpos == nullptr || hrows == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (P == 0) return 0;
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
+  const int jobs_cta = kDeltaThreads / 32;
+  encode_delta_kernel<<<(P + jobs_cta - 1) / jobs_cta, kDeltaThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(ns), static_cast<const int*>(v), n, cap,
+      static_cast<const int*>(dense), D, static_cast<const int*>(adds), a,
+      static_cast<const int*>(hpos), static_cast<const int*>(hrows), H, P,
+      static_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The prescreen: the keys of every row (prescreen_kernel), then the top k
+// of them in one CTA (prescreen_select_kernel).  `keys` holds n and `sel`
+// k 64-bit words of scratch; `out` k + 1 int32.
+int prescreen_launch(const State* state, const FusedParams* params,
+                     const void* rep, const void* forced, int n_forced, int k,
+                     const void* skip, void* keys, void* sel, void* out,
+                     int device, void* stream) {
+  const int n = state->n;
+  if (n < 1 || k < 1 || k > n || n_forced < 0 || state->cap > kMaxCap ||
+      rep == nullptr || keys == nullptr || sel == nullptr || out == nullptr ||
+      (n_forced > 0 && forced == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* sk = static_cast<const int*>(skip);
+  State s = *state;
+  s.n_res = n;
+  s.g = 0;
+  prescreen_kernel<<<(n + kPrescreenThreads - 1) / kPrescreenThreads,
+                     kPrescreenThreads, 0, st>>>(
+      s, *params, static_cast<const int*>(rep),
+      static_cast<const int*>(forced), n_forced, sk,
+      static_cast<unsigned long long*>(keys));
+  prescreen_select_kernel<<<1, kSelectThreads, 0, st>>>(
+      static_cast<const unsigned long long*>(keys), n, k, sk,
+      static_cast<unsigned long long*>(sel), static_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The most CTAs a cluster of K2's normal-cycle form and of K1's tail may

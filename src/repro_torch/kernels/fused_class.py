@@ -217,9 +217,12 @@ def fused_class_plain(nodestate, victims, drain, pidx, pbuf, gidx, *,
                       req: FusedRequest, spec: ServerSpec) -> torch.Tensor:
     """Plain version of `fused_class`: the resident section at ``m_res``
     behind the narrow gate, then the gathered section at ``m_gather``."""
+    n_res = nodestate.shape[1] if resident else 0
+    if n_res + gidx.shape[0] == 0:
+        return torch.zeros((CLS_FIELDS, 0), dtype=torch.int32,
+                           device=nodestate.device)
     ns, v, dr = plan_rows(nodestate, victims, drain, pidx, pbuf, gidx,
                           resident)
-    n_res = nodestate.shape[1] if resident else 0
     parts = []
     if n_res:
         parts.append(class_sweep_plain(
@@ -416,7 +419,8 @@ def max_cluster_ctas(device: int) -> int:
     return lib().cluster_ctas_max(device)
 
 
-#: checked launch states of recent calls (`launch_state`), oldest first
+#: checked launch states of recent calls (`launch_state`), least recently
+#: used first
 _STATES: dict = {}
 _MAX_STATES = 8
 
@@ -435,13 +439,13 @@ def launch_state(nodestate, victims, drain, pidx, pbuf, gidx,
                            for x in xs])
     except RuntimeError:        # an inference tensor has no version counter
         key = None
-    st = _STATES.get(key) if key is not None else None
+    st = _STATES.pop(key, None) if key is not None else None
     if st is None:
         st = _checked_state(*xs, resident)
-        if key is not None:
-            if len(_STATES) >= _MAX_STATES:
-                del _STATES[next(iter(_STATES))]
-            _STATES[key] = st
+        if key is not None and len(_STATES) >= _MAX_STATES:
+            del _STATES[next(iter(_STATES))]
+    if key is not None:
+        _STATES[key] = st       # most recently used last
     return st
 
 
@@ -505,9 +509,14 @@ def bind(out: ctypes.CDLL) -> ctypes.CDLL:
     out.normal_cycle_launch.argtypes = [sp, pp, ci, ci, ci, vp, vp, ci, vp]
     out.cluster_ctas_max.argtypes = [ci]
     out.empty_launch.argtypes = [vp]
+    out.encode_delta_launch.argtypes = ([vp, vp, ci, ci, vp, ci, vp, ci, vp,
+                                         vp, ci, ci, vp, ci, vp])
+    out.prescreen_launch.argtypes = [sp, pp, vp, vp, ci, ci, vp, vp, vp, vp,
+                                     ci, vp]
     for fn in (out.fused_class_launch, out.fused_argmax_launch,
                out.normal_cycle_launch, out.cluster_ctas_max,
-               out.empty_launch):
+               out.empty_launch, out.encode_delta_launch,
+               out.prescreen_launch):
         fn.restype = ci
     out.topo_score_error_string.argtypes = [ci]
     out.topo_score_error_string.restype = ctypes.c_char_p
@@ -535,46 +544,60 @@ def stream_of(st: _State) -> int:
 
 def fused_class(nodestate, victims, drain, pidx, pbuf, gidx, *, m_res: int,
                 resident: bool, m_gather: int, req: FusedRequest,
-                spec: ServerSpec, skip: torch.Tensor | None = None
-                ) -> torch.Tensor:
+                spec: ServerSpec, skip: torch.Tensor | None = None,
+                out: torch.Tensor | None = None) -> torch.Tensor:
     """The class sweep over every row of a plan in one launch: int32
     [`CLS_FIELDS`, rows] (rows = N if ``resident`` else 0, plus
-    ``len(gidx)``).  With ``skip`` set the sweep does nothing and its
-    output is undefined.  Counterpart of ``_fused_class_core``."""
+    ``len(gidx)``), written into ``out`` (contiguous) when given.  With
+    ``skip`` set the sweep does nothing and its output is undefined.
+    Counterpart of ``_fused_class_core``."""
     rows = (nodestate.shape[1] if resident else 0) + gidx.shape[0]
+    if out is not None and (out.shape != (CLS_FIELDS, rows)
+                            or out.dtype != torch.int32
+                            or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous int32 [{CLS_FIELDS}, "
+                         f"{rows}] tensor")
     if not on_cuda(nodestate, victims, drain, pidx, pbuf, gidx):
         if skip is not None and int(skip.reshape(-1)[0]):
-            return torch.zeros((CLS_FIELDS, rows), dtype=torch.int32)
-        return fused_class_plain(nodestate, victims, drain, pidx, pbuf, gidx,
-                                 m_res=m_res, resident=resident,
-                                 m_gather=m_gather, req=req, spec=spec)
+            got = torch.zeros((CLS_FIELDS, rows), dtype=torch.int32)
+        else:
+            got = fused_class_plain(nodestate, victims, drain, pidx, pbuf,
+                                    gidx, m_res=m_res, resident=resident,
+                                    m_gather=m_gather, req=req, spec=spec)
+        if out is None:
+            return got
+        out.copy_(got)
+        return out
     st = launch_state(nodestate, victims, drain, pidx, pbuf, gidx, resident)
-    return launch_class(st, m_res, m_gather, req, spec, skip)
+    return launch_class(st, m_res, m_gather, req, spec, skip, out=out)
 
 
 def launch_class(st, m_res: int, m_gather: int, req: FusedRequest,
                  spec: ServerSpec, skip: torch.Tensor | None = None,
-                 geometry: tuple[int, int, int] | None = None
-                 ) -> torch.Tensor:
+                 geometry: tuple[int, int, int] | None = None,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
     """The sweep on a `launch_state`, in `sweep_geometry` unless
     ``geometry`` ``(threads, group_res, group_gather)`` is given (every
     geometry the launcher takes gives the same bits; a forced one serves
-    the checks and measurements of each)."""
+    the checks and measurements of each), into ``out`` when given."""
     n_res, n_gather = st.n_res, st.g
     rows = n_res + n_gather
-    cls = torch.empty((CLS_FIELDS, rows), dtype=torch.int32,
-                      device=st.tensors[0].device)
+    cls = out if out is not None else torch.empty(
+        (CLS_FIELDS, rows), dtype=torch.int32, device=st.tensors[0].device)
+    if cls.device != st.tensors[0].device:
+        raise ValueError(f"out is on {cls.device}, the state on "
+                         f"{st.tensors[0].device}")
     if rows == 0:
         return cls
     threads, g_res, g_gather = geometry or sweep_geometry(
         m_res, n_res, m_gather, n_gather, sm_count(st.device))
-    out = lib()
-    code = out.fused_class_launch(
+    lb = lib()
+    code = lb.fused_class_launch(
         ctypes.byref(st), ctypes.byref(params(spec, req)), m_res, m_gather,
         rows, threads, g_res, g_gather,
         None if skip is None else skip.data_ptr(), cls.data_ptr(), st.device,
         stream_of(st))
-    ts._raise_on(out, code, "fused_class")
+    ts._raise_on(lb, code, "fused_class")
     fused_class.launches += 1
     return cls
 

@@ -42,8 +42,8 @@ from repro_torch.core.autoscale import (AutoscalePolicy,  # noqa: E402
                                         Autoscaler)
 from repro_torch.core.colocation import _SUBMIT, default_policies  # noqa: E402
 from repro_torch.core.placement import achieved_tier  # noqa: E402
-from repro_torch.core.scheduler import (SHORTLIST_ENGINES,  # noqa: E402
-                                        ShortlistConfig)
+from repro_torch.core.engines import get_engine  # noqa: E402
+from repro_torch.core.scheduler import ShortlistConfig  # noqa: E402
 from repro_torch.core.workload import table3_workloads  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -411,25 +411,33 @@ def test_allocation_snapshot_matches_reference(engine):
 
 @pytest.mark.parametrize("engine", sorted(registered_engines()))
 def test_scheduler_shortlist_is_none_on_every_engine(engine):
-    """No port engine is registered with ``supports_shortlist`` yet: the
-    shortlist stays None, invalid knobs go unvalidated (as in the
-    reference for such engines), and the provenance carries 0 / None.
-    A best-effort shortlist on an engine the reference gives one raises:
-    the port would otherwise run the full sweep in its place."""
+    """The shortlist is None on every engine but the one registered with
+    ``supports_shortlist`` (``imp_batched``, as in the reference), whose
+    knobs are validated and carried into the provenance; elsewhere
+    invalid knobs go unvalidated (as in the reference for such engines)
+    and the provenance carries 0 / None."""
     cluster = Cluster(RTX4090_SERVER, 3, device="cpu")
+    takes = engine == "imp_batched"
+    assert bool(getattr(get_engine(engine), "supports_shortlist",
+                        False)) == takes
     for kw in ({}, {"shortlist_k": 4, "shortlist_mode": "best_effort"},
                {"shortlist_k": 0}, {"shortlist_mode": "bogus"}):
-        if (engine in SHORTLIST_ENGINES
-                and kw.get("shortlist_mode") == "best_effort"):
-            with pytest.raises(NotImplementedError):
+        if takes and kw.get("shortlist_mode") == "bogus":
+            with pytest.raises(ValueError, match="mode"):
                 TopoScheduler(cluster, engine=engine, **kw)
             continue
         sched = TopoScheduler(cluster, engine=engine, **kw)
-        assert sched.shortlist is None
+        if takes and kw.get("shortlist_k", 128) > 0:
+            assert sched.shortlist == ShortlistConfig(
+                kw.get("shortlist_k", 128),
+                kw.get("shortlist_mode", "guaranteed"))
+        else:
+            assert sched.shortlist is None
     dec = TopoScheduler(cluster, engine=engine).plan(WL3["B"]).decision
     prov = dec.sourcing_provenance
     assert prov["engine"] == engine and prov["auto"] is False
-    assert prov["shortlist_k"] == 0 and prov["shortlist_mode"] is None
+    assert (prov["shortlist_k"], prov["shortlist_mode"]) == (
+        (128, "guaranteed") if takes else (0, None))
     ref = RefScheduler(RefCluster(REF_RTX, 3), engine="imp",
                        shortlist_mode="bogus")
     assert ref.shortlist is None

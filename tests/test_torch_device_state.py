@@ -286,7 +286,7 @@ def test_patch_rows_are_sorted_and_sentinel_padded():
     travel with their node ids ascending, padded with `IDX_SENTINEL` to a
     power of two no smaller than 4: the kernels binary-search them."""
     from repro_torch.core.cluster import IDX_SENTINEL, flatten_rows
-    from repro_torch.core.preemption_device import _pack_patches, _patch_args
+    from repro_torch.core.preemption_device import _pack_patches, _stage
 
     cluster = random_cluster(6, nodes=8)
     dcs = cluster.device_state().sync()
@@ -299,6 +299,7 @@ def test_patch_rows_are_sorted_and_sentinel_padded():
     victims = cluster.victims_on(2, WL3["B"].priority)
     cluster.evict(victims[0].uid)
     dcs.sync(flush=False)                    # row 2 stays pending
-    p, pidx, pbuf = _patch_args(dcs, rows)
+    st = _stage(dcs, rows)
+    p, pidx, pbuf = st.p, st.pidx_host, st.pbuf.numpy()
     assert p == 4 and pidx.tolist() == [1, 2, 3, 6]
     assert np.array_equal(pbuf[1], flatten_rows(*rebuilt_arrays(cluster))[2])

@@ -708,7 +708,7 @@ def test_auto_engine_routes_by_cluster_size(monkeypatch):
     assert dec.sourcing_provenance == {
         "engine": "imp_batched", "auto": True,
         "auto_threshold": AUTO_ENGINE_THRESHOLD,
-        "shortlist_k": 0, "shortlist_mode": None}
+        "shortlist_k": 128, "shortlist_mode": "guaranteed"}
     assert AUTO_ENGINE_THRESHOLD == 4096
     monkeypatch.setattr(scheduler, "AUTO_ENGINE_THRESHOLD", 3)
     with pytest.raises(UnknownEngineError, match="imp_sharded"):

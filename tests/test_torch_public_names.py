@@ -8,8 +8,7 @@
   answers and decisions;
 * ``ServeEngine.run(requests, greedy=True)``: the same tokens;
 * ``TopoScheduler(shortlist_mode="best_effort")`` on ``imp_batched``
-  raises, since the port has no shortlist to run and will not put the full
-  sweep in its place.
+  runs the shortlist (it was refused while the port had none).
 """
 import dataclasses
 import random
@@ -173,21 +172,26 @@ def test_serve_engine_run_takes_greedy():
 
 
 def test_best_effort_shortlist_is_refused_on_imp_batched():
-    """The port's ``imp_batched`` has no shortlist: ``"best_effort"`` (which
-    the reference caps at K rows) raises instead of running the full sweep;
-    guaranteed mode decides as the full sweep with provenance ``shortlist_k``
-    0 / mode None; engines the reference gives no shortlist keep accepting
-    the argument."""
+    """``"best_effort"`` on ``imp_batched`` (and ``auto``, which routes to
+    it) is no longer refused: the shortlist runs, and with ``k`` below the
+    node count its plans are exactly evaluated and commit; guaranteed mode
+    decides as host imp with provenance 128 / ``"guaranteed"``; engines the
+    reference gives no shortlist keep accepting the argument and ignore
+    it."""
     ref = RefCluster(REF_SPECS["rtx4090"], 4)
     _fill(ref, RefPlacement, REF_WL3, seed=2)
     port = Cluster.from_instances(SPECS["rtx4090"], 4, instance_rows(ref),
                                   device="cpu")
     for engine in ("imp_batched", "auto"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            TopoScheduler(port, engine=engine, shortlist_mode="best_effort")
+        sched = TopoScheduler(port, engine=engine, shortlist_k=2,
+                              shortlist_mode="best_effort")
+        assert sched.shortlist.mode == "best_effort"
+        dec = sched.plan(WL3["B"], allow_normal=False).decision
+        assert dec.kind == "preempted" and dec.placement is not None
+        assert dec.sourcing_provenance["shortlist_mode"] == "best_effort"
     dec = TopoScheduler(port, engine="imp_batched").plan(WL3["B"]).decision
-    assert dec.sourcing_provenance["shortlist_k"] == 0
-    assert dec.sourcing_provenance["shortlist_mode"] is None
+    assert dec.sourcing_provenance["shortlist_k"] == 128
+    assert dec.sourcing_provenance["shortlist_mode"] == "guaranteed"
     assert decision_key(dec) == decision_key(
         RefScheduler(ref, engine="imp").plan(REF_WL3["B"]).decision)
     TopoScheduler(port, engine="imp_batched", shortlist_k=0,

@@ -8,12 +8,13 @@ process of its own, one after the other in the order given (pass parent,
 change, change, parent to interleave them).  Each process builds its
 kernels, then on saturated clusters of 1024 and 10240 RTX 4090 servers
 (``build_saturated_cluster``, seed 0) times ``TopoScheduler.plan()`` of
-preemptor B with ``imp_batched`` (pure reads: ``sourcing_us`` of 60 plans
-after 10 warm-up plans, P50 and P90), then runs the 24-node, 24 h
-co-location day (seed 0, the committed protocol) and takes the plan P50 and
-P90 of its requests (``Autoscaler.plan_us``).  It prints one JSON line a
-run, with the card's name and power limit.  Without CUDA, or copied alone,
-it exits 2 with no result.
+preemptor B with ``imp_batched`` and with ``imp_batched_full`` (pure reads:
+``sourcing_us`` of 60 plans after 10 warm-up plans, P50 and P90), then runs
+the 24-node and the 1024-node 24 h co-location days (seed 0, the committed
+protocol, warm-up on) and takes the plan P50 and P90 of their requests
+(``Autoscaler.plan_us``), and the 1024-node day's events/s.  It prints one
+JSON line a run, with the card's name and power limit.  Without CUDA, or
+copied alone, it exits 2 with no result.
 """
 from __future__ import annotations
 
@@ -39,18 +40,24 @@ out = {}
 for n in (1024, 10240):
     cluster = build_saturated_cluster(SimConfig(num_nodes=n, seed=0,
                                                 device="cuda"))
-    sched = TopoScheduler(cluster, engine="imp_batched")
-    for _ in range(10):
-        sched.plan(wl)
-    us = [sched.plan(wl).decision.sourcing_us for _ in range(60)]
-    out[f"sourcing_{n}"] = [float(np.percentile(us, 50)),
-                            float(np.percentile(us, 90))]
-cfg = ColocationConfig(num_nodes=24, seed=0, device="cuda",
-                       engine="imp_batched")
-sim = ColocationSim(cfg, policies=default_policies(cfg))
-sim.run()
-out["day24_plan_us"] = [float(np.percentile(sim.auto.plan_us, 50)),
-                        float(np.percentile(sim.auto.plan_us, 90))]
+    for engine in ("imp_batched", "imp_batched_full"):
+        sched = TopoScheduler(cluster, engine=engine)
+        for _ in range(10):
+            sched.plan(wl)
+        us = [sched.plan(wl).decision.sourcing_us for _ in range(60)]
+        out[f"sourcing_{engine}_{n}"] = [float(np.percentile(us, 50)),
+                                         float(np.percentile(us, 90))]
+    del cluster, sched
+for n in (24, 1024):
+    cfg = ColocationConfig(num_nodes=n, seed=0, device="cuda",
+                           engine="imp_batched", warmup=True)
+    sim = ColocationSim(cfg, policies=default_policies(cfg))
+    t0 = time.perf_counter()
+    sim.run()
+    wall = time.perf_counter() - t0
+    out[f"day{n}_plan_us"] = [float(np.percentile(sim.auto.plan_us, 50)),
+                              float(np.percentile(sim.auto.plan_us, 90))]
+    out[f"day{n}_events_per_s"] = sim.events_processed / wall
 print(json.dumps(out), flush=True)
 '''
 
