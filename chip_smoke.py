@@ -70,7 +70,10 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    100/100/0/0), 1024 nodes (1 x 20) and 10240 nodes (1 x 10), decision
    for decision against host ``imp`` and against ``imp_batched_full`` (the
    full sweep: at 1024 and 10240 nodes ``imp_batched`` runs the shortlist,
-   k = 128): one ``normal_cycle`` launch a plan, one ``prescreen`` a
+   k = 128), after the per-size engines ``imp_batched_legacy`` (2 x 50)
+   and ``imp_jax`` (1 x 50) at 100 nodes, decision for decision against
+   host ``imp``, one K3 (``topo_score``) launch a subset-size sweep and
+   no other kernel: one ``normal_cycle`` launch a plan, one ``prescreen`` a
    shortlisted plan, one ``fused_class`` and ``fused_argmax`` a plan and
    one more of each for a plan whose winner the shortlist could not prove
    (every plan of a saturated cluster fails its normal cycle; the Table 3
@@ -81,7 +84,25 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    sequential single plans (and, with candidate counts, against
    ``imp_batched_full``'s; at 1024 also host ``imp``), twice: the second
    reuses the session; launches held to the paths.
-5. ``[commit]``: twin 1024-node clusters, 200 steps of
+   ``[sharded]``: the merges of a sharded state (``tail_merge``,
+   ``normal_merge``, ``prescreen_select``) against their plain
+   versions on the same records, bit for bit, and the merged results
+   against the unsharded kernels over every row, with D in {1, 2, 3, 4, 8}
+   shards on the one card and N in {13, 1024, 10240} (pad rows where D
+   does not divide N), patch rows on several shards, gathered rows and
+   chunks across shards, forced exact ties and the same-tier case (the
+   shard forms of the tail, K2 and the prescreen held to their plain
+   versions too); then, after ``[commit]``, ``imp_sharded`` and
+   ``imp_sharded_full`` over the default mesh (D = 1) and over 4 shards on
+   the saturated 100-, 1024- and 10240-node clusters, decision for
+   decision (masks and candidate counts) against ``imp_batched`` and
+   ``imp_batched_full`` and host ``imp``, ``engine="auto"`` at 10240
+   nodes resolving to ``imp_sharded``, and the reference's randomized
+   plan/commit/rollback/``plan_batch`` sequences at 5, 11 and 13 nodes
+   over 8 shards against host ``imp``; launches held to the paths (each
+   shard's pipeline counted once a shard, one normal-cycle merge a plan
+   over 4 shards and none over one).
+5. ``[commit]``: twin 1024-node clusters, 100 steps of
    ``schedule_or_preempt``, rollbacks and releases: ``imp_batched`` against
    host ``imp`` with identical decisions and masks at every step (the row
    scatter and the pending-row patches).
@@ -93,7 +114,11 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    ``compare_two_level`` both modes of ``BENCH_elastic.json``; at 128 nodes
    the day's ``key_metrics()`` must equal host ``imp``'s and the
    reference's numbers; at 1024 nodes its events, scalar metrics and hour
-   rows must equal the reference's host ``imp`` day (``DAY_1024``).  Each
+   rows must equal the reference's host ``imp`` day (``DAY_1024``); the
+   reference's 12-node, 5-hour, seed-5 segment under ``imp_sharded`` over
+   4 shards gives ``imp_batched``'s hour rows, and the 1024-node day under
+   ``imp_sharded`` over the one card the reference's events and hour
+   rows.  Each
    counted day is built, then its counts are set to 0 just before
    ``run()`` and read just after: one ``normal_cycle`` launch a plan the
    scheduler counts, every fused launch count equal to what the recorded
@@ -145,11 +170,14 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    at the main shapes, against the yardstick build (A B B A), on states
    with exactly e = 1..8 eligible victims a row and in the wide form
    (``[sweep-timing]``); ``[floor]`` times an empty kernel launched through
-   the same ctypes path.  Then ``[trace]`` lines: one traced
+   the same ctypes path.  The three shard merges' rows are timed at the
+   records of a plan of preemptor B on the saturated 10240-node cluster
+   over 4 shards.  Then ``[trace]`` lines: one traced
    ``imp_pallas`` plan on 1024 nodes and one ``imp_batched`` plan on 1024
    and on 10240 nodes, each's device time against its sourcing wall time,
    and the host functions that dominate; a ``[sourcing]`` line with the
-   P50/P90 of every engine and size of ``[main]``.
+   P50/P90 of every engine and size of ``[main]``; the summary line
+   carries ``[sharded]``'s P50/P90 by engine, size and shard count.
 11. The card's name and power limit again, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -328,12 +356,14 @@ def kernel_phase(torch, np, dev) -> dict[str, float]:
 # ---------------------------------------------------------------------------------
 
 def reset_counts() -> None:
-    from repro_torch.core.preemption_device import PATH_COUNTS
+    from repro_torch.core.preemption_device import (PATH_COUNTS,
+                                                    evaluate_subsets)
     from repro_torch.kernels import WRAPPERS
     from repro_torch.kernels import topo_score as ts
 
     for w in WRAPPERS:
         w.launches = 0
+    evaluate_subsets.calls = 0
     ts.flextopo_imp_pallas.calls = 0
     ts.flextopo_imp_pallas.overflow = 0
     for key in PATH_COUNTS:
@@ -342,12 +372,15 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     """Each wrapper's launches, ``imp_pallas``' calls and host fallbacks,
-    and under ``path`` what the fused engine ran (``PATH_COUNTS``)."""
-    from repro_torch.core.preemption_device import PATH_COUNTS
+    the per-size engines' subset sweeps (``evaluate_subsets``), and under
+    ``path`` what the fused engine ran (``PATH_COUNTS``)."""
+    from repro_torch.core.preemption_device import (PATH_COUNTS,
+                                                    evaluate_subsets)
     from repro_torch.kernels import WRAPPERS
     from repro_torch.kernels import topo_score as ts
 
     out = {w.__name__: w.launches for w in WRAPPERS}
+    out["evaluate_subsets_calls"] = evaluate_subsets.calls
     out["imp_pallas_calls"] = ts.flextopo_imp_pallas.calls
     out["imp_pallas_overflow"] = ts.flextopo_imp_pallas.overflow
     out["path"] = dict(PATH_COUNTS)
@@ -362,8 +395,9 @@ def check_fused_launches(c: dict, what: str) -> None:
     for name, k in expected_launches(c["path"]).items():
         check(c[name] == k, f"{what}: {c[name]} {name} launches, the paths "
               f"give {k} ({c['path']})")
-    check(c["topo_score_argmax"] == 0 and c["imp_pallas_calls"] == 0,
-          f"{what}: the lane form of K1 was launched")
+    check(c["topo_score_argmax"] == 0 and c["imp_pallas_calls"] == 0
+          and c["topo_score"] == 0,
+          f"{what}: a lane form of K1 or K3 was launched")
 
 
 def protocol(num_nodes, cycles, scaleups, engine, dev):
@@ -380,8 +414,9 @@ def protocol(num_nodes, cycles, scaleups, engine, dev):
     return rep, summarize(rep, num_nodes, cycles, scaleups, wall, counts)
 
 
-def summarize(rep, nodes, cycles, scaleups, wall, counts) -> dict:
-    """The ``[main]`` line of one protocol run."""
+def summarize(rep, nodes, cycles, scaleups, wall, counts,
+              tag: str = "main") -> dict:
+    """The ``[main]`` (or ``[tag]``) line of one protocol run."""
     summary = {
         "nodes": nodes, "cycles": cycles, "scaleups": scaleups,
         "engine": rep.engine, "preemptions": rep.preemptions,
@@ -390,7 +425,7 @@ def summarize(rep, nodes, cycles, scaleups, wall, counts) -> dict:
         "sourcing_p90_us": rep.percentile(90),
         "samples": len(rep.sourcing_us), "wall_s": wall, "counts": counts,
     }
-    print(f"[main] {json.dumps(summary)}", flush=True)
+    print(f"[{tag}] {json.dumps(summary)}", flush=True)
     return summary
 
 
@@ -474,8 +509,37 @@ def main_path(dev, clusters) -> tuple[list[dict], dict[str, int]]:
         runs.append(s_host)
         print(f"[main] {nodes} nodes: {len(fast.decision_keys)} decisions "
               f"identical between imp_pallas and imp", flush=True)
+    legacy_runs(dev, runs, launches, host_keys)
     batched_runs(dev, runs, launches, host_keys, clusters)
-    return runs, launches
+    return runs, launches, host_keys
+
+
+def legacy_runs(dev, runs: list, launches: dict, host_keys: dict) -> None:
+    """The per-size engines on the 100-node protocol, decision for
+    decision against host ``imp``: ``imp_batched_legacy`` 2 x 50
+    (100/100/0/0), ``imp_jax`` (a launch and a readback a size a node,
+    ~0.1 s a plan) its first cycle, 50/50/0/0; one K3 (``topo_score``)
+    launch a subset-size sweep (``evaluate_subsets``), and no other
+    kernel."""
+    for engine, cycles in (("imp_batched_legacy", 2), ("imp_jax", 1)):
+        got, s = protocol(100, cycles, 50, engine, dev)
+        c = s["counts"]
+        check(c["topo_score"] > 0
+              and c["topo_score"] == c["evaluate_subsets_calls"],
+              f"{engine}: {c['topo_score']} topo_score launches for "
+              f"{c['evaluate_subsets_calls']} subset sweeps")
+        check(all(c[w] == 0 for w in c if w not in (
+            "topo_score", "evaluate_subsets_calls", "path")),
+              f"{engine}: another kernel was launched ({c})")
+        n = 50 * cycles
+        check((got.preemptions, got.hits, got.failures, got.placements)
+              == (n, n, 0, 0) and got.decision_keys == host_keys[100][:n],
+              f"{engine}: decisions differ from host imp")
+        for name in launches:
+            launches[name] += c[name]
+        runs.append(s)
+        print(f"[main] 100 nodes: {engine} {n} decisions identical to host "
+              f"imp, {c['topo_score']} K3 launches", flush=True)
 
 
 def batched_runs(dev, runs: list, launches: dict, host_keys: dict,
@@ -541,7 +605,7 @@ def batched_runs(dev, runs: list, launches: dict, host_keys: dict,
               f"fell back to the full sweep)", flush=True)
 
 
-def commit_phase(dev, steps: int = 200, nodes: int = 1024) -> dict:
+def commit_phase(dev, steps: int = 100, nodes: int = 1024) -> dict:
     """Twin 1024-node clusters, ``steps`` steps of schedule_or_preempt (B,
     C or D), rollbacks of the newest commit, and releases of a random
     instance (a direct evict): ``imp_batched`` on one, host ``imp`` on the
@@ -780,7 +844,7 @@ class PlanWindow:
 
 
 def day_run(torch, dev, cfg, trace: tuple[float, int] | None = None,
-            online_factors: list | None = None):
+            online_factors: list | None = None, mesh=None):
     """One day through ``ColocationSim`` (what ``run_day_cycle`` runs).
     The sim is built first (its scheduler's warm-up launches are not the
     day's); the counts are set to 0 just before ``run()`` and read just
@@ -798,6 +862,8 @@ def day_run(torch, dev, cfg, trace: tuple[float, int] | None = None,
     from repro_torch.core.placement import achieved_tier
 
     sim = ColocationSim(cfg, policies=default_policies(cfg))
+    if mesh is not None:
+        sim.cluster.device_state(mesh=mesh)
     if online_factors is not None:
         spec = sim.cluster.spec
 
@@ -821,32 +887,40 @@ def day_run(torch, dev, cfg, trace: tuple[float, int] | None = None,
     plans = dict(sim.sched.plan_counts)
     n_plans = sum(plans.values())
     what = f"day {cfg.num_nodes} nodes {cfg.engine}"
-    if cfg.engine == "imp_batched":
-        check(n_plans > 0 and counts["normal_cycle"] == n_plans,
+    fused = cfg.engine in ("imp_batched", "imp_sharded")
+    shards = (sim.cluster.device_state().mesh.size
+              if cfg.engine == "imp_sharded" else 1)
+    if fused:
+        check(n_plans > 0 and counts["normal_cycle"] == n_plans * shards,
               f"{what}: {counts['normal_cycle']} normal_cycle launches for "
-              f"{n_plans} plans")
-        check(counts["fused_argmax"] <= plans["may_preempt"]
-              + counts["path"]["fallback"],
+              f"{n_plans} plans over {shards} shards")
+        check(counts["fused_argmax"] <= (plans["may_preempt"]
+                                         + counts["path"]["fallback"])
+              * shards,
               f"{what}: {counts['fused_argmax']} fused_argmax launches for "
               f"{plans['may_preempt']} plans that may preempt")
         check_fused_launches(counts, what)
+        if cfg.engine == "imp_sharded":
+            check(counts["normal_merge"] == (n_plans if shards > 1 else 0),
+                  f"{what}: {counts['normal_merge']} normal-cycle "
+                  f"merges for {n_plans} plans over {shards} shards")
     else:
         check(not any(v for k, v in counts.items() if k != "path")
               and not any(counts["path"].values()),
               f"{what}: a host engine launched kernels: {counts}")
     plan_us = sim.auto.plan_us
     out = {
-        "nodes": cfg.num_nodes, "engine": cfg.engine,
+        "nodes": cfg.num_nodes, "engine": cfg.engine, "shards": shards,
         "horizon_hours": cfg.horizon_hours, "elastic": cfg.elastic,
         "events": sim.events_processed, "wall_s": wall,
         "events_per_s": sim.events_processed / wall,
         "requests_planned": len(plan_us),
         "plan_p50_us": float(np.percentile(plan_us, 50)),
         "plan_p90_us": float(np.percentile(plan_us, 90)),
-        "fused_plans": plans if cfg.engine == "imp_batched" else None,
+        "fused_plans": plans if fused else None,
         "fused_plan_p50_us": (float(np.percentile(sim.sched.sourcing_us_log,
                                                    50))
-                              if cfg.engine == "imp_batched" else None),
+                              if fused else None),
         "counts": counts, **scalars(rep.key_metrics()),
     }
     print(f"[day] {json.dumps(out)}", flush=True)
@@ -876,7 +950,7 @@ def day_phase(torch, dev) -> dict:
     with open(os.path.join(ROOT, "BENCH_elastic.json")) as f:
         bench_el = json.load(f)
     launches = dict.fromkeys(("normal_cycle", "fused_class", "fused_argmax",
-                              "prescreen", "encode_delta"), 0)
+                              "prescreen", "encode_delta") + MERGES, 0)
     plans = 0
     runs = []
 
@@ -959,6 +1033,35 @@ def day_phase(torch, dev) -> dict:
           f"day 1024 nodes: hour rows differ from the reference's ({digest})")
     print("[day] 1024 nodes: imp_batched key metrics and hour rows "
           "identical to the reference's host imp day", flush=True)
+
+    # imp_sharded: the reference's 12-node, 5-hour, seed-5 segment over
+    # SHARDS_D shards against imp_batched, and the 1024-node day over the
+    # default mesh (the one card) against the reference's numbers
+    from repro_torch.core.colocation import ColocationConfig
+
+    seg = {}
+    for engine, mesh in (("imp_batched", None),
+                         ("imp_sharded", (cuda0(torch),) * SHARDS_D)):
+        seg[engine], _ = counted(day_run(torch, dev, ColocationConfig(
+            num_nodes=12, seed=5, engine=engine, horizon_hours=5.0,
+            device=dev), mesh=mesh))
+    a, b = seg["imp_batched"].key_metrics(), seg["imp_sharded"].key_metrics()
+    check(a["hours"] == b["hours"] and scalars(a) == scalars(b),
+          f"day 12 nodes 5 h: imp_sharded over {SHARDS_D} shards differs "
+          "from imp_batched")
+    big, out = counted(day_run(torch, dev, day_config(dev, 1024,
+                                                      "imp_sharded")))
+    km = big.key_metrics()
+    digest = hashlib.sha256(json.dumps(km["hours"], sort_keys=True)
+                            .encode()).hexdigest()
+    check(out["events"] == DAY_1024_EVENTS and scalars(km) == DAY_1024
+          and digest == DAY_1024_HOURS_SHA256,
+          f"day 1024 nodes imp_sharded: {out['events']} events, hour rows "
+          f"{digest}, against the reference's day")
+    print(f"[day] 12 nodes 5 h: imp_sharded over {SHARDS_D} shards gives "
+          f"imp_batched's hour rows; 1024 nodes: imp_sharded over the one "
+          f"card gives the reference's {DAY_1024_EVENTS} events and hour "
+          "rows", flush=True)
     return {"runs": runs, "launches": launches, "plans": plans,
             "factors": {k: (max(v), min(v)) for k, v in factors.items()},
             "ab_s": ab_s, "two_level_s": two_s}
@@ -2058,6 +2161,583 @@ def batch_phase(torch, dev, clusters) -> dict:
 
 
 # ---------------------------------------------------------------------------------
+# Phase 3c: the sharded state (imp_sharded) and its merges
+# ---------------------------------------------------------------------------------
+
+#: shard counts and node counts of the merges' checks (13 and 10240 are
+#: not multiples of 3 or 8: the last shard holds pad rows)
+SHARD_COUNTS = (1, 2, 3, 4, 8)
+SHARD_NODES = (13, 1024, 10240)
+#: shards of the decisions' and the day's second mesh on the one card
+SHARDS_D = 4
+MERGES = ("tail_merge", "normal_merge", "prescreen_select")
+
+
+def cuda0(torch):
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _split_patches(torch, np, pidx, pbuf, shards, dev):
+    """Each shard's run of the sorted patch rows (global ids), on ``dev``."""
+    real = pidx[pidx != SENTINEL]
+    out = []
+    for s in shards:
+        mine = (real >= s.base) & (real < s.base + s.rows)
+        out.append((torch.from_numpy(real[mine].copy()).to(dev),
+                    torch.from_numpy(pbuf[:len(real)][mine].copy()).to(dev)))
+    return out
+
+
+def same_tier_cls(np, ns):
+    """The same-tier case (four rows, two shards): shard 0's survivors are
+    all tier 0 at one f32 score (priority sums 2^25 and 3 * 2^23, 0.5 at
+    alpha 0.5), shard 1 holds a tier-1 survivor at that score (sum 2).
+    Shard 0 alone would refine by priority sum; the global chain must
+    not (row 0 wins, by k)."""
+    cls = np.zeros((15, 4), np.int32)
+    cls[14] = ns[2, :4]
+    cls[0, 0], cls[6, 0], cls[12, 0] = 1, 2**25, 1
+    cls[0, 1], cls[6, 1], cls[12, 1] = 1, 3 * 2**23, 2
+    cls[1, 2], cls[7, 2], cls[12, 2] = 1, 2, 3
+    return cls
+
+
+def shard_kernel_phase(torch, np, dev) -> dict[str, float]:
+    """``[sharded]``, the kernels: each merge against its plain version on
+    the same records, bit for bit, and the merged result against the
+    unsharded kernels over all rows: D in `SHARD_COUNTS` shards on the one
+    card, N in `SHARD_NODES` (pad rows where D does not divide N), patch
+    rows on several shards, gathered rows across shards and sentinels, the
+    tail over the resident segment and over 16-row chunks, class tables
+    with forced exact ties and the same-tier case, the prescreen at k = 1
+    and 128.  The shard forms of the tail, K2 and the prescreen (their
+    records, ``sel``) are held to their plain versions too."""
+    from repro_torch.core import cluster_parallel as cp
+    from repro_torch.core.topology import SPECS
+    from repro_torch.kernels import fused_class as fc
+    from repro_torch.kernels import normal_cycle as nck
+    from repro_torch.kernels import prescreen as psk
+
+    spec = SPECS["rtx4090"]
+    errs = dict.fromkeys(MERGES, 0.0)
+    cases = dict.fromkeys(MERGES, 0)
+    c0 = cuda0(torch)
+    reqs = (fc.FusedRequest(1000, 2, 2, 1, 0.5),
+            fc.FusedRequest(300, 4, 4, 0, 0.0),
+            fc.FusedRequest(1000, 1, 1, 1, 1.0))
+
+    def same(got, want, what, name):
+        errs[name] = max(errs[name], compare(torch, [got], [want], what))
+        cases[name] += 1
+
+    def usorted(x):
+        return np.sort(x.cpu().numpy().view(np.uint64))
+
+    for n in SHARD_NODES:
+        ns, v, dr = resident_state(np, spec, n, 8, seed=n)
+        pidx, pbuf = patch_rows(np, spec, n, min(9, n - 1), n + 7, 8)
+        rng = np.random.default_rng(n)
+        gidx = rng.choice(n, 12, replace=False).astype(np.int32)
+        gidx = np.append(gidx, SENTINEL).astype(np.int32)
+        chunks = rng.choice(n, min(29, n), replace=False).astype(np.int32)
+        chunks = np.concatenate([chunks, np.full(3, SENTINEL, np.int32)])
+        for d in SHARD_COUNTS:
+            mesh = cp.Mesh((c0,) * d)
+            shards = cp._shards_of(mesh, ns, v, dr)
+            rows = shards[0].rows
+            n_rows = rows * d
+            g_ns, g_v, g_dr = (torch.cat([getattr(s, f) for s in shards], 1)
+                               for f in ("nodestate", "victims", "drain"))
+            rep = (rng.random(n_rows) < 0.7).astype(np.int32)
+            rep[n:] = 0
+            forced = np.unique(rng.choice(n, 5)).astype(np.int32)
+            rep_d = torch.from_numpy(rep).to(c0)
+            forced_d = torch.from_numpy(forced).to(c0)
+            for patched in ((False, True) if n == 13 else (True,)):
+                if patched:
+                    gp = (torch.from_numpy(pidx).to(c0),
+                          torch.from_numpy(pbuf).to(c0))
+                else:
+                    gp = (torch.zeros(0, dtype=torch.int32, device=c0),
+                          torch.zeros((0, pbuf.shape[1]), dtype=torch.int32,
+                                      device=c0))
+                sp = _split_patches(torch, np, pidx if patched
+                                    else pidx[:0], pbuf, shards, c0)
+                for req in (reqs if n < 10240 else reqs[:2]):
+                    what = f"N={n} D={d} patched={patched} req={req}"
+                    # the normal cycle
+                    recs = torch.empty((d, nck.part_records(rows, c0), 4),
+                                       dtype=torch.int32, device=c0)
+                    for k, s in enumerate(shards):
+                        a = (s.nodestate, s.victims, s.drain, *sp[k])
+                        nck.normal_cycle_part(*a, req=req, spec=spec,
+                                              base=s.base, out=recs[k])
+                        if recs.shape[1] == 2:
+                            check(torch.equal(recs[k], nck.normal_part_plain(
+                                *a, req, spec, s.base)),
+                                f"normal_cycle_part {what} shard {k}")
+                    got = nck.normal_merge(recs, n=n_rows, req=req,
+                                           spec=spec)
+                    same(got, nck.normal_merge_plain(recs, req, spec),
+                         "normal_merge " + what, "normal_merge")
+                    check(torch.equal(got, nck.normal_cycle(
+                        g_ns, g_v, g_dr, *gp, req=req, spec=spec)),
+                        f"sharded normal cycle {what} differs from K2 over "
+                        "every row")
+                    # the sweep's tail: resident + gathered, then chunks
+                    for resident, gi, seg in ((True, gidx, None),
+                                              (False, chunks, 16)):
+                        g_t = torch.from_numpy(gi).to(c0)
+                        kw = dict(m_res=8, resident=resident, m_gather=8,
+                                  req=req, spec=spec)
+                        segs = 1 if resident else -(-len(gi) // seg)
+                        part = torch.empty((d, segs, fc.PART_FIELDS),
+                                           dtype=torch.int32, device=c0)
+                        for k, s in enumerate(shards):
+                            a = (s.nodestate, s.victims, *sp[k], g_t)
+                            cls = fc.fused_class(s.nodestate, s.victims,
+                                                 s.drain, *sp[k], g_t,
+                                                 base=s.base, **kw)
+                            sh = ((rows, s.base, n_rows - rows) if resident
+                                  else (0, 0, 0))
+                            sg = cls.shape[1] if resident else seg
+                            fc.fused_argmax(cls, *a, resident=resident,
+                                            seg=sg, req=req, spec=spec,
+                                            base=s.base, shard=sh,
+                                            out=part[k])
+                            check(torch.equal(part[k], fc.fused_argmax_plain(
+                                cls, *a, resident=resident, seg=sg, req=req,
+                                spec=spec, base=s.base, shard=sh)),
+                                f"fused_argmax shard form {what} shard {k}")
+                        got = fc.tail_merge(part, alpha=req.alpha)
+                        same(got, fc.tail_merge_plain(part, req.alpha > 0),
+                             "tail_merge " + what, "tail_merge")
+                        cls = fc.fused_class(g_ns, g_v, g_dr, *gp, g_t, **kw)
+                        want = fc.fused_argmax(
+                            cls, g_ns, g_v, *gp, g_t, resident=resident,
+                            seg=cls.shape[1] if resident else seg, req=req,
+                            spec=spec)
+                        check(torch.equal(got, want), f"sharded tail {what} "
+                              f"resident={resident} differs from the tail "
+                              "over every row")
+                    # the prescreen and the union
+                    for k_top in (1, 128):
+                        kk = min(k_top, n_rows)
+                        kd = min(kk, rows)
+                        keys = torch.empty((d, kd), dtype=torch.int64,
+                                           device=c0)
+                        outs = torch.empty((d, kd + 1), dtype=torch.int32,
+                                           device=c0)
+                        for k, s in enumerate(shards):
+                            a = (s.nodestate, s.victims, *sp[k],
+                                 rep_d[s.base:s.base + rows], forced_d)
+                            psk.prescreen(*a, k=kd, req=req, spec=spec,
+                                          out=outs[k], base=s.base,
+                                          sel=keys[k])
+                            check(torch.equal(outs[k], psk.prescreen_plain(
+                                *a, k=kd, req=req, spec=spec, base=s.base))
+                                and np.array_equal(usorted(keys[k]), usorted(
+                                    psk.prescreen_sel_plain(
+                                        *a, k=kd, req=req, spec=spec,
+                                        base=s.base))),
+                                f"prescreen shard form {what} k={kd}")
+                        got = psk.prescreen_select(keys, k=kk,
+                                                   excl=outs[:, kd])
+                        same(got, psk.prescreen_select_plain(
+                            keys, kk, outs[:, kd]),
+                            f"prescreen_select {what} k={kk}",
+                            "prescreen_select")
+                        check(torch.equal(got, psk.prescreen(
+                            g_ns, g_v, *gp, rep_d, forced_d, k=kk, req=req,
+                            spec=spec)), f"sharded prescreen {what} k={kk} "
+                            "differs from the prescreen over every row")
+            # forced exact ties: tie tables and the same-tier case, over the
+            # shards' rows (no sweep: the table is the tail's input)
+            tables = [tie_table(np, n_rows, n + d)]
+            if n == 13 and d == 2:
+                tables = [same_tier_cls(np, ns)] + tables
+            for cls_h in tables:
+                m_rows = cls_h.shape[1] // d
+                if m_rows * d != cls_h.shape[1]:
+                    continue
+                cls_h[14] = np.concatenate([s.nodestate[2].cpu().numpy()
+                                            for s in shards])[:cls_h.shape[1]]
+                for alpha in (0.0, 0.5):
+                    req = fc.FusedRequest(1000, 2, 2, 1, alpha)
+                    e = (torch.zeros(0, dtype=torch.int32, device=c0),
+                         torch.zeros((0, pbuf.shape[1]), dtype=torch.int32,
+                                     device=c0))
+                    part = torch.empty((d, 1, fc.PART_FIELDS),
+                                       dtype=torch.int32, device=c0)
+                    sub = cp._shards_of(mesh, *(x[:, :cls_h.shape[1]].cpu()
+                                                for x in (g_ns, g_v, g_dr)))
+                    for k, s in enumerate(sub):
+                        c = torch.from_numpy(np.ascontiguousarray(
+                            cls_h[:, k * m_rows:(k + 1) * m_rows])).to(c0)
+                        sh = (m_rows, s.base, cls_h.shape[1] - m_rows)
+                        a = (s.nodestate, s.victims, *e, e[0])
+                        fc.fused_argmax(c, *a, resident=True, seg=m_rows,
+                                        req=req, spec=spec, base=s.base,
+                                        shard=sh, out=part[k])
+                        check(torch.equal(part[k], fc.fused_argmax_plain(
+                            c, *a, resident=True, seg=m_rows, req=req,
+                            spec=spec, base=s.base, shard=sh)),
+                            f"fused_argmax shard form, tie table N={n} D={d}")
+                    got = fc.tail_merge(part, alpha=alpha)
+                    same(got, fc.tail_merge_plain(part, alpha > 0),
+                         f"tail_merge tie table N={n} D={d}", "tail_merge")
+                    full = torch.from_numpy(cls_h).to(c0)
+                    want = fc.fused_argmax(
+                        full, g_ns[:, :cls_h.shape[1]].contiguous(),
+                        g_v[:, :cls_h.shape[1]].contiguous(), *e, e[0],
+                        resident=True, seg=cls_h.shape[1], req=req,
+                        spec=spec)
+                    check(torch.equal(got, want), f"sharded tail, tie table "
+                          f"N={n} D={d} alpha={alpha}, differs from the tail "
+                          "over every row")
+                    if cls_h.shape[1] == 4 and alpha == 0.5:
+                        check(tuple(got[0, :3].tolist()) == (1, 0, 0),
+                              f"the same-tier case picked {got[0].tolist()}")
+    torch_sync(dev)
+    print(f"[sharded] merges bit-exact against their plain versions and the "
+          f"unsharded kernels over every row: {json.dumps(cases)} cases "
+          f"(D {list(SHARD_COUNTS)}, N {list(SHARD_NODES)}); the shard forms "
+          "of the tail, K2 and the prescreen equal their plain versions",
+          flush=True)
+    return errs
+
+
+def full_keys_on(cluster, scaleups, engine, dev, install=None):
+    """`protocol_on`'s plans (cycle 0 of the protocol, pure reads) with
+    ``engine``, the state installed by ``install(cluster)`` first when
+    given: ``(summary, [(decision key, masks, candidates)], resolved
+    engine)``; the counts set to 0 just before, read just after."""
+    import random
+
+    from repro_torch.core.scheduler import TopoScheduler
+    from repro_torch.core.simulator import HitRateReport, decision_key
+    from repro_torch.core.workload import table3_workloads
+
+    workloads = {w.name: w for w in table3_workloads()}
+    rep = HitRateReport(engine=engine)
+    if install is not None:
+        install(cluster)
+    keys = []
+    torch_sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    sched = TopoScheduler(cluster, engine=engine, alpha=0.5)
+    rng = random.Random(10_000)
+    for _ in range(scaleups):
+        dec = sched.plan(workloads[rng.choice(("B", "C"))]).decision
+        keys.append(decision_key(dec) + (
+            None if dec.placement is None else
+            (dec.placement.gpu_mask, dec.placement.cg_mask),
+            dec.num_candidates))
+        rep.decision_keys.append(decision_key(dec))
+        if dec.preempted:
+            rep.preemptions += 1
+            rep.hits += int(dec.hit)
+            rep.sourcing_us.append(dec.sourcing_us)
+        elif dec.rejected:
+            rep.failures += 1
+        else:
+            rep.placements += 1
+    torch_sync(dev)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    return (summarize(rep, cluster.num_nodes, 1, scaleups, wall, counts,
+                      "sharded"), keys, sched.engine)
+
+
+def check_sharded_launches(c: dict, plans: int, shards: int,
+                           what: str) -> None:
+    """A sharded run's launches: what its paths give (each shard's
+    pipeline counted once a shard), one normal-cycle merge a plan over
+    D > 1 shards and no merge over one, and no lane-form K1."""
+    check_fused_launches(c, what)
+    path = c["path"]
+    merged = plans if shards > 1 else 0
+    check(c["normal_merge"] == merged and c["normal_cycle"]
+          == plans * shards and c["tail_merge"] >= merged
+          and (shards > 1 or not any(c[m] for m in MERGES))
+          and path["plan2"] + path["shortlist_plan2"] == plans * shards,
+          f"{what}: {c['normal_cycle']} K2 and {c['normal_merge']} "
+          f"merges for {plans} plans over {shards} shards ({path})")
+
+
+def random_cluster(seed: int, nodes: int, dev):
+    """The reference's randomized parity cluster
+    (``tests/test_fused_sourcing.py:random_cluster``) on ``dev``."""
+    import random
+
+    from repro_torch.core.cluster import Cluster
+    from repro_torch.core.placement import Placement
+    from repro_torch.core.topology import SPECS
+    from repro_torch.core.workload import table3_workloads
+
+    wl = {w.name: w for w in table3_workloads()}
+    rng = random.Random(seed)
+    cluster = Cluster(SPECS["rtx4090"], nodes, device=dev)
+    for node in range(nodes):
+        free = list(range(8))
+        rng.shuffle(free)
+        while free:
+            if len(free) >= 2 and rng.random() < 0.4:
+                g, w = [free.pop(), free.pop()], wl["C"]
+            else:
+                g, w = [free.pop()], wl["D"]
+            if rng.random() < 0.2:
+                continue
+            mask = sum(1 << x for x in g)
+            cluster.bind(w, node, Placement(mask, mask, 0))
+    return cluster
+
+
+def randomized_sequences(torch, dev, shards: int = 8, trials: int = 5):
+    """The reference's randomized sequences (``tests/test_distributed.py``:
+    8 plans with commits and rollbacks, then a 4-request ``plan_batch``) at
+    5, 11 and 13 nodes: ``imp_sharded`` over ``shards`` shards on the one
+    card against host ``imp``, decisions, masks and candidate counts."""
+    import random
+
+    from repro_torch.core.scheduler import TopoScheduler
+    from repro_torch.core.simulator import decision_key
+    from repro_torch.core.workload import table3_workloads
+
+    wl = {w.name: w for w in table3_workloads()}
+    c0 = cuda0(torch)
+
+    def seq(sched, seed):
+        ops = random.Random(seed)
+        out = []
+
+        def key(dec):
+            return decision_key(dec) + (
+                None if dec.placement is None else
+                (dec.placement.gpu_mask, dec.placement.cg_mask),
+                dec.num_candidates)
+
+        for _ in range(8):
+            txn = sched.plan(wl[ops.choice("BCD")], allow_normal=True)
+            out.append(key(txn.decision))
+            if txn.decision.kind != "reject":
+                r = ops.random()
+                if r < 0.5:
+                    txn.commit()
+                elif r < 0.75:
+                    txn.commit()
+                    txn.rollback()
+        out.extend(key(t.decision) for t in sched.plan_batch(
+            [wl[ops.choice("BC")] for _ in range(4)]))
+        return out
+
+    rng = random.Random(7)
+    done = []
+    for _ in range(trials):
+        seed, nodes = rng.randrange(10_000), rng.choice((5, 11, 13))
+        host = seq(TopoScheduler(random_cluster(seed, nodes, dev),
+                                 engine="imp"), seed)
+        cluster = random_cluster(seed, nodes, dev)
+        cluster.device_state(mesh=(c0,) * shards)
+        got = seq(TopoScheduler(cluster, engine="imp_sharded"), seed)
+        check(got == host, f"randomized sequence seed {seed}, {nodes} nodes, "
+              f"{shards} shards: imp_sharded differs from host imp")
+        done.append([seed, nodes])
+    return done
+
+
+def unshard(cluster, state) -> None:
+    """Put the unsharded ``state`` back on ``cluster`` in place of the
+    installed one, listening again for invalidations (the plans since it
+    was replaced were pure reads, so its tensors are current)."""
+    cur = cluster._device_state
+    if cur is not state:
+        cluster.remove_dirty_listener(cur._mark_dirty)
+        cluster.add_dirty_listener(state._mark_dirty)
+        cluster._device_state = state
+
+
+def sharded_phase(torch, dev, clusters: dict, host_keys: dict,
+                  scaleups: dict | None = None) -> dict:
+    """``[sharded]``, the decisions: ``imp_sharded`` and
+    ``imp_sharded_full`` over the default mesh (D = 1, the one card) and
+    over `SHARDS_D` shards of it, on the saturated 100-, 1024- and
+    10240-node clusters (cycle 0 of the protocol, pure reads), each decision
+    (masks and candidate count included) identical to ``imp_batched_full``'s
+    and ``imp_batched``'s on the unsharded state, and the decision keys to
+    host ``imp``'s; ``TopoScheduler(engine="auto")`` at 10240 nodes
+    resolves to ``imp_sharded`` and decides the same; the randomized
+    sequences at 5, 11 and 13 nodes over 8 shards.  Each cluster's
+    unsharded state is put back after its sharded runs."""
+    from repro_torch.core.simulator import SimConfig, build_saturated_cluster
+
+    c0 = cuda0(torch)
+    scaleups = scaleups or {100: 50, 1024: 20, 10240: 10}
+    launches = dict.fromkeys(("normal_cycle", "fused_class", "fused_argmax",
+                              "prescreen", "encode_delta") + MERGES, 0)
+    plans = 0
+    runs = []
+    built = {100: build_saturated_cluster(SimConfig(num_nodes=100, seed=0,
+                                                    device=dev))}
+    for n in sorted(scaleups):
+        cluster = clusters.get(n) or built[n]
+        s = scaleups[n]
+        orig = cluster.device_state().sync()
+        ref = {}
+        for engine in ("imp_batched_full", "imp_batched"):
+            summary, ref[engine], _ = full_keys_on(cluster, s, engine, dev)
+            check([k[:5] for k in ref[engine]] == host_keys[n][:s],
+                  f"{n} nodes: {engine} decisions differ from host imp")
+            runs.append(summary)
+        for shards in (1, SHARDS_D):
+            mesh = (c0,) * shards
+            for engine in ("imp_sharded", "imp_sharded_full"):
+                summary, keys, _ = full_keys_on(
+                    cluster, s, engine, dev,
+                    install=lambda c, m=mesh: c.device_state(mesh=m))
+                check(cluster.device_state().mesh.size == shards,
+                      f"{n} nodes: the state is not over {shards} shards")
+                want = ref[engine.replace("sharded", "batched")]
+                check(keys == want, f"{n} nodes, {shards} shards: {engine} "
+                      "decisions, masks or candidate counts differ from the "
+                      "unsharded engine's")
+                c = summary["counts"]
+                check_sharded_launches(c, s, shards,
+                                       f"{n} nodes {engine} D={shards}")
+                for name in launches:
+                    launches[name] += c[name]
+                plans += s
+                summary["shards"] = shards
+                runs.append(summary)
+        if n == 10240:
+            unshard(cluster, orig)          # a fresh default mesh for auto
+            summary, keys, engine = full_keys_on(cluster, s, "auto", dev)
+            check(engine == "imp_sharded" and keys == ref["imp_batched"],
+                  f"10240 nodes: auto resolved to {engine} or decided "
+                  "otherwise than imp_batched")
+            check(cluster.device_state().mesh.devices == (c0,),
+                  "auto's default mesh is not the one card")
+            check_sharded_launches(summary["counts"], s, 1, "auto")
+            for name in launches:
+                launches[name] += summary["counts"][name]
+            plans += s
+            summary["shards"] = 1
+            runs.append(summary)
+        # the unsharded state back for the phases that follow (every plan
+        # above was a pure read)
+        unshard(cluster, orig)
+        print(f"[sharded] {n} nodes: imp_sharded and imp_sharded_full over "
+              f"1 and {SHARDS_D} shards decide as imp_batched and "
+              f"imp_batched_full (masks, candidate counts) and host imp"
+              + ("; auto resolves to imp_sharded" if n == 10240 else ""),
+              flush=True)
+    seqs = randomized_sequences(torch, dev)
+    print(f"[sharded] randomized sequences over 8 shards identical to host "
+          f"imp: {json.dumps(seqs)}", flush=True)
+    for name in MERGES:
+        check(launches[name] > 0, f"[sharded]: {name} never launched")
+    return {"runs": runs, "launches": launches, "plans": plans}
+
+
+def merge_rows(torch, np, dev, errs, launches, plans, clusters) -> list[dict]:
+    """The merges' rows of the ``{"kernels"}`` line, at the main path's
+    shapes: preemptor B on the saturated 10240-node cluster over
+    `SHARDS_D` shards (the records of a plan: the tail's, K2's and the
+    prescreen's keys at k = 128).  Bound: the records read and the winner
+    written over the card's memory rate; their operations (a few compares
+    a record; for the union select, a comparison sort of its D k keys,
+    more than a select needs) take less."""
+    from repro_torch.core import cluster_parallel as cp
+    from repro_torch.core.preemption_device import _request
+    from repro_torch.core.workload import table3_workloads
+    from repro_torch.kernels import fused_class as fc
+    from repro_torch.kernels import normal_cycle as nck
+    from repro_torch.kernels import prescreen as psk
+
+    wl = {w.name: w for w in table3_workloads()}["B"]
+    cluster = clusters[10240]
+    spec = cluster.spec
+    req = _request(spec, wl, 0.5)
+    c0 = cuda0(torch)
+    dcs = cluster.device_state().sync()
+    mesh = cp.Mesh((c0,) * SHARDS_D)
+    shards = cp._shards_of(mesh, dcs.nodestate.cpu().numpy(),
+                           dcs.victims.cpu().numpy(),
+                           dcs.drain.cpu().numpy())
+    rows = shards[0].rows
+    n_rows = rows * SHARDS_D
+    e = (torch.zeros(0, dtype=torch.int32, device=c0),
+         torch.zeros((0, dcs.victims.shape[2] * 5 + 7), dtype=torch.int32,
+                     device=c0))
+    part = torch.empty((SHARDS_D, 1, fc.PART_FIELDS), dtype=torch.int32,
+                       device=c0)
+    recs = torch.empty((SHARDS_D, nck.part_records(rows, c0), 4),
+                       dtype=torch.int32, device=c0)
+    k = 128
+    keys = torch.empty((SHARDS_D, k), dtype=torch.int64, device=c0)
+    outs = torch.empty((SHARDS_D, k + 1), dtype=torch.int32, device=c0)
+    rep = dcs.rep_classes()[0]
+    for i, s in enumerate(shards):
+        cls = fc.fused_class(s.nodestate, s.victims, s.drain, *e, e[0],
+                             m_res=8, resident=True, m_gather=8, req=req,
+                             spec=spec, base=s.base)
+        fc.fused_argmax(cls, s.nodestate, s.victims, *e, e[0], resident=True,
+                        seg=rows, req=req, spec=spec, base=s.base,
+                        shard=(rows, s.base, n_rows - rows), out=part[i])
+        nck.normal_cycle_part(s.nodestate, s.victims, s.drain, *e, req=req,
+                              spec=spec, base=s.base, out=recs[i])
+        r = torch.from_numpy(np.pad(rep, (0, n_rows - len(rep)))[
+            s.base:s.base + rows].astype(np.int32)).to(c0)
+        psk.prescreen(s.nodestate, s.victims, *e, r, e[0], k=k, req=req,
+                      spec=spec, out=outs[i], base=s.base, sel=keys[i])
+    torch_sync(dev)
+    u = SHARDS_D * k
+    #: the reference's sharded programs whose cross-shard collectives each
+    #: merge stands in for
+    replaces = {"tail_merge": 398, "normal_merge": 427,
+                "prescreen_select": 458}
+    calls = {
+        "tail_merge": (lambda: fc.tail_merge(part, alpha=0.5),
+                       lambda: fc.tail_merge_plain(part, True),
+                       "tail_merge_kernel",
+                       part.numel() * 4 + 9 * 4, SHARDS_D * 32,
+                       [SHARDS_D, 1]),
+        "normal_merge": (
+            lambda: nck.normal_merge(recs, n=n_rows, req=req, spec=spec),
+            lambda: nck.normal_merge_plain(recs, req, spec),
+            "normal_merge_kernel", recs.numel() * 4 + 5 * 4,
+            recs.shape[0] * recs.shape[1] * 32, [SHARDS_D, recs.shape[1]]),
+        "prescreen_select": (
+            lambda: psk.prescreen_select(keys, k=k, excl=outs[:, k]),
+            lambda: psk.prescreen_select_plain(keys, k, outs[:, k]),
+            "prescreen_select_kernel", u * 8 + SHARDS_D * 4 + (k + 1) * 4,
+            u * int(np.ceil(np.log2(u))), [SHARDS_D, k])}
+    out = []
+    for name, (fn, plain, sym, n_bytes, n_ops, shape) in calls.items():
+        b_ms, b_by = bound_ms(n_bytes, n_ops, INT_OPS_PER_S)
+        ms = event_ms(torch, fn)
+        kernel_ms = profiled_kernel_ms(torch, fn, sym)
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/topo_score.cu",
+            "kernel": sym,
+            "replaces": "src/repro/core/cluster_parallel.py:"
+                        f"{replaces[name]}",
+            "replaces_fn": "the cross-shard collectives XLA inserts into "
+                           "the sharded fused programs (no Pallas kernel)",
+            "launches": launches[name], "on_main_path": launches[name] > 0,
+            "launches_per_plan": launches[name] / plans,
+            "max_abs_err": errs[name], "shape": shape, "ms": ms,
+            "kernel_ms": kernel_ms,
+            "plain_ms": event_ms(torch, plain, reps=5, inner=3),
+            "bytes": n_bytes, "int_ops": n_ops, "bound_ms": b_ms,
+            "bound_by": b_by, "bound_share": b_ms / (kernel_ms or ms),
+            "library_ms": None})
+    return out
+
+
+# ---------------------------------------------------------------------------------
 # Phase 7: timing and bounds
 # ---------------------------------------------------------------------------------
 
@@ -2157,7 +2837,9 @@ def rates(flops: float, b_ms: float, ms: float, kernel_ms) -> dict:
     return {"tflops": flops / t / 1e9, "bound_share": b_ms / t}
 
 
-def timing_phase(torch, np, dev, errs, launches, plans) -> list[dict]:
+def timing_phase(torch, np, dev, errs, launches, plans: dict) -> list[dict]:
+    """The lane kernels' rows; ``plans`` the plans of each kernel's path
+    (by name, ``None`` for the rest)."""
     from repro_torch.core.topology import RTX4090_SERVER as spec
     from repro_torch.kernels import topo_score as ts
 
@@ -2194,11 +2876,12 @@ def timing_phase(torch, np, dev, errs, launches, plans) -> list[dict]:
                 extra = 0
             b_ms, b_by = bound_ms(bpl * n + extra, fpl * n)
             cold = n == BIG_LANES       # each launch after an L2 flush
+            # the plain version takes ~5 ms a call: ten calls time it
+            plain_ms = event_ms(torch, plain, reps=5, inner=2)
             if cold:
                 ms = flushed_event_ms(torch, fn, flush)
-                plain_ms = event_ms(torch, plain, reps=5, inner=2)
             else:
-                ms, plain_ms = event_ms(torch, fn), event_ms(torch, plain)
+                ms = event_ms(torch, fn)
             before = flush if cold else None
             kernel_ms = profiled_kernel_ms(torch, fn, sym, before=before)
             shapes.append({
@@ -2215,7 +2898,8 @@ def timing_phase(torch, np, dev, errs, launches, plans) -> list[dict]:
             "replaces": f"src/repro/kernels/topo_score.py:{ref_line}",
             "replaces_fn": ref_fn,
             "launches": launches[name], "on_main_path": launches[name] > 0,
-            "launches_per_plan": launches[name] / plans,
+            "launches_per_plan": launches[name] / plans.get(name,
+                                                            plans[None]),
             "max_abs_err": errs[name], "shape": [main_n],
             "ms": main["ms"], "kernel_ms": main["kernel_ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
@@ -2764,11 +3448,12 @@ def build_all() -> None:
               f"flash_bf16_kernel<{d}> has no wgmma or no TMA load: {c}")
     counts = sass_counts(_build._target("topo_score")[1],
                          r"(normal_cycle_kernel|normal_merge_kernel|"
-                         r"fused_argmax_kernel)", ATOMIC_OPS)
-    print(f"[build] cluster kernels SASS (kernel: counts): "
-          f"{json.dumps(counts)}", flush=True)
-    check(len(counts) == 3, f"{sorted(counts)} of the three cluster-form "
-          "kernels found in the SASS")
+                         r"fused_argmax_kernel|tail_merge_kernel)",
+                         ATOMIC_OPS)
+    print(f"[build] cluster kernels and the tail's shard merge SASS (kernel: "
+          f"counts): {json.dumps(counts)}", flush=True)
+    check(len(counts) == 4, f"{sorted(counts)} of the three cluster-form "
+          "kernels and the tail's shard merge found in the SASS")
     for name, c in counts.items():
         check(c["ATOMG"] == 0 and c["RED"] == 0 and c["ATOM"] == 0,
               f"{name} holds global atomics: {c}")
@@ -2859,11 +3544,21 @@ def run() -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     dev = "cuda"
+    times: dict[str, float] = {}
+    last = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        """The seconds since the previous lap, as ``times[name]``."""
+        now = time.perf_counter()
+        times[name] = round(now - last[0], 1)
+        last[0] = now
+
     smi = nvidia_smi()
     print(f"[device] {smi} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}",
           flush=True)
     build_all()
+    lap("build")
 
     from repro_torch.core.simulator import SimConfig, build_saturated_cluster
 
@@ -2874,30 +3569,45 @@ def run() -> int:
     delta = delta_phase(torch, np, dev)
     errs["encode_delta"] = delta["max_abs_err"]
     errs.update(shortlist_kernel_phase(torch, np, dev))
+    errs.update(shard_kernel_phase(torch, np, dev))
+    lap("kernel_phases")
     t0 = time.perf_counter()
     big = {10240: build_saturated_cluster(SimConfig(num_nodes=10240, seed=0,
                                                     device=dev))}
     print(f"[main] built the 10240-node cluster in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    runs, launches = main_path(dev, big)
+    lap("cluster_10240")
+    runs, launches, host_keys = main_path(dev, big)
+    lap("main")
     plans = sum(r["cycles"] * r["scaleups"] for r in runs
                 if r["engine"] == "imp_pallas")
+    legacy_plans = sum(r["cycles"] * r["scaleups"] for r in runs
+                       if r["engine"] in ("imp_batched_legacy", "imp_jax"))
     fused_plans = sum(r["cycles"] * r["scaleups"] for r in runs
                       if r["engine"] == "imp_batched")
     clusters = {1024: build_saturated_cluster(SimConfig(num_nodes=1024,
                                                         seed=0, device=dev)),
                 **big}
+    lap("cluster_1024")
     batch = batch_phase(torch, dev, clusters)
     for name, n in batch["launches"].items():
         launches[name] += n
     fused_plans += sum(r["plans"] * len(r["rounds"])
                        for r in batch["runs"].values())
+    lap("batch")
     commit_phase(dev)
+    lap("commit")
+    sharded = sharded_phase(torch, dev, clusters, host_keys)
+    lap("sharded")
+    for name, n in sharded["launches"].items():
+        launches[name] += n
+    fused_plans += sharded["plans"]
     day = day_phase(torch, dev)
+    lap("day")
     for name, n in day["launches"].items():
         launches[name] += n
     fused_plans += day["plans"]
-    for name in ("prescreen", "encode_delta"):
+    for name in ("prescreen", "encode_delta", "topo_score") + MERGES:
         check(launches[name] > 0, f"the main path never launched {name}")
     flash_errs = flash_phase(torch)
     serve, api, params = serve_phase(torch, np)
@@ -2906,14 +3616,21 @@ def run() -> int:
     check_errs = serve_check(torch, np, api, params)
     del api, params
     torch.cuda.empty_cache()
-    rows = timing_phase(torch, np, dev, errs, launches, plans)
+    lap("flash_serve")
+    rows = timing_phase(torch, np, dev, errs, launches,
+                        {"topo_score": legacy_plans, None: plans})
+    lap("timing")
     rows.append(flash_row(torch, flash_errs,
                           serve["counts"]["flash_attention"]))
+    lap("flash_timing")
     rows.extend(fused_rows(torch, np, dev, errs, launches, fused_plans,
                            clusters, cluster_sweep(torch, np, dev)))
     rows.append(prescreen_row(torch, np, dev, clusters, errs["prescreen"],
                               launches, fused_plans))
     rows.append(delta_row(delta, launches, fused_plans))
+    rows.extend(merge_rows(torch, np, dev, errs, launches, sharded["plans"]
+                           + day["plans"], clusters))
+    lap("fused_rows")
     sweep = sweep_timing(torch, np, dev)
     floor = launch_floor(torch)
     for row in rows:
@@ -2924,6 +3641,8 @@ def run() -> int:
     trace_phase(torch, dev)
     for n, cluster in clusters.items():
         trace_phase(torch, dev, "imp_batched", n, cluster, plans=20)
+    lap("traces")
+    print(f"[times] seconds a phase {json.dumps(times)}", flush=True)
     sourcing = {f"{r['engine']}@{r['nodes']}": [r["sourcing_p50_us"],
                                                 r["sourcing_p90_us"]]
                 for r in runs}
@@ -2932,11 +3651,13 @@ def run() -> int:
     day_keys = ("events", "wall_s", "events_per_s", "requests_planned",
                 "plan_p50_us", "plan_p90_us")
     print(json.dumps({"sourcing_p50_us": p50,
-                      "day": {f"{r['engine']}@{r['nodes']}":
-                              {k: r[k] for k in day_keys}
+                      "day": {f"{r['engine']}@{r['nodes']}"
+                              + (f"x{r['shards']}" if r["shards"] > 1
+                                 else ""): {k: r[k] for k in day_keys}
                               for r in day["runs"]},
-                      "day_trace_busy_share":
-                          day["runs"][-1]["trace"]["device_busy_share"],
+                      "day_trace_busy_share": next(
+                          r["trace"]["device_busy_share"] for r in day["runs"]
+                          if "trace" in r),
                       "day_serve": day_serve["scheduled_tok_per_s"][
                           "imp_batched"],
                       "serve": {k: serve[k] for k in (
@@ -2949,6 +3670,10 @@ def run() -> int:
                                      for k in ("certain", "fallback")}
                                     for r in runs
                                     if r["engine"] == "imp_batched"},
+                      "sharded_sourcing_us": {
+                          f"{r['engine']}@{r['nodes']}x{r.get('shards', 0)}":
+                          [r["sourcing_p50_us"], r["sourcing_p90_us"]]
+                          for r in sharded["runs"]},
                       "day_shortlist": {f"{r['engine']}@{r['nodes']}":
                                         {k: r["counts"]["path"][k] for k in (
                                             "shortlist_plan2", "certain",

@@ -199,6 +199,10 @@ class Cluster:
         """Subscribe to per-node invalidation events (bind/evict/restore)."""
         self._dirty_listeners.append(fn)
 
+    def remove_dirty_listener(self, fn: Callable[[int], None]) -> None:
+        """Unsubscribe ``fn`` (added by `add_dirty_listener`)."""
+        self._dirty_listeners.remove(fn)
+
     def _emit_op(self, node: int, delta: int, inst: Instance) -> None:
         if self._op_listeners:
             op = (node, delta, inst.gpu_mask, inst.cg_mask, inst.priority,
@@ -229,9 +233,32 @@ class Cluster:
             self._sourcing_ctx = SourcingContext(self)
         return self._sourcing_ctx
 
-    def device_state(self) -> "DeviceClusterState":
+    def device_state(self, sharded: bool = False,
+                     mesh=None) -> "DeviceClusterState":
         """The lazily-created struct-of-arrays state, resident on
-        ``self.device``."""
+        ``self.device``.
+
+        ``sharded=True`` returns (creating, or replacing an unsharded one)
+        a `repro_torch.core.cluster_parallel.ShardedDeviceClusterState`:
+        the same three stacked tensors with the node axis padded to a
+        multiple of the mesh's device count and split into one block of
+        rows a device.  ``mesh`` (a `cluster_parallel.Mesh`, or a sequence
+        of devices, which may repeat) picks the devices; by default every
+        visible CUDA device for a CUDA cluster, the CPU for a CPU cluster.
+        An installed sharded state is kept unless ``mesh`` names another.
+        The fused engine's pipelines then run a shard at a time and merge
+        (the ``imp_sharded`` engine)."""
+        if sharded or mesh is not None:
+            from .cluster_parallel import ShardedDeviceClusterState, as_mesh
+
+            cur = self._device_state
+            want = None if mesh is None else as_mesh(mesh, self.device)
+            if not (isinstance(cur, ShardedDeviceClusterState)
+                    and (want is None or want == cur.mesh)):
+                if cur is not None:     # the replaced state hears no more
+                    self.remove_dirty_listener(cur._mark_dirty)
+                self._device_state = ShardedDeviceClusterState(self, want)
+            return self._device_state
         if self._device_state is None:
             self._device_state = DeviceClusterState(self)
         return self._device_state
@@ -1034,6 +1061,13 @@ class DeviceClusterState:
     beside them.
     """
 
+    #: the devices the stacked tensors are split over (None: one device;
+    #: `cluster_parallel.ShardedDeviceClusterState` sets it)
+    mesh = None
+    #: the global row of this state's first row (a shard's place in a
+    #: sharded state; the unsharded state is its own one shard)
+    base = 0
+
     def __init__(self, cluster: Cluster) -> None:
         self.cluster = cluster
         self.device = cluster.device
@@ -1055,6 +1089,7 @@ class DeviceClusterState:
         #: per-version equivalence-class cache: (version, rep bool[N] host
         #: mask, int32[N] device copy), rebuilt lazily by `rep_classes`
         self._rep_cache: tuple | None = None
+        self._resident = False      # the first sync uploads everything
         self._dirty: set[int] = set(range(cluster.num_nodes))
         cluster.add_dirty_listener(self._mark_dirty)
 
@@ -1079,22 +1114,48 @@ class DeviceClusterState:
         """
         self.mirror.refresh()
         n = self.cluster.num_nodes
-        if self.nodestate is None or 2 * len(self._dirty) >= max(n, 2):
-            ns, v, dr = pack_context_rows(self.mirror, np.arange(n))
-            self.nodestate = self._upload(ns)
-            self.victims = self._upload(v)
-            self.drain = self._upload(dr)
+        if not self._resident or 2 * len(self._dirty) >= max(n, 2):
+            self._upload_full(*pack_context_rows(self.mirror, np.arange(n)))
+            self._resident = True
             self._dirty.clear()
         elif self._dirty and (flush or len(self._dirty) > self.max_pending):
             rows = sorted(self._dirty)
-            buf = flatten_rows(*pack_context_rows(self.mirror, rows))
-            both = self._upload(np.concatenate(
-                [np.asarray(rows, np.int32)[:, None], buf], axis=1))
-            _scatter_rows(self.nodestate, self.victims, self.drain,
-                          both[:, 0].to(torch.int64), both[:, 1:])
+            self._scatter(rows, flatten_rows(*pack_context_rows(self.mirror,
+                                                                rows)))
             self._dirty.clear()
         self.count_max = int(self.mirror.count.max()) if n else 0
         return self
+
+    def _upload_full(self, ns, v, dr) -> None:
+        """The whole state to the device (a rebuild)."""
+        self.nodestate = self._upload(ns)
+        self.victims = self._upload(v)
+        self.drain = self._upload(dr)
+
+    def _scatter(self, rows: list[int], buf: np.ndarray) -> None:
+        """The flattened rows ``buf`` written at ``rows``, in place: one
+        upload and one ``index_copy_`` a tensor."""
+        both = self._upload(np.concatenate(
+            [np.asarray(rows, np.int32)[:, None], buf], axis=1))
+        _scatter_rows(self.nodestate, self.victims, self.drain,
+                      both[:, 0].to(torch.int64), both[:, 1:])
+
+    def _upload_rep(self, rep: np.ndarray):
+        """The representative mask on the device, int32."""
+        return self._upload(rep.astype(np.int32))
+
+    @property
+    def shards(self) -> tuple:
+        """The blocks of rows the pipelines run a kernel launch on, each
+        with ``device``, ``base``, ``rows`` and its three tensors: this
+        state alone (a `cluster_parallel.ShardedDeviceClusterState` has
+        one a device of its mesh)."""
+        return (self,)
+
+    @property
+    def rows(self) -> int:
+        """Rows of this block (`shards`): all of them."""
+        return self.n_rows
 
     @property
     def n_rows(self) -> int:
@@ -1103,21 +1164,22 @@ class DeviceClusterState:
 
     def rep_classes(self):
         """Equivalence-class representatives over the node axis:
-        ``(rep_host bool[N], rep_dev int32[N])``, true exactly at the
+        ``(rep_host bool[n_rows], rep_dev)``, true exactly at the
         LOWEST-index row of every fingerprint class
         (`SourcingContext.refingerprint`).  The winner's tie chain prefers
         the lower node id before any uid comparison, so within a class the
         full sweep's winner is always its lowest row: sweeping the
-        representatives alone is exact.  Call after ``sync()`` (the
+        representatives alone is exact.  ``rep_dev`` is the mask as int32
+        on the device (`_upload_rep`).  Call after ``sync()`` (the
         mirror's fingerprints must be fresh); cached per ``version``."""
         cache = self._rep_cache
         if cache is not None and cache[0] == self.version:
             return cache[1], cache[2]
         n = self.cluster.num_nodes
-        rep = np.zeros(n, bool)
+        rep = np.zeros(self.n_rows, bool)
         _, first = np.unique(self.mirror.fp[:n], return_index=True)
         rep[first] = True
-        rep_dev = self._upload(rep.astype(np.int32))
+        rep_dev = self._upload_rep(rep)
         self._rep_cache = (self.version, rep, rep_dev)
         return rep, rep_dev
 

@@ -176,6 +176,10 @@ _LAZY: dict[str, str] = {
     "imp_pallas": "repro_torch.kernels.topo_score",
     "imp_batched": "repro_torch.core.preemption_device",
     "imp_batched_full": "repro_torch.core.preemption_device",
+    "imp_batched_legacy": "repro_torch.core.preemption_device",
+    "imp_jax": "repro_torch.core.preemption_device",
+    "imp_sharded": "repro_torch.core.cluster_parallel",
+    "imp_sharded_full": "repro_torch.core.cluster_parallel",
 }
 
 

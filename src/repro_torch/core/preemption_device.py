@@ -54,25 +54,47 @@ rows whose eligible victims extend past the stored prefix fall back to host
 On CPU tensors every wrapper runs its plain PyTorch version, so
 ``TopoScheduler(Cluster(..., device="cpu"), engine="imp_batched")`` runs the
 same chain without a card.
+
+Every pipeline runs over the state's ``shards``: the unsharded state is its
+own one shard, and a `cluster_parallel.ShardedDeviceClusterState` (the
+``imp_sharded`` engine) has one a device of its mesh.  Over D > 1 shards
+each kernel runs once a shard on that shard's rows (global row ids in the
+patch and gathered indices) and the shards' records are merged
+(``fused_class.tail_merge``, ``normal_cycle.normal_merge``,
+``prescreen.prescreen_select``); over one shard nothing is merged.
+
+**The per-size engines** ``imp_batched_legacy`` (one sweep per subset size
+over every node, the reference's exact oracle for the fused path) and
+``imp_jax`` (the same per node) fold each size's combination table into
+freed masks with tensor ops and take the tier from K3
+(``kernels.topo_score.topo_score``); selection stays on the host.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import itertools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.kernels.fused_class import (C_ANY, C_CB, C_CNT, C_K, C_PP,
-                                             C_UM, CLS_FIELDS, WIN_FIELDS,
-                                             FusedRequest, fused_argmax,
-                                             fused_class)
-from repro_torch.kernels.normal_cycle import NORMAL_FIELDS, normal_cycle
-from repro_torch.kernels.prescreen import prescreen
+                                             C_UM, CLS_FIELDS, PART_FIELDS,
+                                             WIN_FIELDS, FusedRequest,
+                                             fused_argmax, fused_class,
+                                             tail_merge)
+from repro_torch.kernels.normal_cycle import (NORMAL_FIELDS, normal_cycle,
+                                              normal_cycle_part, normal_merge,
+                                              part_records)
+from repro_torch.kernels.prescreen import prescreen, prescreen_select
+from repro_torch.kernels.view_delta import encode_delta
+from repro_torch.kernels.topo_score import TopoRequest, topo_score
 
-from .cluster import (IDX_SENTINEL, Cluster, DeviceClusterState, VictimRow,
-                      ViewDelta, encode_row, flatten_rows, pack_context_rows,
-                      pack_rows, pad_idx, row_width)
+from .cluster import (DD_POS, IDX_SENTINEL, MAX_DENSE_VICTIMS, Cluster,
+                      DeviceClusterState, VictimRow, ViewDelta, _i32,
+                      encode_row, flatten_rows, pack_context_rows, pack_rows,
+                      pad_idx, row_width)
 from .engines import register_engine
 from .placement import Placement
 from .scheduler import ShortlistConfig
@@ -92,9 +114,13 @@ _MASKED = (C_ANY, C_ANY + 1, C_ANY + 2, C_CNT)
 
 __all__ = ["BatchSourcingSession", "CandidateShortlist", "ClassWinners",
            "FusedPlanResult", "FusedSplit", "IDX_SENTINEL", "MAX_ROWS_WIDE",
-           "MIN_M", "NARROW_M", "PATH_COUNTS", "ShortlistConfig",
-           "WIN_FIELDS", "expected_launches", "persistent_batch_session", "plan_fused", "plan_normal_fused",
-           "source_candidates_fused", "split_fused_nodes", "warmup_fused"]
+           "MIN_M", "NARROW_M", "PATH_COUNTS", "Request", "ShortlistConfig",
+           "WIN_FIELDS", "cluster_victim_arrays", "combo_table",
+           "evaluate_subsets",
+           "expected_launches", "flextopo_imp_vectorized",
+           "persistent_batch_session", "plan_fused", "plan_normal_fused",
+           "source_candidates_batched", "source_candidates_fused",
+           "split_dense_nodes", "split_fused_nodes", "warmup_fused"]
 
 #: what the engine ran since the counters were last set to 0, recorded
 #: where it decides, not where a kernel launches (``chip_smoke.py`` holds
@@ -105,13 +131,15 @@ __all__ = ["BatchSourcingSession", "CandidateShortlist", "ClassWinners",
 #: a gathered sweep and its tail; ``merge``/``merge_normal``: a batch
 #: plan's gathered sweep and tail, behind K2 for the latter;
 #: ``session_requests``: the sweeps that build a session's class data;
-#: ``encoded``: the delta encoder), and what the shortlist decided:
-#: ``certain`` plans proved their winner, ``fallback`` plans re-ran the
-#: full sweep; ``sessions`` built
+#: ``encoded``: the delta encoder's launches), and what the shortlist
+#: decided: ``certain`` plans proved their winner, ``fallback`` plans
+#: re-ran the full sweep; ``sessions`` built.  A pipeline over a sharded
+#: state counts once a shard, and its merges count under ``tail_merges``,
+#: ``normal_merges`` and ``unions``
 PATH_COUNTS = dict.fromkeys((
     "plan2", "shortlist_plan2", "shortlist", "sweep", "normal", "gathered",
     "merge", "merge_normal", "session_requests", "encoded", "certain",
-    "fallback", "sessions"), 0)
+    "fallback", "sessions", "tail_merges", "normal_merges", "unions"), 0)
 
 
 def expected_launches(counts: dict) -> dict[str, int]:
@@ -125,7 +153,10 @@ def expected_launches(counts: dict) -> dict[str, int]:
             "prescreen": c["shortlist_plan2"] + c["shortlist"],
             "fused_class": tail + c["session_requests"],
             "fused_argmax": tail,
-            "encode_delta": c["encoded"]}
+            "encode_delta": c["encoded"],
+            "tail_merge": c["tail_merges"],
+            "normal_merge": c["normal_merges"],
+            "prescreen_select": c["unions"]}
 
 
 class ClassWinners(NamedTuple):
@@ -170,10 +201,8 @@ class CandidateShortlist(list):
 
 def _req_scalars(spec: ServerSpec, workload: WorkloadSpec):
     """(need_gpus, need_cgs, cgs_per_bundle) of a preemptor."""
-    ng = workload.gpus_per_instance
-    nc = workload.coregroups_per_instance(spec.coregroup_size)
-    bundle = workload.numa_policy == TopoPolicy.GUARANTEED
-    return ng, nc, (nc // ng if (bundle and ng) else 0)
+    r = Request.of(spec, workload)
+    return r.need_gpus, r.need_cgs, r.cgs_per_bundle
 
 
 def _request(spec: ServerSpec, workload: WorkloadSpec,
@@ -190,6 +219,250 @@ def _overflow_candidates(cluster, workload: WorkloadSpec,
     for node in nodes:
         out.extend(flextopo_imp(cluster, workload, node))
     return out
+
+
+# ---------------------------------------------------------------------------------
+# The per-size engines: imp_batched_legacy and imp_jax, through K3
+# ---------------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def combo_table(m: int, k: int) -> np.ndarray:
+    """int32[C(m, k), k]: every size-k index combination of range(m), in
+    ``itertools.combinations`` order."""
+    if k == 0:
+        return np.zeros((1, 0), dtype=np.int32)
+    return np.asarray(list(itertools.combinations(range(m), k)),
+                      dtype=np.int32).reshape(-1, k)
+
+
+@dataclasses.dataclass(frozen=True)
+class Request:
+    """A preemptor's resource ask (the reference's static request)."""
+
+    need_gpus: int
+    need_cgs: int
+    bundle_locality: bool
+
+    @property
+    def cgs_per_bundle(self) -> int:
+        if not self.need_gpus:
+            return 0
+        return self.need_cgs // self.need_gpus if self.bundle_locality else 0
+
+    @classmethod
+    def of(cls, spec: ServerSpec, workload: WorkloadSpec) -> "Request":
+        return cls(workload.gpus_per_instance,
+                   workload.coregroups_per_instance(spec.coregroup_size),
+                   workload.numa_policy == TopoPolicy.GUARANTEED)
+
+
+def evaluate_subsets(free_gpu, free_cg, victim_gpu, victim_cg, victim_prio,
+                     victim_valid, table, *, spec: ServerSpec,
+                     request: Request, alpha: float = DEFAULT_ALPHA):
+    """Every subset in ``table`` (int32[n_comb, k] slot indices) at once,
+    for one node (``free_*`` int32[], victim arrays [M]) or a leading node
+    axis (int32[N] and [N, M]): ``(tier, prio_sum, valid, score)``, each
+    ``[..., n_comb]``.
+
+    The fold (the subset's masks ORed into the free masks, priorities
+    summed as int32, validity ANDed) is tensor ops on the arrays' device;
+    the tier and the Eq. 1 score come from K3 (`topo_score`) over the
+    freed masks, one launch.  A subset that takes a padding slot
+    (``victim_valid`` False) gets tier 3 and score -inf by an explicit
+    mask: a padding slot's masks are 0, so K3 alone would score it as the
+    smaller subset.  Counterpart of the reference's
+    ``_evaluate_subsets_core`` (which returns no score)."""
+    t = table.to(torch.int64)
+    lead = free_gpu.shape
+    n_comb = t.shape[0]
+    combo_g = torch.zeros(lead + (n_comb,), dtype=torch.int32,
+                          device=free_gpu.device)
+    combo_c = torch.zeros_like(combo_g)
+    prio = torch.zeros_like(combo_g)
+    valid = torch.ones(combo_g.shape, dtype=torch.bool,
+                       device=free_gpu.device)
+    for j in range(t.shape[1]):       # k is small: an unrolled fold
+        idx = t[:, j]
+        combo_g |= victim_gpu[..., idx]
+        combo_c |= victim_cg[..., idx]
+        prio += victim_prio[..., idx]
+        valid &= victim_valid[..., idx]
+    freed_g = (free_gpu[..., None] | combo_g).reshape(-1)
+    freed_c = (free_cg[..., None] | combo_c).reshape(-1)
+    req = TopoRequest(request.need_gpus, request.need_cgs,
+                      request.cgs_per_bundle, alpha)
+    evaluate_subsets.calls += 1
+    tier, score = topo_score(freed_g, freed_c, prio.reshape(-1), spec, req)
+    tier = torch.where(valid, tier.view(combo_g.shape), 3)
+    score = torch.where(valid, score.view(combo_g.shape), -np.inf)
+    return tier, prio, valid, score
+
+
+#: calls since the counter was last set to 0 (one K3 launch each on a CUDA
+#: device, where the subsets are not none)
+evaluate_subsets.calls = 0
+
+
+def _bucket(m: int) -> int:
+    """The victim-slot width of the padded arrays: 4, 8 or 16.  Nodes with
+    more than `MAX_DENSE_VICTIMS` victims are split off first
+    (`split_dense_nodes`)."""
+    for b in (4, 8, 16):
+        if m <= b:
+            return b
+    raise ValueError(f"too many victims on one node: {m}")
+
+
+def split_dense_nodes(cluster, workload: WorkloadSpec, nodes: list[int]):
+    """``(dense, overflow, per_node)``: the nodes whose potential victims
+    fit the padded arrays, those with more than `MAX_DENSE_VICTIMS` (host
+    ``flextopo_imp``), and every node's victim list."""
+    per_node = {n: cluster.victims_on(n, workload.priority) for n in nodes}
+    dense = [n for n in nodes if len(per_node[n]) <= MAX_DENSE_VICTIMS]
+    overflow = [n for n in nodes if len(per_node[n]) > MAX_DENSE_VICTIMS]
+    return dense, overflow, per_node
+
+
+def cluster_victim_arrays(cluster, workload: WorkloadSpec, nodes: list[int],
+                          per_node: dict | None = None):
+    """Padded per-node arrays ``(free_gpu[N], free_cg[N], vg[N, M],
+    vc[N, M], vp[N, M], valid[N, M], victims per node)`` as numpy, M the
+    `_bucket` of the most victims on a node; ``per_node`` reuses
+    `split_dense_nodes`' scan."""
+    if per_node is not None:
+        per_node = [per_node[n] for n in nodes]
+    else:
+        per_node = [cluster.victims_on(n, workload.priority) for n in nodes]
+    m = _bucket(max((len(v) for v in per_node), default=1) or 1)
+    n = len(nodes)
+    free_gpu = np.zeros(n, np.int32)
+    free_cg = np.zeros(n, np.int32)
+    vg = np.zeros((n, m), np.int32)
+    vc = np.zeros((n, m), np.int32)
+    vp = np.zeros((n, m), np.int32)
+    valid = np.zeros((n, m), bool)
+    for i, node in enumerate(nodes):
+        fg, fc = cluster.free_masks(node)
+        free_gpu[i], free_cg[i] = _i32(fg), _i32(fc)
+        for j, v in enumerate(per_node[i]):
+            vg[i, j], vc[i, j] = _i32(v.gpu_mask), _i32(v.cg_mask)
+            vp[i, j] = v.priority
+            valid[i, j] = True
+    return free_gpu, free_cg, vg, vc, vp, valid, per_node
+
+
+@functools.lru_cache(maxsize=256)
+def _table_on(device: str, m: int, k: int) -> torch.Tensor:
+    return torch.from_numpy(combo_table(m, k)).to(device)
+
+
+def _arrays_on(device, free_gpu, free_cg, vg, vc, vp, valid):
+    """The arrays on ``device`` in one upload: ``(free_gpu, free_cg, vg,
+    vc, vp, valid)`` tensors."""
+    n, m = vg.shape
+    up = torch.from_numpy(np.concatenate([
+        np.atleast_1d(free_gpu), np.atleast_1d(free_cg), vg.ravel(),
+        vc.ravel(), vp.ravel(), valid.ravel().astype(np.int32)]).astype(
+            np.int32)).to(device)
+    lead = np.shape(free_gpu)
+    f = int(np.prod(lead, dtype=np.int64))
+    nm = n * m
+    return (up[0:f].view(lead), up[f:2 * f].view(lead),
+            up[2 * f:2 * f + nm].view(vg.shape),
+            up[2 * f + nm:2 * f + 2 * nm].view(vg.shape),
+            up[2 * f + 2 * nm:2 * f + 3 * nm].view(vg.shape),
+            up[2 * f + 3 * nm:].view(vg.shape) != 0)
+
+
+def source_candidates_batched(cluster, workload: WorkloadSpec,
+                              nodes: list[int]) -> list[Candidate]:
+    """Cluster-wide IMP, one sweep per subset size k over every node (the
+    ``imp_batched_legacy`` engine, the reference's exact oracle of the
+    fused path): a node contributes candidates only at ITS smallest
+    feasible k (done flags on the host), from the cluster-wide counting
+    lower bound (`preemption.min_feasible_k`) until every node is done.
+    One K3 launch and one readback a size; selection stays on the host
+    (f64 ``select_best``).  Nodes with more than `MAX_DENSE_VICTIMS`
+    victims go to host ``flextopo_imp``."""
+    from .preemption import min_feasible_k
+
+    spec = cluster.spec
+    request = Request.of(spec, workload)
+    nodes, overflow, by_node = split_dense_nodes(cluster, workload, nodes)
+    extra = _overflow_candidates(cluster, workload, overflow)
+    if not nodes:
+        return extra
+    free_gpu, free_cg, vg, vc, vp, valid, per_node = cluster_victim_arrays(
+        cluster, workload, nodes, per_node=by_node)
+    m = vg.shape[1]
+    dev = cluster.device
+    arrays = _arrays_on(dev, free_gpu, free_cg, vg, vc, vp, valid)
+    done = np.zeros(len(nodes), bool)
+    out: list[Candidate] = []
+    start_k = min((min_feasible_k(cluster, workload, n, per_node[i])
+                   for i, n in enumerate(nodes)), default=0)
+    for k in range(start_k, m + 1):
+        if done.all():
+            break
+        table = combo_table(m, k)
+        tier, prio, _, _ = evaluate_subsets(
+            *arrays, _table_on(str(dev), m, k), spec=spec, request=request)
+        got = torch.stack([tier, prio]).cpu().numpy()
+        tier, prio = got[0], got[1]
+        for i, node in enumerate(nodes):
+            if done[i] or k > len(per_node[i]):
+                done[i] = done[i] or k > len(per_node[i])
+                continue
+            feasible = np.nonzero(tier[i] < 3)[0]
+            if feasible.size:
+                done[i] = True
+                for idx in feasible:
+                    out.append(Candidate(
+                        node=node,
+                        victims=tuple(sorted(
+                            per_node[i][j].uid for j in table[idx])),
+                        tier=int(tier[i, idx]),
+                        priority_sum=int(prio[i, idx])))
+    return out + extra
+
+
+def flextopo_imp_vectorized(cluster, workload: WorkloadSpec,
+                            node: int) -> list[Candidate]:
+    """IMP on one node with each subset size's sweep vectorized (the
+    ``imp_jax`` engine): sizes 0, 1, ... up to the first feasible one, one
+    K3 launch and one readback a size; the same candidates as host
+    ``flextopo_imp``."""
+    spec = cluster.spec
+    request = Request.of(spec, workload)
+    victims = cluster.victims_on(node, workload.priority)
+    m = len(victims)
+    fg, fc = cluster.free_masks(node)
+    vg = np.array([[_i32(v.gpu_mask) for v in victims] or [0]], np.int32)
+    vc = np.array([[_i32(v.cg_mask) for v in victims] or [0]], np.int32)
+    vp = np.array([[v.priority for v in victims] or [0]], np.int32)
+    valid = np.array([[True] * m or [False]])
+    dev = cluster.device
+    free_g, free_c, vg_d, vc_d, vp_d, valid_d = _arrays_on(
+        dev, np.int32(_i32(fg)), np.int32(_i32(fc)), vg, vc, vp, valid)
+    for k in range(0, m + 1):
+        table = combo_table(max(m, 1), k)
+        tier, prio, _, _ = evaluate_subsets(
+            free_g, free_c, vg_d[0], vc_d[0], vp_d[0], valid_d[0],
+            _table_on(str(dev), max(m, 1), k), spec=spec, request=request)
+        got = torch.stack([tier, prio]).cpu().numpy()
+        feasible = np.nonzero(got[0] < 3)[0]
+        if feasible.size:
+            return [Candidate(node=node,
+                              victims=tuple(sorted(victims[j].uid
+                                                   for j in table[i])),
+                              tier=int(got[0, i]),
+                              priority_sum=int(got[1, i]))
+                    for i in feasible]
+    return []
+
+
+register_engine("imp_batched_legacy", batched=True)(source_candidates_batched)
+register_engine("imp_jax")(flextopo_imp_vectorized)
 
 
 def _pad_idx(ids, floor: int = 4) -> np.ndarray:
@@ -256,7 +529,10 @@ class _Staged(NamedTuple):
     """A plan's patch rows on the state's device: ``p`` rows (a power of
     two, `IDX_SENTINEL` pads last), their ascending index ``pidx`` (host
     copy ``pidx_host``) and flattened rows ``pbuf``, and the ``tail`` index
-    vector that rode the same upload (gathered or forced rows)."""
+    vector that rode the same upload (gathered or forced rows).  Over D > 1
+    shards ``pidx``, ``pbuf`` and ``tail`` are lists, one a shard on its
+    device: its run of the patch rows (global row ids) and all of ``tail``
+    (`_each`)."""
 
     p: int
     pidx_host: np.ndarray
@@ -296,13 +572,48 @@ def _patch_plan(dcs: DeviceClusterState, patches, pending: bool = True):
     return pidx, desc, adds, pos[d:], hbuf
 
 
+def _each(x) -> list:
+    """A per-shard argument as a list: a bare tensor is a one-shard
+    state's."""
+    return x if isinstance(x, list) else [x]
+
+
+def _one(xs: list):
+    """Per-shard tensors as the pipelines' argument: the tensor itself for
+    one shard, else the list."""
+    return xs[0] if len(xs) == 1 else xs
+
+
+def _on(x: torch.Tensor | None, device: torch.device):
+    return x if x is None or x.device == device else x.to(device)
+
+
+def _by_device(dcs: DeviceClusterState, arrays: list[np.ndarray]) -> list:
+    """Shard ``d``'s int32 array ``arrays[d]`` on its device, in one upload
+    a device (the shards on one device share it, as views)."""
+    shards = dcs.shards
+    out: list = [None] * len(arrays)
+    for dev in dict.fromkeys(s.device for s in shards):
+        ids = [d for d, s in enumerate(shards) if s.device == dev]
+        flat = [np.ascontiguousarray(arrays[d], np.int32).ravel() for d in ids]
+        up = torch.from_numpy(flat[0] if len(flat) == 1
+                              else np.concatenate(flat)).to(dev)
+        o = 0
+        for d in ids:
+            out[d] = up[o:o + arrays[d].size].view(arrays[d].shape)
+            o += arrays[d].size
+    return out
+
+
 def _stage(dcs: DeviceClusterState, patches, tail=None,
            pending: bool = True) -> _Staged:
     """The patch rows of a plan (`_patch_plan`) plus the index vector
-    ``tail``, in ONE host→device upload.  A `ViewDelta`'s dense rows
-    travel as descriptors and one ``encode_delta`` launch writes every row
-    to its place in the patch buffer; without dense rows the buffer
-    travels packed."""
+    ``tail``, in ONE host→device upload a device.  A `ViewDelta`'s dense
+    rows travel as descriptors and one ``encode_delta`` launch a shard
+    writes each row to its place in the patch buffer; without dense rows
+    the buffer travels packed.  Each shard takes its run of the sorted
+    patch index (the `IDX_SENTINEL` pads in the last) and rebuilds its
+    dense rows from its own rows."""
     if not len(patches) and not (pending and dcs.pending) and tail is None:
         pidx_d, pbuf_d = _empty_patch_args(dcs)
         return _Staged(0, np.zeros(0, np.int32), pidx_d, pbuf_d, pidx_d)
@@ -316,25 +627,44 @@ def _stage(dcs: DeviceClusterState, patches, tail=None,
         pidx_d, pbuf_d = _empty_patch_args(dcs)
         return _Staged(0, pidx, pidx_d, pbuf_d,
                        _upload(dcs, tail) if nt else pidx_d)
-    if desc is None:
-        pbuf = np.zeros((p, width), np.int32)
-        pbuf[hpos] = hbuf
-        up = _upload(dcs, np.concatenate([pidx, tail, pbuf.ravel()]))
-        return _Staged(p, pidx, up[:p], up[p + nt:].view(p, width),
-                       up[p:p + nt])
-    up = _upload(dcs, np.concatenate([pidx, tail, desc.ravel(), adds.ravel(),
-                                      hpos, hbuf.ravel()]))
-    o = p + nt
-    desc_d = up[o:o + desc.size].view(desc.shape)
-    o += desc.size
-    adds_d = up[o:o + adds.size].view(adds.shape)
-    o += adds.size
-    hpos_d = up[o:o + len(hpos)]
-    hrows_d = up[o + len(hpos):].view(len(hpos), width)
-    pbuf_d = dcs.delta_encode(desc_d, adds_d, p=p, hpos=hpos_d,
-                              hrows=hrows_d)
-    PATH_COUNTS["encoded"] += 1
-    return _Staged(p, pidx, up[:p], pbuf_d, up[p:p + nt])
+    shards = dcs.shards
+    cut = [0, *np.searchsorted(pidx, [s.base for s in shards[1:]]), p]
+    arrays, jobs = [], []
+    for lo, hi in zip(cut, cut[1:]):
+        h = (hpos >= lo) & (hpos < hi)
+        parts = [pidx[lo:hi], tail]
+        mine = (None if desc is None
+                else (desc[DD_POS] >= lo) & (desc[DD_POS] < hi))
+        if mine is not None and mine.any():
+            dd, aa = desc[:, mine], adds[:, mine]
+            dd[DD_POS] -= lo
+            parts += [dd, aa, hpos[h] - lo, hbuf[h]]
+            jobs.append((dd.shape, aa.shape, int(h.sum())))
+        else:
+            pbuf = np.zeros((hi - lo, width), np.int32)
+            pbuf[hpos[h] - lo] = hbuf[h]
+            parts.append(pbuf)
+            jobs.append(None)
+        arrays.append(np.concatenate([x.ravel() for x in parts]))
+    pidx_l, pbuf_l, tail_l = [], [], []
+    for d, (s, up) in enumerate(zip(shards, _by_device(dcs, arrays))):
+        n_p = int(cut[d + 1] - cut[d])
+        pidx_l.append(up[:n_p])
+        tail_l.append(up[n_p:n_p + nt])
+        o = n_p + nt
+        if jobs[d] is None:
+            pbuf_l.append(up[o:].view(n_p, width))
+            continue
+        ds, as_, nh = jobs[d]
+        dd = up[o:o + ds[0] * ds[1]].view(ds)
+        o += dd.numel()
+        aa = up[o:o + as_[0] * as_[1] * as_[2]].view(as_)
+        o += aa.numel()
+        pbuf_l.append(encode_delta(s.nodestate, s.victims, dd, aa,
+                                   up[o:o + nh], up[o + nh:].view(nh, width),
+                                   p=n_p, base=s.base))
+        PATH_COUNTS["encoded"] += 1
+    return _Staged(p, pidx, _one(pidx_l), _one(pbuf_l), _one(tail_l))
 
 
 class FusedSplit(NamedTuple):
@@ -418,12 +748,17 @@ def _append_winner(out: CandidateShortlist, vals, sel_nodes, patches, ctx):
         gpu_mask=pgm & 0xFFFFFFFF, cg_mask=pcm & 0xFFFFFFFF, tier=tier)
 
 
-def _upload(dcs: DeviceClusterState, x: np.ndarray) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(dcs.device)
+def _upload(dcs: DeviceClusterState, x: np.ndarray):
+    """``x`` as int32 on the state's device (over D > 1 shards a list, the
+    copy on each shard's device)."""
+    x = np.ascontiguousarray(x, np.int32)
+    on = {dev: torch.from_numpy(x).to(dev)
+          for dev in dict.fromkeys(s.device for s in dcs.shards)}
+    return _one([on[s.device] for s in dcs.shards])
 
 
 def _empty_patch_args(dcs: DeviceClusterState):
-    """Zero-row patch tensors on the state's device, made once."""
+    """Zero-row patch tensors on the state's device(s), made once."""
     got = dcs.plan_cache.get("empty")
     if got is None:
         got = dcs.plan_cache["empty"] = (
@@ -510,49 +845,107 @@ def _shortlist_plan_args(dcs: DeviceClusterState, patches, thresh: int):
 # The pipelines: chains of kernel launches, no host round trip inside
 # ---------------------------------------------------------------------------------
 
-def _state(dcs: DeviceClusterState):
-    return dcs.nodestate, dcs.victims, dcs.drain
+def _sweep_tail(shards, pidx, pbuf, gidx, req: FusedRequest, spec, *,
+                m_res: int, resident: bool, m_gather: int,
+                seg: int | None = None, skip=None, out=None,
+                cls=None) -> torch.Tensor:
+    """Filtering → the class sweep at width ``m_res`` (or the given class
+    data ``cls``) → the Eq. 2 argmax → the winner's placement, over the
+    rows of ``shards``: int32[segments, `WIN_FIELDS`].  Resident: one
+    segment, the resident rows and then the gathered `m_gather`-wide rows
+    ``gidx``; gathered only: segments of ``seg`` rows of ``gidx``.  Over
+    D > 1 shards each shard's tail writes its exact monoid state (flat
+    indices of global rows) and `tail_merge` merges them on the first
+    shard's device, so the tie chain's same-tier test is global."""
+    pidx, pbuf, gidx = _each(pidx), _each(pbuf), _each(gidx)
+
+    def sweep(d, s, sk):
+        if cls is not None:
+            return _each(cls)[d]
+        return fused_class(s.nodestate, s.victims, s.drain, pidx[d], pbuf[d],
+                           gidx[d], m_res=m_res, resident=resident,
+                           m_gather=m_gather, req=req, spec=spec, skip=sk,
+                           base=s.base)
+
+    if len(shards) == 1:
+        s = shards[0]
+        c = sweep(0, s, skip)
+        return fused_argmax(c, s.nodestate, s.victims, pidx[0], pbuf[0],
+                            gidx[0], resident=resident,
+                            seg=c.shape[1] if resident else seg, req=req,
+                            spec=spec, skip=skip, out=out)
+    rows, dev0 = shards[0].rows, shards[0].device
+    n_rows = rows * len(shards)
+    g = gidx[0].shape[0]
+    segs = 1 if resident else -(-g // seg)
+    part = torch.empty((len(shards), segs, PART_FIELDS), dtype=torch.int32,
+                       device=dev0)
+    for d, s in enumerate(shards):
+        sk = _on(skip, s.device)
+        rec = part[d] if s.device == dev0 else None
+        got = fused_argmax(sweep(d, s, sk), s.nodestate, s.victims, pidx[d],
+                           pbuf[d], gidx[d], resident=resident,
+                           seg=rows + g if resident else seg, req=req,
+                           spec=spec, skip=sk, out=rec, base=s.base,
+                           shard=((rows, s.base, n_rows - rows) if resident
+                                  else (0, 0, 0)))
+        if rec is None:
+            part[d].copy_(got)
+    PATH_COUNTS["tail_merges"] += 1
+    return tail_merge(part, alpha=req.alpha, skip=skip, out=out)
 
 
-def _sorting_winner(dcs, pidx, pbuf, gidx, req: FusedRequest, spec, m: int,
-                    skip=None, out=None) -> torch.Tensor:
-    """Filtering → subset sweep over every resident row at width ``m`` plus
-    the gathered `NARROW_M`-wide rows ``gidx`` → Eq. 2 argmax → the
-    winner's placement: int32[1, `WIN_FIELDS`]."""
-    ns, v, dr = _state(dcs)
-    cls = fused_class(ns, v, dr, pidx, pbuf, gidx, m_res=m, resident=True,
-                      m_gather=NARROW_M, req=req, spec=spec, skip=skip)
-    return fused_argmax(cls, ns, v, pidx, pbuf, gidx, resident=True,
-                        seg=cls.shape[1], req=req, spec=spec, skip=skip,
-                        out=out)
+def _normal(shards, pidx, pbuf, req: FusedRequest, spec,
+            out=None) -> torch.Tensor:
+    """The normal cycle over the rows of ``shards``: int32[5].  Over D > 1
+    shards each shard's K2 writes its minima and its row 0
+    (`normal_cycle_part`) and `normal_merge` places the least."""
+    pidx, pbuf = _each(pidx), _each(pbuf)
+    if len(shards) == 1:
+        s = shards[0]
+        return normal_cycle(s.nodestate, s.victims, s.drain, pidx[0],
+                            pbuf[0], req=req, spec=spec, out=out)
+    dev0 = shards[0].device
+    recs = torch.empty((len(shards), part_records(shards[0].rows, dev0), 4),
+                       dtype=torch.int32, device=dev0)
+    for d, s in enumerate(shards):
+        rec = recs[d] if s.device == dev0 else None
+        got = normal_cycle_part(s.nodestate, s.victims, s.drain, pidx[d],
+                                pbuf[d], req=req, spec=spec, base=s.base,
+                                out=rec)
+        if rec is None:
+            recs[d].copy_(got)
+    PATH_COUNTS["normal_merges"] += 1
+    return normal_merge(recs, n=shards[0].rows * len(shards), req=req,
+                        spec=spec, out=out)
 
 
 def _plan_pipeline(dcs, pidx, pbuf, gidx, req, spec, m) -> torch.Tensor:
-    """The preemption phase alone: two launches, int32[`WIN_FIELDS`]."""
-    PATH_COUNTS["sweep"] += 1
-    return _sorting_winner(dcs, pidx, pbuf, gidx, req, spec, m)[0]
+    """The preemption phase alone: two launches a shard,
+    int32[`WIN_FIELDS`]."""
+    PATH_COUNTS["sweep"] += len(dcs.shards)
+    return _sweep_tail(dcs.shards, pidx, pbuf, gidx, req, spec, m_res=m,
+                       resident=True, m_gather=NARROW_M)[0]
 
 
 def _plan2_pipeline(dcs, pidx, pbuf, gidx, req, spec, m) -> torch.Tensor:
     """BOTH cycles of Algorithm 1: the normal cycle writes out[:5]; the
     sweep and its tail read out[0] on the device and return at once when
     it is set.  Returns int32[5 + `WIN_FIELDS`]."""
-    PATH_COUNTS["plan2"] += 1
-    ns, v, dr = _state(dcs)
+    PATH_COUNTS["plan2"] += len(dcs.shards)
     out = torch.empty(NORMAL_FIELDS + WIN_FIELDS, dtype=torch.int32,
-                      device=ns.device)
-    normal_cycle(ns, v, dr, pidx, pbuf, req=req, spec=spec,
-                 out=out[:NORMAL_FIELDS])
-    _sorting_winner(dcs, pidx, pbuf, gidx, req, spec, m,
-                    skip=out[:1], out=out[NORMAL_FIELDS:])
+                      device=dcs.device)
+    _normal(dcs.shards, pidx, pbuf, req, spec, out=out[:NORMAL_FIELDS])
+    _sweep_tail(dcs.shards, pidx, pbuf, gidx, req, spec, m_res=m,
+                resident=True, m_gather=NARROW_M, skip=out[:1],
+                out=out[NORMAL_FIELDS:])
     return out
 
 
 def _normal_pipeline(dcs, pidx, pbuf, req, spec) -> torch.Tensor:
-    """The normal cycle alone: one launch, int32[5]."""
-    PATH_COUNTS["normal"] += 1
-    ns, v, dr = _state(dcs)
-    return normal_cycle(ns, v, dr, pidx, pbuf, req=req, spec=spec)
+    """The normal cycle alone: one launch a shard, int32[5]."""
+    PATH_COUNTS["normal"] += len(dcs.shards)
+    return _normal(dcs.shards, pidx, pbuf, req, spec)
 
 
 class _ShortlistOut(NamedTuple):
@@ -589,19 +982,45 @@ def _shortlist_winner(dcs, staged: _Staged, rep, req, spec, k: int,
     """Stage 1 (the prescreen) → the exact sweep and tail over its ``k``
     rows: int32[`WIN_FIELDS` + k + 1], the winner (its row indexes
     ``gidx``), then ``gidx`` and the bits of ``excl_ub`` (a view of the
-    state's `_ShortlistOut`)."""
-    ns, v, dr = _state(dcs)
+    state's `_ShortlistOut`).  Over D > 1 shards each shard's prescreen
+    keeps its top min(k, rows) keys by ``(bound, -global row)``, which are
+    unique, and `prescreen_select` takes the top k of their union; each
+    shard then sweeps the rows of ``gidx`` it holds."""
+    shards = dcs.shards
     if skip is None:
-        PATH_COUNTS["shortlist"] += 1
+        PATH_COUNTS["shortlist"] += len(shards)
     buf = _shortlist_out(dcs, k)
-    prescreen(ns, v, staged.pidx, staged.pbuf, rep, staged.tail, k=k,
-              req=req, spec=spec, skip=skip, out=buf.sl)
-    cls = fused_class(ns, v, dr, staged.pidx, staged.pbuf, buf.gidx,
-                      m_res=NARROW_M, resident=False, m_gather=NARROW_M,
-                      req=req, spec=spec, skip=skip)
-    fused_argmax(cls, ns, v, staged.pidx, staged.pbuf, buf.gidx,
-                 resident=False, seg=k, req=req, spec=spec, skip=skip,
-                 out=buf.win)
+    pidx, pbuf, tail, rep = (_each(x) for x in (staged.pidx, staged.pbuf,
+                                                staged.tail, rep))
+    if len(shards) == 1:
+        s = shards[0]
+        prescreen(s.nodestate, s.victims, pidx[0], pbuf[0], rep[0], tail[0],
+                  k=k, req=req, spec=spec, skip=skip, out=buf.sl)
+        gidx = buf.gidx
+    else:
+        dev0 = shards[0].device
+        kd = min(k, shards[0].rows)
+        keys = torch.empty((len(shards), kd), dtype=torch.int64, device=dev0)
+        souts = torch.empty((len(shards), kd + 1), dtype=torch.int32,
+                            device=dev0)
+        for d, s in enumerate(shards):
+            same = s.device == dev0
+            sel = keys[d] if same else torch.empty(kd, dtype=torch.int64,
+                                                   device=s.device)
+            o = prescreen(s.nodestate, s.victims, pidx[d], pbuf[d], rep[d],
+                          tail[d], k=kd, req=req, spec=spec,
+                          skip=_on(skip, s.device),
+                          out=souts[d] if same else None, base=s.base,
+                          sel=sel)
+            if not same:
+                souts[d].copy_(o)
+                keys[d].copy_(sel)
+        PATH_COUNTS["unions"] += 1
+        prescreen_select(keys, k=k, excl=souts[:, kd], skip=skip, out=buf.sl)
+        gidx = [_on(buf.gidx, s.device) for s in shards]
+    _sweep_tail(shards, pidx, pbuf, gidx, req, spec, m_res=NARROW_M,
+                resident=False, m_gather=NARROW_M, seg=k, skip=skip,
+                out=buf.win)
     return buf.tail
 
 
@@ -610,11 +1029,9 @@ def _shortlist_plan2_pipeline(dcs, staged: _Staged, rep, req, spec,
     """The shortlisted chained plan: the normal cycle, then
     `_shortlist_winner` behind its ``found``.  Returns int32[5 +
     `WIN_FIELDS` + k + 1]."""
-    PATH_COUNTS["shortlist_plan2"] += 1
-    ns, v, dr = _state(dcs)
+    PATH_COUNTS["shortlist_plan2"] += len(dcs.shards)
     buf = _shortlist_out(dcs, k)
-    normal_cycle(ns, v, dr, staged.pidx, staged.pbuf, req=req, spec=spec,
-                 out=buf.normal)
+    _normal(dcs.shards, staged.pidx, staged.pbuf, req, spec, out=buf.normal)
     _shortlist_winner(dcs, staged, rep, req, spec, k, skip=buf.skip)
     return buf.out
 
@@ -650,13 +1067,11 @@ def _gathered_pipeline(dcs, pidx, pbuf, gidx, req, spec, m: int,
                        seg: int) -> torch.Tensor:
     """The rows named by ``gidx`` (no resident section, no gate) at width
     ``m``, one winner per segment of ``seg`` rows: int32[segs,
-    `WIN_FIELDS`].  `IDX_SENTINEL` entries are zero rows that never win."""
-    PATH_COUNTS["gathered"] += 1
-    ns, v, dr = _state(dcs)
-    cls = fused_class(ns, v, dr, pidx, pbuf, gidx, m_res=m, resident=False,
-                      m_gather=m, req=req, spec=spec)
-    return fused_argmax(cls, ns, v, pidx, pbuf, gidx, resident=False,
-                        seg=seg, req=req, spec=spec)
+    `WIN_FIELDS`].  `IDX_SENTINEL` entries are zero rows that never win
+    (over D > 1 shards, so is a row another shard holds)."""
+    PATH_COUNTS["gathered"] += len(dcs.shards)
+    return _sweep_tail(dcs.shards, pidx, pbuf, gidx, req, spec, m_res=m,
+                       resident=False, m_gather=m, seg=seg)
 
 
 def _chunked(dcs, pidx_d, pbuf_d, rows: list[int], req, spec, m: int):
@@ -910,14 +1325,20 @@ def plan_fused(cluster, workload: WorkloadSpec, alpha: float = DEFAULT_ALPHA,
                           wide_chunks, alpha)
 
 
+@functools.lru_cache(maxsize=None)
+def _masked_rows(device: torch.device) -> torch.Tensor:
+    return torch.tensor(_MASKED, device=device)
+
+
 class BatchSourcingSession:
     """``plan_batch`` sourcing against one snapshot (counterpart of the
     reference's ``BatchSourcingSession``).
 
     At construction the resident sweep runs once per distinct request of
     the batch (its ``(priority, needs)``; alpha is the batch's) into one
-    ``int32[R, CLS_FIELDS, N]`` tensor of class data, R launches with no
-    host sync between them; the reference's one vmapped dispatch.  A plan
+    ``int32[R, CLS_FIELDS, N]`` tensor of class data (one a shard over a
+    sharded state), R launches with no host sync between them; the
+    reference's one vmapped dispatch.  A plan
     of request *i* against the batch's view then keeps the sequential
     planned-eviction semantics exactly: request *i*'s class data with the
     view's delta rows masked out (their ``anyc`` and ``cnt`` zeroed on the
@@ -955,18 +1376,22 @@ class BatchSourcingSession:
                     break
         distinct = list(dict.fromkeys(self.reqs))
         self._slot = [distinct.index(r) for r in self.reqs]
-        ns, v, dr = _state(self.dcs)
-        empty, empty_buf = _empty_patch_args(self.dcs)
-        self.class_data = torch.empty((len(distinct), CLS_FIELDS,
-                                       self.dcs.n_rows), dtype=torch.int32,
-                                      device=ns.device)
-        for j, r in enumerate(distinct):
-            fused_class(ns, v, dr, empty, empty_buf, empty, m_res=self.gate,
-                        resident=True, m_gather=NARROW_M,
-                        req=FusedRequest(*r, self.alpha), spec=self.spec,
-                        out=self.class_data[j])
+        reqs = [FusedRequest(*r, self.alpha) for r in distinct]
         PATH_COUNTS["sessions"] += 1
-        PATH_COUNTS["session_requests"] += len(distinct)
+        empty, empty_buf = (_each(x) for x in _empty_patch_args(self.dcs))
+        data = []
+        for d, s in enumerate(self.dcs.shards):
+            cd = torch.empty((len(reqs), CLS_FIELDS, s.rows),
+                             dtype=torch.int32, device=s.device)
+            for j, r in enumerate(reqs):
+                fused_class(s.nodestate, s.victims, s.drain, empty[d],
+                            empty_buf[d], empty[d], m_res=self.gate,
+                            resident=True, m_gather=NARROW_M, req=r,
+                            spec=self.spec, out=cd[j], base=s.base)
+            data.append(cd)
+        #: int32[R, `CLS_FIELDS`, rows] a shard (`_one`)
+        self.class_data = _one(data)
+        PATH_COUNTS["session_requests"] += len(data) * len(reqs)
 
     def reset_view_caches(self) -> None:
         """Drop per-view state before serving a new ``plan_batch`` call
@@ -1028,37 +1453,45 @@ class BatchSourcingSession:
         staged = _stage(self.dcs, patches,
                         np.concatenate([np.asarray(delta, np.int32), gidx]),
                         pending=False)
-        ns, v, dr = _state(self.dcs)
-        head = NORMAL_FIELDS if normal else 0
-        out = torch.empty(head + WIN_FIELDS, dtype=torch.int32,
-                          device=ns.device)
-        skip = None
-        if normal:
-            normal_cycle(ns, v, dr, staged.pidx, staged.pbuf, req=req,
-                         spec=self.spec, out=out[:NORMAL_FIELDS])
-            skip = out[:1]
-        gidx_d = staged.tail[nd:]
-        cls_g = fused_class(ns, v, dr, staged.pidx, staged.pbuf, gidx_d,
-                            m_res=NARROW_M, resident=False,
-                            m_gather=NARROW_M, req=req, spec=self.spec,
-                            skip=skip)
-        merged = torch.cat([self.class_data[self._slot[i]], cls_g], dim=1)
-        if nd:
-            merged[self._masked_rows(ns.device)[:, None],
-                   staged.tail[None, :nd]] = 0
-        fused_argmax(merged, ns, v, staged.pidx, staged.pbuf, gidx_d,
-                     resident=True, seg=merged.shape[1], req=req,
-                     spec=self.spec, skip=skip, out=out[head:])
         n = self.dcs.n_rows
         sel = {n + j: node for j, node in enumerate(gather)}
-        PATH_COUNTS["merge_normal" if normal else "merge"] += 1
+        shards = self.dcs.shards
+        head = NORMAL_FIELDS if normal else 0
+        out = torch.empty(head + WIN_FIELDS, dtype=torch.int32,
+                          device=self.dcs.device)
+        skip = None
+        if normal:
+            _normal(shards, staged.pidx, staged.pbuf, req, self.spec,
+                    out=out[:NORMAL_FIELDS])
+            skip = out[:1]
+        pidx, pbuf, tail = (_each(x) for x in (staged.pidx, staged.pbuf,
+                                                staged.tail))
+        gidx = [t[nd:] for t in tail]
+        delta = np.asarray(delta, np.int64)
+        merged = []
+        for d, s in enumerate(shards):
+            cls_g = fused_class(s.nodestate, s.victims, s.drain, pidx[d],
+                                pbuf[d], gidx[d], m_res=NARROW_M,
+                                resident=False, m_gather=NARROW_M, req=req,
+                                spec=self.spec, skip=_on(skip, s.device),
+                                base=s.base)
+            cd = torch.cat([_each(self.class_data)[d][self._slot[i]], cls_g],
+                           dim=1)
+            # the delta rows' class data is stale: their patched rows ride
+            # the gathered sweep
+            if len(shards) == 1:
+                own = tail[d][:nd]
+            else:
+                own = delta[(delta >= s.base) & (delta < s.base + s.rows)]
+                own = torch.from_numpy(own - s.base).to(s.device)
+            if len(own):
+                cd[_masked_rows(s.device)[:, None], own[None, :]] = 0
+            merged.append(cd)
+        _sweep_tail(shards, pidx, pbuf, gidx, req, self.spec, m_res=NARROW_M,
+                    resident=True, m_gather=NARROW_M, skip=skip,
+                    out=out[head:], cls=merged)
+        PATH_COUNTS["merge_normal" if normal else "merge"] += len(shards)
         return out.tolist(), sel, route, staged
-
-    def _masked_rows(self, device) -> torch.Tensor:
-        rows = getattr(self, "_masked", None)
-        if rows is None:
-            rows = self._masked = torch.tensor(_MASKED, device=device)
-        return rows
 
     def _wide(self, staged: _Staged, d_wide, wide, req):
         return _chunked(self.dcs, staged.pidx, staged.pbuf, d_wide + wide,

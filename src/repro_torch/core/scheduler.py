@@ -70,7 +70,8 @@ from .workload import TopoPolicy, WorkloadSpec
 
 #: ``engine="auto"`` node-count routing threshold: below it the
 #: single-device fused engine; at or above it the mesh-sharded engine
-#: (``imp_sharded``, not ported yet, so ``auto`` raises there)
+#: (``imp_sharded``, over every visible device); override per scheduler
+#: with ``TopoScheduler(..., auto_threshold=...)``
 AUTO_ENGINE_THRESHOLD = 4096
 
 
@@ -149,14 +150,12 @@ class TopoScheduler:
     Engine selection: pass a registered engine name, or ``engine="auto"``
     to route by cluster size — ``imp_batched`` below ``auto_threshold``
     nodes (default `AUTO_ENGINE_THRESHOLD`), ``imp_sharded`` at or above
-    it; that engine is not ported yet, so there it raises
-    `UnknownEngineError` rather than pick another.  The resolved name is in
-    ``self.engine``; every decision carries the routing in
-    ``sourcing_provenance``.
+    it.  The resolved name is in ``self.engine``; every decision carries
+    the routing in ``sourcing_provenance``.
 
     Shortlist sourcing knobs (engines registered with
-    ``supports_shortlist``, i.e. ``imp_batched``; the ``imp_batched_full``
-    oracle and the host engines ignore them, and their provenance carries
+    ``supports_shortlist``: ``imp_batched``/``imp_sharded``; the ``*_full``
+    oracles and the host engines ignore them, and their provenance carries
     ``shortlist_k`` 0 and mode None):
 
     * ``shortlist_k`` — representative rows the stage-1 prescreen keeps
@@ -192,9 +191,9 @@ class TopoScheduler:
                                else auto_threshold)
         self._auto = engine == "auto"
         if self._auto:
-            if cluster.num_nodes >= self.auto_threshold:
-                raise UnknownEngineError("imp_sharded")
-            engine = "imp_batched"
+            engine = ("imp_sharded"
+                      if cluster.num_nodes >= self.auto_threshold
+                      else "imp_batched")
         self.engine: EngineName = engine
         self._engine: SourcingEngine = get_engine(engine)
         self.alpha = alpha

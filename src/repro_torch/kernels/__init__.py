@@ -9,6 +9,9 @@ K2's normal-cycle form.
 view_delta, prescreen — the rest of that engine's default path, in the same
 source: the view-delta encoder (a plan's patch rows rebuilt on the device)
 and the shortlist's prescreen (a bound per row and the top K).
+The merges of a sharded state (``imp_sharded``) live beside the kernels
+whose shard records they merge: ``fused_class.tail_merge``,
+``normal_cycle.normal_merge`` and ``prescreen.prescreen_select``.
 flash_attention — blocked causal / sliding-window GQA attention, the
 serving path's prefill attention (``csrc/flash_attention.cu``).
 """

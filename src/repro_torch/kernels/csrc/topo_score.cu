@@ -623,6 +623,14 @@ __global__ void __launch_bounds__(kTile)
 // rows (the mid-width rows of a plan, the wide chunks) are named by gidx;
 // an index outside [0, N) reads as a zero row whose node id is the index
 // (jnp.take(mode="fill") and .at[NS_NODE_ID].set(gidx) in the reference).
+// A shard of a sharded state (repro_torch/core/cluster_parallel.py) is the
+// same layout over its rows base .. base + N - 1 (State.base): pidx and gidx
+// carry global row ids, and a gathered id outside the shard reads as a zero
+// row.  Each shard runs the kernels on its rows; tail_merge_kernel (over the
+// tail's shard records, fused_argmax_kernel<true>), normal_merge_kernel (over
+// the shards' normal-cycle records) and prescreen_select_kernel (over the
+// shards' selected keys) merge them, in place of the collectives XLA inserts
+// into the reference's sharded programs.
 //
 // Chain of a plan, in stream order: K2 writes out[0..4]; K1 and its tail
 // read out[0] (found) and return at once when the normal cycle placed; the
@@ -751,6 +759,10 @@ struct State {
   int p;
   int g;
   int n_res;        // rows 0..n_res-1 are resident rows, then g gathered
+  int base;         // a shard's first row: its rows are base .. base + n - 1
+                    // of the sharded state; gidx and pidx hold those global
+                    // row ids, and a gathered id outside the shard reads as
+                    // a zero row (0 for an unsharded state)
 };
 
 // One row of the plan as the reference's overlaid (and gathered) tensors
@@ -787,14 +799,15 @@ __device__ __forceinline__ int find_patch(const State& s, int node) {
   return (lo < s.p && s.pidx[lo] == node) ? lo : -1;
 }
 
-// Row `r` of the plan as node `node` (the resident row r, or gidx's entry
-// for a gathered row), read from patch row j when j >= 0.
+// Row `r` of the plan as global row `node` (the resident row r + base, or
+// gidx's entry for a gathered row), read from patch row j when j >= 0.
 __device__ __forceinline__ Row row_of(const State& s, int node, int j,
                                       bool gathered) {
   Row row;
   row.gathered = gathered;
   row.gidx_value = node;
-  row.zero = node < 0 || node >= s.n;
+  const int local = node - s.base;
+  row.zero = local < 0 || local >= s.n;
   if (row.zero) {
     row.ns = row.v = row.dr = nullptr;
     row.ns_stride = row.v_stride = row.dr_stride = 0;
@@ -808,11 +821,11 @@ __device__ __forceinline__ Row row_of(const State& s, int node, int j,
     row.dr = b + kNodeFields + kVictimFields * s.cap;
     row.dr_stride = 1;
   } else {
-    row.ns = s.ns + node;
+    row.ns = s.ns + local;
     row.ns_stride = s.n;
-    row.v = s.v + static_cast<long>(node) * s.cap;
+    row.v = s.v + static_cast<long>(local) * s.cap;
     row.v_stride = s.n * s.cap;
-    row.dr = s.dr + node;
+    row.dr = s.dr + local;
     row.dr_stride = s.n;
   }
   return row;
@@ -820,8 +833,9 @@ __device__ __forceinline__ Row row_of(const State& s, int node, int j,
 
 __device__ __forceinline__ Row fetch_row(const State& s, int r) {
   const bool gathered = r >= s.n_res;
-  const int node = gathered ? s.gidx[r - s.n_res] : r;
-  const bool zero = node < 0 || node >= s.n;
+  const int node = gathered ? s.gidx[r - s.n_res] : r + s.base;
+  const int local = node - s.base;
+  const bool zero = local < 0 || local >= s.n;
   return row_of(s, node, !zero && s.p > 0 ? find_patch(s, node) : -1,
                 gathered);
 }
@@ -1126,8 +1140,10 @@ __device__ __forceinline__ void load_sweep_row(const State& s,
   constexpr int kRounds = kMaxCap / 16;  // slots a lane at G = 16
   const bool gathered = r >= s.n_res;
   // a row past the section (present false) reads as a zero row, not ok
-  const int node = !present ? -1 : (gathered ? s.gidx[r - s.n_res] : r);
-  const bool zero = node < 0 || node >= s.n;
+  const int node =
+      !present ? s.base - 1 : (gathered ? s.gidx[r - s.n_res] : r + s.base);
+  const int local = node - s.base;
+  const bool zero = local < 0 || local >= s.n;
   const int j = !zero && s.p > 0
                     ? group_find_patch(s.pidx, s.p, node, glane, G, mask, base)
                     : -1;
@@ -1733,6 +1749,47 @@ __device__ __forceinline__ void load_row(int* f, const int* cls, int R,
   f[11] = cls[14 * R + r];
 }
 
+// Row r of the plan (local) with class t's winner placed: its combo id,
+// priority sum and k (from cls) and the placement of its freed masks, the
+// row's free masks OR the combo's victims (lane s reads victim slot s).
+// Every lane of one warp calls it; the results are the same in all lanes.
+__device__ __forceinline__ void place_entry(const State& ls,
+                                            const FusedParams& p,
+                                            const TierRule& rule,
+                                            const int* __restrict__ cls,
+                                            int R, int r, int t, int& cb,
+                                            int& pp, int& k, unsigned& gm,
+                                            unsigned& cm) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  cb = cls[(3 + t) * R + r];
+  pp = cls[(6 + t) * R + r];
+  k = cls[12 * R + r];
+  const Row w = fetch_row(ls, r);
+  unsigned sg = 0, sc = 0;
+  if (lane < ls.cap) {
+    sg = static_cast<unsigned>(w.slot(VF_GPU, lane));
+    sc = static_cast<unsigned>(w.slot(VF_CG, lane));
+  }
+  const bool on = (static_cast<unsigned>(cb) >> lane) & 1u;
+  const unsigned fg = static_cast<unsigned>(w.node(NS_FREE_GPU)) |
+                      __reduce_or_sync(kAll, on ? sg : 0u);
+  const unsigned fc = static_cast<unsigned>(w.node(NS_FREE_CG)) |
+                      __reduce_or_sync(kAll, on ? sc : 0u);
+  bool ok;
+  int tier;
+  warp_place(fg, fc, p, rule, ok, tier, gm, cm);
+}
+
+// The tail of one shard of a sharded state (kPart), fields of its record:
+// the segment's TailState over the shard's rows (score bits, tmin, tmax,
+// cnt, then a and b, five fields each, with flat indices of the GLOBAL rows
+// of the segment), then a's and b's entries placed (combo id, priority
+// sum, gpu and cg masks each; zeros where the key is the identity), then
+// the no-survivor outcome from the segment's first row: whether this shard
+// holds that row, its combo id, priority sum, k and placed masks.
+constexpr int kPartFields = 28;
+
 // One cluster of `ctas` CTAs a segment of `seg` rows (grid = segments x
 // ctas).  A thread a row, strided over the cluster, two rows' loads in
 // flight at a time: it reads a row's 12 class fields (each column coalesced
@@ -1741,17 +1798,25 @@ __device__ __forceinline__ void load_row(int* f, const int* cls, int R,
 // states; rank 0's warp 0 picks a or b, reads the winner's row (lane s its
 // victim slot s) and places it (warp_place), with the patch index that rank
 // 0 staged in shared memory while the pass ran.
+// kPart is a shard's tail: an entry's flat index is built from the row's
+// global place in the segment, the local row r - r0 plus off_lo below row
+// `split` (a shard's resident rows) and off_hi from it (its gathered rows),
+// and rank 0's warp 0 writes the shard's record (kPartFields) instead of a
+// winner: tail_merge_kernel merges the shards' records.
+template <bool kPart>
 __global__ void __launch_bounds__(kTailThreads)
     fused_argmax_kernel(State s, FusedParams p, const int* __restrict__ cls,
-                        int R, int seg, int ctas, const int* __restrict__ skip,
+                        int R, int seg, int ctas, int split, int off_lo,
+                        int off_hi, const int* __restrict__ skip,
                         int* __restrict__ out) {
   extern __shared__ int s_pidx[];
   __shared__ TailState s_warp[kTailThreads / 32];
   __shared__ TailState s_rank[kMaxClusterCtas];
   const int rank = static_cast<int>(cg::this_cluster().block_rank());
-  int* o = out + (blockIdx.x / ctas) * kWinFields;
+  const int width = kPart ? kPartFields : kWinFields;
+  int* o = out + (blockIdx.x / ctas) * width;
   if (skip != nullptr && *skip != 0) {  // the normal cycle placed
-    if (rank == 0 && threadIdx.x < kWinFields) o[threadIdx.x] = 0;
+    if (rank == 0 && threadIdx.x < width) o[threadIdx.x] = 0;
     return;  // every CTA of the cluster, before any cluster barrier
   }
   if (ctas > 1) cluster_arrive_relaxed();
@@ -1766,8 +1831,15 @@ __global__ void __launch_bounds__(kTailThreads)
     const bool two = r + stride < r1;
     load_row(f, cls, R, r);
     if (two) load_row(g, cls, R, r + stride);
-    fold_row(st, f, r - r0, p);
-    if (two) fold_row(st, g, r + stride - r0, p);
+    if (kPart) {
+      fold_row(st, f, r - r0 + (r < split ? off_lo : off_hi), p);
+      if (two)
+        fold_row(st, g, r + stride - r0 + (r + stride < split ? off_lo : off_hi),
+                 p);
+    } else {
+      fold_row(st, f, r - r0, p);
+      if (two) fold_row(st, g, r + stride - r0, p);
+    }
   }
   if (rank == 0 && s.p > 0) {  // the finale's lanes read each other's copies
     stage_wait();
@@ -1778,42 +1850,141 @@ __global__ void __launch_bounds__(kTailThreads)
     return;
 
   // rank 0's warp 0; every lane holds the segment's state
-  constexpr unsigned kAll = 0xffffffffu;
   const int lane = threadIdx.x;
-  const bool found = st.score > -CUDART_INF_F;  // some class is non-empty
-  const TieKey tk = (st.tmin == st.tmax && p.alpha_pos) ? st.a : st.b;
-  const int flat = found ? tk.flat : 0;  // no survivor: argmax -> 0
-  const int row = flat / 3, t = flat % 3, r = r0 + row;
   State ls = s;
   ls.pidx = s_pidx;
-  const int cb = cls[(3 + t) * R + r];
-  const int pp = cls[(6 + t) * R + r];
-  const int k = cls[12 * R + r];
-  const Row w = fetch_row(ls, r);
-  unsigned sg = 0, sc = 0;
-  if (lane < s.cap) {
-    sg = static_cast<unsigned>(w.slot(VF_GPU, lane));
-    sc = static_cast<unsigned>(w.slot(VF_CG, lane));
-  }
-  const bool on = (static_cast<unsigned>(cb) >> lane) & 1u;
-  const unsigned fg = static_cast<unsigned>(w.node(NS_FREE_GPU)) |
-                      __reduce_or_sync(kAll, on ? sg : 0u);
-  const unsigned fc = static_cast<unsigned>(w.node(NS_FREE_CG)) |
-                      __reduce_or_sync(kAll, on ? sc : 0u);
-  bool ok;
-  int tier;
+  int cb, pp, k;
   unsigned gm, cm;
-  warp_place(fg, fc, p, rule, ok, tier, gm, cm);
+  if (!kPart) {
+    const bool found = st.score > -CUDART_INF_F;  // some class is non-empty
+    const TieKey tk = (st.tmin == st.tmax && p.alpha_pos) ? st.a : st.b;
+    const int flat = found ? tk.flat : 0;  // no survivor: argmax -> 0
+    const int row = flat / 3, t = flat % 3;
+    place_entry(ls, p, rule, cls, R, r0 + row, t, cb, pp, k, gm, cm);
+    if (lane == 0) {
+      o[0] = found;
+      o[1] = row;
+      o[2] = t;
+      o[3] = cb;
+      o[4] = pp;
+      o[5] = k;
+      o[6] = static_cast<int>(st.cnt);
+      o[7] = static_cast<int>(gm);
+      o[8] = static_cast<int>(cm);
+    }
+    return;
+  }
   if (lane == 0) {
-    o[0] = found;
-    o[1] = row;
-    o[2] = t;
-    o[3] = cb;
-    o[4] = pp;
-    o[5] = k;
+    const TieKey keys[2] = {st.a, st.b};
+    o[0] = __float_as_int(st.score);
+    o[1] = st.tmin;
+    o[2] = st.tmax;
+    o[3] = static_cast<int>(st.cnt);
+    for (int i = 0; i < 2; ++i) {
+      o[4 + 5 * i] = keys[i].ppe;
+      o[5 + 5 * i] = keys[i].k;
+      o[6 + 5 * i] = keys[i].nid;
+      o[7 + 5 * i] = keys[i].um;
+      o[8 + 5 * i] = keys[i].flat;
+    }
+  }
+  for (int i = 0; i < 2; ++i) {  // a, then b: the same in every lane
+    const int flat = i == 0 ? st.a.flat : st.b.flat;
+    int* e = o + 14 + 4 * i;
+    if (flat == kIntMax) {
+      if (lane < 4) e[lane] = 0;
+      continue;
+    }
+    const int g = flat / 3;  // the entry's global row in the segment
+    const int r = r0 + (g >= split + off_hi ? g - off_hi : g - off_lo);
+    place_entry(ls, p, rule, cls, R, r, flat % 3, cb, pp, k, gm, cm);
+    if (lane == 0) {
+      e[0] = cb;
+      e[1] = pp;
+      e[2] = static_cast<int>(gm);
+      e[3] = static_cast<int>(cm);
+    }
+  }
+  // the segment's first global row is this shard's first local row r0 only
+  // where its offset is 0, and then only where the row is not a zero row
+  place_entry(ls, p, rule, cls, R, r0, 0, cb, pp, k, gm, cm);
+  if (lane == 0) {
+    const int off = r0 < split ? off_lo : off_hi;
+    o[22] = off == 0 && !fetch_row(ls, r0).zero;
+    o[23] = cb;
+    o[24] = pp;
+    o[25] = k;
+    o[26] = static_cast<int>(gm);
+    o[27] = static_cast<int>(cm);
+  }
+}
+
+// The merge of a sharded tail, one thread a segment, standing in for the
+// cross-shard collectives XLA inserts into the reference's sharded tail
+// (repro/core/cluster_parallel.py): merge_tail over the shards' records of
+// the segment (part[shard][segment][kPartFields]) in shard order, then the
+// global tie chain's choice of a or b, the winner's entry from the one
+// record whose key it is (flat indices are unique), the sum of the counts,
+// and with no survivor the record of the shard that holds the segment's
+// first row (shard 0 where none does).  Writes out[segment][kWinFields] as
+// fused_argmax_kernel<false> over the unsharded rows does.  Bound: the D
+// records' bytes (28 int32 each a segment, D <= 8) and the winner's; its
+// time is a launch's.
+__global__ void __launch_bounds__(32)
+    tail_merge_kernel(const int* __restrict__ part, int shards, int segs,
+                      int alpha_pos, const int* __restrict__ skip,
+                      int* __restrict__ out) {
+  const int sg = blockIdx.x * blockDim.x + threadIdx.x;
+  if (sg >= segs) return;
+  int* o = out + sg * kWinFields;
+  if (skip != nullptr && *skip != 0) {
+    for (int i = 0; i < kWinFields; ++i) o[i] = 0;
+    return;
+  }
+  TailState st = tail_identity();
+  int first = -1;
+  for (int d = 0; d < shards; ++d) {
+    const int* r = part + (static_cast<long>(d) * segs + sg) * kPartFields;
+    TailState e;
+    e.score = __int_as_float(r[0]);
+    e.tmin = r[1];
+    e.tmax = r[2];
+    e.cnt = static_cast<unsigned>(r[3]);
+    e.a = {r[4], r[5], r[6], r[7], r[8]};
+    e.b = {r[9], r[10], r[11], r[12], r[13]};
+    merge_tail(st, e);
+    if (first < 0 && r[22]) first = d;
+  }
+  if (st.score > -CUDART_INF_F) {
+    const bool use_a = st.tmin == st.tmax && alpha_pos;
+    const TieKey tk = use_a ? st.a : st.b;
+    const int key_at = use_a ? 8 : 13, entry_at = use_a ? 14 : 18;
+    const int* w = part + sg * kPartFields;
+    for (int d = 0; d < shards; ++d) {
+      const int* r = part + (static_cast<long>(d) * segs + sg) * kPartFields;
+      if (r[key_at] == tk.flat) w = r;
+    }
+    o[0] = 1;
+    o[1] = tk.flat / 3;
+    o[2] = tk.flat % 3;
+    o[3] = w[entry_at];
+    o[4] = w[entry_at + 1];
+    o[5] = tk.k;
     o[6] = static_cast<int>(st.cnt);
-    o[7] = static_cast<int>(gm);
-    o[8] = static_cast<int>(cm);
+    o[7] = w[entry_at + 2];
+    o[8] = w[entry_at + 3];
+  } else {
+    const int* w =
+        part + (static_cast<long>(first < 0 ? 0 : first) * segs + sg) * kPartFields;
+    o[0] = 0;
+    o[1] = 0;
+    o[2] = 0;
+    o[3] = w[23];
+    o[4] = w[24];
+    o[5] = w[25];
+    o[6] = static_cast<int>(st.cnt);
+    o[7] = w[26];
+    o[8] = w[27];
   }
 }
 
@@ -1958,7 +2129,7 @@ __global__ void __launch_bounds__(kNormalThreads)
       const int r = first + (it * kNormalBatch + j) * stride;
       if (r >= s.n) continue;
       if (s.p > 0) {
-        const int k = find_patch(ls, r);
+        const int k = find_patch(ls, r + s.base);
         if (k >= 0) {
           const int* b = s.pbuf + static_cast<long>(k) * width;
           fg[j] = static_cast<unsigned>(b[NS_FREE_GPU]);
@@ -2007,13 +2178,22 @@ __global__ void __launch_bounds__(kNormalThreads)
   }
 }
 
-// The split form's second launch, one warp: the least of the `clusters`
-// minima in part[0..clusters-1], placed with row 0 from part[clusters].
+// The split form's second launch, and the merge of a sharded normal cycle,
+// one warp.  part holds `shards` blocks of `clusters` + 1 records, each
+// block's cluster minima and then its row 0, as normal_cycle_kernel writes
+// them with part set: the least key over every block's minima (node ids are
+// unique across shards, so the keys are), placed with block 0's row 0 (the
+// state's row 0) where no node is a candidate.  One block is the split
+// form; over D > 1 shards it stands in for the cross-shard collectives of
+// the reference's sharded normal cycle (repro/core/cluster_parallel.py).
 __global__ void __launch_bounds__(32)
-    normal_merge_kernel(const NormalBest* __restrict__ part, int clusters,
-                        int n, FusedParams p, int* __restrict__ out) {
+    normal_merge_kernel(const NormalBest* __restrict__ part, int shards,
+                        int clusters, int n, FusedParams p,
+                        int* __restrict__ out) {
   NormalBest best = {kNoKey, 0u, 0u};
-  for (int c = threadIdx.x; c < clusters; c += 32) merge_normal(best, part[c]);
+  const int total = shards * clusters;
+  for (int i = threadIdx.x; i < total; i += 32)
+    merge_normal(best, part[(i / clusters) * (clusters + 1) + i % clusters]);
   best = warp_min_normal(best);
   const NormalBest row0 = part[clusters];
   normal_place(best, row0.fg, row0.fc, static_cast<int>(row0.key), n, p,
@@ -2064,7 +2244,7 @@ __global__ void __launch_bounds__(kDeltaThreads)
                         const int* __restrict__ adds, int a,
                         const int* __restrict__ hpos,
                         const int* __restrict__ hrows, int H, int P,
-                        int* __restrict__ out) {
+                        int base, int* __restrict__ out) {
   constexpr unsigned kAll = 0xffffffffu;
   const int job = static_cast<int>((blockIdx.x * blockDim.x + threadIdx.x) >> 5);
   const int lane = threadIdx.x & 31;
@@ -2083,17 +2263,18 @@ __global__ void __launch_bounds__(kDeltaThreads)
     for (int i = lane; i < W; i += 32) o[i] = src[i];
     return;
   }
-  const int node = dense[DD_NODE * D + job];
+  const int node = dense[DD_NODE * D + job];  // a global row (shard: base +)
   const unsigned rem = static_cast<unsigned>(dense[DD_REM * D + job]);
   const int to = dense[DD_POS * D + job];
-  const bool inr = node >= 0 && node < n;
+  const int local = node - base;
+  const bool inr = local >= 0 && local < n;
   int g = 0, c = 0, prio = 0, key = kIntMax;
   bool kept = false;
   if (lane < cap) {
     int rank = 0, stored = 0;
     if (inr) {
       const long fs = static_cast<long>(n) * cap;
-      const long at = static_cast<long>(node) * cap + lane;
+      const long at = static_cast<long>(local) * cap + lane;
       g = v[VF_GPU * fs + at];
       c = v[VF_CG * fs + at];
       prio = v[VF_PRIO * fs + at];
@@ -2127,8 +2308,8 @@ __global__ void __launch_bounds__(kDeltaThreads)
   if (to < 0 || to >= P) return;
   int* o = out + static_cast<long>(to) * W;
   if (lane == 0) {
-    const unsigned base_g = inr ? static_cast<unsigned>(ns[NS_FREE_GPU * n + node]) : 0u;
-    const unsigned base_c = inr ? static_cast<unsigned>(ns[NS_FREE_CG * n + node]) : 0u;
+    const unsigned base_g = inr ? static_cast<unsigned>(ns[NS_FREE_GPU * n + local]) : 0u;
+    const unsigned base_c = inr ? static_cast<unsigned>(ns[NS_FREE_CG * n + local]) : 0u;
     const unsigned fg = (base_g | static_cast<unsigned>(dense[DD_FOG * D + job])) &
                         ~static_cast<unsigned>(dense[DD_OG * D + job]);
     const unsigned fc = (base_c | static_cast<unsigned>(dense[DD_FOC * D + job])) &
@@ -2213,12 +2394,12 @@ __global__ void __launch_bounds__(kPrescreenThreads)
   const float ub0 = ft < 3 ? eq1_score(0, ft, p) : -CUDART_INF_F;
   const float ubk = elig > 0 && et < 3 ? eq1_score(min_p, et, p) : -CUDART_INF_F;
   const float ub = fmaxf(ub0, ubk);
-  const bool is_rep = rep[r] != 0 || in_sorted(forced, n_forced, r);
+  const bool is_rep = rep[r] != 0 || in_sorted(forced, n_forced, s.base + r);
   const bool ok = w.node(NS_NODE_ID) < kIntMax && is_rep && elig <= 8 &&
                   !(w.node(NS_OVERFLOW) != 0 && w.node(NS_NEXT_PRIO) < p.thresh) &&
                   ub > -CUDART_INF_F;
   keys[r] = ok ? (static_cast<unsigned long long>(ordered_u(ub)) << 32 |
-                  (0xffffffffu - static_cast<unsigned>(r)))
+                  (0xffffffffu - static_cast<unsigned>(s.base + r)))
                : 0ull;
 }
 
@@ -2249,9 +2430,19 @@ __device__ __forceinline__ unsigned long long cta_max64(unsigned long long x,
 // IDX_SENTINEL past the entries.  out[k] holds the bits of excl_ub, the
 // bound of the largest key below T (the (k+1)-th), or -inf.  Any
 // 1 <= k <= n.
+//
+// Over a sharded state the same launch is the shortlist's union select,
+// standing in for the reference's cross-shard top-K (lax.top_k of a sharded
+// vector): keys holds each shard's selected keys (its sel, 0 past its
+// entries; they carry global rows, so they are unique), and excl_ub is also
+// raised to every shard's own, excl[d * excl_stride] for d < shards: the
+// global (k+1)-th key is either in the union or the (k+1)-th of the shard
+// that holds the k keys above it.
 __global__ void __launch_bounds__(kSelectThreads)
     prescreen_select_kernel(const unsigned long long* __restrict__ keys,
                             int n, int k, const int* __restrict__ skip,
+                            const int* __restrict__ excl, int shards,
+                            int excl_stride,
                             unsigned long long* __restrict__ sel,
                             int* __restrict__ out) {
   if (skip != nullptr && *skip != 0) return;
@@ -2311,10 +2502,17 @@ __global__ void __launch_bounds__(kSelectThreads)
     for (int j = 0; j < got; ++j) rank += sel[j] > key;
     out[rank] = static_cast<int>(0xffffffffu - static_cast<unsigned>(key));
   }
-  for (int i = got + t; i < k; i += T) out[i] = kIntMax;
-  if (t == 0)
-    out[k] = __float_as_int(below != 0ull ? unordered_u(static_cast<unsigned>(below >> 32))
-                                          : -CUDART_INF_F);
+  for (int i = got + t; i < k; i += T) {
+    out[i] = kIntMax;
+    sel[i] = 0ull;  // the selected keys, then 0: a shard's part of a union
+  }
+  if (t == 0) {
+    float ub = below != 0ull ? unordered_u(static_cast<unsigned>(below >> 32))
+                             : -CUDART_INF_F;
+    for (int d = 0; d < shards; ++d)
+      ub = fmaxf(ub, __int_as_float(excl[d * excl_stride]));
+    out[k] = __float_as_int(ub);
+  }
 }
 
 static inline int grid_for(int n) { return (n + kTile - 1) / kTile; }
@@ -2408,13 +2606,19 @@ static cudaError_t prepare_cluster_kernels(int device) {
   cudaError_t err = cudaFuncSetAttribute(
       normal_cycle_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(fused_argmax_kernel,
+    err = cudaFuncSetAttribute(fused_argmax_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fused_argmax_kernel<true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
   if (err != cudaSuccess) return err;
   cudaFuncSetAttribute(normal_cycle_kernel,
                        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  cudaFuncSetAttribute(fused_argmax_kernel,
+  cudaFuncSetAttribute(fused_argmax_kernel<false>,
+                       cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  cudaFuncSetAttribute(fused_argmax_kernel<true>,
                        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   cudaGetLastError();
   if (known) done[device] = true;
@@ -2549,11 +2753,17 @@ int fused_class_launch(const State* state, const FusedParams* params,
 }
 
 // One cluster of `ctas` CTAs of `threads` each a segment of `seg` rows.
+// part != 0 is a shard's tail (fused_argmax_kernel<true>): out then takes
+// kPartFields a segment, the flat indices offset by off_lo below row split
+// and by off_hi from it.
 int fused_argmax_launch(const State* state, const FusedParams* params,
                         const void* cls, int R, int seg, int ctas,
-                        int threads, const void* skip, void* out, int device,
+                        int threads, int part, int split, int off_lo,
+                        int off_hi, const void* skip, void* out, int device,
                         void* stream) {
-  if (R <= 0 || seg <= 0 || bad_cluster(ctas, threads, kTailThreads, state->p))
+  if (R <= 0 || seg <= 0 || bad_cluster(ctas, threads, kTailThreads, state->p) ||
+      split < 0 || off_lo < 0 || off_hi < 0 ||
+      (part == 0 && (split != 0 || off_lo != 0 || off_hi != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
@@ -2564,10 +2774,10 @@ int fused_argmax_launch(const State* state, const FusedParams* params,
   const cudaLaunchConfig_t cfg =
       cluster_config((R + seg - 1) / seg * ctas, ctas, threads, smem,
                      static_cast<cudaStream_t>(stream), &attr);
-  err = cudaLaunchKernelEx(&cfg, fused_argmax_kernel, *state, *params,
-                           static_cast<const int*>(cls), R, seg, ctas,
-                           static_cast<const int*>(skip),
-                           static_cast<int*>(out));
+  err = cudaLaunchKernelEx(
+      &cfg, part ? fused_argmax_kernel<true> : fused_argmax_kernel<false>,
+      *state, *params, static_cast<const int*>(cls), R, seg, ctas, split,
+      off_lo, off_hi, static_cast<const int*>(skip), static_cast<int*>(out));
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(err != cudaSuccess ? err : last);
 }
@@ -2596,17 +2806,91 @@ int normal_cycle_launch(const State* state, const FusedParams* params,
   err = cudaLaunchKernelEx(&cfg, normal_cycle_kernel, *state, *params, ctas,
                            pb, static_cast<int*>(out));
   if (err == cudaSuccess && pb != nullptr)
-    normal_merge_kernel<<<1, 32, 0, st>>>(pb, clusters, state->n, *params,
+    normal_merge_kernel<<<1, 32, 0, st>>>(pb, 1, clusters, state->n, *params,
                                           static_cast<int*>(out));
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
+// One shard's normal cycle: `clusters` clusters writing their minima and
+// row 0 to part (clusters + 1 16-byte records), no merge.
+int normal_cycle_part_launch(const State* state, const FusedParams* params,
+                             int clusters, int ctas, int threads, void* part,
+                             int device, void* stream) {
+  if (state->n < 1 || state->n > (1 << kRowBits) || clusters < 1 ||
+      clusters > kMaxSplitClusters || part == nullptr ||
+      bad_cluster(ctas, threads, kNormalThreads, state->p))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
+  cudaError_t err = prepare_cluster_kernels(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = static_cast<size_t>(state->p) * sizeof(int);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(
+      clusters * ctas, ctas, threads, smem, static_cast<cudaStream_t>(stream),
+      &attr);
+  err = cudaLaunchKernelEx(&cfg, normal_cycle_kernel, *state, *params, ctas,
+                           static_cast<NormalBest*>(part),
+                           static_cast<int*>(nullptr));
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
+// The shards' normal-cycle records merged and placed (one warp).
+int normal_merge_launch(const void* part, int shards, int clusters,
+                              int n, const FusedParams* params, void* out,
+                              int device, void* stream) {
+  if (part == nullptr || shards < 1 || clusters < 1 || n < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
+  normal_merge_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const NormalBest*>(part), shards, clusters, n, *params,
+      static_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The shards' tail records merged (a thread a segment).
+int tail_merge_launch(const void* part, int shards, int segs, int alpha_pos,
+                      const void* skip, void* out, int device, void* stream) {
+  if (part == nullptr || shards < 1 || segs < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
+  tail_merge_kernel<<<(segs + 31) / 32, 32, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(part), shards, segs, alpha_pos,
+      static_cast<const int*>(skip), static_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The top k of n keys (prescreen_select_kernel, one CTA), excl_ub raised
+// to each of `shards` bits excl[d * excl_stride] (none when shards is 0):
+// the shortlist's union select over a sharded state.  `sel` holds k 64-bit
+// words of scratch; `out` k + 1 int32.
+int prescreen_select_launch(const void* keys, int n, int k, const void* excl,
+                            int shards, int excl_stride, const void* skip,
+                            void* sel, void* out, int device, void* stream) {
+  if (keys == nullptr || sel == nullptr || out == nullptr || n < 1 || k < 1 ||
+      shards < 0 || (shards > 0 && (excl == nullptr || excl_stride < 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
+  prescreen_select_kernel<<<1, kSelectThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned long long*>(keys), n, k,
+      static_cast<const int*>(skip), static_cast<const int*>(excl), shards,
+      excl_stride, static_cast<unsigned long long*>(sel),
+      static_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The view-delta encoder: P jobs, one warp each (encode_delta_kernel).
 int encode_delta_launch(const void* ns, const void* v, int n, int cap,
                         const void* dense, int D, const void* adds, int a,
                         const void* hpos, const void* hrows, int H, int P,
-                        void* out, int device, void* stream) {
+                        void* out, int base, int device, void* stream) {
   if (n < 0 || cap < 1 || cap > kMaxDenseVictims || D < 0 || H < 0 || a < 1 ||
       cap + a > 32 || P < D + H || (D > 0 && (dense == nullptr || adds == nullptr)) ||
       (H > 0 && (hpos == nullptr || hrows == nullptr)))
@@ -2620,7 +2904,7 @@ int encode_delta_launch(const void* ns, const void* v, int n, int cap,
       static_cast<const int*>(ns), static_cast<const int*>(v), n, cap,
       static_cast<const int*>(dense), D, static_cast<const int*>(adds), a,
       static_cast<const int*>(hpos), static_cast<const int*>(hrows), H, P,
-      static_cast<int*>(out));
+      base, static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2649,7 +2933,7 @@ int prescreen_launch(const State* state, const FusedParams* params,
       static_cast<const int*>(forced), n_forced, sk,
       static_cast<unsigned long long*>(keys));
   prescreen_select_kernel<<<1, kSelectThreads, 0, st>>>(
-      static_cast<const unsigned long long*>(keys), n, k, sk,
+      static_cast<const unsigned long long*>(keys), n, k, sk, nullptr, 0, 0,
       static_cast<unsigned long long*>(sel), static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }
@@ -2663,7 +2947,8 @@ int cluster_ctas_max(int device) {
   if (guard.err != cudaSuccess || prepare_cluster_kernels(device) != cudaSuccess)
     return kClusterCtas;
   const bool big = fits_max_cluster(normal_cycle_kernel, kNormalThreads) &&
-                   fits_max_cluster(fused_argmax_kernel, kTailThreads);
+                   fits_max_cluster(fused_argmax_kernel<false>, kTailThreads) &&
+                   fits_max_cluster(fused_argmax_kernel<true>, kTailThreads);
   cudaGetLastError();  // a refused query leaves no error behind
   return big ? kMaxClusterCtas : kClusterCtas;
 }

@@ -100,6 +100,12 @@ CTA_ROWS = 128
 #: the most patch rows a launch takes: K2 and the tail stage the patch
 #: index in shared memory (kMaxPatchRows, 64 KB)
 MAX_PATCH_ROWS = 16384
+#: width of a shard's tail record (kPartFields in csrc/topo_score.cu): the
+#: tail's monoid state (score bits, tmin, tmax, count, two tie keys of 5),
+#: the two keys' entries placed (combo id, priority sum, gpu and cg masks
+#: each), and the segment's first row (held here, combo id, priority sum,
+#: k, gpu and cg masks)
+PART_FIELDS = 28
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,18 +123,22 @@ class FusedRequest:
 # Plain PyTorch versions (the CPU path, and the kernels' yardstick on the card)
 # ---------------------------------------------------------------------------------
 
-def plan_rows(nodestate, victims, drain, pidx, pbuf, gidx, resident: bool):
+def plan_rows(nodestate, victims, drain, pidx, pbuf, gidx, resident: bool,
+              base: int = 0):
     """The plan's rows as ``(nodestate, victims, drain)`` column stacks:
     the resident rows with the patch rows written over them (when
     ``resident``), then the rows named by ``gidx``; an index outside
-    ``[0, N)`` gathers a zero row whose node id is the index."""
+    ``[0, N)`` gathers a zero row whose node id is the index.  For a shard
+    of a sharded state whose first row is global row ``base``, ``pidx``
+    and ``gidx`` hold global row ids (an id outside the shard gathers a
+    zero row)."""
     if pbuf.shape[0]:
-        nodestate, victims, drain = apply_rows(nodestate, victims, drain,
-                                               pidx, pbuf)
+        nodestate, victims, drain = apply_rows(
+            nodestate, victims, drain, pidx.to(torch.int64) - base, pbuf)
     parts = [(nodestate, victims, drain)] if resident else []
     if gidx.shape[0]:
         n = nodestate.shape[1]
-        idx = gidx.to(torch.int64)
+        idx = gidx.to(torch.int64) - base
         inr = (idx >= 0) & (idx < n)
         safe = torch.where(inr, idx, 0)
         ns = torch.where(inr[None], nodestate[:, safe], 0)
@@ -214,7 +224,8 @@ def class_sweep_plain(ns, v, dr, *, m: int, gate: bool, req: FusedRequest,
 
 def fused_class_plain(nodestate, victims, drain, pidx, pbuf, gidx, *,
                       m_res: int, resident: bool, m_gather: int,
-                      req: FusedRequest, spec: ServerSpec) -> torch.Tensor:
+                      req: FusedRequest, spec: ServerSpec,
+                      base: int = 0) -> torch.Tensor:
     """Plain version of `fused_class`: the resident section at ``m_res``
     behind the narrow gate, then the gathered section at ``m_gather``."""
     n_res = nodestate.shape[1] if resident else 0
@@ -222,7 +233,7 @@ def fused_class_plain(nodestate, victims, drain, pidx, pbuf, gidx, *,
         return torch.zeros((CLS_FIELDS, 0), dtype=torch.int32,
                            device=nodestate.device)
     ns, v, dr = plan_rows(nodestate, victims, drain, pidx, pbuf, gidx,
-                          resident)
+                          resident, base)
     parts = []
     if n_res:
         parts.append(class_sweep_plain(
@@ -293,18 +304,95 @@ def _argmax_segment(cls, ns, v, req: FusedRequest, spec: ServerSpec):
 
 def fused_argmax_plain(cls, nodestate, victims, pidx, pbuf, gidx, *,
                        resident: bool, seg: int, req: FusedRequest,
-                       spec: ServerSpec) -> torch.Tensor:
+                       spec: ServerSpec, base: int = 0,
+                       shard: tuple[int, int, int] | None = None
+                       ) -> torch.Tensor:
     """Plain version of `fused_argmax`: int32[segments, `WIN_FIELDS`], one
-    Eq. 2 winner (with its placement) per segment of ``seg`` rows."""
+    Eq. 2 winner (with its placement) per segment of ``seg`` rows; with
+    ``shard`` int32[segments, `PART_FIELDS`], the shard records."""
     drain = torch.zeros((2, nodestate.shape[1]), dtype=torch.int32,
                         device=nodestate.device)
     ns, v, _ = plan_rows(nodestate, victims, drain, pidx, pbuf, gidx,
-                         resident)
+                         resident, base)
     r = cls.shape[1]
+    if shard is None:
+        return torch.stack([
+            _argmax_segment(cls[:, lo:lo + seg], ns[:, lo:lo + seg],
+                            v[:, lo:lo + seg], req, spec)
+            for lo in range(0, r, seg)])
+    split, off_lo, off_hi = shard
+    n_res = nodestate.shape[1] if resident else 0
+    idx = gidx.to(torch.int64) - base
+    real = torch.cat([torch.ones(n_res, dtype=torch.bool),
+                      ((idx >= 0) & (idx < nodestate.shape[1])).cpu()])
+    rows = torch.arange(r)
+    glob = torch.where(rows < split, rows + off_lo, rows + off_hi)
     return torch.stack([
-        _argmax_segment(cls[:, lo:lo + seg], ns[:, lo:lo + seg],
-                        v[:, lo:lo + seg], req, spec)
-        for lo in range(0, r, seg)])
+        _part_segment(cls[:, lo:lo + seg], ns[:, lo:lo + seg],
+                      v[:, lo:lo + seg], glob[lo:lo + seg] - lo,
+                      bool(real[lo]) and int(glob[lo]) == lo, req, spec)
+        for lo in range(0, r, seg)]).to(cls.device)
+
+
+def _place_entry(cls, ns, v, row: int, t: int, req: FusedRequest,
+                 spec: ServerSpec) -> list[int]:
+    """Row ``row``'s class ``t`` winner placed: (combo id, priority sum, k,
+    gpu mask, cg mask), the tail's ``place_entry``."""
+    combo = int(cls[C_CB + t, row])
+    freed_g = int(ns[NS_FREE_GPU, row])
+    freed_c = int(ns[NS_FREE_CG, row])
+    for j in range(v.shape[2]):
+        if (combo >> j) & 1:
+            freed_g |= int(v[VF_GPU, row, j])
+            freed_c |= int(v[VF_CG, row, j])
+    i32 = dict(dtype=torch.int32)
+    _, _, p_g, p_c = place_core(torch.tensor(freed_g, **i32),
+                                torch.tensor(freed_c, **i32), req.need_gpus,
+                                req.need_cgs, req.cgs_per_bundle, spec=spec)
+    return [combo, int(cls[C_PP + t, row]), int(cls[C_K, row]), int(p_g),
+            int(p_c)]
+
+
+def _part_segment(cls, ns, v, glob, first: bool, req: FusedRequest,
+                  spec: ServerSpec) -> torch.Tensor:
+    """One segment's shard record (the kernel's ``kPartFields``): the
+    tail's monoid state over the shard's entries, their flat indices from
+    ``glob`` (each row's global place in the segment), the two tie keys'
+    entries placed and the segment's first row placed (``first``: this
+    shard holds the segment's first global row)."""
+    cls, ns, v = cls.cpu(), ns.cpu(), v.cpu()
+    anyc = cls[C_ANY:C_ANY + 3].T != 0
+    pp = cls[C_PP:C_PP + 3].T
+    score = torch.where(anyc, _scores(pp, req.alpha), -np.inf)
+    cnt = int(cls[C_CNT].sum(dtype=torch.int32))
+    ident = [_INT32_MAX, _INT32_MAX, _INT32_MAX, -1, _INT32_MAX]
+    top = float(score.max()) if score.numel() else -np.inf
+    out = [int(np.float32(top).view(np.int32)), 3, -1, cnt]
+    keys = [ident, ident]
+    if top > -np.inf:
+        r, t = (anyc & (score == score.max())).nonzero().numpy().T
+        c = cls.numpy().astype(np.int64)
+        out[1:3] = [int(t.min()), int(t.max())]
+        k, nid, um = c[C_K, r], c[C_NID, r], c[C_UM + t, r]
+        flat = glob.numpy()[r] * 3 + t
+        ppr = c[C_PP + t, r]
+        for i, ppe in enumerate((ppr, np.zeros_like(ppr))):
+            j = np.lexsort((flat, -um, nid, k, ppe))[0]
+            keys[i] = [int(ppe[j]), int(k[j]), int(nid[j]), int(um[j]),
+                       int(flat[j])]
+    for key in keys:
+        out.extend(key)
+    rows = {g: r for r, g in enumerate(glob.tolist())}
+    for key in keys:
+        if key[4] == _INT32_MAX:
+            out.extend([0, 0, 0, 0])
+        else:
+            e = _place_entry(cls, ns, v, rows[key[4] // 3], key[4] % 3,
+                             req, spec)
+            out.extend([e[0], e[1], e[3], e[4]])
+    out.append(int(first))
+    out.extend(_place_entry(cls, ns, v, 0, 0, req, spec))
+    return torch.tensor(out, dtype=torch.int64).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------------
@@ -343,6 +431,7 @@ class _State(ctypes.Structure):
         ("p", ctypes.c_int),
         ("g", ctypes.c_int),
         ("n_res", ctypes.c_int),
+        ("base", ctypes.c_int),
     ]
 
 
@@ -422,26 +511,29 @@ def max_cluster_ctas(device: int) -> int:
 #: checked launch states of recent calls (`launch_state`), least recently
 #: used first
 _STATES: dict = {}
-_MAX_STATES = 8
+#: enough for the launches of a plan over a sharded state of 8 shards
+_MAX_STATES = 64
 
 
 def launch_state(nodestate, victims, drain, pidx, pbuf, gidx,
-                 resident: bool) -> _State:
+                 resident: bool, base: int = 0) -> _State:
     """The kernels' State over contiguous int32 tensors on one CUDA device
-    (``drain`` or ``gidx`` None where the kernel does not read it).  It is
-    checked once and kept by the tensors' identities and version counters,
-    so a plan's launches and later plans on unchanged tensors reuse it,
-    while any in-place change to one of them (data or shape) checks anew.
-    It holds the tensors, so their memory and identities outlive it."""
+    (``drain`` or ``gidx`` None where the kernel does not read it), for a
+    shard of a sharded state whose first row is global row ``base`` (0
+    unsharded).  It is checked once and kept by the tensors' identities
+    and version counters, so a plan's launches and later plans on
+    unchanged tensors reuse it, while any in-place change to one of them
+    (data or shape) checks anew.  It holds the tensors, so their memory
+    and identities outlive it."""
     xs = (nodestate, victims, drain, pidx, pbuf, gidx)
     try:
-        key = (resident, *[(id(x), x._version) if x is not None else None
-                           for x in xs])
+        key = (resident, base, *[(id(x), x._version) if x is not None
+                                 else None for x in xs])
     except RuntimeError:        # an inference tensor has no version counter
         key = None
     st = _STATES.pop(key, None) if key is not None else None
     if st is None:
-        st = _checked_state(*xs, resident)
+        st = _checked_state(*xs, resident, base)
         if key is not None and len(_STATES) >= _MAX_STATES:
             del _STATES[next(iter(_STATES))]
     if key is not None:
@@ -453,12 +545,14 @@ launch_state.cache_clear = _STATES.clear
 
 
 def _checked_state(nodestate, victims, drain, pidx, pbuf, gidx,
-                   resident: bool) -> _State:
+                   resident: bool, base: int = 0) -> _State:
     dev = nodestate.device
     n = nodestate.shape[1]
     cap = victims.shape[2]
     if dev.type != "cuda":
         raise ValueError(f"the kernels take CUDA tensors, not {dev}")
+    if not 0 <= base <= _INT32_MAX - n:
+        raise ValueError(f"shard base {base} outside the int32 row range")
     if pbuf.shape[0] and pbuf.shape[1] != 5 + 5 * cap + 2:
         raise ValueError(f"patch rows are {pbuf.shape[1]} wide, expected "
                          f"{5 + 5 * cap + 2}")
@@ -485,6 +579,7 @@ def _checked_state(nodestate, victims, drain, pidx, pbuf, gidx,
     s.n, s.cap, s.p = n, cap, pidx.shape[0]
     s.g = gidx.shape[0] if gidx is not None else 0
     s.n_res = n if resident else 0
+    s.base = base
     s.device = dev.index if dev.index is not None else \
         torch.cuda.current_device()
     s.tensors = (nodestate, victims, drain, pidx, pbuf, gidx)
@@ -504,19 +599,26 @@ def bind(out: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     sp, pp = ctypes.POINTER(_State), ctypes.POINTER(_FusedParams)
     out.fused_class_launch.argtypes = [sp, pp] + [ci] * 6 + [vp, vp, ci, vp]
-    out.fused_argmax_launch.argtypes = [sp, pp, vp, ci, ci, ci, ci, vp, vp,
-                                        ci, vp]
+    out.fused_argmax_launch.argtypes = [sp, pp, vp] + [ci] * 8 + [vp, vp,
+                                                                  ci, vp]
     out.normal_cycle_launch.argtypes = [sp, pp, ci, ci, ci, vp, vp, ci, vp]
+    out.normal_cycle_part_launch.argtypes = [sp, pp, ci, ci, ci, vp, ci, vp]
+    out.normal_merge_launch.argtypes = [vp, ci, ci, ci, pp, vp, ci, vp]
+    out.tail_merge_launch.argtypes = [vp, ci, ci, ci, vp, vp, ci, vp]
+    out.prescreen_select_launch.argtypes = [vp, ci, ci, vp, ci, ci, vp, vp,
+                                            vp, ci, vp]
     out.cluster_ctas_max.argtypes = [ci]
     out.empty_launch.argtypes = [vp]
     out.encode_delta_launch.argtypes = ([vp, vp, ci, ci, vp, ci, vp, ci, vp,
-                                         vp, ci, ci, vp, ci, vp])
+                                         vp, ci, ci, vp, ci, ci, vp])
     out.prescreen_launch.argtypes = [sp, pp, vp, vp, ci, ci, vp, vp, vp, vp,
                                      ci, vp]
     for fn in (out.fused_class_launch, out.fused_argmax_launch,
                out.normal_cycle_launch, out.cluster_ctas_max,
                out.empty_launch, out.encode_delta_launch,
-               out.prescreen_launch):
+               out.prescreen_launch, out.normal_cycle_part_launch,
+               out.normal_merge_launch, out.tail_merge_launch,
+               out.prescreen_select_launch):
         fn.restype = ci
     out.topo_score_error_string.argtypes = [ci]
     out.topo_score_error_string.restype = ctypes.c_char_p
@@ -545,12 +647,14 @@ def stream_of(st: _State) -> int:
 def fused_class(nodestate, victims, drain, pidx, pbuf, gidx, *, m_res: int,
                 resident: bool, m_gather: int, req: FusedRequest,
                 spec: ServerSpec, skip: torch.Tensor | None = None,
-                out: torch.Tensor | None = None) -> torch.Tensor:
+                out: torch.Tensor | None = None,
+                base: int = 0) -> torch.Tensor:
     """The class sweep over every row of a plan in one launch: int32
     [`CLS_FIELDS`, rows] (rows = N if ``resident`` else 0, plus
     ``len(gidx)``), written into ``out`` (contiguous) when given.  With
     ``skip`` set the sweep does nothing and its output is undefined.
-    Counterpart of ``_fused_class_core``."""
+    ``base``: the tensors are a shard whose first row is global row
+    ``base`` (`plan_rows`).  Counterpart of ``_fused_class_core``."""
     rows = (nodestate.shape[1] if resident else 0) + gidx.shape[0]
     if out is not None and (out.shape != (CLS_FIELDS, rows)
                             or out.dtype != torch.int32
@@ -563,12 +667,14 @@ def fused_class(nodestate, victims, drain, pidx, pbuf, gidx, *, m_res: int,
         else:
             got = fused_class_plain(nodestate, victims, drain, pidx, pbuf,
                                     gidx, m_res=m_res, resident=resident,
-                                    m_gather=m_gather, req=req, spec=spec)
+                                    m_gather=m_gather, req=req, spec=spec,
+                                    base=base)
         if out is None:
             return got
         out.copy_(got)
         return out
-    st = launch_state(nodestate, victims, drain, pidx, pbuf, gidx, resident)
+    st = launch_state(nodestate, victims, drain, pidx, pbuf, gidx, resident,
+                      base)
     return launch_class(st, m_res, m_gather, req, spec, skip, out=out)
 
 
@@ -608,31 +714,41 @@ fused_class.launches = 0
 def fused_argmax(cls, nodestate, victims, pidx, pbuf, gidx, *,
                  resident: bool, seg: int, req: FusedRequest,
                  spec: ServerSpec, skip: torch.Tensor | None = None,
-                 out: torch.Tensor | None = None) -> torch.Tensor:
+                 out: torch.Tensor | None = None, base: int = 0,
+                 shard: tuple[int, int, int] | None = None) -> torch.Tensor:
     """The Eq. 2 argmax and the winner's placement, one per segment of
     ``seg`` rows of ``cls``: int32[segments, `WIN_FIELDS`] (written into
     ``out`` when given).  With ``skip`` set every winner is zeros.
-    Counterpart of ``_fused_argmax_core`` + ``winner_place``."""
+    Counterpart of ``_fused_argmax_core`` + ``winner_place``.
+
+    A shard of a sharded state (first row ``base``) passes ``shard =
+    (split, off_lo, off_hi)``: a row's global place in its segment is its
+    local place plus ``off_lo`` below row ``split`` and ``off_hi`` from it,
+    and the output is the shard's records, int32[segments, `PART_FIELDS`],
+    which `tail_merge` merges across the shards."""
     rows = cls.shape[1]
     segs = -(-rows // seg)
+    width = WIN_FIELDS if shard is None else PART_FIELDS
     if not on_cuda(cls, nodestate, victims, pidx, pbuf, gidx):
         if skip is not None and int(skip.reshape(-1)[0]):
-            got = torch.zeros((segs, WIN_FIELDS), dtype=torch.int32)
+            got = torch.zeros((segs, width), dtype=torch.int32)
         else:
             got = fused_argmax_plain(cls, nodestate, victims, pidx, pbuf,
                                      gidx, resident=resident, seg=seg,
-                                     req=req, spec=spec)
+                                     req=req, spec=spec, base=base,
+                                     shard=shard)
         if out is None:
             return got
-        out.view(segs, WIN_FIELDS).copy_(got)
+        out.view(segs, width).copy_(got)
         return out
-    st = launch_state(nodestate, victims, None, pidx, pbuf, gidx, resident)
+    st = launch_state(nodestate, victims, None, pidx, pbuf, gidx, resident,
+                      base)
     if out is None:
-        out = torch.empty((segs, WIN_FIELDS), dtype=torch.int32,
+        out = torch.empty((segs, width), dtype=torch.int32,
                           device=cls.device)
-    if (out.numel() != segs * WIN_FIELDS or out.dtype != torch.int32
+    if (out.numel() != segs * width or out.dtype != torch.int32
             or not out.is_contiguous()):
-        raise ValueError(f"out must hold {segs} x {WIN_FIELDS} int32")
+        raise ValueError(f"out must hold {segs} x {width} int32")
     if rows == 0:
         return out
     if (cls.dtype != torch.int32 or not cls.is_contiguous()
@@ -642,11 +758,12 @@ def fused_argmax(cls, nodestate, victims, pidx, pbuf, gidx, *,
     ctas, threads = cluster_geometry(min(seg, rows), TAIL_THREADS,
                                      max_cluster_ctas(st.device))
     lb = lib()
+    split, off_lo, off_hi = shard or (0, 0, 0)
     code = lb.fused_argmax_launch(
         ctypes.byref(st), ctypes.byref(params(spec, req)),
-        cls.data_ptr(), rows, seg, ctas, threads,
-        None if skip is None else skip.data_ptr(), out.data_ptr(),
-        st.device, stream_of(st))
+        cls.data_ptr(), rows, seg, ctas, threads, int(shard is not None),
+        split, off_lo, off_hi, None if skip is None else skip.data_ptr(),
+        out.data_ptr(), st.device, stream_of(st))
     ts._raise_on(lb, code, "fused_argmax")
     fused_argmax.launches += 1
     return out
@@ -654,14 +771,94 @@ def fused_argmax(cls, nodestate, victims, pidx, pbuf, gidx, *,
 
 fused_argmax.launches = 0
 
+def tail_merge_plain(part: torch.Tensor, alpha_pos: bool) -> torch.Tensor:
+    """Plain version of `tail_merge`: int32[segments, `WIN_FIELDS`] from
+    the shards' records int32[D, segments, `PART_FIELDS`]."""
+    recs = part.cpu().numpy().astype(np.int64)
+    out = []
+    for sg in range(recs.shape[1]):
+        rs = recs[:, sg]
+        scores = rs[:, 0].astype(np.int32).view(np.float32)
+        cnt = int(rs[:, 3].sum()) & 0xFFFFFFFF       # wraps as uint32
+        cnt -= (cnt >> 31) << 32
+        top = scores.max()
+        if top == -np.inf:
+            real = [d for d in range(len(rs)) if rs[d, 22]]
+            w = rs[real[0] if real else 0]
+            out.append([0, 0, 0, w[23], w[24], w[25], cnt, w[26], w[27]])
+            continue
+        at = scores == top
+        tmin, tmax = rs[at, 1].min(), rs[at, 2].max()
+        use_a = tmin == tmax and alpha_pos
+        ko = 4 if use_a else 9
+        keys = [tuple(r[ko:ko + 5]) for r in rs[at]]
+        best = min(keys, key=lambda e: (e[0], e[1], e[2], -e[3], e[4]))
+        w = next(r for r in rs if r[ko + 4] == best[4])
+        eo = 14 if use_a else 18
+        flat = int(best[4])
+        out.append([1, flat // 3, flat % 3, w[eo], w[eo + 1], best[1], cnt,
+                    w[eo + 2], w[eo + 3]])
+    return torch.tensor(out, dtype=torch.int64).reshape(
+        -1, WIN_FIELDS).to(torch.int32).to(part.device)
+
+
+def tail_merge(part: torch.Tensor, *, alpha: float,
+               skip: torch.Tensor | None = None,
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """The shards' tail records (int32[D, segments, `PART_FIELDS`], each
+    shard's `fused_argmax` with ``shard=``) merged into each segment's
+    winner, int32[segments, `WIN_FIELDS`]: exactly what the tail gives
+    over the unsharded rows.  The records hold the tail's exact monoid
+    state, so the tie chain's same-tier test is taken over every shard's
+    survivors.  With ``skip`` set every winner is zeros.  Written into
+    ``out`` when given.  Its kernel, ``tail_merge_kernel``, stands in for
+    the cross-shard collectives XLA inserts into the reference's sharded
+    ``_fused_argmax_core`` + ``winner_place``."""
+    if part.dim() != 3 or part.shape[2] != PART_FIELDS or not part.shape[0]:
+        raise ValueError(f"part must be [D, segments, {PART_FIELDS}]")
+    segs = part.shape[1]
+    if not on_cuda(part, *([] if skip is None else [skip])):
+        if skip is not None and int(skip.reshape(-1)[0]):
+            got = torch.zeros((segs, WIN_FIELDS), dtype=torch.int32)
+        else:
+            got = tail_merge_plain(part, alpha > 0)
+        if out is None:
+            return got
+        out.view(segs, WIN_FIELDS).copy_(got)
+        return out
+    if part.dtype != torch.int32 or not part.is_contiguous():
+        raise ValueError("part must be a contiguous int32 tensor")
+    if out is None:
+        out = torch.empty((segs, WIN_FIELDS), dtype=torch.int32,
+                          device=part.device)
+    if (out.numel() != segs * WIN_FIELDS or out.device != part.device
+            or out.dtype != torch.int32 or not out.is_contiguous()
+            or (skip is not None and skip.device != part.device)):
+        raise ValueError("out and skip must lie beside part")
+    lb = lib()
+    device = part.device.index if part.device.index is not None else \
+        torch.cuda.current_device()
+    code = lb.tail_merge_launch(
+        part.data_ptr(), part.shape[0], segs, int(alpha > 0),
+        None if skip is None else skip.data_ptr(), out.data_ptr(), device,
+        torch.cuda.current_stream(part.device).cuda_stream)
+    ts._raise_on(lb, code, "tail_merge")
+    tail_merge.launches += 1
+    return out
+
+
+tail_merge.launches = 0
+
 #: this module's kernel wrappers (their ``launches`` counters)
-WRAPPERS = (fused_class, fused_argmax)
+WRAPPERS = (fused_class, fused_argmax, tail_merge)
 
 __all__ = ["CLS_FIELDS", "CLUSTER_CTAS", "FusedRequest", "IDX_SENTINEL",
-           "CTA_ROWS", "MAX_PATCH_ROWS", "NORMAL_THREADS", "TAIL_THREADS",
+           "CTA_ROWS", "MAX_PATCH_ROWS", "NORMAL_THREADS", "PART_FIELDS",
+           "TAIL_THREADS",
            "WIN_FIELDS", "WRAPPERS", "bind", "class_sweep_plain",
            "cluster_geometry", "fused_argmax", "fused_argmax_plain",
            "fused_class", "fused_class_plain", "launch_state",
            "launch_class", "max_cluster_ctas", "plan_rows", "sm_count",
            "sweep_geometry", "SHARED_GROUP", "SWEEP_THREADS",
-           "SWEEP_WARP_ROWS", "WIDE_THREADS"]
+           "SWEEP_WARP_ROWS", "WIDE_THREADS", "tail_merge",
+           "tail_merge_plain"]

@@ -23,16 +23,28 @@ memory from one call to the next.
 The wrapper runs the plain version for tensors on the CPU and launches the
 kernel for tensors on a CUDA device; anything else raises.  It counts its
 launches in ``normal_cycle.launches``.
+
+A shard of a sharded state runs ``normal_cycle_part``: the same kernel
+over the shard's rows, writing each cluster's minimum and its row 0 as
+records and placing nothing; ``normal_merge`` launches the split form's
+merge (``normal_merge_kernel``) over every shard's records and places the
+winner, in place of the cross-shard collectives of the reference's sharded
+normal cycle.  It counts its launches in ``normal_merge.launches``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
-from repro_torch.core.cluster import apply_rows
-from repro_torch.core.placement_device import normal_cycle_core
+from repro_torch.core.cluster import (IDX_SENTINEL, NODE_FIELDS, NS_FREE_CG,
+                                      NS_FREE_GPU, NS_NODE_ID, apply_rows)
+from repro_torch.core.placement_device import (best_tier_counts,
+                                               normal_cycle_core,
+                                               place_blind_core, popcount32,
+                                               spec_slices)
 from repro_torch.core.topology import ServerSpec
 
 from . import topo_score as ts
@@ -125,5 +137,162 @@ def launch(st, req: FusedRequest, spec: ServerSpec,
 
 normal_cycle.launches = 0
 
+
+#: the key of a record that holds no candidate (kNoKey)
+NO_KEY = 2**64 - 1
+
+
+def _words(key: int, fg: int, fc: int) -> list[int]:
+    """A 16-byte NormalBest record as four int32: the key's low and high
+    words, the free GPU and CG masks."""
+    return [int(np.int64(w).astype(np.uint32).view(np.int32))
+            for w in (key & 0xFFFFFFFF, key >> 32, fg, fc)]
+
+
+def normal_part_plain(nodestate, victims, drain, pidx, pbuf,
+                      req: FusedRequest, spec: ServerSpec,
+                      base: int = 0) -> torch.Tensor:
+    """Plain version of `normal_cycle_part` as one cluster: int32[2, 4],
+    the shard's least ``(tier, leftover, node id, row)`` key with its free
+    masks, and its row 0 (key = node id)."""
+    if pbuf.shape[0]:
+        nodestate, _, _ = apply_rows(nodestate, victims, drain,
+                                     pidx.to(torch.int64) - base, pbuf)
+    ns = nodestate.cpu()
+    sl = spec_slices(spec, "cpu")
+    ng, nc, cpb = req.need_gpus, req.need_cgs, req.cgs_per_bundle
+    free_g, free_c = ns[NS_FREE_GPU], ns[NS_FREE_CG]
+    nid = ns[NS_NODE_ID]
+    cnt_g = popcount32(free_g)
+    cnt_ok = ((cnt_g >= ng) & (popcount32(free_c) >= nc)
+              & (nid < IDX_SENTINEL))
+    tier, _, _ = best_tier_counts(free_g, free_c, ng, nc, cpb, sl)
+    _, b_tier, _, _ = place_blind_core(free_g, free_c, ng, nc, spec=spec)
+    eff = torch.where(tier < 3, tier, b_tier).numpy()
+    left = cnt_g.numpy() - ng
+    ids = nid.numpy()
+    rows = np.nonzero(cnt_ok.numpy())[0]
+    key, fg, fc = NO_KEY, 0, 0
+    if len(rows):
+        r = int(rows[np.lexsort((rows, ids[rows], left[rows], eff[rows]))[0]])
+        key = ((int(eff[r]) << 62) | (int(left[r]) << 56)
+               | (((int(ids[r]) & 0xFFFFFFFF) ^ 0x80000000) << 24) | r)
+        fg, fc = int(free_g[r]), int(free_c[r])
+    row0 = _words(int(nid[0]) & 0xFFFFFFFF, int(free_g[0]), int(free_c[0]))
+    return torch.tensor([_words(key, fg, fc), row0],
+                        dtype=torch.int32).to(nodestate.device)
+
+
+def part_records(n: int, device: torch.device) -> int:
+    """The records `normal_cycle_part` writes for a shard of ``n`` rows on
+    ``device``: its clusters and its row 0 (one cluster on the CPU)."""
+    if device.type != "cuda":
+        return 2
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return normal_geometry(n, max_cluster_ctas(index))[0] + 1
+
+
+def normal_cycle_part(nodestate, victims, drain, pidx, pbuf, *,
+                      req: FusedRequest, spec: ServerSpec, base: int = 0,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
+    """One shard's normal cycle (its first row global row ``base``; the
+    patch index holds global row ids): int32[clusters + 1, 4], the least
+    key of each of its clusters and its row 0, as 16-byte records that
+    `normal_merge` merges across the shards; written into
+    ``out`` when given.  The plain version gives one cluster."""
+    if not on_cuda(nodestate, victims, drain, pidx, pbuf):
+        got = normal_part_plain(nodestate, victims, drain, pidx, pbuf, req,
+                                spec, base)
+        if out is None:
+            return got
+        out.copy_(got)
+        return out
+    st = launch_state(nodestate, victims, drain, pidx, pbuf, None,
+                      resident=True, base=base)
+    clusters, ctas, threads = normal_geometry(st.n, max_cluster_ctas(
+        st.device))
+    if out is None:
+        out = torch.empty((clusters + 1, 4), dtype=torch.int32,
+                          device=nodestate.device)
+    if (out.numel() != 4 * (clusters + 1) or out.dtype != torch.int32
+            or not out.is_contiguous() or out.device != nodestate.device):
+        raise ValueError(f"out must hold {clusters + 1} x 4 int32 beside "
+                         "the state")
+    lb = lib()
+    code = lb.normal_cycle_part_launch(
+        ctypes.byref(st), ctypes.byref(params(spec, req)), clusters, ctas,
+        threads, out.data_ptr(), st.device, stream_of(st))
+    ts._raise_on(lb, code, "normal_cycle")
+    normal_cycle.launches += 1
+    return out
+
+
+def _u32(x) -> int:
+    return int(x) & 0xFFFFFFFF
+
+
+def normal_merge_plain(part: torch.Tensor, req: FusedRequest,
+                       spec: ServerSpec) -> torch.Tensor:
+    """Plain version of `normal_merge`: the least key of the shards'
+    records (int32[D, clusters + 1, 4]) placed as ``normal_cycle_core``
+    places a node, or shard 0's row 0 where no record holds a candidate."""
+    recs = part.cpu().tolist()
+    best = (NO_KEY, 0, 0)
+    for shard in recs:
+        for lo, hi, fg, fc in shard[:-1]:
+            key = _u32(lo) | (_u32(hi) << 32)
+            if key < best[0]:
+                best = (key, fg, fc)
+    key, fg, fc = best
+    if key == NO_KEY:
+        nid, fg, fc = recs[0][-1][0], recs[0][-1][2], recs[0][-1][3]
+    else:
+        nid = int(np.uint32(_u32(key >> 24) ^ 0x80000000).view(np.int32))
+    col = torch.zeros((NODE_FIELDS, 1), dtype=torch.int32)
+    col[NS_FREE_GPU, 0], col[NS_FREE_CG, 0], col[NS_NODE_ID, 0] = fg, fc, nid
+    got = normal_cycle_core(col, req.need_gpus, req.need_cgs,
+                            req.cgs_per_bundle, spec=spec)
+    return got.to(part.device)
+
+
+def normal_merge(part: torch.Tensor, *, n: int, req: FusedRequest,
+                 spec: ServerSpec,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+    """The shards' normal-cycle records (int32[D, clusters + 1, 4], each
+    shard's cluster minima then its row 0, `normal_cycle_part`) merged and
+    placed: int32[5] (found, node, tier, gpu_mask, cg_mask), what
+    ``normal_cycle`` gives over the ``n`` unsharded rows.  Written into
+    ``out`` when given."""
+    if part.dim() != 3 or part.shape[2] != 4 or part.shape[1] < 2:
+        raise ValueError("part must be [D, clusters + 1, 4]")
+    if not on_cuda(part):
+        got = normal_merge_plain(part, req, spec)
+        if out is None:
+            return got
+        out.copy_(got)
+        return out
+    if out is None:
+        out = torch.empty(NORMAL_FIELDS, dtype=torch.int32,
+                          device=part.device)
+    if (part.dtype != torch.int32 or not part.is_contiguous()
+            or out.numel() != NORMAL_FIELDS or out.device != part.device
+            or out.dtype != torch.int32 or not out.is_contiguous()):
+        raise ValueError(f"part and out ({NORMAL_FIELDS} int32) must be "
+                         "contiguous int32 tensors on one device")
+    lb = lib()
+    device = part.device.index if part.device.index is not None else \
+        torch.cuda.current_device()
+    code = lb.normal_merge_launch(
+        part.data_ptr(), part.shape[0], part.shape[1] - 1, n,
+        ctypes.byref(params(spec, req)), out.data_ptr(), device,
+        torch.cuda.current_stream(part.device).cuda_stream)
+    ts._raise_on(lb, code, "normal_merge")
+    normal_merge.launches += 1
+    return out
+
+
+normal_merge.launches = 0
+
 #: this module's kernel wrappers (their ``launches`` counters)
-WRAPPERS = (normal_cycle,)
+WRAPPERS = (normal_cycle, normal_merge)

@@ -50,19 +50,21 @@ MAX_SLOTS = 32
 
 
 def encode_delta_core(nodestate, victims, didx, rem, fog, foc, og, oc, addg,
-                      addc, addp, addv, *, cap: int, a: int) -> torch.Tensor:
+                      addc, addp, addv, *, cap: int, a: int,
+                      base: int = 0) -> torch.Tensor:
     """The reference's ``encode_delta_core`` in PyTorch: the flattened
     patch rows ``int32[D, row_width(cap)]`` of the nodes ``didx`` rebuilt
     from their resident rows (an index outside ``[0, N)`` reads a zero
     row), with the removed-slot bitmask ``rem``, the freed masks
     ``fog``/``foc``, the occupied masks ``og``/``oc`` and the adds
     ``add*`` (``[D, a]``, uid order) merged by two stable argsorts on
-    ``(priority, uid-order)``."""
+    ``(priority, uid-order)``.  For a shard of a sharded state whose first
+    row is global row ``base``, ``didx`` holds global rows."""
     big = _INT32_MAX
     dev = nodestate.device
     n = nodestate.shape[1]
     d = didx.shape[0]
-    idx = didx.to(torch.int64)
+    idx = didx.to(torch.int64) - base
     inr = (idx >= 0) & (idx < n)
     safe = torch.where(inr, idx, 0)
     ns = torch.where(inr[None], nodestate[:, safe], 0)
@@ -106,7 +108,7 @@ def encode_delta_core(nodestate, victims, didx, rem, fog, foc, og, oc, addg,
 
 
 def encode_delta_plain(nodestate, victims, dense, adds, hpos, hrows, *,
-                       p: int) -> torch.Tensor:
+                       p: int, base: int = 0) -> torch.Tensor:
     """Plain version of `encode_delta`: `encode_delta_core` over the dense
     rows, written with the host rows into a zero patch buffer of ``p``
     rows."""
@@ -117,7 +119,7 @@ def encode_delta_plain(nodestate, victims, dense, adds, hpos, hrows, *,
         rows = encode_delta_core(
             nodestate, victims, dense[DD_NODE], dense[DD_REM], dense[DD_FOG],
             dense[DD_FOC], dense[DD_OG], dense[DD_OC], *adds, cap=cap,
-            a=adds.shape[2])
+            a=adds.shape[2], base=base)
         out[dense[DD_POS].to(torch.int64)] = rows
     if hrows.shape[0]:
         out[hpos.to(torch.int64)] = hrows
@@ -125,7 +127,7 @@ def encode_delta_plain(nodestate, victims, dense, adds, hpos, hrows, *,
 
 
 def encode_delta(nodestate, victims, dense, adds, hpos=None, hrows=None, *,
-                 p: int) -> torch.Tensor:
+                 p: int, base: int = 0) -> torch.Tensor:
     """The plan's patch buffer, int32[p, row_width(cap)]: dense row ``i``
     (``dense`` int32[`DENSE_FIELDS`, D], ``adds`` int32[`ADD_FIELDS`, D,
     a], `ViewDelta.descriptors`) rebuilt from the resident ``nodestate`` /
@@ -133,7 +135,9 @@ def encode_delta(nodestate, victims, dense, adds, hpos=None, hrows=None, *,
     (``hrows`` int32[H, row_width]) copied to row ``hpos[h]``, and every
     other row zero.  The positions are a permutation of ``0 .. D + H - 1``
     and a dense row keeps at most ``cap`` victims (the `ViewDelta` gate).
-    Counterpart of ``encode_delta_core`` and the patch flatten."""
+    For a shard of a sharded state, ``dense``'s nodes are global rows and
+    ``base`` is the shard's first.  Counterpart of ``encode_delta_core``
+    and the patch flatten."""
     cap = victims.shape[2]
     width = row_width(cap)
     if hrows is None:
@@ -149,7 +153,7 @@ def encode_delta(nodestate, victims, dense, adds, hpos=None, hrows=None, *,
             f"{tuple(hrows.shape)} for p={p}, cap={cap}")
     if not on_cuda(nodestate, victims, dense, adds, hpos, hrows):
         return encode_delta_plain(nodestate, victims, dense, adds, hpos,
-                                  hrows, p=p)
+                                  hrows, p=p, base=base)
     dev = nodestate.device
     for name, x in (("nodestate", nodestate), ("victims", victims),
                     ("dense", dense), ("adds", adds), ("hpos", hpos),
@@ -171,7 +175,7 @@ def encode_delta(nodestate, victims, dense, adds, hpos=None, hrows=None, *,
     code = lb.encode_delta_launch(
         nodestate.data_ptr(), victims.data_ptr(), nodestate.shape[1], cap,
         ptr(dense), d, ptr(adds), a, ptr(hpos), ptr(hrows), h, p,
-        out.data_ptr(), device,
+        out.data_ptr(), base, device,
         torch.cuda.current_stream(device).cuda_stream)
     ts._raise_on(lb, code, "encode_delta")
     encode_delta.launches += 1

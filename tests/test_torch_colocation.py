@@ -411,13 +411,14 @@ def test_allocation_snapshot_matches_reference(engine):
 
 @pytest.mark.parametrize("engine", sorted(registered_engines()))
 def test_scheduler_shortlist_is_none_on_every_engine(engine):
-    """The shortlist is None on every engine but the one registered with
-    ``supports_shortlist`` (``imp_batched``, as in the reference), whose
+    """The shortlist is None on every engine but those registered with
+    ``supports_shortlist`` (``imp_batched`` and ``imp_sharded``, as in the
+    reference), whose
     knobs are validated and carried into the provenance; elsewhere
     invalid knobs go unvalidated (as in the reference for such engines)
     and the provenance carries 0 / None."""
     cluster = Cluster(RTX4090_SERVER, 3, device="cpu")
-    takes = engine == "imp_batched"
+    takes = engine in ("imp_batched", "imp_sharded")
     assert bool(getattr(get_engine(engine), "supports_shortlist",
                         False)) == takes
     for kw in ({}, {"shortlist_k": 4, "shortlist_mode": "best_effort"},
@@ -452,14 +453,12 @@ def test_shortlist_config_validates():
 
 
 @pytest.mark.parametrize("threshold,nodes,routes", [
-    (None, 8, "imp_batched"), (9, 8, "imp_batched"), (8, 8, None),
-    (2, 8, None)])
+    (None, 8, "imp_batched"), (9, 8, "imp_batched"), (8, 8, "imp_sharded"),
+    (2, 8, "imp_sharded")])
 def test_scheduler_auto_threshold(threshold, nodes, routes):
+    """``auto`` routes by node count as the reference does: ``imp_sharded``
+    at or above the threshold; the provenance is the reference's."""
     cluster = Cluster(RTX4090_SERVER, nodes, device="cpu")
-    if routes is None:
-        with pytest.raises(UnknownEngineError, match="imp_sharded"):
-            TopoScheduler(cluster, engine="auto", auto_threshold=threshold)
-        return
     sched = TopoScheduler(cluster, engine="auto", auto_threshold=threshold)
     assert sched.engine == routes
     prov = sched.plan(WL3["B"]).decision.sourcing_provenance
@@ -469,6 +468,8 @@ def test_scheduler_auto_threshold(threshold, nodes, routes):
     ref = RefScheduler(RefCluster(REF_RTX, nodes), engine="auto",
                        auto_threshold=threshold)
     assert ref.auto_threshold == sched.auto_threshold
+    assert ref.engine == sched.engine
+    assert prov == ref._provenance
 
 
 def test_colocation_config_device():

@@ -52,7 +52,7 @@ from repro.core.workload import WorkloadSpec as RefWorkloadSpec  # noqa: E402
 from repro.core.workload import table3_workloads as ref_table3  # noqa: E402
 from repro_torch.core import (AUTO_ENGINE_THRESHOLD, Cluster,  # noqa: E402
                               ServerSpec, TopoPolicy, TopoScheduler,
-                              UnknownEngineError, WorkloadSpec, instance_rows,
+                              WorkloadSpec, instance_rows,
                               table3_workloads)
 from repro_torch.core.cluster import (IDX_SENTINEL, ClusterView,  # noqa: E402
                                       MAX_DENSE_VICTIMS, VF_CG, VF_GPU,
@@ -711,5 +711,11 @@ def test_auto_engine_routes_by_cluster_size(monkeypatch):
         "shortlist_k": 128, "shortlist_mode": "guaranteed"}
     assert AUTO_ENGINE_THRESHOLD == 4096
     monkeypatch.setattr(scheduler, "AUTO_ENGINE_THRESHOLD", 3)
-    with pytest.raises(UnknownEngineError, match="imp_sharded"):
-        TopoScheduler(port, engine="auto")
+    sched = TopoScheduler(carried(ref_random_cluster(1, nodes=3)),
+                          engine="auto")
+    assert sched.engine == "imp_sharded"
+    got = _full_key(sched.plan(WL3["B"], allow_normal=False).decision)
+    want = _full_key(RefScheduler(ref_random_cluster(1, nodes=3),
+                                  engine="imp").plan(
+        REF_WL3["B"], allow_normal=False).decision)
+    assert got == want

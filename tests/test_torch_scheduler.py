@@ -197,15 +197,26 @@ def test_plan_batch_composes_against_one_view():
 @pytest.mark.parametrize("engine", ["auto", "imp_sharded",
                                     "imp_batched_legacy"])
 def test_unported_engines_raise(engine, monkeypatch):
-    """Engines not ported yet raise; ``auto`` raises where it would pick the
-    unported ``imp_sharded`` (at or above its node threshold, lowered here
-    to this 2-node cluster)."""
+    """The three engines this case once held unported now plan: ``auto``
+    at or above its node threshold (lowered here to this 12-node cluster)
+    resolves to ``imp_sharded``, and each decides as the reference's host
+    ``imp``; an unregistered name still raises."""
     from repro_torch.core import scheduler
 
     monkeypatch.setattr(scheduler, "AUTO_ENGINE_THRESHOLD", 2)
-    cluster = Cluster(RTX4090_SERVER, 2, device="cpu")
+    ref = ref_build(RefSimConfig(num_nodes=12, seed=4))
+    ref_wl = {w.name: w for w in ref_table3()}
+    wl = {w.name: w for w in table3_workloads()}
+    names = ["B", "C", "D", "B"]
+    want = [decision_key(RefScheduler(ref, engine="imp").plan(
+        ref_wl[n]).decision) for n in names]
+    cluster = Cluster.from_instances(RTX4090_SERVER, 12, instance_rows(ref),
+                                     device="cpu")
+    sched = TopoScheduler(cluster, engine=engine)
+    assert sched.engine == ("imp_sharded" if engine == "auto" else engine)
+    assert [decision_key(sched.plan(wl[n]).decision) for n in names] == want
     with pytest.raises(UnknownEngineError):
-        TopoScheduler(cluster, engine=engine)
+        TopoScheduler(cluster, engine=engine + "_unported")
 
 
 def _imports(path: pathlib.Path) -> set[str]:
