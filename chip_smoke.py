@@ -12,7 +12,9 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    together), with each source's ``ptxas -v`` lines.  ``cuobjdump -sass``
    of the flash-attention library counts the ``HGMMA`` (wgmma) and
    ``UTMALDG`` (TMA load) instructions of each bf16 kernel; a count of 0
-   fails the run.  That of the topo-score library counts the global
+   fails the run.  That of the recurrent library counts the local-memory
+   loads and stores of the two scans' four instances; one fails the run.
+   That of the topo-score library counts the global
    atomics (``ATOMG``, ``ATOM``, ``RED``) of K2's normal-cycle form (both
    its kernels) and K1's tail, which reduce across CTAs through a
    thread-block cluster; a count above 0 fails the run.  In K1's class
@@ -135,9 +137,10 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
 7. ``[flash]``: the flash-attention kernel (K4) against its plain version on
    the card, in f32 (2e-5) and bf16 (2.5e-2), over the reference tests'
    five shapes, the serving path's shape, a head_dim-128 shape, a window
-   with fully masked first tiles, a ragged Sq at the 128-row q block and a
-   windowed head_dim-128 shape whose length is not a multiple of 128; no
-   output may be non-finite.  Then 50 back-to-back launches at the serving
+   with fully masked first tiles, a ragged Sq at the 128-row q block, a
+   windowed head_dim-128 shape whose length is not a multiple of 128, and
+   at head dim 256 recurrentgemma-9b's prefill (B 4, H 16, MQA, S 1024,
+   window 2048) and a ragged windowed Sq; no output may be non-finite.  Then 50 back-to-back launches at the serving
    shape must give bit-identical outputs.
 8. ``[serve]``: the serving path, llama3.2-1b at full width and depth with
    seeded random weights made on the card, through ``ServeEngine`` (batch
@@ -152,6 +155,30 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    to 2 layers.  The full depth's differences are recorded beside them, and
    so is how far each layer amplifies a 1e-6 perturbation of the input
    (f32): the random-weight model is chaotic at depth (``serve_check``).
+9b. ``[families]``: the MoE and recurrent families at full width with
+   seeded random weights made on the card, through ``ServeEngine`` with
+   ``[serve]``'s protocol: mixtral-8x7b (depth cut 32 -> 16 layers: 93 GB
+   of bf16 weights exceed the card's 80 GB), olmoe-1b-7b, rwkv6-7b and
+   recurrentgemma-9b, one at a time.  Counters at 0 just before ``run()``,
+   read just after: K4 launches = attention layers x prefill batches, the
+   ``wkv6_scan`` and ``rglru_scan`` launches = their layers x (prefill
+   batches + decode steps).  Every request has 32 tokens, no logit is
+   non-finite, the first batch served again gives the same tokens; the
+   MoE lines carry each layer's dropped fraction.  ``[families-check]``:
+   rwkv6 and recurrentgemma decode against a fresh prefill at full width
+   (2 x 1000 and 2 x 2100 tokens, the latter wrapping the 2048-slot ring
+   cache), gated at 0.08 on 2 and 3 layers, the full depth recorded; for
+   each MoE config layer 0's MoE in f32 on the card against the CPU on the
+   hidden states of a 2 x 1000-token prefill put on a grid where the
+   router's product is exact: expert indices, slot order, keep mask and
+   capacity slots identical, outputs within 1e-4 relative; decode against
+   prefill recorded with the dropped fraction, not gated.
+9c. ``[examples]``: ``examples/torch_preemption_demo.py`` on the card,
+   whose lines must equal its lines with ``--device cpu`` (the plain
+   versions, held to the reference's demo by the CPU tests), and
+   ``examples/torch_colocated_serving.py``,
+   whose 12-node ``imp_batched`` day must give the port's host ``imp``
+   day's ``key_metrics()``.
 10. One ``{"kernels": [...]}`` line: per kernel its launches on its path,
    the largest difference against the plain version, the time per call
    from CUDA events (kernel and plain version), the device time per launch
@@ -177,7 +204,12 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    and on 10240 nodes, each's device time against its sourcing wall time,
    and the host functions that dominate; a ``[sourcing]`` line with the
    P50/P90 of every engine and size of ``[main]``; the summary line
-   carries ``[sharded]``'s P50/P90 by engine, size and shard count.
+   carries ``[sharded]``'s P50/P90 by engine, size and shard count.  The
+   rows of ``wkv6_scan`` (rwkv6-7b's prefill: B 4, S 1024, H 64) and
+   ``rglru_scan`` (recurrentgemma-9b's: B 4, S 1024, R 4096), each within
+   1e-5 of its largest plain output there and, from a non-zero carried
+   state, at S 1 (a decode step) and S 1023, and of K4 at head dim 256
+   (``FLASH_D256``) carry the launches of ``[families]``.
 11. The card's name and power limit again, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -1468,8 +1500,9 @@ def cluster_phase(torch, np, dev) -> dict[str, float]:
 #: B, H, K, Sq, Sk, d, causal, window: the reference tests' five shapes, the
 #: serving path's (llama3.2-1b prefill, batch 4 x 1024), a head_dim-128
 #: shape, a window whose first KV tile is fully masked for some rows, a
-#: ragged Sq at the bf16 kernel's 128-row q block, and a windowed
-#: head_dim-128 shape whose length is not a multiple of 128
+#: ragged Sq at the bf16 kernel's 128-row q block, a windowed
+#: head_dim-128 shape whose length is not a multiple of 128, and at head
+#: dim 256 recurrentgemma-9b's prefill and a ragged windowed Sq
 FLASH_SHAPES = (
     (2, 4, 2, 128, 128, 32, True, None),
     (1, 4, 1, 200, 200, 16, True, None),
@@ -1481,7 +1514,11 @@ FLASH_SHAPES = (
     (1, 8, 2, 600, 600, 128, True, 100),
     (2, 16, 4, 1000, 1000, 64, True, None),
     (2, 8, 2, 777, 777, 128, True, 250),
+    (4, 16, 1, 1024, 1024, 256, True, 2048),
+    (2, 8, 1, 777, 777, 256, True, 250),
 )
+#: recurrentgemma-9b's local attention at [families]' prefill (MQA, d 256)
+FLASH_D256 = FLASH_SHAPES[10]
 #: back-to-back launches at the serving shape that must agree bit for bit
 REPEATS = 50
 MAIN_FLASH = FLASH_SHAPES[5]
@@ -1520,6 +1557,9 @@ def flash_phase(torch) -> dict[str, float]:
             errs[name] = max(errs.get(name, 0.0), err)
             if shape == MAIN_FLASH:
                 errs[f"{name}_main"] = err
+            if shape[5] == 256:
+                errs[f"{name}_d256"] = max(errs.get(f"{name}_d256", 0.0),
+                                           err)
     print(f"[flash] {len(FLASH_SHAPES)} shapes x 2 dtypes within tolerance "
           f"of the plain version: {json.dumps(errs)}", flush=True)
     q, k, v = flash_inputs(torch, MAIN_FLASH, torch.bfloat16, seed=5)
@@ -1671,16 +1711,17 @@ def serve_trace(torch, api, params) -> dict:
     return out
 
 
-def decode_vs_prefill(torch, np, api, params) -> list[tuple[float, bool]]:
-    """2 sequences of 1000 tokens, then 4 decode steps: per step the largest
+def decode_vs_prefill(torch, np, api, params, S: int = 1000
+                      ) -> list[tuple[float, bool]]:
+    """2 sequences of S tokens, then 4 decode steps: per step the largest
     |difference| from a fresh prefill (through K4) of the extended
     sequence, and whether it is within 0.08 (atol and rtol)."""
     from repro_torch.configs import cache_capacity
 
-    B, S, T = 2, 1000, 4
+    B, T = 2, 4
     rng = np.random.default_rng(7)
     toks = torch.from_numpy(rng.integers(1, api.cfg.vocab, (B, S + T),
-                                         dtype=np.int32)).cuda()
+                                         dtype=np.int32)).to(api.device)
     cap = cache_capacity(api.cfg, S + T)
     out = []
     with torch.inference_mode():
@@ -1692,7 +1733,7 @@ def decode_vs_prefill(torch, np, api, params) -> list[tuple[float, bool]]:
                   f"decode step {t}: non-finite logits")
             out.append((float((logits - ref).abs().max()),
                         torch.allclose(logits, ref, atol=0.08, rtol=0.08)))
-    torch.cuda.synchronize()
+    torch_sync(api.device)
     return out
 
 
@@ -1706,15 +1747,7 @@ def sensitivity(torch, api, params, tokens: int = 256) -> list[float]:
     from repro_torch.models import lm
 
     cfg = dataclasses.replace(api.cfg, compute_dtype=torch.float32)
-
-    def f32(tree):
-        if isinstance(tree, dict):
-            return {k: f32(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [f32(v) for v in tree]
-        return tree.float()
-
-    w = f32(params)
+    w = as_f32(params)
     gen = torch.Generator("cuda").manual_seed(3)
     toks = torch.randint(1, cfg.vocab, (1, tokens), device="cuda",
                          generator=gen)
@@ -1757,6 +1790,343 @@ def serve_check(torch, np, api, params) -> dict:
            "within_full": [ok for _, ok in full],
            "sensitivity_f32_per_layer": sensitivity(torch, api, params)}
     print(f"[serve-check] {json.dumps(out)}", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------------
+# Phase 5b: the MoE and recurrent families, and the two examples
+# ---------------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("mixtral-8x7b", "olmoe-1b-7b", "rwkv6-7b", "recurrentgemma-9b")
+#: ``[families]``' depth cuts: mixtral-8x7b's 32 layers hold 93 GB of bf16
+#: weights, more than the card's 80 GB; 16 layers hold 47 GB
+FAMILY_LAYERS = {"mixtral-8x7b": 16}
+#: ``[families-check]``: the gated depth (recurrentgemma: one super-block,
+#: so that the local attention is in it) and the prompt length
+#: (recurrentgemma's 2100 tokens wrap its 2048-slot ring cache)
+CHECK_LAYERS = {"rwkv6-7b": 2, "recurrentgemma-9b": 3}
+CHECK_PROMPT = {"rwkv6-7b": 1000, "recurrentgemma-9b": 2100}
+#: the MoE check's grid: hidden states in quarters, router weights in
+#: 2^-10 (every product and partial sum of the router's f32 product is then
+#: exact on either device, so routing can be compared bit for bit)
+MOE_GRID = (4.0, 1024.0)
+
+
+def expected_family_launches(cfg, batches: int, steps: int) -> dict:
+    """The K4, ``wkv6_scan`` and ``rglru_scan`` launches of one
+    ``ServeEngine.run`` on ``cfg``: K4 once an attention layer a prefill
+    batch (decode attention is plain), each scan once a layer of its kind a
+    prefill batch and a decode step."""
+    from repro_torch.models import lm
+
+    kind = lm.block_kind(cfg)
+    blocks, tail = lm._n_scanned(cfg)
+    attn = 0 if kind == "rwkv" else blocks
+    rwkv = blocks if kind == "rwkv" else 0
+    rglru = 2 * blocks + tail if kind == "griffin" else 0
+    return {"flash_attention": attn * batches,
+            "wkv6_scan": rwkv * (batches + steps),
+            "rglru_scan": rglru * (batches + steps)}
+
+
+@contextlib.contextmanager
+def moe_drops(record: list):
+    """Record (tokens, dropped_fraction) of every MoE layer call inside."""
+    from repro_torch.models import ffn
+
+    inner = ffn.moe_apply
+
+    def spy(p, cfg, x):
+        out, aux = inner(p, cfg, x)
+        record.append((x.shape[0] * x.shape[1], aux["dropped_fraction"]))
+        return out, aux
+
+    ffn.moe_apply = spy
+    try:
+        yield
+    finally:
+        ffn.moe_apply = inner
+
+
+def as_f32(tree):
+    if isinstance(tree, dict):
+        return {k: as_f32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [as_f32(v) for v in tree]
+    return tree.float()
+
+
+def family_serve(torch, np, arch: str) -> tuple[dict, object, object]:
+    """``[families]``: ``arch`` at full width (depth cut by
+    ``FAMILY_LAYERS``), seeded random weights made on the card, through
+    ``ServeEngine`` with ``[serve]``'s protocol.  Counts at 0 just before
+    ``run()``, read just after: K4 and the scans launched as
+    ``expected_family_launches`` says."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, count_params
+    from repro_torch.serving import Request, ServeEngine
+
+    cfg = get_config(arch)
+    if arch in FAMILY_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=FAMILY_LAYERS[arch])
+    api = build_model(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params = api.init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    finite: list = []
+    engine = ServeEngine(checked_api(api, finite), params,
+                         batch_size=SERVE_BATCH, seq_len=SERVE_SEQ)
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(SERVE_SEQ // 2, SERVE_SEQ + 1, SERVE_REQUESTS)
+    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab, int(n),
+                                               dtype=np.int32),
+                    max_new_tokens=SERVE_NEW)
+            for i, n in enumerate(lengths)]
+    drops: list = []
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                        # counts at 0 just before the path
+    t0 = time.perf_counter()
+    with moe_drops(drops):
+        engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()                # and read just after it
+    peak = torch.cuda.max_memory_allocated()
+    batches = -(-SERVE_REQUESTS // SERVE_BATCH)
+    want = expected_family_launches(cfg, batches, batches * SERVE_NEW)
+    for name, n in want.items():
+        check(counts[name] == n, f"[families] {arch}: {counts[name]} {name} "
+              f"launches, expected {n}")
+    check(all(len(r.output) == SERVE_NEW for r in reqs),
+          f"[families] {arch}: token counts {[len(r.output) for r in reqs]}")
+    check(all(bool(f) for f in finite), f"[families] {arch}: non-finite "
+          "logits")
+    again = [Request(rid=r.rid, prompt=r.prompt, max_new_tokens=SERVE_NEW)
+             for r in reqs[:SERVE_BATCH]]
+    engine.run(again)
+    check([r.output for r in again] == [r.output for r in reqs[:SERVE_BATCH]],
+          f"[families] {arch}: the same prompts served again gave other "
+          "tokens")
+    dec = engine.stats["decode_s"][:batches * SERVE_NEW]
+    out = {
+        "model": cfg.name, "params": count_params(params),
+        "layers": cfg.n_layers, "layers_full": get_config(arch).n_layers,
+        "batch": SERVE_BATCH, "seq_len": SERVE_SEQ,
+        "requests": SERVE_REQUESTS, "new_tokens": SERVE_NEW,
+        "init_s": init_s, "wall_s": wall,
+        "prefill_s": engine.stats["prefill_s"][:batches],
+        "decode_p50_ms": 1e3 * float(np.percentile(dec, 50)),
+        "decode_p90_ms": 1e3 * float(np.percentile(dec, 90)),
+        "tok_per_s": SERVE_REQUESTS * SERVE_NEW / wall,
+        "max_memory_allocated": peak,
+        "launches": {k: counts[k] for k in want}, "repeat_identical": True,
+    }
+    if drops:
+        L = cfg.n_layers
+        pre = [float(f) for n, f in drops if n == SERVE_BATCH * SERVE_SEQ]
+        out["dropped_fraction_prefill"] = [pre[i * L:(i + 1) * L]
+                                           for i in range(batches)]
+        out["dropped_fraction_decode_mean"] = float(np.mean(
+            [float(f) for n, f in drops if n == SERVE_BATCH]))
+    print(f"[families] {json.dumps(out)}", flush=True)
+    return out, api, params
+
+
+def recurrent_check(torch, np, arch: str, api, params) -> dict:
+    """``[families-check]`` of a recurrent family: decode against a fresh
+    prefill at full width, gated at 0.08 on the first ``CHECK_LAYERS``
+    layers, the full depth recorded (the random-weight model is chaotic
+    at depth, as ``serve_check`` says)."""
+    import dataclasses
+
+    from repro_torch.models import build_model, lm
+
+    cut = dataclasses.replace(api.cfg, n_layers=CHECK_LAYERS[arch])
+    blocks, tail = lm._n_scanned(cut)
+    cut_params = {k: v for k, v in params.items() if k != "tail"}
+    cut_params["blocks"] = params["blocks"][:blocks]
+    if tail:
+        cut_params["tail"] = params["tail"][:tail]
+    S = CHECK_PROMPT[arch]
+    gated = decode_vs_prefill(torch, np, build_model(cut, device=api.device),
+                              cut_params, S)
+    for i, (err, ok) in enumerate(gated):
+        check(ok, f"[families-check] {arch} step {S + i}: decode logits max "
+              f"|diff| {err} from the prefill's (tolerance 0.08), "
+              f"{cut.n_layers} layers")
+    full = decode_vs_prefill(torch, np, api, params, S)
+    out = {"model": arch, "prompt": S, "layers_gated": cut.n_layers,
+           "max_diff_gated": [e for e, _ in gated],
+           "layers_full": api.cfg.n_layers,
+           "max_diff_full": [e for e, _ in full],
+           "within_full": [ok for _, ok in full]}
+    print(f"[families-check] {json.dumps(out)}", flush=True)
+    return out
+
+
+def moe_check(torch, np, arch: str, api, params) -> dict:
+    """``[families-check]`` of an MoE family: layer 0's MoE at full width,
+    f32, on the card against the same layer on the CPU, on the hidden
+    states of a 2 x 1000-token prefill (embedding, layer 0's attention
+    through K4, its second norm).  On those states put on ``MOE_GRID`` the
+    expert indices, the slot order, the keep mask and the capacity slots
+    must be identical and the outputs within 1e-4 relative (the stable
+    sort, the top-k ties and the scatter on CUDA); on the raw states the
+    routing differences are counted, not gated (a 1-ulp difference of the
+    two devices' router products may reorder a near tie).  Decode against
+    prefill at the served depth is recorded with the prefill's dropped
+    fraction beside it, not gated: a prefill's capacity drops legitimately
+    differ from a decode step's."""
+    import dataclasses
+
+    from repro_torch.models import attention as attn
+    from repro_torch.models import ffn
+    from repro_torch.models.common import rmsnorm
+
+    cfg = dataclasses.replace(api.cfg, compute_dtype=torch.float32)
+    dev = api.device
+    bp = as_f32(params["blocks"][0])
+    gen = torch.Generator(dev).manual_seed(5)
+    toks = torch.randint(1, cfg.vocab, (2, 1000), device=dev, generator=gen)
+    xs, rs = MOE_GRID
+    keys = ("expert_idx", "order", "keep", "e_safe", "pos_safe")
+    out = {"model": arch}
+    with torch.inference_mode():
+        x = params["embed"][toks].float()
+        pos = torch.arange(1000, dtype=torch.int32, device=dev)[None]
+        h, _ = attn.attn_forward(bp["attn"], cfg,
+                                 rmsnorm(bp["ln1"], x, cfg.rms_eps),
+                                 positions=pos, causal=True,
+                                 window=cfg.swa_window)
+        xn = rmsnorm(bp["ln2"], x + h, cfg.rms_eps)
+        grid_p = dict(bp["moe"], router=torch.round(bp["moe"]["router"] * rs)
+                      / rs)
+        cpu_p = {k: v.cpu() for k, v in grid_p.items()}
+        xq = torch.clamp(torch.round(xn * xs) / xs, -16, 16)
+        got, got_aux = ffn._moe_tokens(grid_p, cfg, xq)
+        want, want_aux = ffn._moe_tokens(cpu_p, cfg, xq.cpu())
+        r_gpu = ffn.moe_route(grid_p, cfg, xq.reshape(-1, cfg.d_model))
+        r_cpu = ffn.moe_route(cpu_p, cfg, xq.cpu().reshape(-1, cfg.d_model))
+        same = {k: torch.equal(r_gpu[k].cpu(), r_cpu[k]) for k in keys}
+        err = float((got.cpu() - want).abs().max() / want.abs().max())
+        check(all(same.values()), f"[families-check] {arch}: routing on the "
+              f"card differs from the CPU's: {same}")
+        check(err <= 1e-4, f"[families-check] {arch}: MoE output relative "
+              f"error {err} against the CPU (tolerance 1e-4)")
+        raw_gpu = ffn.moe_route(bp["moe"], cfg, xn.reshape(-1, cfg.d_model))
+        raw_cpu = ffn.moe_route({k: v.cpu() for k, v in bp["moe"].items()},
+                                cfg, xn.cpu().reshape(-1, cfg.d_model))
+        out.update({
+            "tokens": 2000, "capacity": r_gpu["capacity"],
+            "routing_identical": same, "max_rel_err": err,
+            "dropped_fraction": [float(got_aux["dropped_fraction"]),
+                                 float(want_aux["dropped_fraction"])],
+            "raw_tokens_routed_differently": int(
+                (raw_gpu["expert_idx"].cpu() != raw_cpu["expert_idx"])
+                .any(dim=1).sum()),
+            "raw_slots_placed_differently": int(
+                (raw_gpu["pos_safe"].cpu() != raw_cpu["pos_safe"]).sum()),
+        })
+    del bp, grid_p, cpu_p
+    drops: list = []
+    with moe_drops(drops):
+        dvp = decode_vs_prefill(torch, np, api, params)
+    out.update({
+        "decode_vs_prefill_layers": api.cfg.n_layers,
+        "decode_vs_prefill_max_diff": [e for e, _ in dvp],
+        "decode_vs_prefill_within": [ok for _, ok in dvp],
+        "prefill_dropped_fraction_max": max(
+            float(f) for n, f in drops if n > 2),
+        "decode_dropped_fraction_max": max(
+            float(f) for n, f in drops if n == 2)})
+    print(f"[families-check] {json.dumps(out)}", flush=True)
+    return out
+
+
+def families_phase(torch, np) -> dict:
+    """``[families]`` and ``[families-check]`` for each of
+    ``FAMILY_ARCHS``, one model on the card at a time."""
+    out = {"serve": {}, "check": {}}
+    for arch in FAMILY_ARCHS:
+        t0 = time.perf_counter()
+        serve, api, params = family_serve(torch, np, arch)
+        checker = moe_check if api.cfg.moe is not None else recurrent_check
+        out["check"][arch] = checker(torch, np, arch, api, params)
+        serve["phase_wall_s"] = time.perf_counter() - t0
+        out["serve"][arch] = serve
+        del api, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def load_example(name: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_phase(torch) -> dict:
+    """``[examples]``: both port examples in process on the card.  The
+    demo's lines on the card must equal its lines with ``--device cpu``
+    (the kernels' plain versions, which the CPU tests hold to the
+    reference's demo); the colocated example's 12-node day under
+    ``imp_batched`` must give the port's host ``imp`` day's
+    ``key_metrics()`` (the engine label aside)."""
+    import io
+
+    from repro_torch.core.colocation import ColocationConfig, run_day_cycle
+
+    demo = load_example("torch_preemption_demo")
+    lines, counts = {}, {}
+    for device in ("cuda", "cpu"):
+        buf = io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(buf):
+            demo.main(["--device", device])
+        counts[device] = read_counts()
+        lines[device] = buf.getvalue().splitlines()
+    check(lines["cuda"] == lines["cpu"], "[examples] the demo's lines on "
+          "the card differ from its lines on the CPU")
+    check(counts["cuda"]["normal_cycle"] > 0
+          and counts["cuda"]["fused_class"] > 0,
+          f"[examples] the demo's imp_batched leg launched no fused kernel: "
+          f"{counts['cuda']}")
+    coloc = load_example("torch_colocated_serving")
+    buf = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        got = coloc.main([])
+    wall = time.perf_counter() - t0
+    ccounts = read_counts()
+    host = run_day_cycle(ColocationConfig(num_nodes=12, seed=0,
+                                          horizon_hours=24.0, engine="imp",
+                                          device="cuda"))
+    aware = got["ab"]["reports"]["imp_batched"]
+    check(dict(aware.key_metrics(), engine=None)
+          == dict(host.key_metrics(), engine=None),
+          "[examples] the colocated example's imp_batched day differs from "
+          "host imp's")
+    check(ccounts["normal_cycle"] > 0 and ccounts["flash_attention"] > 0,
+          f"[examples] the colocated example launched no kernel: {ccounts}")
+    out = {"demo_lines": len(lines["cuda"]), "demo_identical_to_cpu": True,
+           "demo_launches": {k: counts["cuda"][k] for k in (
+               "normal_cycle", "fused_class", "fused_argmax")},
+           "colocated_wall_s": wall, "colocated_uplift": got["ab"]["uplift"],
+           "colocated_identical_to_imp": True,
+           "colocated_raw_tok_per_s": got["raw_tok_per_s"],
+           "colocated_launches": {k: ccounts[k] for k in (
+               "normal_cycle", "fused_class", "fused_argmax",
+               "flash_attention")},
+           "colocated_lines": buf.getvalue().splitlines()[1:4]}
+    print(f"[examples] {json.dumps(out)}", flush=True)
     return out
 
 
@@ -3347,6 +3717,132 @@ def flash_row(torch, errs, launches) -> dict:
     }
 
 
+#: ``wkv6_scan``'s row: rwkv6-7b's prefill (B, S, H); ``rglru_scan``'s:
+#: recurrentgemma-9b's (B, S, R)
+WKV_SHAPE = (4, 1024, 64)
+RGLRU_SHAPE = (4, 1024, 4096)
+#: the sequence lengths each scan is also held to its plain version at,
+#: from a carried state: a decode step, and a prefill that ends inside a
+#: chunk of the kernels' 8 steps
+SCAN_CHECK_S = (1, 1023)
+#: |kernel - plain| <= SCAN_TOL * max |plain|, f32 (the two sum in one
+#: order; the kernel contracts multiply-adds into FMAs)
+SCAN_TOL = 1e-5
+
+
+def scan_inputs(torch, name: str, S: int, seed: int) -> tuple:
+    """Seeded inputs of one scan at its row's shape with S steps; the
+    carried state (s0, h0) is non-zero."""
+    from repro_torch.kernels import recurrent as rk
+
+    gen = torch.Generator("cuda").manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    if name == "wkv6_scan":
+        B, _, H = WKV_SHAPE
+        hd = rk.HEAD
+        r, k, v = ((0.5 * rn(B, S, H, hd)).to(torch.bfloat16)
+                   for _ in range(3))
+        w = torch.exp(-torch.exp(rn(B, S, H, hd).clamp(-10, 6) - 2))
+        return r, k, v, w, 0.5 * rn(H, hd), 0.1 * rn(B, H, hd, hd)
+    B, _, R = RGLRU_SHAPE
+    gr, gi = rn(B, S, R), rn(B, S, R)
+    xc = rn(B, S, R).to(torch.bfloat16)
+    return gr, gi, xc, torch.nn.functional.softplus(rn(R) + 3), rn(B, R)
+
+
+def scan_error(torch, name: str, fn, plain_fn) -> tuple[float, float]:
+    """The largest |kernel - plain| over both outputs, checked against
+    SCAN_TOL times the plain outputs' largest magnitude."""
+    got, want = fn(), plain_fn()
+    torch.cuda.synchronize()
+    err = max(float((g - p).abs().max()) for g, p in zip(got, want))
+    scale = max(float(p.abs().max()) for p in want)
+    check(all(bool(torch.isfinite(g).all()) for g in got)
+          and err <= SCAN_TOL * scale,
+          f"{name}: max |diff| {err} against the plain version "
+          f"(tolerance {SCAN_TOL} x {scale})")
+    return err, scale
+
+
+def scan_rows(torch, launches: dict) -> list[dict]:
+    """The two scans against their plain versions on the card at the
+    families' shapes: a decode step and a ragged prefill (SCAN_CHECK_S),
+    then the prefill of the row, which is timed.  Bounds: the bytes of
+    the inputs read once and the outputs written once; the operations a
+    step needs (WKV: r S and the bonus 2 hd^2 + 5 hd, the state update 3
+    hd^2 a (b, h); the rg-lru: 19 f32 operations an element, the exp and
+    sqrt counted as one)."""
+    from repro_torch.kernels import recurrent as rk
+
+    B, S, H = WKV_SHAPE
+    hd = rk.HEAD
+    B_, S_, R = RGLRU_SHAPE
+    cases = (
+        ("wkv6_scan", "wkv6_kernel", rk.wkv6_scan, rk.wkv6_scan_plain,
+         3 * B * S * H * hd * 2 + 2 * B * S * H * hd * 4 + H * hd * 4
+         + 2 * B * H * hd * hd * 4,
+         B * H * S * (5 * hd * hd + 5 * hd),
+         {"B": B, "S": S, "H": H, "hd": hd, "dtype": "bfloat16"},
+         "src/repro/models/recurrent.py:125 (lax.scan of "
+         "rwkv_timemix_forward; XLA, no Pallas kernel)"),
+        ("rglru_scan", "rglru_kernel", rk.rglru_scan, rk.rglru_scan_plain,
+         B_ * S_ * R * (4 + 4 + 2 + 4) + R * 4 + 2 * B_ * R * 4,
+         19 * B_ * S_ * R,
+         {"B": B_, "S": S_, "R": R, "dtype": "bfloat16"},
+         "src/repro/models/recurrent.py:234 (lax.associative_scan of "
+         "rglru_block_forward, with _rglru_gates :205; XLA, no Pallas "
+         "kernel)"),
+    )
+    rows = []
+    for name, kernel, wrap, plain, n_bytes, flops, shape, replaces in cases:
+        by_s = {}
+        for seed, steps in enumerate((*SCAN_CHECK_S, shape["S"])):
+            x = scan_inputs(torch, name, steps, 11 + seed)
+            by_s[steps] = scan_error(torch, name, lambda: wrap(*x),
+                                     lambda: plain(*x))
+
+        def fn(): return wrap(*x)
+        def plain_fn(): return plain(*x)
+        err, scale = by_s[shape["S"]]
+        ms = event_ms(torch, fn, reps=10, inner=5)
+        kernel_ms = profiled_kernel_ms(torch, fn, kernel, calls=10)
+        b_ms, b_by = bound_ms(n_bytes, flops)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/recurrent.cu",
+            "replaces": replaces, "launches": launches[name],
+            "on_main_path": launches[name] > 0, "max_abs_err": err,
+            "tolerance": SCAN_TOL * scale, "shape": shape,
+            "checked": {str(k): {"max_abs_err": e, "tolerance": SCAN_TOL * m}
+                        for k, (e, m) in by_s.items()},
+            "ms": ms, "kernel_ms": kernel_ms,
+            "plain_ms": event_ms(torch, plain_fn, reps=3, inner=1),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+            "flops": flops, **rates(flops, b_ms, ms, kernel_ms),
+            "library_ms": None})
+    return rows
+
+
+def flash_d256_row(torch, errs, launches: int) -> dict:
+    """K4 at head dim 256: recurrentgemma-9b's local attention at its
+    prefill (B 4, H 16, MQA, S 1024, bf16; the 2048 window spans it)."""
+    t = flash_timing(torch, FLASH_D256, plain=True)
+    return {
+        "name": "flash_attention_d256", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:77",
+        "replaces_fn": "flash_attention", "launches": launches,
+        "on_main_path": launches > 0,
+        "max_abs_err": errs["bfloat16_d256"],
+        "max_abs_err_f32": errs["float32_d256"], **t,
+        "dtype": "bfloat16",
+        "library": "torch.nn.functional.scaled_dot_product_attention("
+                   "is_causal=True, enable_gqa=True)"}
+
+
 #: the CUDA kernels of each traced engine's plan
 TRACE_KERNELS = {"imp_pallas": ("topo_score_argmax_kernel",),
                  "imp_batched": ("fused_class_kernel", "fused_argmax_kernel",
@@ -3422,7 +3918,8 @@ def trace_phase(torch, dev, engine: str = "imp_pallas", nodes: int = 1024,
 
 def build_all() -> None:
     """Build every CUDA source, one nvcc process each, all started together;
-    then count the Hopper instructions of the bf16 flash-attention kernels."""
+    then count the Hopper instructions of the bf16 flash-attention kernels
+    and the local-memory accesses (spills) of the scans."""
     from repro_torch.kernels import _build
 
     def one(target):
@@ -3431,7 +3928,7 @@ def build_all() -> None:
         return target, time.perf_counter() - t0, log
 
     targets = (("topo_score", ()), ("flash_attention", ()),
-               ("topo_score", TIER_YARDSTICK))
+               ("topo_score", TIER_YARDSTICK), ("recurrent", ()))
     with concurrent.futures.ThreadPoolExecutor(len(targets)) as pool:
         for (name, defines), secs, log in pool.map(one, targets):
             flags = "".join(f" -D{d}" for d in defines)
@@ -3441,11 +3938,21 @@ def build_all() -> None:
                          r"flash_bf16_kernelILi(\d+)E", SASS_OPS)
     print(f"[build] flash_bf16_kernel SASS (head dim: counts): "
           f"{json.dumps(counts)}", flush=True)
-    check(len(counts) == 4, f"flash_bf16_kernel: {len(counts)} of 4 head "
+    check(len(counts) == 5, f"flash_bf16_kernel: {len(counts)} of 5 head "
           "dims found in the SASS")
     for d, c in counts.items():
         check(c["HGMMA"] > 0 and c["UTMALDG"] > 0,
               f"flash_bf16_kernel<{d}> has no wgmma or no TMA load: {c}")
+    counts = sass_counts(_build._target("recurrent")[1],
+                         r"((?:wkv6|rglru)_kernelI(?:f|13__nv_bfloat16)E)",
+                         ("LDL", "STL"))
+    print(f"[build] scan kernels' local memory SASS (kernel: counts): "
+          f"{json.dumps(counts)}", flush=True)
+    check(len(counts) == 4, f"{sorted(counts)} of the two scans' four "
+          "instances found in the SASS")
+    for name, c in counts.items():
+        check(c["LDL"] == 0 and c["STL"] == 0,
+              f"{name} spills to local memory: {c}")
     counts = sass_counts(_build._target("topo_score")[1],
                          r"(normal_cycle_kernel|normal_merge_kernel|"
                          r"fused_argmax_kernel|tail_merge_kernel)",
@@ -3617,11 +4124,22 @@ def run() -> int:
     del api, params
     torch.cuda.empty_cache()
     lap("flash_serve")
+    families = families_phase(torch, np)
+    lap("families")
+    examples = examples_phase(torch)
+    lap("examples")
     rows = timing_phase(torch, np, dev, errs, launches,
                         {"topo_score": legacy_plans, None: plans})
     lap("timing")
     rows.append(flash_row(torch, flash_errs,
                           serve["counts"]["flash_attention"]))
+    fam = families["serve"]
+    rows.append(flash_d256_row(
+        torch, flash_errs,
+        fam["recurrentgemma-9b"]["launches"]["flash_attention"]))
+    rows.extend(scan_rows(torch, {
+        name: sum(f["launches"][name] for f in fam.values())
+        for name in ("wkv6_scan", "rglru_scan")}))
     lap("flash_timing")
     rows.extend(fused_rows(torch, np, dev, errs, launches, fused_plans,
                            clusters, cluster_sweep(torch, np, dev)))
@@ -3664,6 +4182,13 @@ def run() -> int:
                           "prefill_s", "decode_p50_ms", "decode_p90_ms",
                           "tok_per_s", "max_memory_allocated")},
                       "serve_check": check_errs,
+                      "families": {a: {k: f[k] for k in (
+                          "layers", "init_s", "prefill_s", "decode_p50_ms",
+                          "decode_p90_ms", "tok_per_s",
+                          "max_memory_allocated")}
+                                   for a, f in fam.items()},
+                      "examples": {k: examples[k] for k in (
+                          "colocated_uplift", "colocated_raw_tok_per_s")},
                       "empty_kernel_ms": floor["kernel_ms"],
                       "shortlist": {f"{r['engine']}@{r['nodes']}":
                                     {k: r["counts"]["path"][k]

@@ -14,14 +14,16 @@ whose shard records they merge: ``fused_class.tail_merge``,
 ``normal_cycle.normal_merge`` and ``prescreen.prescreen_select``.
 flash_attention — blocked causal / sliding-window GQA attention, the
 serving path's prefill attention (``csrc/flash_attention.cu``).
+recurrent — the recurrent families' time-step scans: RWKV-6's WKV and the
+RG-LRU's gated diagonal recurrence (``csrc/recurrent.cu``).
 """
 from . import (flash_attention, fused_class, normal_cycle, ops, prescreen,
-               topo_score, view_delta)
+               recurrent, topo_score, view_delta)
 
 #: every kernel wrapper of the package (their ``launches`` counters)
 WRAPPERS = (topo_score.WRAPPERS + fused_class.WRAPPERS + normal_cycle.WRAPPERS
             + view_delta.WRAPPERS + prescreen.WRAPPERS
-            + (flash_attention.flash_attention,))
+            + (flash_attention.flash_attention,) + recurrent.WRAPPERS)
 
 __all__ = ["WRAPPERS", "flash_attention", "fused_class", "normal_cycle", "ops",
-           "prescreen", "topo_score", "view_delta"]
+           "prescreen", "recurrent", "topo_score", "view_delta"]

@@ -22,7 +22,7 @@
 // a score on the SFU-rate pipes, ~16 a clock an SM) and each CTA's start
 // and end, which a grid of one CTA an SM cannot overlap.
 //
-// bf16 design (flash_bf16_kernel, one kernel for d = 16, 32, 64, 128):
+// bf16 design (flash_bf16_kernel, one kernel for d = 16, 32, 64, 128, 256):
 // * A CTA per (b*H + h, 128-row q block), 384 threads in three
 //   warpgroups.  Warpgroup 0 is the producer: it gives registers back
 //   (setmaxnreg.dec) and one thread issues every TMA load.  Warpgroups 1
@@ -32,13 +32,13 @@
 // * TMA.  4-D tensor maps (d, S, heads, B) over the strided views the model
 //   passes, encoded on the host (cuTensorMapEncodeTiled through
 //   cudaGetDriverEntryPoint, so no -lcuda) from the rows the Python helper
-//   computes.  Q is loaded once; K and V tiles of BK rows (128, or 64 at
-//   d = 128 for registers) go through a 3-stage ring, each stage with a
-//   full barrier for K, one for V and an empty barrier the 256 consumer
-//   threads arrive on.  TMA zero-fills rows past Sq / Sk.  A box is at most
-//   64 columns (128 bytes) with the matching swizzle (128B at d >= 64, two
-//   boxes at d = 128; 64B at d = 32; 32B at d = 16), the layout the wgmma
-//   descriptors below read.
+//   computes.  Q is loaded once; K and V tiles of BK rows (128; for
+//   registers 64 at d = 128 and 32 at d = 256) go through a 3-stage ring,
+//   each stage with a full barrier for K, one for V and an empty barrier
+//   the 256 consumer threads arrive on.  TMA zero-fills rows past Sq / Sk.
+//   A box is at most 64 columns (128 bytes) with the matching swizzle
+//   (128B at d >= 64, two boxes at d = 128, four at d = 256; 64B at
+//   d = 32; 32B at d = 16), the layout the wgmma descriptors below read.
 // * S = Q K^T: wgmma m64nBKk16, Q and K both K-major from shared memory.
 //   It is issued together with O += P V of the tile before, and the two
 //   consumers take turns to issue (ping-pong on named barriers), so one's
@@ -63,8 +63,9 @@
 //   clips the ragged Sq edge.
 // f32 (flash_f32_kernel, not on the serving path): the same function and
 // bounds on the CUDA cores (FMA) in 64-row blocks with expf, so that f32
-// stays within 2e-5 of the plain version: two threads per q row, each
-// holding every other element of q and of the accumulator.
+// stays within 2e-5 of the plain version: two threads per q row (four at
+// d = 256), each holding every other (fourth) element of q and of the
+// accumulator.
 // Later work: the q heads that share a KV head in one CTA, a persistent
 // grid, fp8, a backward.
 #include <cuda.h>
@@ -259,6 +260,22 @@ __device__ __forceinline__ void hold(uint32_t (&x)[N][4]) {
     for (int r = 0; r < 4; ++r) hold(x[i][r]);
 }
 
+// S (+)= A B^T, m64n32k16: A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // S (+)= A B^T, m64n64k16: A and B K-major in shared memory
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
                                          uint64_t db, int scale_d) {
@@ -404,12 +421,74 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// O += A B, m64n256k16: A in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[128],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // The bf16 tiling for head dimension D: 128 q rows (two consumers of 64),
 // BK KV rows a tile, boxes of SPAN columns with a SPAN * 2 byte swizzle.
+// The accumulator of a consumer's 64 rows holds D / 2 floats a thread, so
+// the KV tile shrinks as D grows: 128 rows to d = 64, 64 at d = 128, 32 at
+// d = 256 (128 accumulators, 16 scores and 16 words of P a thread).
 template <int D>
 struct Tile {
   static constexpr int BQ = 128;
-  static constexpr int BK = D == 128 ? 64 : 128;
+  static constexpr int BK = D == 256 ? 32 : D == 128 ? 64 : 128;
   static constexpr int STAGES = 3;
   static constexpr int SPAN = D < 64 ? D : 64;
   static constexpr int ROWB = SPAN * 2;        // bytes of a box row
@@ -767,8 +846,17 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap mq,
 
 constexpr int F32_BQ = 64;      // q rows per CTA (the loop bounds' unit)
 constexpr int F32_BK = 64;      // KV rows per tile of the bounds
-constexpr int F32_THREADS = 128;
-constexpr int SUB32 = 32;       // KV rows per sub-tile (registers)
+
+// The f32 tiling for head dimension D: TPR threads a q row, each holding
+// D / TPR elements of q and of the accumulator (64 at most), and SUB KV rows
+// a sub-tile in static shared memory (K and V: 2 SUB D floats, 32 KB at
+// most).
+template <int D>
+struct F32Tile {
+  static constexpr int TPR = D == 256 ? 4 : 2;
+  static constexpr int THREADS = F32_BQ * TPR;
+  static constexpr int SUB = D == 256 ? 16 : 32;
+};
 
 struct F32Args {
   const float* q;
@@ -780,14 +868,15 @@ struct F32Args {
   long long v_sb, v_sh, v_ss;
 };
 
-// rows [r0, r0 + 32) of a [*, D] f32 matrix into shared memory, 16 bytes a
-// thread; rows at or past nrows are zero
+// rows [r0, r0 + SUB) of a [*, D] f32 matrix into shared memory, 16 bytes
+// a thread; rows at or past nrows are zero
 template <int D>
 __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
                                               long long stride, int r0,
                                               int nrows) {
+  using T = F32Tile<D>;
   constexpr int CHUNKS = D / 4;
-  for (int i = threadIdx.x; i < SUB32 * CHUNKS; i += F32_THREADS) {
+  for (int i = threadIdx.x; i < T::SUB * CHUNKS; i += T::THREADS) {
     const int r = i / CHUNKS, c = (i % CHUNKS) * 4;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r0 + r < nrows)
@@ -797,16 +886,19 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
 }
 
 template <int D>
-__global__ void __launch_bounds__(F32_THREADS)
+__global__ void __launch_bounds__(F32Tile<D>::THREADS)
 flash_f32_kernel(const F32Args p, const Shape a) {
-  constexpr int DH = D / 2;   // elements of q / acc per thread
-  __shared__ __align__(16) float sK[SUB32 * D];
-  __shared__ __align__(16) float sV[SUB32 * D];
+  using T = F32Tile<D>;
+  constexpr int TPR = T::TPR, SUB = T::SUB;
+  constexpr int DH = D / TPR;   // elements of q / acc per thread
+  __shared__ __align__(16) float sK[SUB * D];
+  __shared__ __align__(16) float sV[SUB * D];
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * F32_BQ;
   const int b = blockIdx.y / a.H, h = blockIdx.y % a.H, kh = h / a.group;
-  const int half = threadIdx.x & 1;      // this thread's elements: 2i + half
-  const int row = q0 + (threadIdx.x >> 1);
+  // this thread's elements: TPR i + half
+  const int half = threadIdx.x % TPR;
+  const int row = q0 + threadIdx.x / TPR;
   const float* qp = p.q + b * p.q_sb + h * p.q_sh;
   const float* kp = p.k + b * p.k_sb + kh * p.k_sh;
   const float* vp = p.v + b * p.v_sb + kh * p.v_sh;
@@ -814,27 +906,28 @@ flash_f32_kernel(const F32Args p, const Shape a) {
   float q[DH], acc[DH];
 #pragma unroll
   for (int i = 0; i < DH; ++i) {
-    q[i] = row < a.Sq ? qp[row * p.q_ss + 2 * i + half] : 0.f;
+    q[i] = row < a.Sq ? qp[row * p.q_ss + TPR * i + half] : 0.f;
     acc[i] = 0.f;
   }
   float m = NEG_INF, l = 0.f;
 
   int lo, hi;
   kv_range<F32_BQ, F32_BK>(a, q0, lo, hi);
-  // the 64-row tiles of the bounds, each taken as two 32-row sub-tiles
-  for (int k0 = lo; k0 < hi; k0 += SUB32) {
+  // the 64-row tiles of the bounds, each taken as SUB-row sub-tiles
+  for (int k0 = lo; k0 < hi; k0 += SUB) {
     load_tile_f32<D>(sK, kp, p.k_ss, k0, a.Sk);
     load_tile_f32<D>(sV, vp, p.v_ss, k0, a.Sk);
     __syncthreads();
-    float s[SUB32];
+    float s[SUB];
     float mx = NEG_INF;
 #pragma unroll
-    for (int j = 0; j < SUB32; ++j) {
+    for (int j = 0; j < SUB; ++j) {
       const float* kr = &sK[j * D + half];
       float dot = 0.f;
 #pragma unroll
-      for (int i = 0; i < DH; ++i) dot = fmaf(q[i], kr[2 * i], dot);
-      dot += __shfl_xor_sync(FULL, dot, 1);
+      for (int i = 0; i < DH; ++i) dot = fmaf(q[i], kr[TPR * i], dot);
+#pragma unroll
+      for (int m = 1; m < TPR; m *= 2) dot += __shfl_xor_sync(FULL, dot, m);
       s[j] = allowed(a, row, k0 + j) ? dot * a.scale : NEG_INF;
       mx = fmaxf(mx, s[j]);
     }
@@ -844,12 +937,12 @@ flash_f32_kernel(const F32Args p, const Shape a) {
 #pragma unroll
     for (int i = 0; i < DH; ++i) acc[i] *= alpha;
 #pragma unroll
-    for (int j = 0; j < SUB32; ++j) {
+    for (int j = 0; j < SUB; ++j) {
       const float pj = expf(s[j] - mn);
       l += pj;
       const float* vr = &sV[j * D + half];
 #pragma unroll
-      for (int i = 0; i < DH; ++i) acc[i] = fmaf(pj, vr[2 * i], acc[i]);
+      for (int i = 0; i < DH; ++i) acc[i] = fmaf(pj, vr[TPR * i], acc[i]);
     }
     m = mn;
     __syncthreads();
@@ -859,7 +952,7 @@ flash_f32_kernel(const F32Args p, const Shape a) {
     float* op = p.o + (static_cast<long long>(blockIdx.y) * a.Sq + row) * D +
                 half;
 #pragma unroll
-    for (int i = 0; i < DH; ++i) op[2 * i] = acc[i] / den;
+    for (int i = 0; i < DH; ++i) op[TPR * i] = acc[i] / den;
   }
 }
 
@@ -950,7 +1043,7 @@ int launch_f32(const void* const* ptrs, const long long* maps, const Shape& a,
     for (int j = 0; j < 3; ++j)
       *st[i][j] = maps[i * MAP_FIELDS + M_ROW + j] / 4;
   const dim3 grid((a.Sq + F32_BQ - 1) / F32_BQ, B * a.H);
-  flash_f32_kernel<D><<<grid, F32_THREADS, 0, stream>>>(p, a);
+  flash_f32_kernel<D><<<grid, F32Tile<D>::THREADS, 0, stream>>>(p, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -989,6 +1082,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
     case 32: return launch<32>(dtype, ptrs, maps, a, B, s);
     case 64: return launch<64>(dtype, ptrs, maps, a, B, s);
     case 128: return launch<128>(dtype, ptrs, maps, a, B, s);
+    case 256: return launch<256>(dtype, ptrs, maps, a, B, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -36,7 +36,7 @@ from . import _build
 #: masked score: finite, as in the reference (a fully masked tile must not
 #: give exp(-inf + inf))
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: rows of the consumer warpgroup that owns a slice of a bf16 q block
 CONSUMER_ROWS = 64
@@ -48,10 +48,10 @@ MAP_FIELDS = ("d", "S", "heads", "B", "row_bytes", "head_bytes",
 def block_shape(d: int, dtype: torch.dtype) -> tuple[int, int]:
     """(q rows, KV rows) of a block of the kernel, and so of the plain
     version's loop: bf16 takes 128 q rows (two consumer warpgroups of 64)
-    and KV tiles of 128 rows, 64 at d = 128 (registers); f32 runs on the
-    CUDA cores in 64 x 64 blocks."""
+    and KV tiles of 128 rows, 64 at d = 128 and 32 at d = 256 (registers);
+    f32 runs on the CUDA cores in 64 x 64 blocks."""
     if dtype == torch.bfloat16:
-        return 2 * CONSUMER_ROWS, 64 if d == 128 else 128
+        return 2 * CONSUMER_ROWS, {128: 64, 256: 32}.get(d, 128)
     return 64, 64
 
 
@@ -86,9 +86,9 @@ def tensor_map(x: torch.Tensor, box_rows: int) -> tuple[int, ...]:
     view: dims (d, S, heads, B) innermost first, the byte strides of S,
     heads and B, the box (columns, rows) and the swizzle in bytes.
 
-    A bf16 box is at most 64 columns (128 bytes; d = 128 takes two) with a
-    swizzle as wide as its row: 128B at d >= 64, 64B at d = 32, 32B at
-    d = 16.  f32 tensors get no box (the f32 kernel reads by pointer and
+    A bf16 box is at most 64 columns (128 bytes; d = 128 takes two, d = 256
+    four) with a swizzle as wide as its row: 128B at d >= 64, 64B at
+    d = 32, 32B at d = 16.  f32 tensors get no box (the f32 kernel reads by pointer and
     takes only the strides).  Raises ValueError on what TMA cannot take: a
     base that is not 16-byte aligned, a last dimension that is not
     contiguous, byte strides that are not multiples of 16 or reach 2^40,
@@ -245,9 +245,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """softmax(mask(q kᵀ d^-0.5)) v per head, [B, H, Sq, d] in q's dtype.
     Counterpart of ``repro.kernels.flash_attention.flash_attention``.
 
-    The kernel takes head dimensions 16, 32, 64 and 128 (every dense
-    config's at full width); CPU tensors of any head dimension go to the
-    plain version."""
+    The kernel takes head dimensions 16, 32, 64, 128 and 256 (every
+    config's at full width: recurrentgemma-9b's local attention is at 256);
+    CPU tensors of any head dimension go to the plain version."""
     if not _checked(q, k, v, window):
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     B, H, Sq, d = q.shape

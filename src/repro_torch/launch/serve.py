@@ -4,9 +4,12 @@
                                        [--device cuda|cpu]
 
 One *instance* in the paper's co-location model, on one device (the card
-unless ``--device cpu``).  The weights come from the port's own seeded
-init; the smoke config is the default, ``--full`` serves the config's full
-width and depth.
+unless ``--device cpu``).  ``--arch`` takes every ported arch id: the dense
+family, the MoE family (mixtral-8x7b, olmoe-1b-7b) and the recurrent ones
+(rwkv6-7b, recurrentgemma-9b).  The weights come from the port's own
+seeded init; the smoke config is the default, ``--full`` serves the
+config's full width and depth (mixtral-8x7b's 93 GB of bf16 weights do not
+fit one 80 GB card: PyTorch's out-of-memory error says so).
 """
 from __future__ import annotations
 
@@ -16,14 +19,14 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models import build_model
 from repro_torch.serving import Request, ServeEngine
 
 
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--arch", default="llama3.2-1b", choices=ARCH_IDS)
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
     ap.add_argument("--batch", type=int, default=4)

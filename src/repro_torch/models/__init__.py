@@ -1,4 +1,5 @@
-"""Model substrate in PyTorch: the dense family (attention + gated MLP)."""
+"""Model substrate in PyTorch: the dense, MoE and recurrent (RWKV-6,
+RG-LRU hybrid) families."""
 from .api import ModelApi, build_model
 from .common import ModelConfig, MoEConfig, count_params
 from .convert import load_reference_params

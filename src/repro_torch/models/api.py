@@ -1,4 +1,5 @@
-"""Uniform model API (the serving entry point), dense family."""
+"""Uniform model API (the serving entry point): the dense, MoE and
+recurrent families."""
 from __future__ import annotations
 
 import dataclasses
@@ -24,13 +25,13 @@ class ModelApi:
 def build_model(cfg: ModelConfig, device: str | torch.device = "cuda"
                 ) -> ModelApi:
     """The model of ``cfg`` on ``device`` (the card unless the caller asks
-    for the CPU).  Raises for the families the port does not have yet."""
+    for the CPU).  Raises for the encoder-decoder and patch-frontend
+    families, which come with port slice 12."""
     cfg.validate()
     if cfg.is_encdec or cfg.frontend is not None:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder and patch-frontend models are not "
-            "ported yet")
-    lm._require_attn(cfg)
+            "ported yet; they come with port slice 12 (ROADMAP §1)")
     dev = resolve_device(device)
 
     def init(seed: int):

@@ -1,7 +1,9 @@
 """GQA/MQA attention with RoPE, optional QKV-bias / qk-norm / sliding window.
 
-The dense family's attention: llama3 / qwen GQA (n_kv < n_heads) and MHA,
-qwen1.5/qwen2 QKV bias, qwen3 qk-RMSNorm, and the sliding window.  The
+Every family's attention: llama3 / qwen / mixtral GQA (n_kv < n_heads),
+MHA and recurrentgemma's MQA, qwen1.5/qwen2 QKV bias, qwen3 / olmoe
+qk-RMSNorm, and the sliding window (mixtral's, recurrentgemma's local
+attention).  The
 causal prefill goes through the flash-attention kernel (K4,
 `repro_torch.kernels.ops.flash_attention`); prefix-LM and bidirectional
 masks, and the one-token decode against the cache, stay plain PyTorch

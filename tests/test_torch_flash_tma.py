@@ -26,7 +26,8 @@ BF16 = torch.bfloat16
 def test_tensor_map_rows(d, layout):
     """Dims innermost first, byte strides of S, heads and B, a box of at
     most 64 columns with a swizzle as wide as its row (128B at d >= 64,
-    64B at d = 32, 32B at d = 16)."""
+    64B at d = 32, 32B at d = 16; the launcher takes d / 64 boxes at
+    d = 128 and 256)."""
     B, H, S = 2, 4, 70
     if layout == "contiguous":
         x = torch.zeros(B, H, S, d, dtype=BF16)
@@ -38,7 +39,7 @@ def test_tensor_map_rows(d, layout):
     row = fa.tensor_map(x, 128)
     assert len(row) == len(fa.MAP_FIELDS)
     assert row == (d, S, H, B, *strides, span, 128, 2 * span)
-    assert {16: 32, 32: 64, 64: 128, 128: 128}[d] == row[-1]
+    assert {16: 32, 32: 64, 64: 128, 128: 128, 256: 128}[d] == row[-1]
 
 
 def test_tensor_map_size_one_dims_and_f32():
@@ -86,7 +87,9 @@ def test_block_shape():
     assert fa.block_shape(64, BF16) == (128, 128)
     assert fa.block_shape(16, BF16) == (128, 128)
     assert fa.block_shape(128, BF16) == (128, 64)
+    assert fa.block_shape(256, BF16) == (128, 32)
     assert fa.block_shape(64, torch.float32) == (64, 64)
+    assert fa.block_shape(256, torch.float32) == (64, 64)
 
 
 def _dense_mask(sq, sk, causal, window):
@@ -103,7 +106,7 @@ def _dense_mask(sq, sk, causal, window):
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 100),
                                            (True, 30), (False, None),
                                            (False, 70)])
-@pytest.mark.parametrize("bk", [64, 128])
+@pytest.mark.parametrize("bk", [32, 64, 128])
 def test_unmasked_tiles_are_all_allowed(causal, window, bk):
     """Every (64-row consumer slice, KV tile) that ``tile_needs_mask``
     leaves unmasked is all-true in the dense mask, over the tiles the
@@ -135,6 +138,7 @@ def test_diagonal_and_edge_tiles_need_the_mask():
     (1, 4, 2, 150, 150, 128, True, 40),       # d 128: KV tiles of 64
     (1, 4, 1, 130, 130, 16, True, None),
     (1, 4, 2, 96, 160, 32, False, None),
+    (1, 4, 1, 140, 140, 256, True, 50),       # d 256: KV tiles of 32, MQA
 ], ids=lambda s: str(s[:6]))
 def test_plain_at_kernel_tiling_matches_reference(shape):
     """bf16 at the kernel's tiling (block_shape) and its log2-unit softmax
@@ -162,7 +166,7 @@ def test_log2_softmax_scale():
                                         * np.float32(np.log2(np.e)))
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_plain_at_kernel_tiling_matches_model_attention(d):
     """The plain version's blocked loop at the bf16 kernel's tiling
     (block_shape), on f32 inputs, in place of the reference model's XLA
