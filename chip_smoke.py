@@ -13,7 +13,9 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    of the flash-attention library counts the ``HGMMA`` (wgmma) and
    ``UTMALDG`` (TMA load) instructions of each bf16 kernel; a count of 0
    fails the run.  That of the recurrent library counts the local-memory
-   loads and stores of the two scans' four instances; one fails the run.
+   loads and stores of the scans' six kernel instances (one fails the run)
+   and their tensor-core products (``HMMA``: the WKV kernel's none, or the
+   rg-lru's any, fails it); their registers come from the ptxas log.
    That of the topo-score library counts the global
    atomics (``ATOMG``, ``ATOM``, ``RED``) of K2's normal-cycle form (both
    its kernels) and K1's tail, which reduce across CTAs through a
@@ -205,11 +207,14 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    and the host functions that dominate; a ``[sourcing]`` line with the
    P50/P90 of every engine and size of ``[main]``; the summary line
    carries ``[sharded]``'s P50/P90 by engine, size and shard count.  The
-   rows of ``wkv6_scan`` (rwkv6-7b's prefill: B 4, S 1024, H 64) and
-   ``rglru_scan`` (recurrentgemma-9b's: B 4, S 1024, R 4096), each within
-   1e-5 of its largest plain output there and, from a non-zero carried
-   state, at S 1 (a decode step) and S 1023, and of K4 at head dim 256
-   (``FLASH_D256``) carry the launches of ``[families]``.
+   rows of ``wkv6_scan`` (rwkv6-7b's prefill: B 4, S 1024, H 64; also
+   timed at B 1, one CTA an SM) and ``rglru_scan`` (recurrentgemma-9b's: B
+   4, S 1024, R 4096), and of each at a decode step (S 1), are held within
+   1e-5 of the largest plain output, from a non-zero carried state, at S
+   1, 1023, 1024 and each kernel's chunk boundaries (``chunk_check_s``),
+   in bf16 and f32, on drawn and extreme decays (``scan_inputs``); they
+   and K4's at head dim 256 (``FLASH_D256``) carry the launches of
+   ``[families]`` (the decode rows those at S 1).
 11. The card's name and power limit again, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -395,6 +400,8 @@ def reset_counts() -> None:
 
     for w in WRAPPERS:
         w.launches = 0
+        if hasattr(w, "decode_launches"):
+            w.decode_launches = 0
     evaluate_subsets.calls = 0
     ts.flextopo_imp_pallas.calls = 0
     ts.flextopo_imp_pallas.overflow = 0
@@ -412,6 +419,8 @@ def read_counts() -> dict:
     from repro_torch.kernels import topo_score as ts
 
     out = {w.__name__: w.launches for w in WRAPPERS}
+    out.update({f"{w.__name__}_decode": w.decode_launches for w in WRAPPERS
+                if hasattr(w, "decode_launches")})
     out["evaluate_subsets_calls"] = evaluate_subsets.calls
     out["imp_pallas_calls"] = ts.flextopo_imp_pallas.calls
     out["imp_pallas_overflow"] = ts.flextopo_imp_pallas.overflow
@@ -1900,6 +1909,12 @@ def family_serve(torch, np, arch: str) -> tuple[dict, object, object]:
     for name, n in want.items():
         check(counts[name] == n, f"[families] {arch}: {counts[name]} {name} "
               f"launches, expected {n}")
+    decode = {name: counts[f"{name}_decode"] for name in ("wkv6_scan",
+                                                          "rglru_scan")}
+    want_decode = expected_family_launches(cfg, 0, batches * SERVE_NEW)
+    for name, n in decode.items():
+        check(n == want_decode[name], f"[families] {arch}: {n} {name} "
+              f"launches at S = 1, expected {want_decode[name]}")
     check(all(len(r.output) == SERVE_NEW for r in reqs),
           f"[families] {arch}: token counts {[len(r.output) for r in reqs]}")
     check(all(bool(f) for f in finite), f"[families] {arch}: non-finite "
@@ -1922,7 +1937,8 @@ def family_serve(torch, np, arch: str) -> tuple[dict, object, object]:
         "decode_p90_ms": 1e3 * float(np.percentile(dec, 90)),
         "tok_per_s": SERVE_REQUESTS * SERVE_NEW / wall,
         "max_memory_allocated": peak,
-        "launches": {k: counts[k] for k in want}, "repeat_identical": True,
+        "launches": {k: counts[k] for k in want},
+        "decode_launches": decode, "repeat_identical": True,
     }
     if drops:
         L = cfg.n_layers
@@ -3723,34 +3739,70 @@ WKV_SHAPE = (4, 1024, 64)
 RGLRU_SHAPE = (4, 1024, 4096)
 #: the sequence lengths each scan is also held to its plain version at,
 #: from a carried state: a decode step, and a prefill that ends inside a
-#: chunk of the kernels' 8 steps
+#: chunk of either kernel; ``chunk_check_s`` adds each kernel's chunk
+#: boundaries
 SCAN_CHECK_S = (1, 1023)
-#: |kernel - plain| <= SCAN_TOL * max |plain|, f32 (the two sum in one
-#: order; the kernel contracts multiply-adds into FMAs)
+#: |kernel - plain| <= SCAN_TOL * max |plain|, f32 (the kernels sum in
+#: other orders than the plain versions: the WKV kernel by chunks, its
+#: products as split TF32 on the tensor cores; the rg-lru's slices compose)
 SCAN_TOL = 1e-5
+#: peak TF32 tensor-core rate of an H100 SXM (dense)
+TF32_FLOP_PER_S = 495e12
 
 
-def scan_inputs(torch, name: str, S: int, seed: int) -> tuple:
-    """Seeded inputs of one scan at its row's shape with S steps; the
-    carried state (s0, h0) is non-zero."""
+def chunk_check_s(name: str) -> tuple[int, ...]:
+    """S at which ``name`` is held to its plain version: SCAN_CHECK_S and,
+    for the kernel's chunk of L steps, L - 1, L, L + 1, a ragged 2L + 3
+    and the row's own S."""
     from repro_torch.kernels import recurrent as rk
 
+    L = rk.WKV_CHUNK if name == "wkv6_scan" else rk.RG_CHUNK
+    full = (WKV_SHAPE if name == "wkv6_scan" else RGLRU_SHAPE)[1]
+    return tuple(sorted({*SCAN_CHECK_S, L - 1, L, L + 1, 2 * L + 3, full}))
+
+
+def scan_inputs(torch, name: str, S: int, seed: int, dtype=None,
+                extreme: bool = False) -> tuple:
+    """Seeded inputs of one scan at its row's shape with S steps, r/k/v
+    (or x) in ``dtype`` (bf16 by default); the carried state (s0, h0) is
+    non-zero.  ``extreme``: the WKV log-decays are each at the model's clip
+    top 6 (w exactly 0), at its floor -10 (w = 1 - 4.5e-5) or drawn as
+    usual, mixed within every chunk; the rg-lru's softplus(lam) is 30
+    (a = 0 in f32 where the gate opens), 1e-13 (a = 1 in f32) or drawn, a
+    channel each, under gates drawn 4x wider."""
+    from repro_torch.kernels import recurrent as rk
+
+    dtype = dtype or torch.bfloat16
     gen = torch.Generator("cuda").manual_seed(seed)
 
     def rn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
+    def pick(shape, a, b):
+        """a where a draw is below -0.43, b above 0.43, else -1 (a third
+        each)."""
+        z = rn(*shape)
+        return torch.where(z < -0.43, a, torch.where(z > 0.43, b, -1.0))
+
     if name == "wkv6_scan":
         B, _, H = WKV_SHAPE
         hd = rk.HEAD
-        r, k, v = ((0.5 * rn(B, S, H, hd)).to(torch.bfloat16)
-                   for _ in range(3))
-        w = torch.exp(-torch.exp(rn(B, S, H, hd).clamp(-10, 6) - 2))
+        r, k, v = ((0.5 * rn(B, S, H, hd)).to(dtype) for _ in range(3))
+        logw = rn(B, S, H, hd).clamp(-10, 6) - 2
+        if extreme:
+            sel = pick((B, S, H, hd), 6.0, -10.0)
+            logw = torch.where(sel < 0, logw, sel)
+        w = torch.exp(-torch.exp(logw))
         return r, k, v, w, 0.5 * rn(H, hd), 0.1 * rn(B, H, hd, hd)
     B, _, R = RGLRU_SHAPE
-    gr, gi = rn(B, S, R), rn(B, S, R)
-    xc = rn(B, S, R).to(torch.bfloat16)
-    return gr, gi, xc, torch.nn.functional.softplus(rn(R) + 3), rn(B, R)
+    scale = 4.0 if extreme else 1.0
+    gr, gi = scale * rn(B, S, R), scale * rn(B, S, R)
+    xc = rn(B, S, R).to(dtype)
+    sp = torch.nn.functional.softplus(rn(R) + 3)
+    if extreme:
+        sel = pick((R,), 30.0, 1e-13)
+        sp = torch.where(sel < 0, sp, sel)
+    return gr, gi, xc, sp, rn(B, R)
 
 
 def scan_error(torch, name: str, fn, plain_fn) -> tuple[float, float]:
@@ -3767,62 +3819,127 @@ def scan_error(torch, name: str, fn, plain_fn) -> tuple[float, float]:
     return err, scale
 
 
-def scan_rows(torch, launches: dict) -> list[dict]:
-    """The two scans against their plain versions on the card at the
-    families' shapes: a decode step and a ragged prefill (SCAN_CHECK_S),
-    then the prefill of the row, which is timed.  Bounds: the bytes of
-    the inputs read once and the outputs written once; the operations a
-    step needs (WKV: r S and the bonus 2 hd^2 + 5 hd, the state update 3
-    hd^2 a (b, h); the rg-lru: 19 f32 operations an element, the exp and
-    sqrt counted as one)."""
+def scan_checks(torch, name: str, wrap, plain) -> dict:
+    """``name`` against its plain version at every S of
+    ``chunk_check_s``, in bf16 and f32 (r/k/v or x), on drawn inputs and
+    on the extreme ones: {case: (max |diff|, tolerance)}."""
+    out = {}
+    seed = 11
+    for dtype in (torch.bfloat16, torch.float32):
+        for extreme in (False, True):
+            for steps in chunk_check_s(name):
+                x = scan_inputs(torch, name, steps, seed, dtype, extreme)
+                seed += 1
+                err, scale = scan_error(
+                    torch, f"{name} S={steps} {dtype} extreme={extreme}",
+                    lambda: wrap(*x), lambda: plain(*x))
+                key = (f"{steps}{'' if dtype == torch.bfloat16 else '_f32'}"
+                       f"{'_extreme' if extreme else ''}")
+                out[key] = {"max_abs_err": err,
+                            "tolerance": SCAN_TOL * scale}
+    return out
+
+
+def scan_work(name: str, B: int, S: int, W: int) -> dict:
+    """The bytes (inputs read once, outputs written once) and operations
+    of one call at (B, S, H or R), by the units that do them.  WKV: the
+    recurrence's f32 operations (r S and the bonus 2 hd^2 + 5 hd, the state
+    update 3 hd^2 a (b, h) and step) beside the chunked form's, whose
+    products Q S (3 TF32 passes), A V and K^T V (2 each, v exact) run on
+    the tensor cores and whose decay pass (P, A below the diagonal, K, D:
+    3 operations a (t, s < t, channel), 2 a (t, channel)) on the f32
+    pipe; a step after the last whole chunk is the recurrence's.  The
+    rg-lru: 19 f32 operations an element, the exp and sqrt counted as
+    one."""
+    from repro_torch.kernels import recurrent as rk
+
+    if name == "wkv6_scan":
+        hd, L = rk.HEAD, rk.WKV_CHUNK
+        whole = S // L * L
+        n_bytes = (3 * B * S * W * hd * 2 + 2 * B * S * W * hd * 4
+                   + W * hd * 4 + 2 * B * W * hd * hd * 4)
+        rec = B * W * S * (5 * hd * hd + 5 * hd)
+        tf32 = B * W * whole * 2 * (3 * hd * hd + 2 * L * hd + 2 * hd * hd)
+        f32 = (B * W * (whole // L) * (3 * L * (L - 1) // 2 * hd
+                                       + 4 * L * hd)
+               + B * W * (S - whole) * (5 * hd * hd + 5 * hd))
+        return {"bytes": n_bytes, "flops": rec, "tf32_flops": tf32,
+                "f32_flops": f32}
+    n_bytes = B * S * W * (4 + 4 + 2 + 4) + W * 4 + 2 * B * W * 4
+    return {"bytes": n_bytes, "flops": 19 * B * S * W, "tf32_flops": 0,
+            "f32_flops": 19 * B * S * W}
+
+
+def scan_bound(work: dict) -> tuple[float, str]:
+    """The least time of a call: the larger of its bytes at the memory's
+    rate and its operations at the rate of the units that do them."""
+    times = {"bytes": work["bytes"] / HBM_BYTES_PER_S * 1e3,
+             "operations": max(work["tf32_flops"] / TF32_FLOP_PER_S,
+                               work["f32_flops"] / F32_FLOP_PER_S) * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by
+
+
+def scan_rows(torch, launches: dict, decode_launches: dict) -> list[dict]:
+    """The two scans against their plain versions on the card
+    (``scan_checks``), then the prefill of the row and a decode step at
+    its (B, H or R), each timed and bounded (``scan_work``)."""
     from repro_torch.kernels import recurrent as rk
 
     B, S, H = WKV_SHAPE
-    hd = rk.HEAD
     B_, S_, R = RGLRU_SHAPE
     cases = (
-        ("wkv6_scan", "wkv6_kernel", rk.wkv6_scan, rk.wkv6_scan_plain,
-         3 * B * S * H * hd * 2 + 2 * B * S * H * hd * 4 + H * hd * 4
-         + 2 * B * H * hd * hd * 4,
-         B * H * S * (5 * hd * hd + 5 * hd),
-         {"B": B, "S": S, "H": H, "hd": hd, "dtype": "bfloat16"},
+        ("wkv6_scan", ("wkv6_kernel", "wkv6_kernel"), rk.wkv6_scan,
+         rk.wkv6_scan_plain, (B, S, H),
+         {"B": B, "S": S, "H": H, "hd": rk.HEAD, "dtype": "bfloat16"},
          "src/repro/models/recurrent.py:125 (lax.scan of "
          "rwkv_timemix_forward; XLA, no Pallas kernel)"),
-        ("rglru_scan", "rglru_kernel", rk.rglru_scan, rk.rglru_scan_plain,
-         B_ * S_ * R * (4 + 4 + 2 + 4) + R * 4 + 2 * B_ * R * 4,
-         19 * B_ * S_ * R,
+        ("rglru_scan", ("rglru_kernel", "rglru_step_kernel"), rk.rglru_scan,
+         rk.rglru_scan_plain, (B_, S_, R),
          {"B": B_, "S": S_, "R": R, "dtype": "bfloat16"},
          "src/repro/models/recurrent.py:234 (lax.associative_scan of "
          "rglru_block_forward, with _rglru_gates :205; XLA, no Pallas "
          "kernel)"),
     )
     rows = []
-    for name, kernel, wrap, plain, n_bytes, flops, shape, replaces in cases:
-        by_s = {}
-        for seed, steps in enumerate((*SCAN_CHECK_S, shape["S"])):
-            x = scan_inputs(torch, name, steps, 11 + seed)
-            by_s[steps] = scan_error(torch, name, lambda: wrap(*x),
-                                     lambda: plain(*x))
+    for name, kernels, wrap, plain, (b, s, width), shape, replaces in cases:
+        checked = scan_checks(torch, name, wrap, plain)
+        for steps, kernel, suffix in ((s, kernels[0], ""),
+                                      (1, kernels[1], "_decode")):
+            x = scan_inputs(torch, name, steps, 7 + steps)
+            err, scale = scan_error(torch, f"{name}{suffix}",
+                                    lambda: wrap(*x), lambda: plain(*x))
 
-        def fn(): return wrap(*x)
-        def plain_fn(): return plain(*x)
-        err, scale = by_s[shape["S"]]
-        ms = event_ms(torch, fn, reps=10, inner=5)
-        kernel_ms = profiled_kernel_ms(torch, fn, kernel, calls=10)
-        b_ms, b_by = bound_ms(n_bytes, flops)
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/recurrent.cu",
-            "replaces": replaces, "launches": launches[name],
-            "on_main_path": launches[name] > 0, "max_abs_err": err,
-            "tolerance": SCAN_TOL * scale, "shape": shape,
-            "checked": {str(k): {"max_abs_err": e, "tolerance": SCAN_TOL * m}
-                        for k, (e, m) in by_s.items()},
-            "ms": ms, "kernel_ms": kernel_ms,
-            "plain_ms": event_ms(torch, plain_fn, reps=3, inner=1),
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
-            "flops": flops, **rates(flops, b_ms, ms, kernel_ms),
-            "library_ms": None})
+            def fn(): return wrap(*x)
+            def plain_fn(): return plain(*x)
+            ms = event_ms(torch, fn, reps=10, inner=5 if steps > 1 else 40)
+            kernel_ms = profiled_kernel_ms(torch, fn, kernel, calls=10)
+            work = scan_work(name, b, steps, width)
+            b_ms, b_by = scan_bound(work)
+            count = (launches[name] if not suffix
+                     else decode_launches[name])
+            row = {
+                "name": name + suffix, "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/recurrent.cu",
+                "replaces": replaces, "kernel": kernel, "launches": count,
+                "on_main_path": count > 0, "max_abs_err": err,
+                "tolerance": SCAN_TOL * scale, "shape": {**shape, "S": steps},
+                "ms": ms, "kernel_ms": kernel_ms,
+                "plain_ms": event_ms(torch, plain_fn, reps=3,
+                                     inner=1 if steps > 1 else 10),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "bound_ms_bytes": work["bytes"] / HBM_BYTES_PER_S * 1e3,
+                "bound_ms_f32_recurrence": work["flops"] / F32_FLOP_PER_S
+                * 1e3, **work, **rates(work["flops"], b_ms, ms, kernel_ms),
+                "library_ms": None}
+            if not suffix:
+                row["checked"] = checked
+            if name == "wkv6_scan" and not suffix:
+                # one CTA an SM: the kernel's time is its per-CTA latency
+                x1 = tuple(t[:1] if t.dim() == 4 else t for t in x)
+                row["kernel_ms_b1"] = profiled_kernel_ms(
+                    torch, lambda: wrap(*x1), kernel, calls=10)
+            rows.append(row)
     return rows
 
 
@@ -3919,7 +4036,8 @@ def trace_phase(torch, dev, engine: str = "imp_pallas", nodes: int = 1024,
 def build_all() -> None:
     """Build every CUDA source, one nvcc process each, all started together;
     then count the Hopper instructions of the bf16 flash-attention kernels
-    and the local-memory accesses (spills) of the scans."""
+    and the scans' local-memory accesses (spills), tensor-core products and
+    registers."""
     from repro_torch.kernels import _build
 
     def one(target):
@@ -3929,8 +4047,10 @@ def build_all() -> None:
 
     targets = (("topo_score", ()), ("flash_attention", ()),
                ("topo_score", TIER_YARDSTICK), ("recurrent", ()))
+    logs = {}
     with concurrent.futures.ThreadPoolExecutor(len(targets)) as pool:
         for (name, defines), secs, log in pool.map(one, targets):
+            logs[(name, defines)] = log
             flags = "".join(f" -D{d}" for d in defines)
             print(f"[build] {name}.cu{flags}: {secs:.2f} s\n{log.strip()}",
                   flush=True)
@@ -3943,16 +4063,21 @@ def build_all() -> None:
     for d, c in counts.items():
         check(c["HGMMA"] > 0 and c["UTMALDG"] > 0,
               f"flash_bf16_kernel<{d}> has no wgmma or no TMA load: {c}")
-    counts = sass_counts(_build._target("recurrent")[1],
-                         r"((?:wkv6|rglru)_kernelI(?:f|13__nv_bfloat16)E)",
-                         ("LDL", "STL"))
-    print(f"[build] scan kernels' local memory SASS (kernel: counts): "
-          f"{json.dumps(counts)}", flush=True)
-    check(len(counts) == 4, f"{sorted(counts)} of the two scans' four "
+    counts = sass_counts(_build._target("recurrent")[1], SCAN_KERNELS,
+                         ("LDL", "STL", "HMMA"))
+    print(f"[build] scan kernels' local memory and tensor-core SASS "
+          f"(kernel: counts): {json.dumps(counts)}", flush=True)
+    check(len(counts) == 6, f"{sorted(counts)} of the scans' six kernel "
           "instances found in the SASS")
     for name, c in counts.items():
         check(c["LDL"] == 0 and c["STL"] == 0,
               f"{name} spills to local memory: {c}")
+        check((c["HMMA"] > 0) == name.startswith("wkv6"),
+              f"{name}: {c['HMMA']} tensor-core products (the WKV kernel's "
+              "run on them, the rg-lru's have none)")
+    regs = ptxas_registers(logs[("recurrent", ())], SCAN_KERNELS)
+    print(f"[build] scan kernels' registers (kernel: registers): "
+          f"{json.dumps(regs)}", flush=True)
     counts = sass_counts(_build._target("topo_score")[1],
                          r"(normal_cycle_kernel|normal_merge_kernel|"
                          r"fused_argmax_kernel|tail_merge_kernel)",
@@ -4006,6 +4131,33 @@ ATOMIC_OPS = ("ATOMG", "ATOM", "RED")
 #: conversion (I2F...RP) with which nvcc opens an integer division, and
 #: local-memory loads and stores
 K1_OPS = ("REDUX", "SHFL", "MUFU.RCP", "I2F_RP", "LDL", "STL")
+
+
+#: the scans' kernel instances in the SASS and the ptxas log
+SCAN_KERNELS = (r"((?:wkv6|rglru|rglru_step)_kernelI"
+                r"(?:f|13__nv_bfloat16)E)")
+
+
+def ptxas_registers(log: str, function: str) -> dict[str, int] | str:
+    """Registers a thread of each kernel whose name matches ``function``
+    (keyed by its first group), from ``nvcc -Xptxas -v`` output; the log
+    itself where the library was cached and nothing was compiled."""
+    import re
+
+    if log == "cached":
+        return log
+    regs, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            f = re.search(function, m.group(1))
+            cur = f.group(1) if f else None
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            regs[cur] = int(m.group(1))
+            cur = None
+    return regs
 
 
 def sass_counts(lib, function: str, ops) -> dict[str, dict[str, int]]:
@@ -4137,9 +4289,10 @@ def run() -> int:
     rows.append(flash_d256_row(
         torch, flash_errs,
         fam["recurrentgemma-9b"]["launches"]["flash_attention"]))
-    rows.extend(scan_rows(torch, {
-        name: sum(f["launches"][name] for f in fam.values())
-        for name in ("wkv6_scan", "rglru_scan")}))
+    rows.extend(scan_rows(torch, *({
+        name: sum(f[key][name] for f in fam.values())
+        for name in ("wkv6_scan", "rglru_scan")}
+        for key in ("launches", "decode_launches"))))
     lap("flash_timing")
     rows.extend(fused_rows(torch, np, dev, errs, launches, fused_plans,
                            clusters, cluster_sweep(torch, np, dev)))

@@ -13,12 +13,18 @@ wrapper            plain version          replaces (repro, XLA: no Pallas)
                                           ``rglru_block_forward``
 =================  =====================  ====================================
 
-The kernels are in ``csrc/recurrent.cu``: ``wkv6_scan`` one CTA per
-(batch, head) with the 64 x 64 f32 state in registers, a column a thread;
-``rglru_scan`` one thread per (batch, channel).  Decode calls both at
-S = 1.  Each wrapper runs its plain version for tensors on the CPU and
-launches its kernel for tensors on a CUDA device; anything else raises.
-Each counts its launches in ``<wrapper>.launches``.
+The kernels are in ``csrc/recurrent.cu``.  ``wkv6_scan``: one CTA per
+(batch, head), the recurrence regrouped by chunks of ``WKV_CHUNK`` steps
+(the decay products and the intra-chunk matrix A in f32 on the CUDA cores,
+the products Q S, A V and K^T V on the tensor cores as split TF32), the
+64 x 64 f32 state in the warps' accumulators; the steps after the last
+whole chunk, and so decode's one, run the recurrent step.  ``rglru_scan``:
+32 channels a CTA, time split into slices of a chunk of ``RG_CHUNK``
+steps whose affine maps compose in shared memory; decode (S = 1) one
+thread per (batch, channel).  Each wrapper runs its plain version for
+tensors on the CPU and launches its kernel for tensors on a CUDA device;
+anything else raises.  Each counts its launches in ``<wrapper>.launches``,
+and those at S = 1 also in ``<wrapper>.decode_launches``.
 """
 from __future__ import annotations
 
@@ -33,6 +39,10 @@ from . import _build
 HEAD = 64
 #: the rg-lru temperature constant (``repro.models.recurrent.RG_C``)
 RG_C = 8.0
+#: steps a chunk of the WKV kernel (``WKV_L`` in ``csrc/recurrent.cu``)
+WKV_CHUNK = 16
+#: steps a chunk of the rg-lru kernel: 8 slices of 4 steps (``RG_CHUNK``)
+RG_CHUNK = 32
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -56,6 +66,13 @@ def _lib() -> ctypes.CDLL:
     lib.recurrent_error_string.argtypes = [ci]
     lib.recurrent_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous at a 16-byte boundary (cp.async stages rows of 16
+    bytes), copied only where it is not."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _raise_on(code: int, what: str) -> None:
@@ -107,7 +124,8 @@ def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if w.dtype != torch.float32 or u.dtype != torch.float32 \
             or s0.dtype != torch.float32:
         raise ValueError("w, u and s0 must be float32")
-    r, k, v, w, u, s0 = (x.contiguous() for x in (r, k, v, w, u, s0))
+    r, k, v, w = (_aligned(x) for x in (r, k, v, w))
+    u, s0 = u.contiguous(), s0.contiguous()
     y = torch.empty((B, S, H, hd), dtype=torch.float32, device=r.device)
     s_fin = torch.empty_like(s0)
     if B * H == 0:
@@ -120,10 +138,12 @@ def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             torch.cuda.current_stream(r.device).cuda_stream)
     _raise_on(code, "wkv6_scan")
     wkv6_scan.launches += 1
+    wkv6_scan.decode_launches += int(S == 1)
     return y, s_fin
 
 
 wkv6_scan.launches = 0
+wkv6_scan.decode_launches = 0
 
 
 # ---------------------------------------------------------------------------------
@@ -179,13 +199,15 @@ def rglru_scan(gr: torch.Tensor, gi: torch.Tensor, xc: torch.Tensor,
             torch.cuda.current_stream(xc.device).cuda_stream)
     _raise_on(code, "rglru_scan")
     rglru_scan.launches += 1
+    rglru_scan.decode_launches += int(S == 1)
     return hs, h_last
 
 
 rglru_scan.launches = 0
+rglru_scan.decode_launches = 0
 
 #: this module's kernel wrappers (their ``launches`` counters)
 WRAPPERS = (wkv6_scan, rglru_scan)
 
-__all__ = ["HEAD", "RG_C", "WRAPPERS", "rglru_scan",
-           "rglru_scan_plain", "wkv6_scan", "wkv6_scan_plain"]
+__all__ = ["HEAD", "RG_C", "RG_CHUNK", "WKV_CHUNK", "WRAPPERS",
+           "rglru_scan", "rglru_scan_plain", "wkv6_scan", "wkv6_scan_plain"]
