@@ -57,10 +57,15 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    cluster (rows past cap, more than 8 adds and pending rows among them:
    the host rows it copies), then the host time of a plan's patch rows
    both ways and the encoder's time.  ``[shortlist]``: the prescreen
-   (``prescreen``) against its plain version, bit for bit (the top-K rows
-   in order and ``excl_ub``), at 1024 and 10240 rows of two SKUs, random
-   and tie-heavy, with and without patch rows, forced representatives,
-   k = 1, 128 and every row; then its skip path.
+   (``prescreen``, one launch: one cluster, or the split form at many
+   rows) against its plain version, bit for bit (the top-K rows in order
+   and ``excl_ub``), at 1024 and 10240 rows of two SKUs, random and
+   tie-heavy, with and without patch rows, forced representatives, k = 1,
+   128 and every row; then at ragged row counts, 40960 rows, every bound
+   tied and 20 slots a row (``PRESCREEN_EXTRA``, the selected keys held
+   too); then at rows whose CTAs' rows outgrow shared memory
+   (``PRESCREEN_WIDE``, the keys through global scratch), so that each of
+   the kernel's four instances runs; then its skip path.
 4. ``[main]``: the scheduler path, ``run_hit_rate_experiment`` (the paper's
    Table 4 protocol, ``TopoScheduler.plan()`` per scale-up) with
    ``imp_pallas`` and then host ``imp`` on the 100-node Table 3 cluster (2
@@ -2156,6 +2161,19 @@ DELTA_NODES, DELTA_VIEWS = 1024, 48
 #: prescreen case takes (every row as the last)
 PRESCREEN_ROWS = (1024, 10240)
 PRESCREEN_K = (1, 128, None)
+#: ``[shortlist]``'s further states (rows, kind, slots a row): rows that no
+#: cluster of 8 or 16 CTAs divides evenly, the 40960 rows of
+#: `cluster_sweep`'s largest size, every row's bound tied (the select
+#: resolves on rows alone), and 20 slots a row (32 lanes a row)
+PRESCREEN_EXTRA = ((1021, "random", 16), (10237, "tied", 16),
+                   (40960, "random", 16), (40960, "tied", 16),
+                   (4099, "random", 20))
+#: ``[shortlist]``'s states whose CTAs' rows outgrow a CTA's shared memory,
+#: their keys through global scratch (rows, k): one cluster at k 256 (whose
+#: CTAs' lists outgrow it too), and the split form at k 128 on the fewest
+#: rows, doubling from 131075, at which they do
+#: (`prescreen.prescreen_geometry`)
+PRESCREEN_WIDE = ((140000, 256), (131075, 128))
 #: ``[batch]``: the batch of preemptors (Table 3 B and C)
 BATCH_NAMES = ("B", "C", "B", "B", "C", "B", "C", "B")
 
@@ -2331,6 +2349,17 @@ def tie_state(np, spec, rows: int, seed: int):
     return ns, v, dr
 
 
+def tied_state(np, spec, rows: int, seed: int):
+    """Resident rows that are all free and hold no victim (node ids kept,
+    some sentinels): one bound for every row that enters, so the select
+    resolves on rows alone."""
+    ns, v, dr = resident_state(np, spec, rows, 0, seed)
+    ns[0] = dr[0] = (1 << spec.num_gpus) - 1
+    ns[1] = dr[1] = (1 << spec.num_coregroups) - 1
+    ns[3], ns[4] = 0, SENTINEL
+    return ns, v, dr
+
+
 def shortlist_kernel_phase(torch, np, dev) -> dict:
     """``[shortlist]``, the kernel: the prescreen on the card against its
     plain version on the same inputs, bit for bit (the top-K rows in
@@ -2338,7 +2367,11 @@ def shortlist_kernel_phase(torch, np, dev) -> dict:
     RTX 4090 and the 24-CoreGroup SKU, random and tie-heavy states,
     without and with patch rows, random representatives with 37 forced
     rows, every REQUESTS entry at two preemptor priorities, k in
-    `PRESCREEN_K`; then the skip path."""
+    `PRESCREEN_K`; then `PRESCREEN_EXTRA`'s states (ragged segments,
+    40960 rows, every bound tied, 20 slots a row) at k 1, 128 and every
+    row, and `PRESCREEN_WIDE`'s, with the selected keys (``sel``) held too;
+    every instance of the kernel (`prescreen.prescreen_geometry`'s form)
+    must have run; then the skip path."""
     from repro_torch.core.topology import RTX4090_SERVER, ServerSpec
     from repro_torch.kernels import fused_class as fc
     from repro_torch.kernels import prescreen as psk
@@ -2348,6 +2381,22 @@ def shortlist_kernel_phase(torch, np, dev) -> dict:
 
     err = 0.0
     cases = 0
+    device = torch.cuda.current_device()
+    forms = set()
+
+    def held(args, kw, what, with_sel=False):
+        nonlocal err, cases
+        forms.add(psk.prescreen_geometry(args[0].shape[1], kw["k"],
+                                         device)[3])
+        sel = (torch.zeros(kw["k"], dtype=torch.int64, device=dev)
+               if with_sel else None)
+        err = max(err, compare(torch, [psk.prescreen(*args, **kw, sel=sel)],
+                               [psk.prescreen_plain(*args, **kw)], what))
+        if with_sel:
+            check(torch.equal(sel, psk.prescreen_sel_plain(*args, **kw)),
+                  f"{what}: sel differs from its plain version")
+        cases += 1
+
     for rows in PRESCREEN_ROWS:
         for spec in (RTX4090_SERVER, ServerSpec(**BIG_CG)):
             for tie in (False, True):
@@ -2372,15 +2421,64 @@ def shortlist_kernel_phase(torch, np, dev) -> dict:
                                                   alpha)
                             for k in PRESCREEN_K:
                                 k = k or rows
-                                args = (ns, v, pidx, pbuf, rep, forced)
-                                kw = dict(k=k, req=req, spec=spec)
-                                err = max(err, compare(
-                                    torch, [psk.prescreen(*args, **kw)],
-                                    [psk.prescreen_plain(*args, **kw)],
-                                    f"prescreen {spec.name} rows={rows} "
-                                    f"tie={tie} p={pidx.shape[0]} k={k} "
-                                    f"req={thresh, ng, ncg, cpb, alpha}"))
-                                cases += 1
+                                held((ns, v, pidx, pbuf, rep, forced),
+                                     dict(k=k, req=req, spec=spec),
+                                     f"prescreen {spec.name} rows={rows} "
+                                     f"tie={tie} p={pidx.shape[0]} k={k} "
+                                     f"req={thresh, ng, ncg, cpb, alpha}")
+    extra = 0
+    for rows, kind, cap in PRESCREEN_EXTRA:
+        spec = RTX4090_SERVER
+        seed = rows + cap
+        ns, v, _ = (tied_state(np, spec, rows, seed) if kind == "tied" else
+                    resident_state(np, spec, rows, 10, seed, cap=cap))
+        rng = np.random.default_rng(seed)
+        rep = t((rng.random(rows) < 0.6).astype(np.int32))
+        forced = t(np.sort(rng.choice(rows, 37, replace=False))
+                   .astype(np.int32))
+        ns, v = t(ns), t(v)
+        width = 5 + 5 * cap + 2
+        patches = [(np.zeros(0, np.int32), np.zeros((0, width), np.int32))]
+        if cap == 16:
+            patches.append(patch_rows(np, spec, rows, 19, seed, 10))
+        for pidx, pbuf in patches:
+            pidx, pbuf = t(pidx), t(pbuf)
+            for ng, ncg, cpb, alpha in REQUESTS[:2]:
+                req = fc.FusedRequest(1000, ng, ncg, cpb, alpha)
+                for k in PRESCREEN_K:
+                    k = k or rows
+                    held((ns, v, pidx, pbuf, rep, forced),
+                         dict(k=k, req=req, spec=spec),
+                         f"prescreen rows={rows} {kind} cap={cap} "
+                         f"p={pidx.shape[0]} k={k} "
+                         f"req={ng, ncg, cpb, alpha}", with_sel=True)
+                    extra += 1
+    wide = []
+    for rows, k in PRESCREEN_WIDE:
+        while (not psk.prescreen_geometry(rows, k, device)[3] & 1
+               and rows < 1 << 22):
+            rows *= 2
+        spec = RTX4090_SERVER
+        ns, v, _ = resident_state(np, spec, rows, 10, rows)
+        rng = np.random.default_rng(rows)
+        rep = t((rng.random(rows) < 0.6).astype(np.int32))
+        forced = t(np.sort(rng.choice(rows, 37, replace=False))
+                   .astype(np.int32))
+        ns, v = t(ns), t(v)
+        req = fc.FusedRequest(1000, *REQUESTS[0])
+        for pidx, pbuf in ((np.zeros(0, np.int32), np.zeros((0, 87),
+                                                            np.int32)),
+                           patch_rows(np, spec, rows, 19, rows, 10)):
+            pidx, pbuf = t(pidx), t(pbuf)
+            held((ns, v, pidx, pbuf, rep, forced),
+                 dict(k=k, req=req, spec=spec),
+                 f"prescreen rows={rows} k={k} p={pidx.shape[0]} "
+                 f"geometry={psk.prescreen_geometry(rows, k, device)}",
+                 with_sel=True)
+        wide.append((rows, k, psk.prescreen_geometry(rows, k, device)))
+    check(forms == {0, 1, 2, 3}, f"prescreen: the kernel instances that "
+          f"ran, {sorted(forms)}, are not all four (bit 0: the keys in "
+          "global scratch, bit 1: the CTAs' lists)")
     # the skip path: nothing is written
     out = torch.full((129,), 7, dtype=torch.int32, device=dev)
     psk.prescreen(ns, v, pidx, pbuf, rep, forced, k=128, req=req, spec=spec,
@@ -2389,16 +2487,38 @@ def shortlist_kernel_phase(torch, np, dev) -> dict:
     torch_sync(dev)
     print(f"[shortlist] prescreen: {cases} cases bit-exact against the plain "
           f"version (rows {list(PRESCREEN_ROWS)}, k 1 / 128 / every row, "
-          f"patch rows on/off, ties, forced rows); skip path ok", flush=True)
+          f"patch rows on/off, ties, forced rows; {extra} of them on "
+          f"{[e[:2] for e in PRESCREEN_EXTRA]} with sel; (rows, k, (ctas, "
+          f"clusters, scratch words, form)) {wide}); instances "
+          f"{sorted(forms)}; skip path ok", flush=True)
     return {"prescreen": err}
+
+
+def topk_keys(torch, np, psk, args, req, spec, dev):
+    """Every row's prescreen key (`prescreen.keys_of`, 0 for a row that does
+    not enter) as int64 with the top bit flipped, so that signed order is
+    the keys' order: the input of `torch.topk`, the library call that
+    computes the select's function (the flip done here, outside the timed
+    call)."""
+    ns, v, pidx, pbuf, rep, forced = args
+    rows = psk._rows(ns, v, pidx, pbuf, rep, forced, 0)
+    ub, ok = psk._bounds(*rows, req=req, spec=spec)
+    keys = psk.keys_of(ub, np.arange(ns.shape[1]))
+    keys[~ok.cpu().numpy()] = 0
+    keys ^= np.uint64(1 << 63)
+    return torch.from_numpy(keys.view(np.int64).copy()).to(dev)
 
 
 def prescreen_row(torch, np, dev, clusters, err, launches, plans) -> dict:
     """The prescreen's row of the ``{"kernels"}`` line: at the main path's
     shape (preemptor B on the saturated 1024- and 10240-node clusters,
-    their class representatives, k = 128, no patch rows)."""
+    their class representatives, k = 128, no patch rows), one launch of
+    ``prescreen_cluster_kernel`` in the form the wrapper picks
+    (`prescreen.prescreen_geometry`), beside ``torch.topk`` of the same
+    keys."""
     from repro_torch.core.preemption_device import _request
     from repro_torch.core.workload import table3_workloads
+    from repro_torch.kernels import fused_class as fc
     from repro_torch.kernels import prescreen as psk
 
     wl = {w.name: w for w in table3_workloads()}["B"]
@@ -2413,6 +2533,7 @@ def prescreen_row(torch, np, dev, clusters, err, launches, plans) -> dict:
         args = (dcs.nodestate, dcs.victims, empty, pbuf, rep, empty)
         fn = lambda: psk.prescreen(*args, k=128, req=req, spec=spec)
         plain = lambda: psk.prescreen_plain(*args, k=128, req=req, spec=spec)
+        flipped = topk_keys(torch, np, psk, args, req, spec, dev)
         stored = (dcs.victims[4] != 0)
         elig = int((stored & (dcs.victims[2] < wl.priority)).sum())
         cap = dcs.cap
@@ -2423,22 +2544,25 @@ def prescreen_row(torch, np, dev, clusters, err, launches, plans) -> dict:
         # two tiers a row: per NUMA node two popcounts and a few word ops
         n_ops = n * 2 * (12 * spec.num_numa + 20)
         b_ms, b_by = bound_ms(n_bytes, n_ops)
-        kernel_ms = profiled_kernel_ms(
-            torch, fn, ("prescreen_kernel", "prescreen_select_kernel"))
+        kernel_ms = profiled_kernel_ms(torch, fn, "prescreen_cluster_kernel")
+        device = dcs.nodestate.device.index
+        ctas = fc.max_cluster_ctas(device)
         shapes.append({"rows": n, "k": 128,
                        "classes": int(dcs.rep_classes()[0].sum()),
+                       "ctas": ctas,
+                       "clusters": psk.prescreen_geometry(n, 128,
+                                                          device)[1],
                        "ms": event_ms(torch, fn), "kernel_ms": kernel_ms,
-                       "kernel_ms_parts": {
-                           part: profiled_kernel_ms(torch, fn, part)
-                           for part in ("prescreen_kernel",
-                                        "prescreen_select_kernel")},
                        "plain_ms": event_ms(torch, plain, reps=5, inner=3),
+                       "library_ms": event_ms(
+                           torch, lambda: torch.topk(flipped, 129)),
                        "bytes": n_bytes, "int_ops": n_ops, "bound_ms": b_ms,
                        "bound_by": b_by,
                        "bound_share": b_ms / (kernel_ms or 1e9)})
     main = shapes[0]
     return {"name": "prescreen", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/topo_score.cu",
+            "kernel": "prescreen_cluster_kernel",
             "replaces": "src/repro/core/preemption_jax.py:839",
             "replaces_fn": "_prescreen_core (an XLA program; no Pallas "
                            "kernel)",
@@ -2448,7 +2572,9 @@ def prescreen_row(torch, np, dev, clusters, err, launches, plans) -> dict:
             "max_abs_err": err, "shape": [main["rows"]], "ms": main["ms"],
             "kernel_ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "bound_share": main["bound_share"], "library_ms": None,
+            "bound_share": main["bound_share"],
+            "library_ms": main["library_ms"],
+            "library": "torch.topk(keys ^ (1 << 63), k + 1)",
             "shapes": shapes}
 
 
@@ -3033,7 +3159,9 @@ def merge_rows(torch, np, dev, errs, launches, plans, clusters) -> list[dict]:
     prescreen's keys at k = 128).  Bound: the records read and the winner
     written over the card's memory rate; their operations (a few compares
     a record; for the union select, a comparison sort of its D k keys,
-    more than a select needs) take less."""
+    more than a select needs) take less.  The union select's library call
+    is ``torch.topk`` of the same keys (top bit flipped outside the timed
+    call); no PyTorch call computes the other two."""
     from repro_torch.core import cluster_parallel as cp
     from repro_torch.core.preemption_device import _request
     from repro_torch.core.workload import table3_workloads
@@ -3097,8 +3225,12 @@ def merge_rows(torch, np, dev, errs, launches, plans, clusters) -> list[dict]:
         "prescreen_select": (
             lambda: psk.prescreen_select(keys, k=k, excl=outs[:, k]),
             lambda: psk.prescreen_select_plain(keys, k, outs[:, k]),
-            "prescreen_select_kernel", u * 8 + SHARDS_D * 4 + (k + 1) * 4,
+            "prescreen_union_kernel", u * 8 + SHARDS_D * 4 + (k + 1) * 4,
             u * int(np.ceil(np.log2(u))), [SHARDS_D, k])}
+    flipped = keys.reshape(-1) ^ torch.tensor(-2**63, dtype=torch.int64,
+                                              device=c0)
+    library = {"prescreen_select": event_ms(
+        torch, lambda: torch.topk(flipped, k + 1))}
     out = []
     for name, (fn, plain, sym, n_bytes, n_ops, shape) in calls.items():
         b_ms, b_by = bound_ms(n_bytes, n_ops, INT_OPS_PER_S)
@@ -3119,7 +3251,9 @@ def merge_rows(torch, np, dev, errs, launches, plans, clusters) -> list[dict]:
             "plain_ms": event_ms(torch, plain, reps=5, inner=3),
             "bytes": n_bytes, "int_ops": n_ops, "bound_ms": b_ms,
             "bound_by": b_by, "bound_share": b_ms / (kernel_ms or ms),
-            "library_ms": None})
+            "library_ms": library.get(name),
+            **({"library": "torch.topk(keys ^ (1 << 63), k + 1)"}
+               if name in library else {})})
     return out
 
 
@@ -3964,8 +4098,8 @@ def flash_d256_row(torch, errs, launches: int) -> dict:
 TRACE_KERNELS = {"imp_pallas": ("topo_score_argmax_kernel",),
                  "imp_batched": ("fused_class_kernel", "fused_argmax_kernel",
                                  "normal_cycle_kernel", "normal_merge_kernel",
-                                 "prescreen_kernel",
-                                 "prescreen_select_kernel",
+                                 "prescreen_cluster_kernel",
+                                 "prescreen_union_kernel",
                                  "encode_delta_kernel")}
 
 
@@ -4078,6 +4212,9 @@ def build_all() -> None:
     regs = ptxas_registers(logs[("recurrent", ())], SCAN_KERNELS)
     print(f"[build] scan kernels' registers (kernel: registers): "
           f"{json.dumps(regs)}", flush=True)
+    regs = ptxas_registers(logs[("topo_score", ())], PRESCREEN_KERNELS)
+    print(f"[build] prescreen and encoder registers (kernel: registers): "
+          f"{json.dumps(regs)}", flush=True)
     counts = sass_counts(_build._target("topo_score")[1],
                          r"(normal_cycle_kernel|normal_merge_kernel|"
                          r"fused_argmax_kernel|tail_merge_kernel)",
@@ -4133,6 +4270,9 @@ ATOMIC_OPS = ("ATOMG", "ATOM", "RED")
 K1_OPS = ("REDUX", "SHFL", "MUFU.RCP", "I2F_RP", "LDL", "STL")
 
 
+#: the prescreen's and the encoder's kernel instances in the ptxas log
+PRESCREEN_KERNELS = (r"((?:prescreen_cluster|prescreen_union|encode_delta)"
+                     r"_kernel(?:ILb[01]E(?:Lb[01]E)?)?)")
 #: the scans' kernel instances in the SASS and the ptxas log
 SCAN_KERNELS = (r"((?:wkv6|rglru|rglru_step)_kernelI"
                 r"(?:f|13__nv_bfloat16)E)")

@@ -628,7 +628,7 @@ __global__ void __launch_bounds__(kTile)
 // carry global row ids, and a gathered id outside the shard reads as a zero
 // row.  Each shard runs the kernels on its rows; tail_merge_kernel (over the
 // tail's shard records, fused_argmax_kernel<true>), normal_merge_kernel (over
-// the shards' normal-cycle records) and prescreen_select_kernel (over the
+// the shards' normal-cycle records) and prescreen_union_kernel (over the
 // shards' selected keys) merge them, in place of the collectives XLA inserts
 // into the reference's sharded programs.
 //
@@ -2202,42 +2202,90 @@ __global__ void __launch_bounds__(32)
 
 // ---- The view-delta encoder and the shortlist's prescreen ------------------
 //
-// Two kernels of the fused engine's default path that the reference runs as
+// Two programs of the fused engine's default path that the reference runs as
 // XLA programs (repro/core/cluster.py:810 encode_delta_core,
 // repro/core/preemption_jax.py:839 _prescreen_core).  Both read the
-// resident row layout above (State, Row, fetch_row), and the prescreen takes
-// its tiers from the shared rule (numa_words + fused_tier through
-// lane_tier) and its bounds from the Eq. 1 arithmetic of trap 1.
+// resident row layout above (State), and the prescreen takes its tiers from
+// the shared rule (numa_words + fused_tier through lane_tier) and its bounds
+// from the Eq. 1 arithmetic of trap 1.
 
 // Rows of the delta encoder's dense descriptor block, per dense row
 // (ViewDelta.descriptors in repro_torch/core/cluster.py), and of its adds
 // block, per dense row and add.
-enum { DD_NODE, DD_REM, DD_FOG, DD_FOC, DD_OG, DD_OC, DD_POS };
+enum { DD_NODE, DD_REM, DD_FOG, DD_FOC, DD_OG, DD_OC, DD_POS, kDenseFields };
 enum { DA_GPU, DA_CG, DA_PRIO, DA_VALID };
 constexpr int kDeltaThreads = 128;  // the encoder: four jobs (warps) a CTA
-constexpr int kPrescreenThreads = 256;
-constexpr int kSelectThreads = 1024;  // the top-K selection: one CTA
-constexpr int kRadixBins = 256;       // 8-bit digits, eight passes
+constexpr int kShortlistM = 8;      // the most eligible victims of a shortlisted row
+constexpr int kPrescreenThreads = 512;  // the prescreen's CTA
+constexpr int kPrescreenBatch = 4;   // row groups a warp loads together
+constexpr int kSegRows = 8192;       // a CTA's window: keys and row map in shared memory
+constexpr int kClusterUnionKeys = 8192;  // the CTAs' lists, and their copy
+constexpr int kUnionKeys = 8192;     // the union select's work in shared memory
+constexpr int kMaxPrescreenClusters = 32;  // the prescreen's split form
+constexpr int kSplitRows = 64;       // split form: a cluster for every kSplitRows rows a CTA
+constexpr int kDigitBits = 11;       // the radix select's digits
+constexpr int kBins = 1 << kDigitBits;
+constexpr int kBinGroups = 8;        // a digit's bins in groups of 256
+constexpr int kGroupBins = kBins / kBinGroups;
+constexpr int kForcedBit = 1 << 30;  // a window's row map: forced, | patch row + 1
+constexpr size_t kPrescreenMaxSmem = static_cast<size_t>(kSegRows) * 12 +
+                                     static_cast<size_t>(kClusterUnionKeys) * 8;
+constexpr size_t kUnionMaxSmem = static_cast<size_t>(kUnionKeys) * 8;
+constexpr int kMaxLists = 32;        // the union select's lists (shards)
+
+// A row of the patch buffer (width W <= kRowWords int32) copied by one
+// warp from src to the row `to` of dst reads (hpos[h] for the copy) in
+// the same round trip as the row, and zeroed where src is null; a place
+// outside [0, P) is not written.
+constexpr int kRowWords = kNodeFields + kVictimFields * kMaxDenseVictims + 2;
+
+__device__ __forceinline__ void warp_row_copy(int* __restrict__ dst,
+                                              const int* __restrict__ src,
+                                              const int* __restrict__ to_at,
+                                              int W, int P, int lane) {
+  constexpr int kPer = (kRowWords + 31) / 32;
+  int x[kPer];
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    const int i = lane + 32 * q;
+    x[q] = src != nullptr && i < W ? src[i] : 0;
+  }
+  const int to = to_at != nullptr ? *to_at : 0;
+  if (to < 0 || to >= P) return;
+  int* o = dst + static_cast<long>(to) * W;
+#pragma unroll
+  for (int q = 0; q < kPer; ++q)
+    if (lane + 32 * q < W) o[lane + 32 * q] = x[q];
+}
 
 // The view-delta encoder, replacing encode_delta_core (and the host's
 // flatten of the patch rows it rebuilds): one warp a job, P jobs, writing
 // the plan's patch buffer out[P, 5 + 5 cap + 2] in place.
-//  * Job i < D rebuilds dense row i from its resident row: lane s < cap
-//    holds base slot s (kept when stored and not in the removed bitmask
-//    `rem`), lane cap + j holds add j (a planned bind, uid order).  A slot's
-//    key is a + uid-rank for a base slot and j for an add, so every add
-//    sorts before every base victim (planned binds carry negative uids)
-//    and the keys of a row are unique.  A kept slot goes to position =
-//    the count of kept slots with a smaller (priority, key): the two
-//    stable argsorts of the reference, since the keys are unique; its
-//    uid-rank is the count of kept slots with a smaller key.  Free masks
-//    are (free | freed) & ~occupied, the drain masks their OR with every
-//    kept slot's (a redux).  The row is written to out[pos] (dense[DD_POS]);
-//    the caller keeps the kept slots at most cap (ViewDelta's gate).
+//  * Job i < D rebuilds dense row i from its resident row.  Every load it
+//    needs is issued in two round trips: (1) its seven descriptor words,
+//    one a lane in one load and broadcast by shuffles, with its adds (lane
+//    cap + j add j's four fields, which need no descriptor); (2) the
+//    resident row's slots (lane s < cap its slot s) with the row's two
+//    free-mask words (lanes 0 and 1).  Nothing loads after the rank.  Lane
+//    s < cap holds base slot s (kept when stored and not in the removed
+//    bitmask `rem`), lane cap + j add j (a planned bind, uid order).  A
+//    slot's key is a + uid-rank for a base slot and j for an add, so every
+//    add sorts before every base victim (planned binds carry negative uids)
+//    and the keys of a row are unique and below cap + a <= 32.  A kept slot
+//    goes to position = the count of kept slots with a smaller (priority,
+//    key) (one shuffle pair a lane, unrolled): the two stable argsorts of
+//    the reference, since the keys are unique; its uid-rank is the count
+//    of kept slots with a smaller key (a popcount of their keys' mask).  Free masks are (free |
+//    freed) & ~occupied, the drain masks their OR with every kept slot's
+//    (a redux).  The row is written to out[pos] (dense[DD_POS]); the
+//    caller keeps the kept slots at most cap (ViewDelta's gate).
 //  * Job D + h copies the host-encoded row hrows[h] to out[hpos[h]].
 //  * Job j >= D + H zeroes out[j].
 // The positions of the first D + H jobs are a permutation of 0 .. D + H - 1
 // (the caller sorts the patch index); one outside [0, P) is not written.
+// Bound: the bytes (a dense row's descriptors, adds, two free masks and
+// every slot's five fields; a host row and its place; P rows written); at a
+// plan's few rows its time is the launch and the two round trips.
 __global__ void __launch_bounds__(kDeltaThreads)
     encode_delta_kernel(const int* __restrict__ ns, const int* __restrict__ v,
                         int n, int cap, const int* __restrict__ dense, int D,
@@ -2251,40 +2299,21 @@ __global__ void __launch_bounds__(kDeltaThreads)
   if (job >= P) return;  // whole warps
   const int W = kNodeFields + kVictimFields * cap + 2;
   if (job >= D + H) {
-    int* o = out + static_cast<long>(job) * W;
-    for (int i = lane; i < W; i += 32) o[i] = 0;
+    warp_row_copy(out + static_cast<long>(job) * W, nullptr, nullptr, W, P,
+                  lane);
     return;
   }
   if (job >= D) {
-    const int h = job - D, to = hpos[h];
-    if (to < 0 || to >= P) return;
-    const int* src = hrows + static_cast<long>(h) * W;
-    int* o = out + static_cast<long>(to) * W;
-    for (int i = lane; i < W; i += 32) o[i] = src[i];
+    const int h = job - D;
+    warp_row_copy(out, hrows + static_cast<long>(h) * W, hpos + h, W, P, lane);
     return;
   }
-  const int node = dense[DD_NODE * D + job];  // a global row (shard: base +)
-  const unsigned rem = static_cast<unsigned>(dense[DD_REM * D + job]);
-  const int to = dense[DD_POS * D + job];
-  const int local = node - base;
-  const bool inr = local >= 0 && local < n;
+  // round trip 1: the descriptor words and the adds
+  const int d = lane < kDenseFields ? dense[lane * D + job] : 0;
   int g = 0, c = 0, prio = 0, key = kIntMax;
   bool kept = false;
-  if (lane < cap) {
-    int rank = 0, stored = 0;
-    if (inr) {
-      const long fs = static_cast<long>(n) * cap;
-      const long at = static_cast<long>(local) * cap + lane;
-      g = v[VF_GPU * fs + at];
-      c = v[VF_CG * fs + at];
-      prio = v[VF_PRIO * fs + at];
-      rank = v[VF_RANK * fs + at];
-      stored = v[VF_STORED * fs + at];
-    }
-    kept = stored != 0 && ((rem >> lane) & 1u) == 0u;
-    key = a + rank;
-  } else if (lane < cap + a) {
-    const int j = lane - cap;
+  const int j = lane - cap;
+  if (j >= 0 && j < a) {
     const long at = static_cast<long>(job) * a + j;
     const long fs = static_cast<long>(D) * a;
     g = adds[DA_GPU * fs + at];
@@ -2293,34 +2322,63 @@ __global__ void __launch_bounds__(kDeltaThreads)
     kept = adds[DA_VALID * fs + at] != 0;
     key = j;
   }
+  const int node = __shfl_sync(kAll, d, DD_NODE);  // a global row (shard: base +)
+  const unsigned rem = static_cast<unsigned>(__shfl_sync(kAll, d, DD_REM));
+  const unsigned fog = static_cast<unsigned>(__shfl_sync(kAll, d, DD_FOG));
+  const unsigned foc = static_cast<unsigned>(__shfl_sync(kAll, d, DD_FOC));
+  const unsigned og = static_cast<unsigned>(__shfl_sync(kAll, d, DD_OG));
+  const unsigned oc = static_cast<unsigned>(__shfl_sync(kAll, d, DD_OC));
+  const int to = __shfl_sync(kAll, d, DD_POS);
+  const int local = node - base;
+  const bool inr = local >= 0 && local < n;
+  // round trip 2: the resident slots and the row's free masks
+  int rank = 0, stored = 0, fm = 0;
+  if (inr) {
+    if (lane < cap) {
+      const long fs = static_cast<long>(n) * cap;
+      const long at = static_cast<long>(local) * cap + lane;
+      g = v[VF_GPU * fs + at];
+      c = v[VF_CG * fs + at];
+      prio = v[VF_PRIO * fs + at];
+      rank = v[VF_RANK * fs + at];
+      stored = v[VF_STORED * fs + at];
+    }
+    if (lane < 2) fm = ns[(NS_FREE_GPU + lane) * n + local];  // gpu, cg
+  }
+  if (lane < cap) {
+    kept = stored != 0 && ((rem >> lane) & 1u) == 0u;
+    key = a + rank;
+  }
   const unsigned keptm = __ballot_sync(kAll, kept);
-  int pos = 0, rk = 0;
-  for (unsigned m = keptm; m; m &= m - 1u) {  // warp-uniform
-    const int src = __ffs(m) - 1;
+  // keys are below cap + a <= 32: the uid-rank is a popcount of the kept
+  // keys' mask, the place a count over the 32 lanes, every shuffle
+  // independent of the last
+  const unsigned keys =
+      __reduce_or_sync(kAll, kept ? 1u << (key & 31) : 0u);
+  const int rk = __popc(keys & ((1u << (key & 31)) - 1u));
+  int pos = 0;
+#pragma unroll
+  for (int src = 0; src < 32; ++src) {
     const int op = __shfl_sync(kAll, prio, src);
     const int ok = __shfl_sync(kAll, key, src);
-    pos += op < prio || (op == prio && ok < key);
-    rk += ok < key;
+    pos += ((keptm >> src) & 1u) && (op < prio || (op == prio && ok < key));
   }
   const int count = __popc(keptm);
-  const unsigned og = __reduce_or_sync(kAll, kept ? static_cast<unsigned>(g) : 0u);
-  const unsigned oc = __reduce_or_sync(kAll, kept ? static_cast<unsigned>(c) : 0u);
+  const unsigned ogr = __reduce_or_sync(kAll, kept ? static_cast<unsigned>(g) : 0u);
+  const unsigned ocr = __reduce_or_sync(kAll, kept ? static_cast<unsigned>(c) : 0u);
+  const unsigned fg = (static_cast<unsigned>(__shfl_sync(kAll, fm, 0)) | fog) & ~og;
+  const unsigned fc = (static_cast<unsigned>(__shfl_sync(kAll, fm, 1)) | foc) & ~oc;
   if (to < 0 || to >= P) return;
   int* o = out + static_cast<long>(to) * W;
-  if (lane == 0) {
-    const unsigned base_g = inr ? static_cast<unsigned>(ns[NS_FREE_GPU * n + local]) : 0u;
-    const unsigned base_c = inr ? static_cast<unsigned>(ns[NS_FREE_CG * n + local]) : 0u;
-    const unsigned fg = (base_g | static_cast<unsigned>(dense[DD_FOG * D + job])) &
-                        ~static_cast<unsigned>(dense[DD_OG * D + job]);
-    const unsigned fc = (base_c | static_cast<unsigned>(dense[DD_FOC * D + job])) &
-                        ~static_cast<unsigned>(dense[DD_OC * D + job]);
-    o[NS_FREE_GPU] = static_cast<int>(fg);
-    o[NS_FREE_CG] = static_cast<int>(fc);
-    o[NS_NODE_ID] = node;
-    o[NS_OVERFLOW] = 0;
-    o[NS_NEXT_PRIO] = kIntMax;
-    o[W - 2] = static_cast<int>(fg | og);
-    o[W - 1] = static_cast<int>(fc | oc);
+  if (lane < kNodeFields + 2) {  // the node fields, then the drain masks
+    const int f[kNodeFields + 2] = {static_cast<int>(fg), static_cast<int>(fc),
+                                    node, 0, kIntMax,
+                                    static_cast<int>(fg | ogr),
+                                    static_cast<int>(fc | ocr)};
+    int x = f[0];
+#pragma unroll
+    for (int i = 1; i < kNodeFields + 2; ++i) x = lane == i ? f[i] : x;
+    o[lane < kNodeFields ? lane : W - (kNodeFields + 2) + lane] = x;
   }
   int* vs = o + kNodeFields;
   if (kept && pos < cap) {
@@ -2345,170 +2403,846 @@ __device__ __forceinline__ float unordered_u(unsigned u) {
   return unordered(static_cast<int>(u ^ 0x80000000u));
 }
 
-__device__ __forceinline__ bool in_sorted(const int* __restrict__ xs, int n,
-                                          int x) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (xs[mid] < x) lo = mid + 1; else hi = mid;
-  }
-  return lo < n && xs[lo] == x;
-}
-
-// The prescreen's first launch, replacing the per-row half of
-// _prescreen_core: one thread a resident row (its patch row read in its
-// place), an admissible upper bound on the row's Eq. 2 score: the exact
-// score of the empty subset (the tier of the free masks, priority term 1)
-// against the tier of the free masks with EVERY eligible victim freed
-// (masks added: one node's masks are disjoint) with the term of the least
-// eligible priority.  A row enters when it is its class's representative
-// (rep, or in the sorted forced list), has at most 8 eligible victims, is
-// not truncated below the preemptor, has a real node id and a finite bound.
-// Its key is (ordered_u(bound) << 32) | ~row, largest first, lowest row on
-// a tie (lax.top_k's order); 0 for a row that does not enter.
-__global__ void __launch_bounds__(kPrescreenThreads)
-    prescreen_kernel(State s, FusedParams p, const int* __restrict__ rep,
-                     const int* __restrict__ forced, int n_forced,
-                     const int* __restrict__ skip,
-                     unsigned long long* __restrict__ keys) {
-  if (skip != nullptr && *skip != 0) return;  // the normal cycle placed
-  const int r = static_cast<int>(blockIdx.x * blockDim.x + threadIdx.x);
-  if (r >= s.n) return;
-  const TierRule rule = tier_rule(p.t, bundle_magic(p.t.cgs_per_bundle));
-  const Row w = fetch_row(s, r);
-  const unsigned fg = static_cast<unsigned>(w.node(NS_FREE_GPU));
-  const unsigned fc = static_cast<unsigned>(w.node(NS_FREE_CG));
-  unsigned eg = fg, ec = fc;
-  int elig = 0, min_p = kIntMax;
-  for (int j = 0; j < s.cap; ++j) {
-    const int vp = w.slot(VF_PRIO, j);
-    if (w.slot(VF_STORED, j) != 0 && vp < p.thresh) {
-      eg += static_cast<unsigned>(w.slot(VF_GPU, j));
-      ec += static_cast<unsigned>(w.slot(VF_CG, j));
-      ++elig;
-      min_p = min(min_p, vp);
-    }
-  }
-  const int ft = lane_tier(fg, fc, rule, p.t);
-  const int et = lane_tier(eg, ec, rule, p.t);
-  const float ub0 = ft < 3 ? eq1_score(0, ft, p) : -CUDART_INF_F;
-  const float ubk = elig > 0 && et < 3 ? eq1_score(min_p, et, p) : -CUDART_INF_F;
-  const float ub = fmaxf(ub0, ubk);
-  const bool is_rep = rep[r] != 0 || in_sorted(forced, n_forced, s.base + r);
-  const bool ok = w.node(NS_NODE_ID) < kIntMax && is_rep && elig <= 8 &&
-                  !(w.node(NS_OVERFLOW) != 0 && w.node(NS_NEXT_PRIO) < p.thresh) &&
-                  ub > -CUDART_INF_F;
-  keys[r] = ok ? (static_cast<unsigned long long>(ordered_u(ub)) << 32 |
-                  (0xffffffffu - static_cast<unsigned>(s.base + r)))
-               : 0ull;
-}
-
-// The largest of x over the CTA; every thread gets it.
-__device__ __forceinline__ unsigned long long cta_max64(unsigned long long x,
-                                                        unsigned long long* s_warp) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int off = 16; off; off >>= 1) {
-    const unsigned long long y = __shfl_xor_sync(0xffffffffu, x, off);
-    x = y > x ? y : x;
-  }
-  __syncthreads();
-  if (lane == 0) s_warp[warp] = x;
-  __syncthreads();
-  x = 0ull;
-  for (int i = 0; i < static_cast<int>(blockDim.x >> 5); ++i)
-    x = s_warp[i] > x ? s_warp[i] : x;
-  return x;
-}
-
-// The prescreen's second launch, one CTA: the top k of the n keys.  A radix
-// select (eight passes of 8-bit digits, most significant first, a
-// shared-memory histogram and suffix sums a pass) finds T, the k-th largest
-// key (0 when fewer than k rows entered); the rows with a key >= T, > 0,
-// are gathered into sel, and each is written to out[rank] with rank the
-// count of gathered keys above its own: gidx = out[0 .. k-1] in key order,
-// IDX_SENTINEL past the entries.  out[k] holds the bits of excl_ub, the
-// bound of the largest key below T (the (k+1)-th), or -inf.  Any
-// 1 <= k <= n.
+// ---- The prescreen: bound pass and top k in one launch ---------------------
 //
-// Over a sharded state the same launch is the shortlist's union select,
-// standing in for the reference's cross-shard top-K (lax.top_k of a sharded
-// vector): keys holds each shard's selected keys (its sel, 0 past its
-// entries; they carry global rows, so they are unique), and excl_ub is also
-// raised to every shard's own, excl[d * excl_stride] for d < shards: the
-// global (k+1)-th key is either in the union or the (k+1)-th of the shard
-// that holds the k keys above it.
-__global__ void __launch_bounds__(kSelectThreads)
-    prescreen_select_kernel(const unsigned long long* __restrict__ keys,
-                            int n, int k, const int* __restrict__ skip,
-                            const int* __restrict__ excl, int shards,
-                            int excl_stride,
-                            unsigned long long* __restrict__ sel,
-                            int* __restrict__ out) {
-  if (skip != nullptr && *skip != 0) return;
-  __shared__ unsigned s_hist[kRadixBins];
-  __shared__ unsigned long long s_warp[kSelectThreads / 32];
-  __shared__ int s_bin, s_left, s_count;
-  const int t = threadIdx.x, T = blockDim.x;
-  unsigned long long prefix = 0ull, mask = 0ull;
-  int left = k;  // the rank of T among the keys that match prefix
-  for (int shift = 56; shift >= 0; shift -= 8) {
-    for (int b = t; b < kRadixBins; b += T) s_hist[b] = 0u;
-    __syncthreads();
-    for (int i = t; i < n; i += T) {
-      const unsigned long long key = keys[i];
-      if ((key & mask) == prefix)
-        atomicAdd(&s_hist[(key >> shift) & 0xffu], 1u);
+// A row's key is (ordered_u(bound) << 32) | ~row (global row), largest
+// first, the lower row on a tie (lax.top_k's order), and 0 for a row that
+// does not enter; the keys of live rows are unique and above 2^55.  The
+// top k of them come in three steps, none through a round trip to global
+// memory at a plan's rows:
+//  * each CTA gathers its segment's top k + 1 keys: all its live keys where
+//    they are no more, else those an exact radix select (radix_select)
+//    keeps;
+//  * after one cluster barrier every CTA copies the CTAs' lists from their
+//    shared memory (distributed shared memory) and ranks its own keys
+//    among all of them, writing gidx in key order with no further pass:
+//    the cluster's SMs share the work.  A key's rank is the count of keys
+//    above it (rank_by_count, several threads a key); in the split form,
+//    whose clusters hold more keys, each CTA sorts its list first
+//    (sort_keys) and a key's rank is the count above it in every sorted
+//    list, a binary search a list (rank_in_lists);
+//  * the (k+1)-th key overall is within every list's top k + 1, so it is
+//    the key of rank k: excl_ub is its bound (-inf where there is none).
+// The radix select takes the live keys' count, OR and AND first: with no
+// more than k + 1 live keys every one is kept and no pass runs; else a pass
+// only covers bits on which live keys differ (the bound's sign and exponent
+// on a saturated cluster, the row word's high bits and, when all bounds
+// tie, every bound bit cost nothing).  In the split form the cluster that
+// finishes last merges the clusters' sorted top k + 1 pairwise
+// (merge_lists).
+
+// A key's f32 bound (-inf for no key).
+__device__ __forceinline__ float bound_of(unsigned long long key) {
+  return key != 0ull ? unordered_u(static_cast<unsigned>(key >> 32))
+                     : -CUDART_INF_F;
+}
+
+// `p` (this CTA's shared memory) in CTA `rank` of the cluster.
+template <typename T>
+__device__ __forceinline__ T* in_rank(T* p, int rank, int ctas) {
+  return ctas > 1 ? cg::this_cluster().map_shared_rank(p, rank) : p;
+}
+
+struct KeyStats {
+  unsigned cnt;               // live (nonzero) keys
+  unsigned long long orv;     // their OR
+  unsigned long long andv;    // their AND (all ones with none)
+};
+
+__device__ __forceinline__ KeyStats no_stats() { return {0u, 0ull, ~0ull}; }
+
+__device__ __forceinline__ void add_key(KeyStats& s, unsigned long long key) {
+  if (key != 0ull) {
+    ++s.cnt;
+    s.orv |= key;
+    s.andv &= key;
+  }
+}
+
+__device__ __forceinline__ unsigned hi32(unsigned long long x) {
+  return static_cast<unsigned>(x >> 32);
+}
+
+__device__ __forceinline__ unsigned lo32(unsigned long long x) {
+  return static_cast<unsigned>(x);
+}
+
+__device__ __forceinline__ unsigned long long join64(unsigned h, unsigned l) {
+  return static_cast<unsigned long long>(h) << 32 | l;
+}
+
+// The statistics of the calling warp's 32 lanes, in every lane.
+__device__ __forceinline__ KeyStats warp_stats(const KeyStats& s) {
+  constexpr unsigned kAll = 0xffffffffu;
+  KeyStats r;
+  r.cnt = __reduce_add_sync(kAll, s.cnt);
+  r.orv = join64(__reduce_or_sync(kAll, hi32(s.orv)),
+                 __reduce_or_sync(kAll, lo32(s.orv)));
+  r.andv = join64(__reduce_and_sync(kAll, hi32(s.andv)),
+                  __reduce_and_sync(kAll, lo32(s.andv)));
+  return r;
+}
+
+// A CTA's scratch for its selects.
+struct __align__(16) SelectSmem {
+  unsigned hist[2][kBins];  // a pass's, and the next's being zeroed
+  unsigned group[2][kBinGroups];  // the sums of kBins / kBinGroups bins
+  KeyStats ws[kPrescreenThreads / 32];
+  KeyStats stat;
+  unsigned pick[3];
+  unsigned fill;
+};
+
+// The CTA's statistics to sm.stat, seen by every thread on return.
+__device__ __forceinline__ KeyStats cta_stats(const KeyStats& s,
+                                              SelectSmem& sm) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const KeyStats w = warp_stats(s);
+  if (lane == 0) sm.ws[warp] = w;
+  __syncthreads();
+  if (warp == 0) {
+    const KeyStats x = warp_stats(
+        lane < static_cast<int>(blockDim.x >> 5) ? sm.ws[lane] : no_stats());
+    if (lane == 0) sm.stat = x;
+  }
+  __syncthreads();
+  return sm.stat;
+}
+
+// The pass masks' result: the selected keys are the live keys with
+// (key & mask) >= prefix (mask 0: every live key).
+struct RadixCut {
+  unsigned long long prefix;
+  unsigned long long mask;
+};
+
+// The radix select of the k-th largest of the nk keys at `keys` (shared or
+// global memory), whose live keys' statistics are `tot`.  A pass takes the
+// next kDigitBits bits on which live keys differ, from the top, as a digit;
+// counts the candidates (live keys matching the prefix so far) by digit in
+// a shared-memory histogram and its kBinGroups group sums, once a warp
+// where the warp's candidates share a bin; then one warp picks the group
+// and, in it, the bin holding the left-th largest candidate (suffix sums
+// by shuffles), between two CTA barriers.  The passes stop once that bin's
+// count equals what is left of k (all of it selected).  Every thread of
+// the CTA calls it and gets the cut.
+__device__ __forceinline__ RadixCut radix_select(const unsigned long long* keys,
+                                                 int nk, int k,
+                                                 const KeyStats& tot,
+                                                 SelectSmem& sm) {
+  constexpr unsigned kAll = 0xffffffffu;
+  RadixCut cut = {0ull, 0ull};
+  if (tot.cnt <= static_cast<unsigned>(k)) return cut;
+  const int T = blockDim.x, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned long long var = tot.orv ^ tot.andv;  // live > 1: var != 0
+  int top = 63 - __clzll(static_cast<long long>(var));
+  cut.mask = top == 63 ? 0ull : ~0ull << (top + 1);
+  cut.prefix = tot.andv & cut.mask;
+  unsigned left = static_cast<unsigned>(k);
+  for (int b = threadIdx.x; b < 2 * kBins; b += T) sm.hist[b / kBins][b % kBins] = 0u;
+  if (threadIdx.x < 2 * kBinGroups)
+    sm.group[threadIdx.x / kBinGroups][threadIdx.x % kBinGroups] = 0u;
+  __syncthreads();
+  for (int pass = 0;; ++pass) {
+    const int shift = max(0, top - (kDigitBits - 1));
+    const int nb = 1 << (top - shift + 1);
+    const unsigned dmask = static_cast<unsigned>(nb - 1);
+    unsigned* h = sm.hist[pass & 1];
+    unsigned* hg = sm.group[pass & 1];
+    if (pass > 0) {  // the next pass's bins, last read before this pass
+      for (int b = threadIdx.x; b < kBins; b += T) sm.hist[(pass + 1) & 1][b] = 0u;
+      if (threadIdx.x < kBinGroups) sm.group[(pass + 1) & 1][threadIdx.x] = 0u;
     }
-    __syncthreads();
-    // suffix sums over the bins, in place (Hillis-Steele, 8 steps)
-    for (int off = 1; off < kRadixBins; off <<= 1) {
-      const unsigned add = t < kRadixBins && t + off < kRadixBins ? s_hist[t + off] : 0u;
-      __syncthreads();
-      if (t < kRadixBins) s_hist[t] += add;
-      __syncthreads();
-    }
-    if (t < kRadixBins) {
-      const unsigned above = t + 1 < kRadixBins ? s_hist[t + 1] : 0u;
-      if (s_hist[t] >= static_cast<unsigned>(left) && above < static_cast<unsigned>(left)) {
-        s_bin = t;
-        s_left = left - static_cast<int>(above);
+    for (int b0 = warp * 32; b0 < nk; b0 += T) {  // warp-uniform
+      const int i = b0 + lane;
+      const unsigned long long key = i < nk ? keys[i] : 0ull;
+      const bool take = key != 0ull && (key & cut.mask) == cut.prefix;
+      const unsigned bin = static_cast<unsigned>(key >> shift) & dmask;
+      // one add for the warp where its candidates share a bin (ties, and
+      // the bound's digits of a saturated cluster), else one a lane; each
+      // into the bin and its group
+      const unsigned ball = __ballot_sync(kAll, take);
+      const unsigned lo = __reduce_min_sync(kAll, take ? bin : 0xffffffffu);
+      const unsigned hi = __reduce_max_sync(kAll, take ? bin : 0u);
+      if (lo == hi) {
+        if (ball != 0u && lane == __ffs(ball) - 1) {
+          atomicAdd(h + bin, static_cast<unsigned>(__popc(ball)));
+          atomicAdd(hg + bin / kGroupBins, static_cast<unsigned>(__popc(ball)));
+        }
+      } else if (take) {
+        atomicAdd(h + bin, 1u);
+        atomicAdd(hg + bin / kGroupBins, 1u);
       }
     }
     __syncthreads();
-    prefix |= static_cast<unsigned long long>(s_bin) << shift;
-    mask |= 0xffull << shift;
-    left = s_left;
+    if (warp == 0) {
+      // the group that holds the left-th largest candidate (lanes <
+      // kBinGroups a group, a suffix sum), then its bins, 8 a lane
+      const unsigned gc = lane < kBinGroups ? hg[lane] : 0u;
+      unsigned gs = gc;
+#pragma unroll
+      for (int off = 1; off < kBinGroups; off <<= 1) {
+        const unsigned y = __shfl_down_sync(kAll, gs, off);
+        if (lane + off < kBinGroups) gs += y;
+      }
+      const unsigned gpick = __ballot_sync(
+          kAll, lane < kBinGroups && gs - gc < left && gs >= left);
+      const int g = __ffs(gpick) - 1;
+      const unsigned gabove = __shfl_sync(kAll, gs - gc, g);
+      const uint4* row = reinterpret_cast<const uint4*>(h + g * kGroupBins + 8 * lane);
+      const uint4 x = row[0], y = row[1];
+      const unsigned c[8] = {x.x, x.y, x.z, x.w, y.x, y.y, y.z, y.w};
+      unsigned own = 0u;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) own += c[q];
+      unsigned incl = own;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const unsigned z = __shfl_down_sync(kAll, incl, off);
+        if (lane + off < 32) incl += z;
+      }
+      unsigned above = gabove + incl - own;
+#pragma unroll
+      for (int q = 7; q >= 0; --q) {
+        if (above < left && above + c[q] >= left) {  // one lane, one bin
+          sm.pick[0] = static_cast<unsigned>(g * kGroupBins + 8 * lane + q);
+          sm.pick[1] = left - above;
+          sm.pick[2] = c[q];
+        }
+        above += c[q];
+      }
+    }
+    __syncthreads();
+    const unsigned bin = sm.pick[0];
+    left = sm.pick[1];
+    const bool whole = sm.pick[2] == left;
+    cut.prefix |= static_cast<unsigned long long>(bin) << shift;
+    cut.mask |= static_cast<unsigned long long>(dmask) << shift;
+    if (whole || shift == 0) break;  // the whole bin is selected
+    const unsigned long long rest = var & ((1ull << shift) - 1ull);
+    if (rest == 0ull) break;
+    top = 63 - __clzll(static_cast<long long>(rest));
+  }
+  return cut;
+}
+
+// The selected keys of the nk at `keys` (live and at least the cut) written
+// to dst[0 .. limit-1] (this CTA's shared memory or global), a warp's run
+// at one ticket from sm.fill, which the caller zeroes and publishes.  Every
+// thread of the CTA calls it; dst is the CTA's on return.
+__device__ __forceinline__ void gather_selected(const unsigned long long* keys,
+                                                int nk, const RadixCut& cut,
+                                                unsigned long long* dst,
+                                                int limit, SelectSmem& sm) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int T = blockDim.x, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int b0 = warp * 32; b0 < nk; b0 += T) {  // warp-uniform
+    const int i = b0 + lane;
+    const unsigned long long key = i < nk ? keys[i] : 0ull;
+    const bool take = key != 0ull && (key & cut.mask) >= cut.prefix;
+    const unsigned ball = __ballot_sync(kAll, take);
+    if (ball == 0u) continue;
+    unsigned at = 0u;
+    if (lane == 0) at = atomicAdd(&sm.fill, static_cast<unsigned>(__popc(ball)));
+    at = __shfl_sync(kAll, at, 0) + __popc(ball & ((1u << lane) - 1u));
+    if (take && at < static_cast<unsigned>(limit)) dst[at] = key;
+  }
+  __syncthreads();
+}
+
+// The rank of each live key of src[0 .. nk) among them (the count of live
+// keys above it; keys are unique), by tpk threads a key (a power of two,
+// as many as the CTA holds for every key, up to 32) with four sums in
+// flight: the key of rank r < limit goes to dst[r].  Every thread calls
+// it; dst is the CTA's on return.
+__device__ __forceinline__ void sort_keys(const unsigned long long* src,
+                                          int nk, int limit,
+                                          unsigned long long* dst) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int T = blockDim.x, t = threadIdx.x;
+  int tpk = 1;
+  while (tpk < 32 && tpk * 2 * nk <= T) tpk *= 2;
+  const int part = t & (tpk - 1);
+  for (int b0 = 0; b0 < nk; b0 += T / tpk) {  // warp-uniform
+    const int i = b0 + t / tpk;
+    const unsigned long long key = i < nk ? src[i] : 0ull;
+    unsigned r0 = 0u, r1 = 0u;
+    if (key != 0ull) {
+      int j = part;
+      for (; j + tpk < nk; j += 2 * tpk) {
+        r0 += src[j] > key;
+        r1 += src[j + tpk] > key;
+      }
+      if (j < nk) r0 += src[j] > key;
+    }
+    unsigned r = r0 + r1;
+    for (int off = 1; off < tpk; off <<= 1) r += __shfl_xor_sync(kAll, r, off);
+    if (key != 0ull && part == 0 && r < static_cast<unsigned>(limit)) dst[r] = key;
+  }
+  __syncthreads();
+}
+
+// The count of the keys of a descending list of len keys above `key`: a
+// binary search of fixed steps from `span` (a power of two above len / 2).
+__device__ __forceinline__ int count_above(const unsigned long long* list,
+                                           int len, int span,
+                                           unsigned long long key) {
+  int pos = 0;
+  for (int step = span; step > 0; step >>= 1)
+    if (pos + step <= len && list[pos + step - 1] > key) pos += step;
+  return pos;
+}
+
+// The rank of each live key of lists first .. last - 1 among nl
+// descending lists of unique keys, each 0 past its keys (list l:
+// lists[at[l] .. at[l + 1]); at in shared memory; nl <= 32): the count of
+// keys above it in every list, a binary search a list, one lane each,
+// summed by shuffles.  Writes as rank_by_count, with kth null.  Every
+// thread calls it.
+__device__ __forceinline__ void rank_in_lists(
+    const unsigned long long* lists, const int* at, int nl, int first,
+    int last, int k, int* __restrict__ out,
+    unsigned long long* __restrict__ sel, int limit) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int T = blockDim.x, t = threadIdx.x;
+  int longest = 1;
+  for (int l = 0; l < nl; ++l) longest = max(longest, at[l + 1] - at[l]);
+  const int span = 1 << (31 - __clz(longest));
+  int lanes = 1;
+  while (lanes < nl) lanes *= 2;
+  const int nm = at[last] - at[first];
+  for (int b0 = 0; b0 < nm; b0 += T / lanes) {  // warp-uniform
+    const int i = b0 + t / lanes, l = t & (lanes - 1);
+    const unsigned long long key = i < nm ? lists[at[first] + i] : 0ull;
+    unsigned r = key != 0ull && l < nl
+                     ? count_above(lists + at[l], at[l + 1] - at[l], span, key)
+                     : 0u;
+    for (int off = 1; off < lanes; off <<= 1) r += __shfl_xor_sync(kAll, r, off);
+    if (key != 0ull && l == 0) {
+      if (r < static_cast<unsigned>(limit) && sel != nullptr) sel[r] = key;
+      if (r < static_cast<unsigned>(k) && out != nullptr)
+        out[r] = static_cast<int>(0xffffffffu - lo32(key));
+      if (r == static_cast<unsigned>(k) && out != nullptr)
+        out[k] = __float_as_int(bound_of(key));
+    }
+  }
+}
+
+// nl descending lists of unique keys (list l: len[l] <= stride keys at
+// buf[0] + l stride), merged pairwise level by level into one, each merged
+// list cut to `stride` keys: a key's place in the merge of its list with
+// the next is its place in its own plus the count of keys above it in the
+// other (a binary search), one thread a key.  buf[0] and buf[1] (nl stride
+// keys each) take turns; len (shared memory) is updated.  Returns the
+// buffer holding the one list, of len[0] keys.  Every thread calls it.
+__device__ __forceinline__ unsigned long long* merge_lists(
+    unsigned long long* const (&buf)[2], int* len, int nl, int stride) {
+  const int T = blockDim.x, t = threadIdx.x;
+  const int span = 1 << (31 - __clz(stride));
+  int from = 0;
+  for (; nl > 1; nl = (nl + 1) >> 1, from ^= 1) {
+    const unsigned long long* src = buf[from];
+    unsigned long long* dst = buf[from ^ 1];
+    for (int i = t; i < nl * stride; i += T) {
+      const int l = i / stride, p = i - l * stride;
+      if (p >= len[l]) continue;
+      const unsigned long long key = src[i];
+      const int o = l ^ 1;  // the other list of the pair, if any
+      const int at = p + (o < nl ? count_above(src + o * stride, len[o],
+                                               span, key)
+                                 : 0);
+      if (at < stride) dst[(l >> 1) * stride + at] = key;
+    }
+    __syncthreads();
+    int merged = 0;
+    if (t < (nl + 1) >> 1)
+      merged = min(len[2 * t] + (2 * t + 1 < nl ? len[2 * t + 1] : 0), stride);
+    __syncthreads();
+    if (t < (nl + 1) >> 1) len[t] = merged;
     __syncthreads();
   }
-  const unsigned long long th = prefix;  // the k-th largest key
-  unsigned long long below = 0ull;
-  for (int i = t; i < n; i += T) {
-    const unsigned long long key = keys[i];
-    if (key < th && key > below) below = key;
+  return buf[from];
+}
+
+// The rank of each of the nm keys at `mine` among the U keys at `all`
+// (unique, `mine` among them): the count of keys of `all` above it, by tpk
+// threads a key (a power of two, as many as the CTA holds for every key,
+// up to 32), each counting a share with four sums in flight, summed by
+// shuffles.  The key of rank r < limit goes to sel[r] (may be null) and,
+// for r < k, its row to out[r] (may be null); the key of rank k to *kth
+// where kth is given, else its bound's bits to out[k] where out is given.
+// Every thread calls it.
+__device__ __forceinline__ void rank_by_count(
+    const unsigned long long* all, int U, const unsigned long long* mine,
+    int nm, int k, int* __restrict__ out,
+    unsigned long long* __restrict__ sel, int limit, unsigned long long* kth) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int T = blockDim.x, t = threadIdx.x;
+  int tpk = 1;
+  while (tpk < 32 && tpk * 2 * nm <= T) tpk *= 2;
+  const int part = t & (tpk - 1);
+  for (int b0 = 0; b0 < nm; b0 += T / tpk) {  // warp-uniform
+    const int i = b0 + t / tpk;
+    const unsigned long long key = i < nm ? mine[i] : 0ull;
+    unsigned r0 = 0u, r1 = 0u, r2 = 0u, r3 = 0u;
+    if (i < nm) {
+      int j = part;
+      for (; j + 3 * tpk < U; j += 4 * tpk) {
+        r0 += all[j] > key;
+        r1 += all[j + tpk] > key;
+        r2 += all[j + 2 * tpk] > key;
+        r3 += all[j + 3 * tpk] > key;
+      }
+      for (; j < U; j += tpk) r0 += all[j] > key;
+    }
+    unsigned r = r0 + r1 + r2 + r3;
+    for (int off = 1; off < tpk; off <<= 1) r += __shfl_xor_sync(kAll, r, off);
+    if (i < nm && part == 0) {
+      if (r < static_cast<unsigned>(limit) && sel != nullptr) sel[r] = key;
+      if (r < static_cast<unsigned>(k) && out != nullptr)
+        out[r] = static_cast<int>(0xffffffffu - lo32(key));
+      if (r == static_cast<unsigned>(k)) {
+        if (kth != nullptr)
+          *kth = key;
+        else if (out != nullptr)
+          out[k] = __float_as_int(bound_of(key));
+      }
+    }
   }
-  below = cta_max64(below, s_warp);
-  if (t == 0) s_count = 0;
+}
+
+// The sums of one row group (G lanes of a warp: two rows a warp at G =
+// 16, one at 32), in every lane of the group, by xor butterflies within
+// the group: sg/sc the sum of the eligible victims' masks (an unsigned add
+// that wraps as the reference's int32 sum; one node's masks are disjoint,
+// so the free masks plus the sum free them all), mp the least eligible
+// priority.
+__device__ __forceinline__ void group_sums(unsigned ag, unsigned ac, int ap,
+                                           int G, unsigned& sg, unsigned& sc,
+                                           int& mp) {
+  constexpr unsigned kAll = 0xffffffffu;
+#pragma unroll
+  for (int off = 16; off >= 1; off >>= 1) {
+    if (off >= G) continue;  // G is 16 or 32: the same in the warp
+    ag += __shfl_xor_sync(kAll, ag, off);
+    ac += __shfl_xor_sync(kAll, ac, off);
+    ap = min(ap, __shfl_xor_sync(kAll, ap, off));
+  }
+  sg = ag;
+  sc = ac;
+  mp = ap;
+}
+
+// The prescreen, replacing _prescreen_core, in one launch: a grid of
+// `clusters` thread-block clusters of `ctas` CTAs (one cluster unless the
+// rows are many: prescreen_clusters below).  Cluster c owns rows
+// [c * cseg, ...), cseg = ceil(n / clusters), and its CTA `rank` rows
+// [rank * seg, ...) of those, seg = ceil(cseg / ctas), taken in windows of
+// kSegRows (one window unless kGlobalKeys).
+//  * The bound pass.  A window's patch rows and forced rows are staged once
+//    into a map of its rows in shared memory (patch row + 1 | kForcedBit)
+//    instead of a search a row.  A row is taken by G = 16 lanes (32 above
+//    16 slots), one lane a slot, so each SoA slot field loads coalesced (a
+//    warp's two rows are adjacent); lanes 0..4 load the row's node fields
+//    and lane 5 its representative flag, broadcast by shuffles, and
+//    kPrescreenBatch row groups' loads are issued together.  Then lane j <
+//    2 kPrescreenBatch of a group takes one tier of the batch (row j / 2;
+//    the free masks, or with every eligible victim freed), one lane_tier
+//    for the batch's rows in a warp, and lane j < kPrescreenBatch one
+//    row's bound and key.  The bound is an admissible upper bound on the
+//    row's Eq. 2 score: the exact score of the empty subset (the tier of
+//    the free masks, priority term 1) against the tier with every eligible
+//    victim freed (group_sums) with the term of the least eligible
+//    priority.  A row enters when it is its class's representative (rep,
+//    or forced), has at most kShortlistM eligible victims, is not
+//    truncated below the preemptor, has a real node id and a finite bound.
+//    Its key stays in shared memory (global scratch only with kGlobalKeys).
+//  * Each CTA's top k + 1 (gather_selected; radix_select first where its
+//    live keys are more; sorted by sort_keys in the split form) into its
+//    slot of its lists buffer (shared memory, or global with
+//    kGlobalUnion); one cluster barrier; every CTA copies the CTAs' lists
+//    back to back, ranks its own keys among them (rank_by_count, or
+//    rank_in_lists in the split form) and writes them to out and sel at
+//    their ranks.
+//  * With clusters > 1, the ranks below k + 1 go to the cluster's list in
+//    part (k + 1 words a cluster, global); one more cluster barrier, and
+//    rank 0 fences and takes a ticket; the cluster that takes the last
+//    merges the clusters' lists pairwise (merge_lists) and resets the
+//    ticket to 0 for the next launch.
+// Bound: bytes (a row's node fields, flag and slots' priority and stored
+// flag, the masks of its eligible slots); at a plan's rows the launch,
+// one round of loads and the select passes' CTA barriers set the time.
+template <bool kGlobalKeys, bool kGlobalUnion>
+__global__ void __launch_bounds__(kPrescreenThreads, 1)
+    prescreen_cluster_kernel(State s, FusedParams p,
+                             const int* __restrict__ rep,
+                             const int* __restrict__ forced, int n_forced,
+                             int k, int ctas, int clusters, int cseg, int seg,
+                             const int* __restrict__ skip,
+                             unsigned long long* __restrict__ gkeys,
+                             unsigned long long* __restrict__ gunion,
+                             unsigned long long* __restrict__ part,
+                             unsigned* __restrict__ ticket,
+                             unsigned long long* __restrict__ sel,
+                             int* __restrict__ out) {
+  constexpr unsigned kAll = 0xffffffffu;
+  constexpr int B = kPrescreenBatch;
+  extern __shared__ __align__(16) unsigned char s_dyn[];
+  __shared__ SelectSmem sm;
+  __shared__ unsigned s_last;
+  __shared__ int s_len[kMaxPrescreenClusters];
+  __shared__ int s_at[kMaxClusterCtas + 1];
+  if (skip != nullptr && *skip != 0) return;  // every CTA, before any barrier
+  const int n = s.n, T = blockDim.x, t = threadIdx.x;
+  // the first patch-index and forced entries, in flight with the rows
+  const int pre_p = t < s.p ? s.pidx[t] : kIntMax;
+  const int pre_f = t < n_forced ? forced[t] : kIntMax;
+  const int rank = ctas > 1 ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
+  const int c = static_cast<int>(blockIdx.x) >> (__ffs(ctas) - 1);  // ctas: 2^i
+  const int warp = t >> 5, lane = t & 31;
+  const int c_lo = min(n, c * cseg), c_hi = min(n, c_lo + cseg);
+  const int lo = min(c_hi, c_lo + rank * seg), nk = min(c_hi, lo + seg) - lo;
+  const int win = min(seg, kSegRows);
+  const int ucap = max(ctas, clusters) * (k + 1);  // a lists buffer
+  unsigned long long* s_keys = reinterpret_cast<unsigned long long*>(s_dyn);
+  unsigned long long* s_union = s_keys + (kGlobalKeys ? 0 : win);
+  int* s_map = reinterpret_cast<int*>(s_union + (kGlobalUnion ? 0 : 2 * ucap));
+  unsigned long long* keys = kGlobalKeys ? gkeys + lo : s_keys;
+  if (ctas > 1) cluster_arrive_relaxed();  // every CTA has started
+
+  TierRule rule;  // computed while the first rows' loads are in flight
+  const int gshift = s.cap <= 16 ? 4 : 5;  // G = 16 lanes a row, or 32
+  const int G = 1 << gshift;
+  const int sub = lane >> gshift, j = lane & (G - 1), gbase = sub << gshift;
+  const int rows_warp = 32 >> gshift;
+  const int step = (T >> 5) * rows_warp;  // rows a batch step of the CTA
+  const int W = kNodeFields + kVictimFields * s.cap + 2;
+  const long fs = static_cast<long>(n) * s.cap;
+  const unsigned gm = G == 32 ? kAll : 0xffffu << gbase;
+  KeyStats st = no_stats();
+  for (int w0 = 0; w0 < nk; w0 += kSegRows) {  // one window unless kGlobalKeys
+    const int wn = min(nk - w0, kSegRows);
+    const int r0 = lo + w0;  // the window's first local row
+    for (int i = t; i < wn; i += T) s_map[i] = 0;
+    unsigned long long* dst = keys + w0;
+    for (int it = 0; it * step * B < wn; ++it) {  // warp-uniform
+      // the resident rows' loads, in flight while the first batch stages
+      // the window's map; a patched row is read again from its patch row
+      int pr[B], sv[B], gv[B], cv[B], nf[B], mp[B];
+#pragma unroll
+      for (int b = 0; b < B; ++b) {
+        const int i = (it * B + b) * step + warp * rows_warp + sub;
+        pr[b] = sv[b] = gv[b] = cv[b] = nf[b] = mp[b] = 0;
+        if (i < wn) {
+          const int r = r0 + i;
+          const int* vb = s.v + static_cast<long>(r) * s.cap;
+          if (j < s.cap) {
+            pr[b] = vb[VF_PRIO * fs + j];
+            sv[b] = vb[VF_STORED * fs + j];
+            gv[b] = vb[VF_GPU * fs + j];
+            cv[b] = vb[VF_CG * fs + j];
+          }
+          if (j < kNodeFields)
+            nf[b] = s.ns[j * n + r];
+          else if (j == kNodeFields)
+            nf[b] = rep[r];
+        }
+      }
+      if (it == 0) {
+        if (w0 == 0) rule = tier_rule(p.t, bundle_magic(p.t.cgs_per_bundle));
+        __syncthreads();  // the map is zero
+        for (int i = t; i < s.p; i += T) {  // sentinel pads fall outside
+          const int g = (i == t ? pre_p : s.pidx[i]) - s.base - r0;
+          if (g >= 0 && g < wn) atomicOr(s_map + g, i + 1);
+        }
+        for (int i = t; i < n_forced; i += T) {
+          const int g = (i == t ? pre_f : forced[i]) - s.base - r0;
+          if (g >= 0 && g < wn) atomicOr(s_map + g, kForcedBit);
+        }
+        __syncthreads();
+      }
+#pragma unroll
+      for (int b = 0; b < B; ++b) {
+        const int i = (it * B + b) * step + warp * rows_warp + sub;
+        if (i < wn) {
+          mp[b] = s_map[i];
+          const int pj = (mp[b] & (kForcedBit - 1)) - 1;
+          if (pj >= 0) {
+            const int* nb = s.pbuf + static_cast<long>(pj) * W;
+            if (j < s.cap) {
+              pr[b] = nb[kNodeFields + VF_PRIO * s.cap + j];
+              sv[b] = nb[kNodeFields + VF_STORED * s.cap + j];
+              gv[b] = nb[kNodeFields + VF_GPU * s.cap + j];
+              cv[b] = nb[kNodeFields + VF_CG * s.cap + j];
+            }
+            if (j < kNodeFields) nf[b] = nb[j];
+          }
+        }
+      }
+      // per row of the batch, in every lane of its group
+      unsigned fg[B], fc[B], eg[B], ec[B];
+      int elig[B], min_p[B], nid[B], ovf[B], nxt[B], rp[B];
+#pragma unroll
+      for (int b = 0; b < B; ++b) {
+        const bool el = j < s.cap && sv[b] != 0 && pr[b] < p.thresh;
+        elig[b] = __popc(__ballot_sync(kAll, el) & gm);
+        unsigned sg, sc;
+        group_sums(el ? static_cast<unsigned>(gv[b]) : 0u,
+                   el ? static_cast<unsigned>(cv[b]) : 0u,
+                   el ? pr[b] : kIntMax, G, sg, sc, min_p[b]);
+        fg[b] = static_cast<unsigned>(__shfl_sync(kAll, nf[b], gbase + NS_FREE_GPU));
+        fc[b] = static_cast<unsigned>(__shfl_sync(kAll, nf[b], gbase + NS_FREE_CG));
+        nid[b] = __shfl_sync(kAll, nf[b], gbase + NS_NODE_ID);
+        ovf[b] = __shfl_sync(kAll, nf[b], gbase + NS_OVERFLOW);
+        nxt[b] = __shfl_sync(kAll, nf[b], gbase + NS_NEXT_PRIO);
+        rp[b] = __shfl_sync(kAll, nf[b], gbase + kNodeFields);
+        eg[b] = fg[b] + sg;
+        ec[b] = fc[b] + sc;
+      }
+      // lane j < 2B: one tier (row j / 2; free masks, or every eligible
+      // victim freed); lane j < B: row j's bound and key
+      unsigned tg = 0u, tc = 0u;
+      int kb = 0;
+#pragma unroll
+      for (int b = 0; b < B; ++b) {
+        if (j >> 1 == b) {
+          tg = j & 1 ? eg[b] : fg[b];
+          tc = j & 1 ? ec[b] : fc[b];
+        }
+        if (j == b) kb = b;
+      }
+      const int tier = lane_tier(tg, tc, rule, p.t);
+      const int src = gbase + 2 * (j < B ? j : 0);
+      const int ft = __shfl_sync(kAll, tier, src);
+      const int et = __shfl_sync(kAll, tier, src + 1);
+      int e = 0, mn = 0, id = 0, ov = 0, nx = 0, rr = 0, m = 0;
+#pragma unroll
+      for (int b = 0; b < B; ++b) {
+        if (kb == b) {
+          e = elig[b];
+          mn = min_p[b];
+          id = nid[b];
+          ov = ovf[b];
+          nx = nxt[b];
+          rr = rp[b];
+          m = mp[b];
+        }
+      }
+      const int i = (it * B + kb) * step + warp * rows_warp + sub;
+      if (j < B && i < wn) {
+        const float ub0 = ft < 3 ? eq1_score(0, ft, p) : -CUDART_INF_F;
+        const float ubk = e > 0 && et < 3 ? eq1_score(mn, et, p) : -CUDART_INF_F;
+        const float ub = fmaxf(ub0, ubk);
+        const bool ok = id < kIntMax && (rr != 0 || (m & kForcedBit) != 0) &&
+                        e <= kShortlistM && !(ov != 0 && nx < p.thresh) &&
+                        ub > -CUDART_INF_F;
+        const unsigned long long key =
+            ok ? join64(ordered_u(ub),
+                        0xffffffffu - static_cast<unsigned>(s.base + r0 + i))
+               : 0ull;
+        dst[i] = key;
+        add_key(st, key);
+      }
+    }
+    __syncthreads();  // the keys are the CTA's; the next window's map
+  }
+
+  // this CTA's top k + 1 (its live keys, or a radix select's), gathered
+  // into its slot of the lists
+  const int k1 = k + 1;
+  const KeyStats mine = cta_stats(st, sm);
+  const int got = mine.cnt < static_cast<unsigned>(k1) ? static_cast<int>(mine.cnt) : k1;
+  unsigned long long* lists =
+      kGlobalUnion ? gunion + static_cast<long>(c) * 2 * ucap : s_union;
+  unsigned long long* all = lists + ucap;  // every CTA's, back to back
+  unsigned long long* my_list = lists + static_cast<long>(rank) * k1;
+  const bool sorted = clusters > 1;  // the split form ranks sorted lists
+  const RadixCut cut = radix_select(keys, nk, k1, mine, sm);
+  if (t == 0) sm.fill = 0u;
   __syncthreads();
-  for (int i = t; i < n; i += T) {
-    const unsigned long long key = keys[i];
-    if (key != 0ull && key >= th) sel[atomicAdd(&s_count, 1)] = key;
+  gather_selected(keys, nk, cut, sorted ? all : my_list, k1, sm);
+  if (sorted) sort_keys(all, got, k1, my_list);
+  if (t == 0) s_len[rank] = got;
+  // every CTA's list, copied from its CTA (distributed shared memory)
+  if (ctas > 1) {
+    cluster_wait();  // pairs with the arrival at the start
+    cg::this_cluster().sync();
+    if (t < ctas) s_len[t] = *in_rank(s_len + t, t, ctas);
   }
   __syncthreads();
-  const int got = s_count;
-  for (int i = t; i < got; i += T) {
-    const unsigned long long key = sel[i];
-    int rank = 0;
-    for (int j = 0; j < got; ++j) rank += sel[j] > key;
-    out[rank] = static_cast<int>(0xffffffffu - static_cast<unsigned>(key));
+  int at[kMaxClusterCtas + 1];  // list r is all[at[r] .. at[r + 1])
+  at[0] = 0;
+#pragma unroll
+  for (int r = 0; r < kMaxClusterCtas; ++r)
+    at[r + 1] = at[r] + (r < ctas ? s_len[r] : 0);
+  const int total = at[kMaxClusterCtas];
+  if (t <= ctas) {
+    int v = 0;
+#pragma unroll
+    for (int r = 1; r <= kMaxClusterCtas; ++r) v = t == r ? at[r] : v;
+    s_at[t] = v;
   }
-  for (int i = got + t; i < k; i += T) {
-    out[i] = kIntMax;
-    sel[i] = 0ull;  // the selected keys, then 0: a shard's part of a union
+  __syncthreads();
+  {  // the remote loads of a thread issued together
+    constexpr int kCopy = 4;
+    for (int i0 = t; i0 < total; i0 += kCopy * T) {
+      unsigned long long x[kCopy];
+#pragma unroll
+      for (int q = 0; q < kCopy; ++q) {
+        const int i = i0 + q * T;
+        int r = 0;
+#pragma unroll
+        for (int w = 1; w < kMaxClusterCtas; ++w) r += w < ctas && i >= at[w];
+        x[q] = i < total ? *in_rank(lists + static_cast<long>(r) * k1 + i - s_at[r],
+                                    r, kGlobalUnion ? 1 : ctas)
+                         : 0ull;
+      }
+#pragma unroll
+      for (int q = 0; q < kCopy; ++q)
+        if (i0 + q * T < total) all[i0 + q * T] = x[q];
+    }
+  }
+  if (ctas > 1) cluster_arrive_relaxed();  // done with the other CTAs' memory
+  __syncthreads();
+  // each key of this CTA's list: its rank among the cluster's, the count
+  // of its keys above it, to out / sel or, in the split form, to the
+  // cluster's list in part
+  unsigned long long* cpart = clusters > 1 ? part + static_cast<long>(c) * k1 : nullptr;
+  if (sorted)
+    rank_in_lists(all, s_at, ctas, rank, rank + 1, k, nullptr, cpart, k1);
+  else
+    rank_by_count(all, total, all + s_at[rank], got, k, out, sel, k, nullptr);
+  if (rank == 0) {  // past the keys: IDX_SENTINEL and 0
+    if (cpart != nullptr) {
+      for (int i = min(total, k1) + t; i < k1; i += T) cpart[i] = 0ull;
+    } else {
+      for (int i = min(total, k) + t; i < k; i += T) {
+        out[i] = kIntMax;
+        if (sel != nullptr) sel[i] = 0ull;
+      }
+      if (t == 0 && total <= k) out[k] = __float_as_int(-CUDART_INF_F);
+    }
+  }
+  if (clusters == 1) {
+    if (ctas > 1) cluster_wait();  // no CTA leaves while its list is read
+    return;
+  }
+  // the split form: the last cluster to finish merges the clusters' lists
+  __threadfence();  // every thread's part of this cluster's top k + 1
+  if (ctas > 1) {
+    cluster_wait();
+    cg::this_cluster().sync();
+  } else {
+    __syncthreads();
+  }
+  if (rank != 0) return;
+  if (t == 0) {
+    __threadfence();
+    s_last = atomicAdd(ticket, 1u) == static_cast<unsigned>(clusters - 1);
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  unsigned long long* const ubufs[2] = {s_union, s_union + ucap};
+  for (int i = t; i < clusters * k1; i += T)  // L2, not a stale L1 line
+    ubufs[0][i] = __ldcg(part + i);
+  __syncthreads();
+  if (t < clusters)
+    s_len[t] = count_above(ubufs[0] + t * k1, k1, 1 << (31 - __clz(k1)), 0ull);
+  __syncthreads();
+  const unsigned long long* merged = merge_lists(ubufs, s_len, clusters, k1);
+  const int u = s_len[0];
+  for (int i = t; i < k; i += T) {
+    const unsigned long long key = i < u ? merged[i] : 0ull;
+    out[i] = i < u ? static_cast<int>(0xffffffffu - lo32(key)) : kIntMax;
+    if (sel != nullptr) sel[i] = key;
   }
   if (t == 0) {
-    float ub = below != 0ull ? unordered_u(static_cast<unsigned>(below >> 32))
-                             : -CUDART_INF_F;
+    out[k] = __float_as_int(bound_of(u > k ? merged[k] : 0ull));
+    *ticket = 0u;  // for the next launch on the stream
+  }
+}
+
+// The shortlist's union select over a sharded state, standing in for the
+// reference's cross-shard top-K (lax.top_k of a sharded vector): one CTA,
+// the top k of n keys in `lists` lists of n / lists (each shard's selected
+// keys: its sel, its live keys descending, then 0; they carry global rows,
+// so they are unique), with the prescreen's device code: one pass reads
+// the keys in place, checks each list's order, finds its length (its last
+// live key) and copies its first k + 1 keys, then the lists merge pairwise
+// (merge_lists, each merge cut to k + 1 keys); where a list is not so sorted, or the merges do not fit
+// kUnionKeys words, each live key is ranked by the count of live keys
+// above it (rank_by_count).  The work buffer is shared memory, or global
+// scratch (kGlobalWork) where it outgrows kUnionKeys words.  excl_ub is
+// also raised to every shard's own, excl[d * excl_stride] for d < shards:
+// the global (k+1)-th key is either in the union or the (k+1)-th of the
+// shard that holds the k keys above it.  Bound: the D k keys' bytes; its
+// time is a launch and the merges.
+template <bool kGlobalWork>
+__global__ void __launch_bounds__(kPrescreenThreads, 1)
+    prescreen_union_kernel(const unsigned long long* __restrict__ keys,
+                           int n, int k, int lists,
+                           const int* __restrict__ skip,
+                           const int* __restrict__ excl, int shards,
+                           int excl_stride,
+                           unsigned long long* __restrict__ gbuf,
+                           int* __restrict__ out) {
+  constexpr unsigned kAll = 0xffffffffu;
+  extern __shared__ __align__(16) unsigned char s_dyn[];
+  __shared__ SelectSmem sm;
+  __shared__ int s_len[kMaxLists];
+  if (skip != nullptr && *skip != 0) return;
+  const int T = blockDim.x, t = threadIdx.x, lane = t & 31;
+  const int seg = n / lists, stride = min(k + 1, n);  // a merge's most keys
+  const bool merge_fits = 2 * lists * stride <= kUnionKeys;
+  unsigned long long* work =
+      kGlobalWork ? gbuf : reinterpret_cast<unsigned long long*>(s_dyn);
+  unsigned long long* const bufs[2] = {work, work + lists * stride};
+  if (t == 0) {
+    sm.fill = 0u;
+    out[k] = __float_as_int(-CUDART_INF_F);  // the (k+1)-th key's, if any
+  }
+  if (t < lists) s_len[t] = 0;
+  __syncthreads();
+  int bad = 0;  // a list not descending, then 0
+  unsigned live_n = 0u;
+  for (int i = t; i < n; i += T) {
+    const unsigned long long a = keys[i];
+    const int l = i / seg, p = i - l * seg;
+    const unsigned long long b = p + 1 < seg ? keys[i + 1] : 0ull;
+    live_n += a != 0ull;
+    bad |= b != 0ull && (a == 0ull || b >= a);
+    if (a != 0ull && b == 0ull) s_len[l] = min(p + 1, stride);  // its last
+    if (merge_fits && p < stride) bufs[0][l * stride + p] = a;
+  }
+  live_n = __reduce_add_sync(kAll, live_n);
+  if (lane == 0) atomicAdd(&sm.fill, live_n);
+  const bool sorted = !__syncthreads_or(bad);
+  const int U = static_cast<int>(sm.fill);
+  if (sorted && merge_fits) {
+    const unsigned long long* merged = merge_lists(bufs, s_len, lists, stride);
+    for (int i = t; i < min(s_len[0], k); i += T)
+      out[i] = static_cast<int>(0xffffffffu - lo32(merged[i]));
+    if (t == 0 && s_len[0] > k) out[k] = __float_as_int(bound_of(merged[k]));
+  } else {  // the live keys gathered, each ranked by counting
+    if (t == 0) sm.fill = 0u;
+    __syncthreads();
+    for (int i0 = 0; i0 < n; i0 += T) {  // warp-uniform
+      const int i = i0 + t;
+      const unsigned long long key = i < n ? keys[i] : 0ull;
+      const unsigned ball = __ballot_sync(kAll, key != 0ull);
+      unsigned pos = 0u;
+      if (lane == 0 && ball != 0u) pos = atomicAdd(&sm.fill, __popc(ball));
+      pos = __shfl_sync(kAll, pos, 0) + __popc(ball & ((1u << lane) - 1u));
+      if (key != 0ull) work[pos] = key;
+    }
+    __syncthreads();
+    rank_by_count(work, U, work, U, k, out, nullptr, k, nullptr);
+  }
+  for (int i = min(U, k) + t; i < k; i += T) out[i] = kIntMax;
+  __syncthreads();
+  if (t == 0) {  // the (k+1)-th key's bound (or -inf), raised to the shards'
+    float ub = __int_as_float(out[k]);
     for (int d = 0; d < shards; ++d)
       ub = fmaxf(ub, __int_as_float(excl[d * excl_stride]));
     out[k] = __float_as_int(ub);
@@ -2595,42 +3329,55 @@ static bool bad_cluster(int ctas, int threads, int max_threads, int p) {
 }
 
 // The cluster kernels' opt-ins, set once a device: dynamic shared memory up
-// to the patch index's budget (above the default 48 KB), and clusters above
-// the portable 8 CTAs.  A card that refuses the second keeps clusters of 8
+// to the patch index's budget (above the default 48 KB; the prescreen's to
+// its windows' and the union select's to its keys'), and clusters above the
+// portable 8 CTAs.  A card that refuses the second keeps clusters of 8
 // (cluster_ctas_max), so its refusal is not an error here.
 static cudaError_t prepare_cluster_kernels(int device) {
   static bool done[kMaxDevices] = {};
   const bool known = device >= 0 && device < kMaxDevices;
   if (known && done[device]) return cudaSuccess;
   const int smem = kMaxPatchRows * static_cast<int>(sizeof(int));
-  cudaError_t err = cudaFuncSetAttribute(
-      normal_cycle_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int pre = static_cast<int>(kPrescreenMaxSmem);
+  const int uni = static_cast<int>(kUnionMaxSmem);
+  constexpr auto kMax = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  cudaError_t err = cudaFuncSetAttribute(normal_cycle_kernel, kMax, smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(fused_argmax_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+    err = cudaFuncSetAttribute(fused_argmax_kernel<false>, kMax, smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(fused_argmax_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+    err = cudaFuncSetAttribute(fused_argmax_kernel<true>, kMax, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(prescreen_cluster_kernel<false, false>, kMax, pre);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(prescreen_cluster_kernel<false, true>, kMax, pre);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(prescreen_cluster_kernel<true, false>, kMax, pre);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(prescreen_cluster_kernel<true, true>, kMax, pre);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(prescreen_union_kernel<false>, kMax, uni);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(prescreen_union_kernel<true>, kMax, uni);
   if (err != cudaSuccess) return err;
-  cudaFuncSetAttribute(normal_cycle_kernel,
-                       cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  cudaFuncSetAttribute(fused_argmax_kernel<false>,
-                       cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  cudaFuncSetAttribute(fused_argmax_kernel<true>,
-                       cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  constexpr auto kBig = cudaFuncAttributeNonPortableClusterSizeAllowed;
+  cudaFuncSetAttribute(normal_cycle_kernel, kBig, 1);
+  cudaFuncSetAttribute(fused_argmax_kernel<false>, kBig, 1);
+  cudaFuncSetAttribute(fused_argmax_kernel<true>, kBig, 1);
+  cudaFuncSetAttribute(prescreen_cluster_kernel<false, false>, kBig, 1);
+  cudaFuncSetAttribute(prescreen_cluster_kernel<false, true>, kBig, 1);
+  cudaFuncSetAttribute(prescreen_cluster_kernel<true, false>, kBig, 1);
+  cudaFuncSetAttribute(prescreen_cluster_kernel<true, true>, kBig, 1);
   cudaGetLastError();
   if (known) done[device] = true;
   return cudaSuccess;
 }
 
 // Whether the card co-schedules a cluster of kMaxClusterCtas CTAs of the
-// kernel at its most threads and shared memory (after
-// prepare_cluster_kernels).
+// kernel at its most threads and `smem` bytes of dynamic shared memory
+// (after prepare_cluster_kernels).
 template <typename Kernel>
-static bool fits_max_cluster(Kernel kernel, int threads) {
-  const size_t smem = kMaxPatchRows * sizeof(int);
+static bool fits_max_cluster(Kernel kernel, int threads,
+                             size_t smem = kMaxPatchRows * sizeof(int)) {
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(
       kMaxClusterCtas, kMaxClusterCtas, threads, smem, nullptr, &attr);
@@ -2865,23 +3612,55 @@ int tail_merge_launch(const void* part, int shards, int segs, int alpha_pos,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The top k of n keys (prescreen_select_kernel, one CTA), excl_ub raised
-// to each of `shards` bits excl[d * excl_stride] (none when shards is 0):
-// the shortlist's union select over a sharded state.  `sel` holds k 64-bit
-// words of scratch; `out` k + 1 int32.
-int prescreen_select_launch(const void* keys, int n, int k, const void* excl,
-                            int shards, int excl_stride, const void* skip,
-                            void* sel, void* out, int device, void* stream) {
-  if (keys == nullptr || sel == nullptr || out == nullptr || n < 1 || k < 1 ||
-      shards < 0 || (shards > 0 && (excl == nullptr || excl_stride < 1)))
+// The union select's lists: `lists` sorted lists up to kMaxLists, else the
+// keys as one list (each key its own run, ranked by counting).
+static int union_lists(int lists) { return lists > kMaxLists ? 1 : lists; }
+
+// 64-bit words of the union select's work buffer over n keys in `lists`
+// lists, top k: the two buffers of the pairwise merges where they fit
+// kUnionKeys and exceed n, else the n gathered keys.
+static long union_work(int n, int k, int lists) {
+  const long merges = 2l * union_lists(lists) * min(k + 1, n);
+  return merges <= kUnionKeys && merges > n ? merges : n;
+}
+
+// The 64-bit words of global scratch prescreen_select_launch needs over n
+// keys in `lists` lists, top k: its work buffer where that exceeds
+// kUnionKeys, else 0 (the work stays in shared memory).
+long long prescreen_union_words(int n, int k, int lists) {
+  const long work = union_work(n, k, lists);
+  return work > kUnionKeys ? work : 0;
+}
+
+// The top k of n keys in `lists` lists (prescreen_union_kernel, one CTA;
+// more than kMaxLists lists are taken as one), excl_ub raised to each of
+// `shards` bits excl[d * excl_stride] (none when shards is 0): the
+// shortlist's union select over a sharded state.  `scratch` holds
+// prescreen_union_words(n, k, lists) words (null where that is 0); `out`
+// k + 1 int32.
+int prescreen_select_launch(const void* keys, int n, int k, int lists,
+                            const void* excl, int shards, int excl_stride,
+                            const void* skip, void* scratch, void* out,
+                            int device, void* stream) {
+  if (lists < 1 || n < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  lists = union_lists(lists);
+  const long work = union_work(n, k, lists);
+  const bool global_work = work > kUnionKeys;
+  if (keys == nullptr || out == nullptr || n % lists != 0 || shards < 0 ||
+      (shards > 0 && (excl == nullptr || excl_stride < 1)) ||
+      (global_work && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
-  prescreen_select_kernel<<<1, kSelectThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned long long*>(keys), n, k,
+  const cudaError_t err = prepare_cluster_kernels(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = global_work ? 0 : static_cast<size_t>(work) * 8;
+  auto kernel = global_work ? prescreen_union_kernel<true>
+                            : prescreen_union_kernel<false>;
+  kernel<<<1, kPrescreenThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned long long*>(keys), n, k, lists,
       static_cast<const int*>(skip), static_cast<const int*>(excl), shards,
-      excl_stride, static_cast<unsigned long long*>(sel),
+      excl_stride, static_cast<unsigned long long*>(scratch),
       static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }
@@ -2908,47 +3687,157 @@ int encode_delta_launch(const void* ns, const void* v, int n, int cap,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The prescreen: the keys of every row (prescreen_kernel), then the top k
-// of them in one CTA (prescreen_select_kernel).  `keys` holds n and `sel`
-// k 64-bit words of scratch; `out` k + 1 int32.
+// The prescreen's launch over n rows, top k, in `clusters` clusters of
+// `ctas` CTAs: each cluster cseg rows, each CTA seg of them in windows of
+// win; the keys in global scratch where a CTA's rows exceed kSegRows, the
+// CTAs' lists (ucap keys, and their copy) where they exceed
+// kClusterUnionKeys; `words` the 64-bit words of global scratch: those n
+// keys, clusters x 2 x ucap list words, and in the split form the
+// clusters' lists of k + 1.
+struct PrescreenGeometry {
+  int cseg, seg, win;
+  long ucap, words;
+  bool global_keys, global_union;
+};
+
+static PrescreenGeometry prescreen_geometry(int n, int k, int ctas,
+                                            int clusters) {
+  PrescreenGeometry g;
+  g.cseg = (n + clusters - 1) / clusters;
+  g.seg = (g.cseg + ctas - 1) / ctas;
+  g.win = min(g.seg, kSegRows);
+  g.ucap = static_cast<long>(max(ctas, clusters)) * (k + 1);
+  g.global_keys = g.seg > kSegRows;
+  g.global_union = 2 * g.ucap > kClusterUnionKeys;
+  g.words = (g.global_keys ? n : 0) +
+            (g.global_union ? clusters * 2 * g.ucap : 0) +
+            (clusters > 1 ? static_cast<long>(clusters) * (k + 1) : 0);
+  return g;
+}
+
+// The clusters of the prescreen's launch over n rows, top k, in clusters
+// of `ctas` CTAs of which the card keeps `resident` at once
+// (prescreen_max_clusters): one up to kSplitRows rows a CTA; else the split
+// form, a cluster for every kSplitRows rows a CTA, at most `resident` and
+// kMaxPrescreenClusters, as long as the CTAs' lists stay in shared memory
+// (one cluster where they do not).
+int prescreen_clusters(int n, int k, int ctas, int resident) {
+  if (n < 1 || k < 1 || ctas < 1) return 1;
+  const long long per = static_cast<long long>(ctas) * kSplitRows;
+  const long long want = (n + per - 1) / per;
+  const int most = max(1, min(resident, kMaxPrescreenClusters));
+  const int clusters = want < most ? static_cast<int>(want) : most;
+  return clusters > 1 && prescreen_geometry(n, k, ctas, clusters).global_union
+             ? 1 : clusters;
+}
+
+// The 64-bit words of global scratch prescreen_launch needs over n rows,
+// top k, in `clusters` clusters of `ctas` CTAs (0: none), and in `form`
+// (where not null) the kernel instance it launches: bit 0 the keys in
+// global scratch, bit 1 the CTAs' lists.
+long long prescreen_scratch_words(int n, int k, int ctas, int clusters,
+                                  int* form) {
+  if (n < 1 || k < 1 || ctas < 1 || clusters < 1) return 0;
+  const PrescreenGeometry g = prescreen_geometry(n, k, ctas, clusters);
+  if (form != nullptr) *form = (g.global_keys ? 1 : 0) | (g.global_union ? 2 : 0);
+  return g.words;
+}
+
+// The prescreen in one launch (prescreen_cluster_kernel): `clusters`
+// clusters of `ctas` CTAs each (ctas a power of two up to
+// kMaxClusterCtas).  `scratch` holds prescreen_scratch_words(n, k, ctas,
+// clusters) 64-bit words (null where that is 0).  `ticket` (one uint32,
+// zero between launches) is the split form's count of finished clusters.
+// `sel` (k 64-bit words, or null) takes the selected keys in order, then
+// 0; `out` k + 1 int32.
 int prescreen_launch(const State* state, const FusedParams* params,
                      const void* rep, const void* forced, int n_forced, int k,
-                     const void* skip, void* keys, void* sel, void* out,
-                     int device, void* stream) {
+                     int ctas, int clusters, const void* skip, void* scratch,
+                     void* ticket, void* sel, void* out, int device,
+                     void* stream) {
   const int n = state->n;
-  if (n < 1 || k < 1 || k > n || n_forced < 0 || state->cap > kMaxCap ||
-      rep == nullptr || keys == nullptr || sel == nullptr || out == nullptr ||
-      (n_forced > 0 && forced == nullptr))
+  if (n < 1 || k < 1 || k > n || ctas < 1 || ctas > kMaxClusterCtas ||
+      (ctas & (ctas - 1)) != 0 || clusters < 1 ||
+      clusters > kMaxPrescreenClusters || clusters > n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const PrescreenGeometry g = prescreen_geometry(n, k, ctas, clusters);
+  const int cseg = g.cseg, seg = g.seg, win = g.win;
+  const long ucap = g.ucap;
+  const bool global_keys = g.global_keys, global_union = g.global_union;
+  if (n_forced < 0 || state->cap < 1 || state->cap > kMaxCap ||
+      rep == nullptr || out == nullptr || (n_forced > 0 && forced == nullptr) ||
+      (state->p > 0 && (state->pidx == nullptr || state->pbuf == nullptr)) ||
+      (g.words > 0 && scratch == nullptr) ||
+      (clusters > 1 && (global_union || ticket == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* sk = static_cast<const int*>(skip);
+  cudaError_t err = prepare_cluster_kernels(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
   State s = *state;
   s.n_res = n;
   s.g = 0;
-  prescreen_kernel<<<(n + kPrescreenThreads - 1) / kPrescreenThreads,
-                     kPrescreenThreads, 0, st>>>(
-      s, *params, static_cast<const int*>(rep),
-      static_cast<const int*>(forced), n_forced, sk,
-      static_cast<unsigned long long*>(keys));
-  prescreen_select_kernel<<<1, kSelectThreads, 0, st>>>(
-      static_cast<const unsigned long long*>(keys), n, k, sk, nullptr, 0, 0,
-      static_cast<unsigned long long*>(sel), static_cast<int*>(out));
-  return static_cast<int>(cudaGetLastError());
+  unsigned long long* sc = static_cast<unsigned long long*>(scratch);
+  unsigned long long* gkeys = global_keys ? sc : nullptr;
+  sc += global_keys ? n : 0;
+  unsigned long long* gunion = global_union ? sc : nullptr;
+  sc += global_union ? clusters * 2 * ucap : 0;
+  unsigned long long* part = clusters > 1 ? sc : nullptr;
+  const size_t smem = (global_keys ? 0 : static_cast<size_t>(win) * 8) +
+                      (global_union ? 0 : static_cast<size_t>(2 * ucap) * 8) +
+                      static_cast<size_t>(win) * 4;
+  auto kernel = global_keys
+                    ? (global_union ? prescreen_cluster_kernel<true, true>
+                                    : prescreen_cluster_kernel<true, false>)
+                    : (global_union ? prescreen_cluster_kernel<false, true>
+                                    : prescreen_cluster_kernel<false, false>);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(
+      clusters * ctas, ctas, kPrescreenThreads, smem,
+      static_cast<cudaStream_t>(stream), &attr);
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, s, *params, static_cast<const int*>(rep),
+      static_cast<const int*>(forced), n_forced, k, ctas, clusters, cseg, seg,
+      static_cast<const int*>(skip), gkeys, gunion, part,
+      static_cast<unsigned*>(ticket), static_cast<unsigned long long*>(sel),
+      static_cast<int*>(out));
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
-// The most CTAs a cluster of K2's normal-cycle form and of K1's tail may
-// take on `device`: kMaxClusterCtas (16, non-portable) where
-// cudaOccupancyMaxActiveClusters finds room for such a cluster of each at
-// its most threads and shared memory, else the portable kClusterCtas (8).
+// The most clusters of `ctas` CTAs of the prescreen `device` keeps
+// resident at once (cudaOccupancyMaxActiveClusters; 1 where the query
+// fails): the split form's most clusters, so that no cluster waits for
+// another to finish.
+int prescreen_max_clusters(int device, int ctas) {
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess || prepare_cluster_kernels(device) != cudaSuccess ||
+      ctas < 1 || ctas > kMaxClusterCtas)
+    return 1;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(ctas, ctas, kPrescreenThreads, 0, nullptr, &attr);
+  int clusters = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(
+      &clusters, prescreen_cluster_kernel<false, false>, &cfg);
+  cudaGetLastError();  // a refused query leaves no error behind
+  return err == cudaSuccess && clusters > 0 ? clusters : 1;
+}
+
+// The most CTAs a cluster of K2's normal-cycle form, of K1's tail and of
+// the prescreen may take on `device`: kMaxClusterCtas (16, non-portable)
+// where cudaOccupancyMaxActiveClusters finds room for such a cluster of
+// each at its most threads and shared memory, else the portable
+// kClusterCtas (8).
 int cluster_ctas_max(int device) {
   const DeviceGuard guard(device);
   if (guard.err != cudaSuccess || prepare_cluster_kernels(device) != cudaSuccess)
     return kClusterCtas;
   const bool big = fits_max_cluster(normal_cycle_kernel, kNormalThreads) &&
                    fits_max_cluster(fused_argmax_kernel<false>, kTailThreads) &&
-                   fits_max_cluster(fused_argmax_kernel<true>, kTailThreads);
+                   fits_max_cluster(fused_argmax_kernel<true>, kTailThreads) &&
+                   fits_max_cluster(prescreen_cluster_kernel<false, false>,
+                                    kPrescreenThreads, kPrescreenMaxSmem);
   cudaGetLastError();  // a refused query leaves no error behind
   return big ? kMaxClusterCtas : kClusterCtas;
 }

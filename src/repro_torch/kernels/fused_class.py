@@ -501,8 +501,8 @@ def sm_count(device: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def max_cluster_ctas(device: int) -> int:
-    """The most CTAs a cluster of K2's normal-cycle form and of K1's tail
-    takes on CUDA device ``device``: 16 where the card co-schedules such a
+    """The most CTAs a cluster of K2's normal-cycle form, of K1's tail and
+    of the prescreen takes on CUDA device ``device``: 16 where the card co-schedules such a
     cluster at the kernels' most threads and shared memory, else the
     portable `CLUSTER_CTAS`."""
     return lib().cluster_ctas_max(device)
@@ -605,21 +605,29 @@ def bind(out: ctypes.CDLL) -> ctypes.CDLL:
     out.normal_cycle_part_launch.argtypes = [sp, pp, ci, ci, ci, vp, ci, vp]
     out.normal_merge_launch.argtypes = [vp, ci, ci, ci, pp, vp, ci, vp]
     out.tail_merge_launch.argtypes = [vp, ci, ci, ci, vp, vp, ci, vp]
-    out.prescreen_select_launch.argtypes = [vp, ci, ci, vp, ci, ci, vp, vp,
-                                            vp, ci, vp]
+    out.prescreen_select_launch.argtypes = [vp, ci, ci, ci, vp, ci, ci, vp,
+                                            vp, vp, ci, vp]
     out.cluster_ctas_max.argtypes = [ci]
+    out.prescreen_max_clusters.argtypes = [ci, ci]
+    out.prescreen_clusters.argtypes = [ci] * 4
+    out.prescreen_scratch_words.argtypes = [ci] * 4 + [
+        ctypes.POINTER(ctypes.c_int)]
+    out.prescreen_union_words.argtypes = [ci] * 3
     out.empty_launch.argtypes = [vp]
     out.encode_delta_launch.argtypes = ([vp, vp, ci, ci, vp, ci, vp, ci, vp,
                                          vp, ci, ci, vp, ci, ci, vp])
-    out.prescreen_launch.argtypes = [sp, pp, vp, vp, ci, ci, vp, vp, vp, vp,
-                                     ci, vp]
+    out.prescreen_launch.argtypes = [sp, pp, vp, vp, ci, ci, ci, ci, vp, vp,
+                                     vp, vp, vp, ci, vp]
     for fn in (out.fused_class_launch, out.fused_argmax_launch,
                out.normal_cycle_launch, out.cluster_ctas_max,
+               out.prescreen_max_clusters, out.prescreen_clusters,
                out.empty_launch, out.encode_delta_launch,
                out.prescreen_launch, out.normal_cycle_part_launch,
                out.normal_merge_launch, out.tail_merge_launch,
                out.prescreen_select_launch):
         fn.restype = ci
+    out.prescreen_scratch_words.restype = ctypes.c_longlong
+    out.prescreen_union_words.restype = ctypes.c_longlong
     out.topo_score_error_string.argtypes = [ci]
     out.topo_score_error_string.restype = ctypes.c_char_p
     return out

@@ -31,12 +31,17 @@ row, which ``torch.topk`` does not promise, so both forms order an explicit
 key), padded with `IDX_SENTINEL`; ``excl_ub`` is the bound of the (K+1)-th,
 or -inf.
 
-The kernels are ``prescreen_kernel`` (a thread a row: the bound from the
-shared tier rule, ``numa_words`` + ``fused_tier``, and a 64-bit key
-``(ordered bound, inverted row)``) and ``prescreen_select_kernel`` (one
-CTA: a radix select of the K-th key, then each selected key's rank) in
-``csrc/topo_score.cu``.  The output is int32[K + 1]: ``gidx`` and the bits
-of ``excl_ub``.
+The prescreen is one launch of ``prescreen_cluster_kernel`` in
+``csrc/topo_score.cu``: a thread-block cluster (`max_cluster_ctas` CTAs;
+several clusters at many rows, `prescreen_geometry`), each CTA a segment of
+rows, 16 lanes a row (one a slot), the bound from the shared tier rule
+(``numa_words`` + ``fused_tier``) as a 64-bit key ``(ordered bound,
+inverted row)`` kept in shared memory; each CTA ranks its live keys by
+counting (after an exact radix select where they are many) and sends its
+top K in order to the cluster's first CTA through distributed shared
+memory (each CTA a copy), which ranks its own keys among them by counting.
+The union select over a sharded state is ``prescreen_union_kernel``, the
+same device code in one CTA.  The output is int32[K + 1]: ``gidx`` and the bits of ``excl_ub``.
 
 The wrapper runs the plain version for tensors on the CPU and launches the
 kernels for tensors on a CUDA device; anything else raises.  It counts its
@@ -45,6 +50,7 @@ launches in ``prescreen.launches`` (one a call).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -58,13 +64,17 @@ from repro_torch.core.scoring import TIER_SCORES
 from repro_torch.core.topology import ServerSpec
 
 from . import topo_score as ts
-from .fused_class import (FusedRequest, launch_state, lib, on_cuda, params,
-                          stream_of)
+from .fused_class import (FusedRequest, launch_state, lib,
+                          max_cluster_ctas, on_cuda, params, stream_of)
 
 #: the most eligible victims a row may hold to enter the shortlist (the
 #: second stage sweeps it at this width)
 NARROW_M = 8
 _INT32_MAX = 2**31 - 1
+#: the split form's tickets and the prescreen's global scratch, by (device,
+#: stream): the launches of one stream use them one after the other
+_TICKETS: dict = {}
+_SCRATCH: dict = {}
 
 
 def prescreen_core(nodestate, victims, rep, *, req: FusedRequest,
@@ -247,21 +257,73 @@ def prescreen(nodestate, victims, pidx, pbuf, rep, forced, *, k: int,
     dev = nodestate.device
     if out is None:
         out = torch.empty(k + 1, dtype=torch.int32, device=dev)
-    keys = torch.empty(n, dtype=torch.int64, device=dev)
-    if sel is None:
-        sel = torch.empty(k, dtype=torch.int64, device=dev)
+    ctas, clusters, words, _ = prescreen_geometry(n, k, st.device)
+    stream = stream_of(st)
+    scratch = _scratch(dev, stream, words) if words else None
     lb = lib()
     code = lb.prescreen_launch(
         ctypes.byref(st), ctypes.byref(params(spec, req)), rep.data_ptr(),
         forced.data_ptr() if forced.shape[0] else None, forced.shape[0], k,
-        None if skip is None else skip.data_ptr(), keys.data_ptr(),
-        sel.data_ptr(), out.data_ptr(), st.device, stream_of(st))
+        ctas, clusters, None if skip is None else skip.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        _ticket(dev, stream).data_ptr() if clusters > 1 else None,
+        None if sel is None else sel.data_ptr(), out.data_ptr(), st.device,
+        stream)
     ts._raise_on(lb, code, "prescreen")
     prescreen.launches += 1
     return out
 
 
 prescreen.launches = 0
+
+
+@functools.lru_cache(maxsize=256)
+def prescreen_geometry(n: int, k: int, device: int) -> tuple[int, int, int,
+                                                             int]:
+    """The prescreen's launch over ``n`` rows, top ``k``, on CUDA device
+    ``device``, as its launcher rules it: ``(ctas, clusters, words, form)``,
+    clusters of `max_cluster_ctas` CTAs (one, or the split form's several
+    where the rows are many: C ``prescreen_clusters``), the 64-bit words of
+    global scratch the launch takes (0 at the main path's shapes) and the
+    kernel instance (bit 0: the keys in global scratch; bit 1: the CTAs'
+    lists; C ``prescreen_scratch_words``)."""
+    ctas = max_cluster_ctas(device)
+    lb = lib()
+    clusters = lb.prescreen_clusters(n, k, ctas,
+                                     resident_clusters(device, ctas))
+    form = ctypes.c_int(0)
+    words = lb.prescreen_scratch_words(n, k, ctas, clusters,
+                                       ctypes.byref(form))
+    return ctas, clusters, words, form.value
+
+
+@functools.lru_cache(maxsize=None)
+def resident_clusters(device: int, ctas: int) -> int:
+    """The most clusters of ``ctas`` CTAs of the prescreen CUDA device
+    ``device`` keeps resident at once."""
+    return lib().prescreen_max_clusters(device, ctas)
+
+
+def _scratch(dev: torch.device, stream: int, words: int) -> torch.Tensor:
+    """At least ``words`` int64 of the prescreen's global scratch for the
+    launches of ``stream`` on ``dev``, kept from call to call."""
+    t = _SCRATCH.get((dev, stream))
+    if t is None or t.numel() < words:
+        t = _SCRATCH[dev, stream] = torch.empty(words, dtype=torch.int64,
+                                                device=dev)
+    return t
+
+
+def _ticket(dev: torch.device, stream: int) -> torch.Tensor:
+    """The split form's count of finished clusters for the launches of
+    ``stream`` on ``dev``: one int32, zero between launches (the last
+    cluster resets it)."""
+    t = _TICKETS.get((dev, stream))
+    if t is None:
+        t = _TICKETS[dev, stream] = torch.zeros(1, dtype=torch.int32,
+                                                device=dev)
+    return t
+
 
 def prescreen_select_plain(keys: torch.Tensor, k: int,
                            excl: torch.Tensor | None = None) -> torch.Tensor:
@@ -288,7 +350,7 @@ def prescreen_select(keys: torch.Tensor, *, k: int,
                      excl: torch.Tensor | None = None,
                      skip: torch.Tensor | None = None,
                      out: torch.Tensor | None = None) -> torch.Tensor:
-    """The prescreen's second launch alone (``prescreen_select_kernel``)
+    """The prescreen's select alone (``prescreen_union_kernel``, one CTA)
     over given keys: the top ``k`` of ``keys`` (int64, `keys_of`' bit
     patterns, 0 for no row) as int32[k + 1], the rows (`IDX_SENTINEL`
     past the entries) and the bits of ``excl_ub``, raised to each of
@@ -326,15 +388,19 @@ def prescreen_select(keys: torch.Tensor, *, k: int,
                    for x in extra)):
         raise ValueError(f"keys (int64), excl and out ({k + 1} int32) must "
                          "lie on one device")
-    sel = torch.empty(k, dtype=torch.int64, device=dev)
+    n = flat.numel()
+    lists = keys.shape[0] if keys.dim() == 2 else 1
     lb = lib()
+    words = lb.prescreen_union_words(n, k, lists)
+    scratch = (torch.empty(words, dtype=torch.int64, device=dev)
+               if words else None)
     code = lb.prescreen_select_launch(
-        flat.data_ptr(), flat.numel(), k,
+        flat.data_ptr(), n, k, lists,
         None if excl is None else excl.data_ptr(),
         0 if excl is None else excl.shape[0],
         1 if excl is None else excl.stride(0),
-        None if skip is None else skip.data_ptr(), sel.data_ptr(),
-        out.data_ptr(),
+        None if skip is None else skip.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), out.data_ptr(),
         dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream)
     ts._raise_on(lb, code, "prescreen_select")
@@ -348,5 +414,6 @@ prescreen_select.launches = 0
 WRAPPERS = (prescreen, prescreen_select)
 
 __all__ = ["NARROW_M", "WRAPPERS", "bound_of", "keys_of", "prescreen",
-           "prescreen_core", "prescreen_plain", "prescreen_sel_plain",
-           "prescreen_select", "prescreen_select_plain"]
+           "prescreen_core", "prescreen_geometry", "prescreen_plain",
+           "prescreen_sel_plain", "prescreen_select",
+           "prescreen_select_plain", "resident_clusters"]

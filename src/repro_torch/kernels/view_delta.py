@@ -20,12 +20,14 @@ wrapper            plain version            replaces (repro)
 =================  =======================  ================================
 
 The kernel is ``encode_delta_kernel`` in ``csrc/topo_score.cu``: one warp a
-row, one lane a candidate slot (a base victim or an add).  A slot's place
-is the count of kept slots with a smaller ``(priority, key)`` and its
-uid-rank the count with a smaller key, where the key is ``a + uid-rank``
-for a base victim and ``j`` for add ``j`` (planned binds carry negative
-uids, so every add orders before every base victim).  The keys of a row
-are unique, so the counts equal the reference's two stable argsorts.
+row, one lane a candidate slot (a base victim or an add), every load in two
+round trips (the row's descriptor words and adds, then its resident slots
+and free masks).  A slot's place is the count of kept slots with a smaller
+``(priority, key)`` and its uid-rank the count with a smaller key, where
+the key is ``a + uid-rank`` for a base victim and ``j`` for add ``j``
+(planned binds carry negative uids, so every add orders before every base
+victim).  The keys of a row are unique, so the counts equal the
+reference's two stable argsorts.
 
 The wrapper runs the plain version for tensors on the CPU and launches the
 kernel for tensors on a CUDA device; anything else raises.  It counts its
