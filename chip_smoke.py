@@ -18,8 +18,11 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    rg-lru's any, fails it); their registers come from the ptxas log.
    That of the topo-score library counts the global
    atomics (``ATOMG``, ``ATOM``, ``RED``) of K2's normal-cycle form (both
-   its kernels) and K1's tail, which reduce across CTAs through a
-   thread-block cluster; a count above 0 fails the run.  In K1's class
+   its instances) and K1's tail (both forms), which reduce across CTAs
+   through a thread-block cluster: any in the one-cluster K2 instance or
+   the tail, or other than the ticket's one atomic in K2's split instance,
+   fails the run, and so does a shard-merge kernel of its own (the merges
+   run in the last shard's launches).  In K1's class
    sweep (its three builds) and lane form it counts ``REDUX`` (none fails
    the run), ``SHFL``, ``MUFU.RCP`` (one in the sweep fails it; the lane
    form's are the Eq. 1 score's IEEE reciprocal), the ``I2F...RP`` that
@@ -46,10 +49,12 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    geometry's boundaries (``CLUSTER_NODES``, up to 40960), the RTX 4090,
    A100 and TPU v5e host SKUs and the 16-slot state, 0, 1, 9 and
    ``MAX_PATCH_ROWS``
-   patch rows, K2 also in its split form at every N, the tail over the
+   patch rows, K2 also in its split form at every N (one launch: the
+   cluster that takes the last ticket places), the tail over the
    resident segment and over 16-row chunks, class tables with forced exact
    ties, more patch rows than the kernels take (must raise), and 50
-   back-to-back launches of each and of the sweep (bit-identical); the
+   back-to-back launches of each, of K2's split form (its ticket back at
+   0 after each) and of the sweep (bit-identical); the
    sweeps that feed the tail there are held to their plain version too.
    ``[delta]``: the view-delta encoder (``encode_delta``) against its plain
    version on the same inputs and against host ``encode_row`` of every
@@ -93,24 +98,30 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    sequential single plans (and, with candidate counts, against
    ``imp_batched_full``'s; at 1024 also host ``imp``), twice: the second
    reuses the session; launches held to the paths.
-   ``[sharded]``: the merges of a sharded state (``tail_merge``,
-   ``normal_merge``, ``prescreen_select``) against their plain
-   versions on the same records, bit for bit, and the merged results
-   against the unsharded kernels over every row, with D in {1, 2, 3, 4, 8}
+   ``[sharded]``: the merges of a sharded state against their plain
+   versions on the same records, bit for bit: the last shard's tail and
+   K2 with the earlier shards' records (``fused_argmax(prior=)``,
+   ``normal_cycle(prior=)``, K2 also forced into its split form) against
+   the plain compose (the last shard's plain record form, then
+   ``tail_merge_plain`` / ``normal_merge_plain``), and
+   ``prescreen_select``; and the merged results against the unsharded
+   kernels over every row, with D in {1, 2, 3, 4, 8}
    shards on the one card and N in {13, 1024, 10240} (pad rows where D
    does not divide N), patch rows on several shards, gathered rows and
    chunks across shards, forced exact ties and the same-tier case (the
    shard forms of the tail, K2 and the prescreen held to their plain
-   versions too); then, after ``[commit]``, ``imp_sharded`` and
+   versions too), and K2 at 81920 nodes over 2 and 3 shards, every shard
+   in its split form; then, after ``[commit]``, ``imp_sharded`` and
    ``imp_sharded_full`` over the default mesh (D = 1) and over 4 shards on
    the saturated 100-, 1024- and 10240-node clusters, decision for
    decision (masks and candidate counts) against ``imp_batched`` and
    ``imp_batched_full`` and host ``imp``, ``engine="auto"`` at 10240
    nodes resolving to ``imp_sharded``, and the reference's randomized
    plan/commit/rollback/``plan_batch`` sequences at 5, 11 and 13 nodes
-   over 8 shards against host ``imp``; launches held to the paths (each
-   shard's pipeline counted once a shard, one normal-cycle merge a plan
-   over 4 shards and none over one).
+   over 8 shards against host ``imp``; launches held to the paths: D K2
+   launches a plan, the last of them merging (one merged K2 a plan over 4
+   shards, none over one), a merged tail a plan that sweeps, and no merge
+   of a launch of its own.
 5. ``[commit]``: twin 1024-node clusters, 100 steps of
    ``schedule_or_preempt``, rollbacks and releases: ``imp_batched`` against
    host ``imp`` with identical decisions and masks at every step (the row
@@ -206,7 +217,10 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    (``[sweep-timing]``); ``[floor]`` times an empty kernel launched through
    the same ctypes path.  The three shard merges' rows are timed at the
    records of a plan of preemptor B on the saturated 10240-node cluster
-   over 4 shards.  Then ``[trace]`` lines: one traced
+   over 4 shards: ``prescreen_select``'s launch, and for the two merges
+   folded into the last shard's launches the time the fold adds (that
+   launch with the earlier records less the same launch without them,
+   device time, A B B A).  Then ``[trace]`` lines: one traced
    ``imp_pallas`` plan on 1024 nodes and one ``imp_batched`` plan on 1024
    and on 10240 nodes, each's device time against its sourcing wall time,
    and the host functions that dominate; a ``[sourcing]`` line with the
@@ -405,8 +419,9 @@ def reset_counts() -> None:
 
     for w in WRAPPERS:
         w.launches = 0
-        if hasattr(w, "decode_launches"):
-            w.decode_launches = 0
+        for extra in ("decode_launches", "merges"):
+            if hasattr(w, extra):
+                setattr(w, extra, 0)
     evaluate_subsets.calls = 0
     ts.flextopo_imp_pallas.calls = 0
     ts.flextopo_imp_pallas.overflow = 0
@@ -415,9 +430,10 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
-    """Each wrapper's launches, ``imp_pallas``' calls and host fallbacks,
-    the per-size engines' subset sweeps (``evaluate_subsets``), and under
-    ``path`` what the fused engine ran (``PATH_COUNTS``)."""
+    """Each wrapper's launches, the merges folded into launches (`FOLDED`),
+    ``imp_pallas``' calls and host fallbacks, the per-size engines' subset
+    sweeps (``evaluate_subsets``), and under ``path`` what the fused engine
+    ran (``PATH_COUNTS``)."""
     from repro_torch.core.preemption_device import (PATH_COUNTS,
                                                     evaluate_subsets)
     from repro_torch.kernels import WRAPPERS
@@ -426,6 +442,8 @@ def read_counts() -> dict:
     out = {w.__name__: w.launches for w in WRAPPERS}
     out.update({f"{w.__name__}_decode": w.decode_launches for w in WRAPPERS
                 if hasattr(w, "decode_launches")})
+    by_name = {w.__name__: w for w in WRAPPERS}
+    out.update({m: by_name[w].merges for m, w in FOLDED.items()})
     out["evaluate_subsets_calls"] = evaluate_subsets.calls
     out["imp_pallas_calls"] = ts.flextopo_imp_pallas.calls
     out["imp_pallas_overflow"] = ts.flextopo_imp_pallas.overflow
@@ -526,7 +544,8 @@ def main_path(dev, clusters) -> tuple[list[dict], dict[str, int]]:
 
     runs = []
     host_keys = {}
-    launches = {w.__name__: 0 for w in WRAPPERS}
+    launches = {**{w.__name__: 0 for w in WRAPPERS},
+                **dict.fromkeys(FOLDED, 0)}
     for nodes, cycles, scaleups, expect in ((100, 2, 50, (100, 100, 0, 0)),
                                             (1024, 1, 20, None),
                                             (20, 3, 10, (30, 30, 0, 0))):
@@ -948,8 +967,9 @@ def day_run(torch, dev, cfg, trace: tuple[float, int] | None = None,
         check_fused_launches(counts, what)
         if cfg.engine == "imp_sharded":
             check(counts["normal_merge"] == (n_plans if shards > 1 else 0),
-                  f"{what}: {counts['normal_merge']} normal-cycle "
-                  f"merges for {n_plans} plans over {shards} shards")
+                  f"{what}: {counts['normal_merge']} K2 launches merged "
+                  f"the earlier shards' records for {n_plans} plans over "
+                  f"{shards} shards")
     else:
         check(not any(v for k, v in counts.items() if k != "path")
               and not any(counts["path"].values()),
@@ -1351,9 +1371,10 @@ def cluster_phase(torch, np, dev) -> dict[str, float]:
     resident segment (with 13 gathered rows) and over 16-row chunks of
     gathered rows, class tables with forced exact ties at alpha 0, 0.3 and
     0.5, more patch rows than the kernels take (raises), and BACK_TO_BACK
-    launches of each that must agree bit for bit.  K2 runs in the geometry
-    its wrapper picks and, forced, in its split form (at least two
-    clusters and the merge kernel) at every N."""
+    launches of each (and of K2's split form, its ticket back at 0 after
+    them) that must agree bit for bit.  K2 runs in the geometry its
+    wrapper picks and, forced, in its split form (at least two clusters in
+    one launch, the last to take the ticket placing) at every N."""
     from repro_torch.core.topology import (A100_SERVER, RTX4090_SERVER,
                                            TPU_V5E_HOST, ServerSpec)
     from repro_torch.kernels import fused_class as fc
@@ -1480,13 +1501,18 @@ def cluster_phase(torch, np, dev) -> dict[str, float]:
     pidx, pbuf, gidx = keep["pidx"], keep["pbuf"], keep["gidx"]
     cls = fc.fused_class(ns, v, dr, pidx, pbuf, gidx, m_res=8, resident=True,
                          m_gather=8, req=req, spec=spec)
-    outs = {"normal_cycle": [], "fused_argmax": [], "fused_class": []}
+    outs = {"normal_cycle": [], "normal_cycle split": [], "fused_argmax": [],
+            "fused_class": []}
+    st = fc.launch_state(ns, v, dr, pidx, pbuf, None, resident=True)
+    split = nck.normal_geometry(st.n, split_nodes=0)
     for _ in range(BACK_TO_BACK):
         outs["fused_class"].append(fc.fused_class(
             ns, v, dr, pidx, pbuf, gidx, m_res=8, resident=True, m_gather=8,
             req=req, spec=spec))
         outs["normal_cycle"].append(nck.normal_cycle(
             ns, v, dr, pidx, pbuf, req=req, spec=spec))
+        outs["normal_cycle split"].append(nck.launch(st, req, spec,
+                                                     geometry=split))
         outs["fused_argmax"].append(fc.fused_argmax(
             cls, ns, v, pidx, pbuf, gidx, resident=True, seg=cls.shape[1],
             req=req, spec=spec))
@@ -1494,6 +1520,11 @@ def cluster_phase(torch, np, dev) -> dict[str, float]:
     for name, got in outs.items():
         check(all(torch.equal(got[0], x) for x in got[1:]),
               f"{name}: {BACK_TO_BACK} back-to-back launches differ")
+    check(torch.equal(outs["normal_cycle split"][0], outs["normal_cycle"][0]),
+          "normal_cycle: the split form differs from one cluster")
+    ticket = fc.ticket(ns.device, torch.cuda.current_stream().cuda_stream)
+    check(int(ticket.item()) == 0, f"the split forms' ticket is "
+          f"{int(ticket.item())} after {BACK_TO_BACK} launches, not 0")
     print(f"[fused] the cluster kernels: {n_normal} normal_cycle (and "
           f"{n_split} in its split form) and "
           f"{n_tail} + {n_tie} (tie tables) fused_argmax cases, and the "
@@ -1501,8 +1532,8 @@ def cluster_phase(torch, np, dev) -> dict[str, float]:
           f"against the plain versions (N {list(CLUSTER_NODES)}, "
           f"{[s.name for s, _ in specs]}, patch rows 0/1/9/"
           f"{fc.MAX_PATCH_ROWS}); {2 * fc.MAX_PATCH_ROWS} patch rows raise; "
-          f"{BACK_TO_BACK} back-to-back launches of each (and of the sweep) "
-          "bit-identical",
+          f"{BACK_TO_BACK} back-to-back launches of each (and of K2's split "
+          "form and the sweep) bit-identical, the ticket back at 0",
           flush=True)
     return errs
 
@@ -2682,7 +2713,12 @@ SHARD_COUNTS = (1, 2, 3, 4, 8)
 SHARD_NODES = (13, 1024, 10240)
 #: shards of the decisions' and the day's second mesh on the one card
 SHARDS_D = 4
+#: (nodes, shards) where every shard runs K2 in its split form
+SPLIT_SHARDS = ((81920, 2), (81920, 3))
 MERGES = ("tail_merge", "normal_merge", "prescreen_select")
+#: the merges that run inside the last shard's launch of a kernel, by the
+#: wrapper whose ``merges`` counts them
+FOLDED = {"tail_merge": "fused_argmax", "normal_merge": "normal_cycle"}
 
 
 def cuda0(torch):
@@ -2716,14 +2752,20 @@ def same_tier_cls(np, ns):
 
 def shard_kernel_phase(torch, np, dev) -> dict[str, float]:
     """``[sharded]``, the kernels: each merge against its plain version on
-    the same records, bit for bit, and the merged result against the
+    the same records, bit for bit (the last shard's tail and K2 with the
+    earlier shards' records against the last shard's plain record form
+    merged by ``tail_merge_plain`` / ``normal_merge_plain``; K2 also
+    forced into its split form), and the merged result against the
     unsharded kernels over all rows: D in `SHARD_COUNTS` shards on the one
     card, N in `SHARD_NODES` (pad rows where D does not divide N), patch
     rows on several shards, gathered rows across shards and sentinels, the
     tail over the resident segment and over 16-row chunks, class tables
     with forced exact ties and the same-tier case, the prescreen at k = 1
-    and 128.  The shard forms of the tail, K2 and the prescreen (their
-    records, ``sel``) are held to their plain versions too."""
+    and 128; then K2 over `SPLIT_SHARDS`, every shard in its split form.
+    The shard forms of the tail, K2 and the prescreen (their records,
+    ``sel``) are held to their plain versions too.  Over one shard there is
+    nothing to merge: the shard's launches are held to the unsharded ones
+    and no merge case is counted."""
     from repro_torch.core import cluster_parallel as cp
     from repro_torch.core.topology import SPECS
     from repro_torch.kernels import fused_class as fc
@@ -2777,25 +2819,43 @@ def shard_kernel_phase(torch, np, dev) -> dict[str, float]:
                                     else pidx[:0], pbuf, shards, c0)
                 for req in (reqs if n < 10240 else reqs[:2]):
                     what = f"N={n} D={d} patched={patched} req={req}"
-                    # the normal cycle
-                    recs = torch.empty((d, nck.part_records(rows, c0), 4),
-                                       dtype=torch.int32, device=c0)
-                    for k, s in enumerate(shards):
+                    # the normal cycle: the earlier shards' records, then
+                    # the last shard's K2 merging them (one cluster, and
+                    # forced split: the ticket's last cluster reads them)
+                    prior = (torch.empty((d - 1, nck.part_records(rows, c0),
+                                          4), dtype=torch.int32, device=c0)
+                             if d > 1 else None)
+                    for k, s in enumerate(shards[:-1]):
                         a = (s.nodestate, s.victims, s.drain, *sp[k])
                         nck.normal_cycle_part(*a, req=req, spec=spec,
-                                              base=s.base, out=recs[k])
-                        if recs.shape[1] == 2:
-                            check(torch.equal(recs[k], nck.normal_part_plain(
+                                              base=s.base, out=prior[k])
+                        if prior.shape[1] == 2:
+                            check(torch.equal(prior[k], nck.normal_part_plain(
                                 *a, req, spec, s.base)),
                                 f"normal_cycle_part {what} shard {k}")
-                    got = nck.normal_merge(recs, n=n_rows, req=req,
-                                           spec=spec)
-                    same(got, nck.normal_merge_plain(recs, req, spec),
-                         "normal_merge " + what, "normal_merge")
-                    check(torch.equal(got, nck.normal_cycle(
-                        g_ns, g_v, g_dr, *gp, req=req, spec=spec)),
-                        f"sharded normal cycle {what} differs from K2 over "
-                        "every row")
+                    last = shards[-1]
+                    la = (last.nodestate, last.victims, last.drain, *sp[-1])
+                    got = nck.normal_cycle(*la, req=req, spec=spec,
+                                           base=last.base, prior=prior)
+                    want = nck.normal_merge_plain(
+                        [*([] if prior is None else prior),
+                         nck.normal_part_plain(*la, req, spec, last.base)],
+                        req, spec)
+                    st = fc.launch_state(*la, None, resident=True,
+                                         base=last.base)
+                    split = nck.launch(st, req, spec, prior=prior,
+                                       geometry=nck.normal_geometry(
+                                           rows, split_nodes=0))
+                    if d > 1:
+                        same(got, want, "normal_merge " + what,
+                             "normal_merge")
+                        same(split, want, "normal_merge split " + what,
+                             "normal_merge")
+                    check(torch.equal(got, want) and torch.equal(split, want)
+                          and torch.equal(got, nck.normal_cycle(
+                              g_ns, g_v, g_dr, *gp, req=req, spec=spec)),
+                          f"sharded normal cycle {what} differs from its "
+                          "plain compose or from K2 over every row")
                     # the sweep's tail: resident + gathered, then chunks
                     for resident, gi, seg in ((True, gidx, None),
                                               (False, chunks, 16)):
@@ -2821,9 +2881,19 @@ def shard_kernel_phase(torch, np, dev) -> dict[str, float]:
                                 cls, *a, resident=resident, seg=sg, req=req,
                                 spec=spec, base=s.base, shard=sh)),
                                 f"fused_argmax shard form {what} shard {k}")
-                        got = fc.tail_merge(part, alpha=req.alpha)
-                        same(got, fc.tail_merge_plain(part, req.alpha > 0),
-                             "tail_merge " + what, "tail_merge")
+                            if k == d - 1 and d > 1:    # the last: merged
+                                got = fc.fused_argmax(
+                                    cls, *a, resident=resident, seg=sg,
+                                    req=req, spec=spec, base=s.base,
+                                    shard=sh, prior=part[:-1].contiguous())
+                            elif k == d - 1:
+                                got = fc.fused_argmax(
+                                    cls, *a, resident=resident, seg=sg,
+                                    req=req, spec=spec)
+                        if d > 1:
+                            same(got, fc.tail_merge_plain(part,
+                                                          req.alpha > 0),
+                                 "tail_merge " + what, "tail_merge")
                         cls = fc.fused_class(g_ns, g_v, g_dr, *gp, g_t, **kw)
                         want = fc.fused_argmax(
                             cls, g_ns, g_v, *gp, g_t, resident=resident,
@@ -2895,9 +2965,17 @@ def shard_kernel_phase(torch, np, dev) -> dict[str, float]:
                             c, *a, resident=True, seg=m_rows, req=req,
                             spec=spec, base=s.base, shard=sh)),
                             f"fused_argmax shard form, tie table N={n} D={d}")
-                    got = fc.tail_merge(part, alpha=alpha)
-                    same(got, fc.tail_merge_plain(part, alpha > 0),
-                         f"tail_merge tie table N={n} D={d}", "tail_merge")
+                    if d > 1:
+                        got = fc.fused_argmax(
+                            c, *a, resident=True, seg=m_rows, req=req,
+                            spec=spec, base=s.base, shard=sh,
+                            prior=part[:-1].contiguous())
+                        same(got, fc.tail_merge_plain(part, alpha > 0),
+                             f"tail_merge tie table N={n} D={d}",
+                             "tail_merge")
+                    else:
+                        got = fc.fused_argmax(c, *a, resident=True,
+                                              seg=m_rows, req=req, spec=spec)
                     full = torch.from_numpy(cls_h).to(c0)
                     want = fc.fused_argmax(
                         full, g_ns[:, :cls_h.shape[1]].contiguous(),
@@ -2910,11 +2988,42 @@ def shard_kernel_phase(torch, np, dev) -> dict[str, float]:
                     if cls_h.shape[1] == 4 and alpha == 0.5:
                         check(tuple(got[0, :3].tolist()) == (1, 0, 0),
                               f"the same-tier case picked {got[0].tolist()}")
+    # every shard in K2's split form: the earlier shards' records are their
+    # clusters' minima, which the last shard's ticket reads through L2
+    for n, d in SPLIT_SHARDS:
+        ns, v, dr = resident_state(np, spec, n, 8, seed=n + d)
+        shards = cp._shards_of(cp.Mesh((c0,) * d), ns, v, dr)
+        rows = shards[0].rows
+        e = (torch.zeros(0, dtype=torch.int32, device=c0),
+             torch.zeros((0, 87), dtype=torch.int32, device=c0))
+        prior = torch.empty((d - 1, nck.part_records(rows, c0), 4),
+                            dtype=torch.int32, device=c0)
+        check(prior.shape[1] > 2, f"K2 over {rows} rows a shard is not split")
+        for req in reqs[:2]:
+            for k, s in enumerate(shards[:-1]):
+                nck.normal_cycle_part(s.nodestate, s.victims, s.drain, *e,
+                                      req=req, spec=spec, base=s.base,
+                                      out=prior[k])
+            last = shards[-1]
+            la = (last.nodestate, last.victims, last.drain, *e)
+            got = nck.normal_cycle(*la, req=req, spec=spec, base=last.base,
+                                   prior=prior)
+            want = nck.normal_merge_plain(
+                [*prior, nck.normal_part_plain(*la, req, spec, last.base)],
+                req, spec)
+            same(got, want, f"normal_merge split N={n} D={d} req={req}",
+                 "normal_merge")
+            full = [torch.from_numpy(x).to(c0) for x in (ns, v, dr)]
+            check(torch.equal(got, nck.normal_cycle(*full, *e, req=req,
+                                                    spec=spec)),
+                  f"K2 over {d} split shards of {n} nodes differs from K2 "
+                  "over every row")
     torch_sync(dev)
     print(f"[sharded] merges bit-exact against their plain versions and the "
           f"unsharded kernels over every row: {json.dumps(cases)} cases "
-          f"(D {list(SHARD_COUNTS)}, N {list(SHARD_NODES)}); the shard forms "
-          "of the tail, K2 and the prescreen equal their plain versions",
+          f"(D {list(SHARD_COUNTS)}, N {list(SHARD_NODES)}; K2 split in "
+          f"every shard at {list(SPLIT_SHARDS)}); the shard forms of the "
+          "tail, K2 and the prescreen equal their plain versions",
           flush=True)
     return errs
 
@@ -2965,17 +3074,21 @@ def full_keys_on(cluster, scaleups, engine, dev, install=None):
 def check_sharded_launches(c: dict, plans: int, shards: int,
                            what: str) -> None:
     """A sharded run's launches: what its paths give (each shard's
-    pipeline counted once a shard), one normal-cycle merge a plan over
-    D > 1 shards and no merge over one, and no lane-form K1."""
+    pipeline counted once a shard), D K2 launches a plan of which one
+    merges over D > 1 shards (none over one), a merged tail a plan that
+    sweeps, and no lane-form K1.  No merge has a launch of its own: no
+    wrapper launches one, and the build holds no such kernel."""
     check_fused_launches(c, what)
     path = c["path"]
     merged = plans if shards > 1 else 0
     check(c["normal_merge"] == merged and c["normal_cycle"]
           == plans * shards and c["tail_merge"] >= merged
+          and c["tail_merge"] * shards <= c["fused_argmax"]
           and (shards > 1 or not any(c[m] for m in MERGES))
           and path["plan2"] + path["shortlist_plan2"] == plans * shards,
-          f"{what}: {c['normal_cycle']} K2 and {c['normal_merge']} "
-          f"merges for {plans} plans over {shards} shards ({path})")
+          f"{what}: {c['normal_cycle']} K2 launches, {c['normal_merge']} of "
+          f"them merging, and {c['tail_merge']} merging tails for {plans} "
+          f"plans over {shards} shards ({path})")
 
 
 def random_cluster(seed: int, nodes: int, dev):
@@ -3152,15 +3265,41 @@ def sharded_phase(torch, dev, clusters: dict, host_keys: dict,
     return {"runs": runs, "launches": launches, "plans": plans}
 
 
+def fold_ms(torch, with_fn, without_fn, kernel) -> dict:
+    """The time a merge folded into a launch adds: the launch with the
+    earlier shards' records (``with_fn``) less the same launch without them
+    (``without_fn``), in device time from torch.profiler and in CUDA-event
+    time a call, each measured in the order with, without, without,
+    with."""
+    got = {"with": [], "without": []}
+    for form in ("with", "without", "without", "with"):
+        fn = with_fn if form == "with" else without_fn
+        got[form].append((profiled_kernel_ms(torch, fn, kernel),
+                          event_ms(torch, fn)))
+    dev = {f: [k for k, _ in v] for f, v in got.items()}
+    ev = {f: statistics.mean(e for _, e in v) for f, v in got.items()}
+    kern = ({f: statistics.mean(v) for f, v in dev.items()}
+            if all(None not in v for v in dev.values()) else None)
+    return {"kernel_ms": None if kern is None
+            else kern["with"] - kern["without"],
+            "ms": ev["with"] - ev["without"],
+            "launch_kernel_ms": dev["with"], "without_kernel_ms":
+            dev["without"], "launch_ms": ev["with"],
+            "without_ms": ev["without"]}
+
+
 def merge_rows(torch, np, dev, errs, launches, plans, clusters) -> list[dict]:
     """The merges' rows of the ``{"kernels"}`` line, at the main path's
     shapes: preemptor B on the saturated 10240-node cluster over
     `SHARDS_D` shards (the records of a plan: the tail's, K2's and the
-    prescreen's keys at k = 128).  Bound: the records read and the winner
-    written over the card's memory rate; their operations (a few compares
-    a record; for the union select, a comparison sort of its D k keys,
-    more than a select needs) take less.  The union select's library call
-    is ``torch.topk`` of the same keys (top bit flipped outside the timed
+    prescreen's keys at k = 128).  The tail's and K2's merges have no
+    launch of their own: their rows give the time the fold adds to the
+    last shard's launch (`fold_ms`), no standalone launch, and the merges
+    made on the main path.  Bound: the records read and the winner written
+    over the card's memory rate; their operations (a few compares a
+    record; for the union select, a comparison sort of its D k keys, more
+    than a select needs) take less.  The union select's library call is
+    ``torch.topk`` of the same keys (top bit flipped outside the timed
     call); no PyTorch call computes the other two."""
     from repro_torch.core import cluster_parallel as cp
     from repro_torch.core.preemption_device import _request
@@ -3206,54 +3345,90 @@ def merge_rows(torch, np, dev, errs, launches, plans, clusters) -> list[dict]:
         psk.prescreen(s.nodestate, s.victims, *e, r, e[0], k=k, req=req,
                       spec=spec, out=outs[i], base=s.base, sel=keys[i])
     torch_sync(dev)
+    last = shards[-1]
+    tail_kw = dict(resident=True, seg=rows, req=req, spec=spec,
+                   base=last.base, shard=(rows, last.base, n_rows - rows))
+    prior_part = part[:-1].contiguous()
+    prior_recs = recs[:-1].contiguous()
+    la = (last.nodestate, last.victims, last.drain, *e)
     u = SHARDS_D * k
     #: the reference's sharded programs whose cross-shard collectives each
     #: merge stands in for
     replaces = {"tail_merge": 398, "normal_merge": 427,
                 "prescreen_select": 458}
-    calls = {
-        "tail_merge": (lambda: fc.tail_merge(part, alpha=0.5),
-                       lambda: fc.tail_merge_plain(part, True),
-                       "tail_merge_kernel",
-                       part.numel() * 4 + 9 * 4, SHARDS_D * 32,
-                       [SHARDS_D, 1]),
+    folds = {
+        "tail_merge": (
+            lambda: fc.fused_argmax(cls, *la[:2], *e, e[0], prior=prior_part,
+                                    **tail_kw),
+            lambda: fc.fused_argmax(cls, *la[:2], *e, e[0], **tail_kw),
+            lambda: fc.tail_merge_plain(part, True),
+            "fused_argmax_kernel", "fused_argmax_kernel<true, true> (the "
+            "last shard's tail, with the earlier shards' records)",
+            prior_part.numel() * 4 + 9 * 4, SHARDS_D * 32, [SHARDS_D, 1]),
         "normal_merge": (
-            lambda: nck.normal_merge(recs, n=n_rows, req=req, spec=spec),
+            lambda: nck.normal_cycle(*la, req=req, spec=spec, base=last.base,
+                                     prior=prior_recs),
+            lambda: nck.normal_cycle(*la, req=req, spec=spec,
+                                     base=last.base),
             lambda: nck.normal_merge_plain(recs, req, spec),
-            "normal_merge_kernel", recs.numel() * 4 + 5 * 4,
-            recs.shape[0] * recs.shape[1] * 32, [SHARDS_D, recs.shape[1]]),
-        "prescreen_select": (
-            lambda: psk.prescreen_select(keys, k=k, excl=outs[:, k]),
-            lambda: psk.prescreen_select_plain(keys, k, outs[:, k]),
-            "prescreen_union_kernel", u * 8 + SHARDS_D * 4 + (k + 1) * 4,
-            u * int(np.ceil(np.log2(u))), [SHARDS_D, k])}
-    flipped = keys.reshape(-1) ^ torch.tensor(-2**63, dtype=torch.int64,
-                                              device=c0)
-    library = {"prescreen_select": event_ms(
-        torch, lambda: torch.topk(flipped, k + 1))}
+            "normal_cycle_kernel", "normal_cycle_kernel<false, true> (the "
+            "last shard's K2, with the earlier shards' records)",
+            prior_recs.numel() * 4 + 5 * 4,
+            recs.shape[0] * recs.shape[1] * 32, [SHARDS_D, recs.shape[1]])}
+    check(torch.equal(folds["tail_merge"][0]()[0], folds["tail_merge"][2]()[0])
+          and torch.equal(folds["normal_merge"][0](),
+                          folds["normal_merge"][2]()),
+          "the folded merges at the timing shape differ from their plain "
+          "versions")
     out = []
-    for name, (fn, plain, sym, n_bytes, n_ops, shape) in calls.items():
+    for name, (fn, without, plain, sym, into, n_bytes, n_ops,
+               shape) in folds.items():
         b_ms, b_by = bound_ms(n_bytes, n_ops, INT_OPS_PER_S)
-        ms = event_ms(torch, fn)
-        kernel_ms = profiled_kernel_ms(torch, fn, sym)
+        t = fold_ms(torch, fn, without, sym)
+        added = t["kernel_ms"] if t["kernel_ms"] is not None else t["ms"]
         out.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/topo_score.cu",
-            "kernel": sym,
+            "kernel": into, "folded": True, "standalone_launches": 0,
             "replaces": "src/repro/core/cluster_parallel.py:"
                         f"{replaces[name]}",
             "replaces_fn": "the cross-shard collectives XLA inserts into "
                            "the sharded fused programs (no Pallas kernel)",
             "launches": launches[name], "on_main_path": launches[name] > 0,
             "launches_per_plan": launches[name] / plans,
-            "max_abs_err": errs[name], "shape": shape, "ms": ms,
-            "kernel_ms": kernel_ms,
+            "max_abs_err": errs[name], "shape": shape, **t,
             "plain_ms": event_ms(torch, plain, reps=5, inner=3),
             "bytes": n_bytes, "int_ops": n_ops, "bound_ms": b_ms,
-            "bound_by": b_by, "bound_share": b_ms / (kernel_ms or ms),
-            "library_ms": library.get(name),
-            **({"library": "torch.topk(keys ^ (1 << 63), k + 1)"}
-               if name in library else {})})
+            "bound_by": b_by,
+            "bound_share": b_ms / added if added > 0 else None,
+            "library_ms": None})
+    name = "prescreen_select"
+    fn = lambda: psk.prescreen_select(keys, k=k, excl=outs[:, k])  # noqa
+    n_bytes = u * 8 + SHARDS_D * 4 + (k + 1) * 4
+    b_ms, b_by = bound_ms(n_bytes, u * int(np.ceil(np.log2(u))),
+                          INT_OPS_PER_S)
+    ms = event_ms(torch, fn)
+    kernel_ms = profiled_kernel_ms(torch, fn, "prescreen_union_kernel")
+    flipped = keys.reshape(-1) ^ torch.tensor(-2**63, dtype=torch.int64,
+                                              device=c0)
+    out.append({
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/topo_score.cu",
+        "kernel": "prescreen_union_kernel",
+        "replaces": f"src/repro/core/cluster_parallel.py:{replaces[name]}",
+        "replaces_fn": "the cross-shard collectives XLA inserts into "
+                       "the sharded fused programs (no Pallas kernel)",
+        "launches": launches[name], "on_main_path": launches[name] > 0,
+        "launches_per_plan": launches[name] / plans,
+        "max_abs_err": errs[name], "shape": [SHARDS_D, k], "ms": ms,
+        "kernel_ms": kernel_ms,
+        "plain_ms": event_ms(torch, lambda: psk.prescreen_select_plain(
+            keys, k, outs[:, k]), reps=5, inner=3),
+        "bytes": n_bytes, "int_ops": u * int(np.ceil(np.log2(u))),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "bound_share": b_ms / (kernel_ms or ms),
+        "library_ms": event_ms(torch, lambda: torch.topk(flipped, k + 1)),
+        "library": "torch.topk(keys ^ (1 << 63), k + 1)"})
     return out
 
 
@@ -3690,9 +3865,8 @@ def launch_floor(torch) -> dict:
     return out
 
 
-#: K2's kernels: the one-cluster form launches the first, the split form
-#: both
-K2_KERNELS = ("normal_cycle_kernel", "normal_merge_kernel")
+#: K2's kernel: one launch in the one-cluster and in the split form
+K2_KERNELS = ("normal_cycle_kernel",)
 #: the define that builds every kernel of csrc/topo_score.cu on tier_of
 #: (the reference's rule written out, tier_score) in place of fused_tier:
 #: the yardstick the tier function is timed against
@@ -4097,7 +4271,7 @@ def flash_d256_row(torch, errs, launches: int) -> dict:
 #: the CUDA kernels of each traced engine's plan
 TRACE_KERNELS = {"imp_pallas": ("topo_score_argmax_kernel",),
                  "imp_batched": ("fused_class_kernel", "fused_argmax_kernel",
-                                 "normal_cycle_kernel", "normal_merge_kernel",
+                                 "normal_cycle_kernel",
                                  "prescreen_cluster_kernel",
                                  "prescreen_union_kernel",
                                  "encode_delta_kernel")}
@@ -4216,16 +4390,19 @@ def build_all() -> None:
     print(f"[build] prescreen and encoder registers (kernel: registers): "
           f"{json.dumps(regs)}", flush=True)
     counts = sass_counts(_build._target("topo_score")[1],
-                         r"(normal_cycle_kernel|normal_merge_kernel|"
-                         r"fused_argmax_kernel|tail_merge_kernel)",
-                         ATOMIC_OPS)
-    print(f"[build] cluster kernels and the tail's shard merge SASS (kernel: "
-          f"counts): {json.dumps(counts)}", flush=True)
-    check(len(counts) == 4, f"{sorted(counts)} of the three cluster-form "
-          "kernels and the tail's shard merge found in the SASS")
+                         r"((?:normal_cycle|fused_argmax)_kernelILb[01]ELb[01]E"
+                         r"|\w*merge_kernel)", ATOMIC_OPS)
+    print(f"[build] cluster kernels' atomics SASS (kernel: counts): "
+          f"{json.dumps(counts)}", flush=True)
+    check(sorted(counts) == sorted(CLUSTER_FORMS),
+          f"{sorted(counts)} in the SASS: the cluster kernels' "
+          f"instances {sorted(CLUSTER_FORMS)} and no shard merge of a "
+          "launch of its own")
     for name, c in counts.items():
-        check(c["ATOMG"] == 0 and c["RED"] == 0 and c["ATOM"] == 0,
-              f"{name} holds global atomics: {c}")
+        check(sum(c.values()) == CLUSTER_FORMS[name],
+              f"{name} holds {sum(c.values())} global atomics, "
+              f"{CLUSTER_FORMS[name]} expected (K2's split form takes one "
+              f"ticket): {c}")
     counts = sass_counts(_build._target("topo_score")[1],
                          r"(fused_class_kernelILb[01]ELb[01]E|"
                          r"topo_score_argmax_kernel)", K1_OPS)
@@ -4262,6 +4439,17 @@ def build_all() -> None:
 
 
 SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG")
+#: the cluster kernels' instances and the global atomics each may hold:
+#: K2 <split, merging the earlier shards' records> (the split form's ticket
+#: is one atomic), the tail <a shard's, merging> (unsharded, an earlier
+#: shard's records, the last shard's merge)
+CLUSTER_FORMS = {"normal_cycle_kernelILb0ELb0E": 0,
+                 "normal_cycle_kernelILb0ELb1E": 0,
+                 "normal_cycle_kernelILb1ELb0E": 1,
+                 "normal_cycle_kernelILb1ELb1E": 1,
+                 "fused_argmax_kernelILb0ELb0E": 0,
+                 "fused_argmax_kernelILb1ELb0E": 0,
+                 "fused_argmax_kernelILb1ELb1E": 0}
 #: global atomics and reductions (generic, global, fire-and-forget)
 ATOMIC_OPS = ("ATOMG", "ATOM", "RED")
 #: K1's kernels: warp reductions, shuffles, reciprocals, the rounding

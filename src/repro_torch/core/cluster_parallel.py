@@ -7,15 +7,19 @@ into one block of rows a device (`ShardedDeviceClusterState`, installed by
 (`preemption_device`) run over a state's ``shards``, so the same bodies
 serve both, as the reference's ``_evals(dcs)`` does: over D > 1 shards each
 kernel is launched once a shard on that shard's rows, and the shards'
-records are merged on the mesh's first device:
+records are merged inside the last shard's launches (on its device; the
+result is read back on the mesh's first device):
 
-* the normal cycle: each shard's K2 writes its least ``(tier, leftover,
-  node, row)`` key and row 0 (``normal_cycle_part``); ``normal_merge``
-  takes the least over the shards and places it;
-* the sweep's tail: each shard's tail writes its exact monoid state, with
-  flat indices of global rows, and both tie keys' entries placed
-  (``fused_argmax(shard=...)``); ``tail_merge`` merges the states, so the
-  tie chain's same-tier test is taken over every shard's survivors;
+* the normal cycle: each earlier shard's K2 writes its least ``(tier,
+  leftover, node, row)`` key and row 0 (``normal_cycle_part``); the last
+  shard's K2 (``normal_cycle(prior=...)``) takes the least over every
+  shard and places it;
+* the sweep's tail: each earlier shard's tail writes its exact monoid
+  state, with flat indices of global rows, and both tie keys' entries
+  placed (``fused_argmax(shard=...)``); the last shard's tail
+  (``fused_argmax(shard=..., prior=...)``) merges the states with its own,
+  so the tie chain's same-tier test is taken over every shard's
+  survivors;
 * the shortlist: each shard's prescreen keeps its top K by ``(bound,
   -global row)`` (``prescreen(sel=...)``); ``prescreen_select`` takes the
   top K of the union, and the K-row sweep runs on each shard over its
@@ -177,8 +181,8 @@ class ShardedDeviceClusterState(DeviceClusterState):
     Shard ``d`` holds rows ``d * rows`` onwards on ``mesh.devices[d]``.  A
     full rebuild uploads each shard's block, a sync scatters each dirty
     row into its owner, and a plan's delta rows are rebuilt on their owner
-    (`preemption_device._stage`).  The merges and the readback live on the
-    mesh's first device (``device``).  ``nodestate``/``victims``/``drain``
+    (`preemption_device._stage`).  The merges run in the last shard's
+    launches; the readback lives on the mesh's first device (``device``).  ``nodestate``/``victims``/``drain``
     read back the whole state on that device (for inspection; the
     pipelines use ``shards``)."""
 
@@ -392,7 +396,7 @@ def make_distributed_fused_source(mesh, spec: ServerSpec, request: Request,
     Filtering, every subset of every row, the Eq. 2 argmax and the
     winner's placement) over state tensors with the node axis split over
     ``mesh``: ``fn(nodestate, victims, drain, thresh) -> int32[9]``, each
-    shard's sweep and tail, then ``tail_merge``."""
+    shard's sweep and tail, the last shard's merging the others'."""
     mesh = _mesh(mesh)
 
     def fn(nodestate, victims, drain, thresh):
@@ -409,7 +413,7 @@ def make_distributed_fused_source(mesh, spec: ServerSpec, request: Request,
 def make_distributed_normal_cycle(mesh, spec: ServerSpec, request: Request):
     """The normal scheduling cycle over node-state tensors with the node
     axis split over ``mesh``: ``fn(nodestate) -> int32[5]``, each shard's
-    K2, then ``normal_merge``."""
+    K2, the last shard's merging the others'."""
     mesh = _mesh(mesh)
 
     def fn(nodestate):

@@ -59,9 +59,11 @@ Every pipeline runs over the state's ``shards``: the unsharded state is its
 own one shard, and a `cluster_parallel.ShardedDeviceClusterState` (the
 ``imp_sharded`` engine) has one a device of its mesh.  Over D > 1 shards
 each kernel runs once a shard on that shard's rows (global row ids in the
-patch and gathered indices) and the shards' records are merged
-(``fused_class.tail_merge``, ``normal_cycle.normal_merge``,
-``prescreen.prescreen_select``); over one shard nothing is merged.
+patch and gathered indices) and the shards' records are merged: the last
+shard's tail and K2 merge the earlier shards' records in their own launches
+(``fused_argmax(prior=)``, ``normal_cycle(prior=)``), and
+``prescreen.prescreen_select`` merges the shortlists; over one shard
+nothing is merged.
 
 **The per-size engines** ``imp_batched_legacy`` (one sweep per subset size
 over every node, the reference's exact oracle for the fused path) and
@@ -82,11 +84,9 @@ import torch
 from repro_torch.kernels.fused_class import (C_ANY, C_CB, C_CNT, C_K, C_PP,
                                              C_UM, CLS_FIELDS, PART_FIELDS,
                                              WIN_FIELDS, FusedRequest,
-                                             fused_argmax, fused_class,
-                                             tail_merge)
+                                             fused_argmax, fused_class)
 from repro_torch.kernels.normal_cycle import (NORMAL_FIELDS, normal_cycle,
-                                              normal_cycle_part, normal_merge,
-                                              part_records)
+                                              normal_cycle_part, part_records)
 from repro_torch.kernels.prescreen import prescreen, prescreen_select
 from repro_torch.kernels.view_delta import encode_delta
 from repro_torch.kernels.topo_score import TopoRequest, topo_score
@@ -135,7 +135,8 @@ __all__ = ["BatchSourcingSession", "CandidateShortlist", "ClassWinners",
 #: decided: ``certain`` plans proved their winner, ``fallback`` plans
 #: re-ran the full sweep; ``sessions`` built.  A pipeline over a sharded
 #: state counts once a shard, and its merges count under ``tail_merges``,
-#: ``normal_merges`` and ``unions``
+#: ``normal_merges`` (each made inside the last shard's launch of the tail
+#: or of K2) and ``unions``
 PATH_COUNTS = dict.fromkeys((
     "plan2", "shortlist_plan2", "shortlist", "sweep", "normal", "gathered",
     "merge", "merge_normal", "session_requests", "encoded", "certain",
@@ -144,7 +145,9 @@ PATH_COUNTS = dict.fromkeys((
 
 def expected_launches(counts: dict) -> dict[str, int]:
     """The launches of each fused kernel that the paths in ``counts`` (a
-    `PATH_COUNTS` record) make on a CUDA device."""
+    `PATH_COUNTS` record) make on a CUDA device, and under ``tail_merge``
+    and ``normal_merge`` how many of the tail's and K2's launches merge the
+    earlier shards' records (their wrappers' ``merges``)."""
     c = counts
     tail = (c["plan2"] + c["shortlist_plan2"] + c["shortlist"] + c["sweep"]
             + c["gathered"] + c["merge"] + c["merge_normal"])
@@ -854,9 +857,10 @@ def _sweep_tail(shards, pidx, pbuf, gidx, req: FusedRequest, spec, *,
     rows of ``shards``: int32[segments, `WIN_FIELDS`].  Resident: one
     segment, the resident rows and then the gathered `m_gather`-wide rows
     ``gidx``; gathered only: segments of ``seg`` rows of ``gidx``.  Over
-    D > 1 shards each shard's tail writes its exact monoid state (flat
-    indices of global rows) and `tail_merge` merges them on the first
-    shard's device, so the tie chain's same-tier test is global."""
+    D > 1 shards each earlier shard's tail writes its exact monoid state
+    (flat indices of global rows) into a buffer on the last shard's device,
+    and the last shard's tail merges them in its own launch, so the tie
+    chain's same-tier test is global."""
     pidx, pbuf, gidx = _each(pidx), _each(pbuf), _each(gidx)
 
     def sweep(d, s, sk):
@@ -874,50 +878,72 @@ def _sweep_tail(shards, pidx, pbuf, gidx, req: FusedRequest, spec, *,
                             gidx[0], resident=resident,
                             seg=c.shape[1] if resident else seg, req=req,
                             spec=spec, skip=skip, out=out)
-    rows, dev0 = shards[0].rows, shards[0].device
-    n_rows = rows * len(shards)
+    *earlier, last = shards
+    rows, n_rows = last.rows, last.rows * len(shards)
     g = gidx[0].shape[0]
     segs = 1 if resident else -(-g // seg)
-    part = torch.empty((len(shards), segs, PART_FIELDS), dtype=torch.int32,
-                       device=dev0)
-    for d, s in enumerate(shards):
+    prior = torch.empty((len(earlier), segs, PART_FIELDS), dtype=torch.int32,
+                        device=last.device)
+
+    def tail(d, s, out, prior=None):
         sk = _on(skip, s.device)
-        rec = part[d] if s.device == dev0 else None
-        got = fused_argmax(sweep(d, s, sk), s.nodestate, s.victims, pidx[d],
-                           pbuf[d], gidx[d], resident=resident,
-                           seg=rows + g if resident else seg, req=req,
-                           spec=spec, skip=sk, out=rec, base=s.base,
-                           shard=((rows, s.base, n_rows - rows) if resident
-                                  else (0, 0, 0)))
+        return fused_argmax(sweep(d, s, sk), s.nodestate, s.victims, pidx[d],
+                            pbuf[d], gidx[d], resident=resident,
+                            seg=rows + g if resident else seg, req=req,
+                            spec=spec, skip=sk, out=out, base=s.base,
+                            shard=((rows, s.base, n_rows - rows) if resident
+                                   else (0, 0, 0)), prior=prior)
+
+    for d, s in enumerate(earlier):
+        rec = prior[d] if s.device == last.device else None
+        got = tail(d, s, rec)
         if rec is None:
-            part[d].copy_(got)
+            prior[d].copy_(got)
     PATH_COUNTS["tail_merges"] += 1
-    return tail_merge(part, alpha=req.alpha, skip=skip, out=out)
+    return _into(out, lambda o: tail(len(earlier), last, o, prior),
+                 last.device, shards[0].device)
+
+
+def _into(out, call, device: torch.device, home: torch.device):
+    """``call(o)``'s result on ``device``, written into ``out`` when given
+    (``o`` is ``out`` where it lies on ``device``, else None and the result
+    is copied in); without ``out``, moved to ``home``, the mesh's first
+    device, where the readback lives."""
+    if out is None:
+        return _on(call(None), home)
+    if out.device == device:
+        return call(out)
+    out.copy_(call(None).view(out.shape))
+    return out
 
 
 def _normal(shards, pidx, pbuf, req: FusedRequest, spec,
             out=None) -> torch.Tensor:
     """The normal cycle over the rows of ``shards``: int32[5].  Over D > 1
-    shards each shard's K2 writes its minima and its row 0
-    (`normal_cycle_part`) and `normal_merge` places the least."""
+    shards each earlier shard's K2 writes its minima and its row 0
+    (`normal_cycle_part`) into a buffer on the last shard's device, and
+    the last shard's K2 merges them in its own launch and places the
+    least."""
     pidx, pbuf = _each(pidx), _each(pbuf)
     if len(shards) == 1:
         s = shards[0]
         return normal_cycle(s.nodestate, s.victims, s.drain, pidx[0],
                             pbuf[0], req=req, spec=spec, out=out)
-    dev0 = shards[0].device
-    recs = torch.empty((len(shards), part_records(shards[0].rows, dev0), 4),
-                       dtype=torch.int32, device=dev0)
-    for d, s in enumerate(shards):
-        rec = recs[d] if s.device == dev0 else None
+    *earlier, last = shards
+    prior = torch.empty((len(earlier), part_records(last.rows, last.device),
+                         4), dtype=torch.int32, device=last.device)
+    for d, s in enumerate(earlier):
+        rec = prior[d] if s.device == last.device else None
         got = normal_cycle_part(s.nodestate, s.victims, s.drain, pidx[d],
                                 pbuf[d], req=req, spec=spec, base=s.base,
                                 out=rec)
         if rec is None:
-            recs[d].copy_(got)
+            prior[d].copy_(got)
     PATH_COUNTS["normal_merges"] += 1
-    return normal_merge(recs, n=shards[0].rows * len(shards), req=req,
-                        spec=spec, out=out)
+    return _into(out, lambda o: normal_cycle(
+        last.nodestate, last.victims, last.drain, pidx[-1], pbuf[-1],
+        req=req, spec=spec, base=last.base, prior=prior, out=o),
+        last.device, shards[0].device)
 
 
 def _plan_pipeline(dcs, pidx, pbuf, gidx, req, spec, m) -> torch.Tensor:

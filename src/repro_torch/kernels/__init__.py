@@ -9,9 +9,11 @@ K2's normal-cycle form.
 view_delta, prescreen — the rest of that engine's default path, in the same
 source: the view-delta encoder (a plan's patch rows rebuilt on the device)
 and the shortlist's prescreen (a bound per row and the top K).
-The merges of a sharded state (``imp_sharded``) live beside the kernels
-whose shard records they merge: ``fused_class.tail_merge``,
-``normal_cycle.normal_merge`` and ``prescreen.prescreen_select``.
+Over a sharded state (``imp_sharded``) the last shard's tail and normal
+cycle merge the earlier shards' records in their own launches
+(``fused_argmax(prior=)``, ``normal_cycle(prior=)``; their plain versions
+``fused_class.tail_merge_plain`` and ``normal_cycle.normal_merge_plain``),
+and ``prescreen.prescreen_select`` merges the shards' shortlists.
 flash_attention — blocked causal / sliding-window GQA attention, the
 serving path's prefill attention (``csrc/flash_attention.cu``).
 recurrent — the recurrent families' time-step scans: RWKV-6's WKV and the

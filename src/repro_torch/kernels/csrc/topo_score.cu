@@ -110,6 +110,9 @@ constexpr int kMaxClusterCtas = 16;   // the largest (non-portable) one
 constexpr int kMaxPatchRows = 16384;  // the patch index in shared memory
 constexpr int kMaxSplitClusters = 1024; // K2's split form: partial minima
 constexpr int kMaxDevices = 64;       // devices whose launch facts are kept
+constexpr int kMaxShards = 64;        // shards a merged launch takes
+constexpr int kMaxPriorInts = 2048;   // the earlier shards' records a merged
+                                      // launch stages in shared memory
 
 enum { NS_FREE_GPU, NS_FREE_CG, NS_NODE_ID, NS_OVERFLOW, NS_NEXT_PRIO };
 enum { VF_GPU, VF_CG, VF_PRIO, VF_RANK, VF_STORED };
@@ -626,11 +629,12 @@ __global__ void __launch_bounds__(kTile)
 // A shard of a sharded state (repro_torch/core/cluster_parallel.py) is the
 // same layout over its rows base .. base + N - 1 (State.base): pidx and gidx
 // carry global row ids, and a gathered id outside the shard reads as a zero
-// row.  Each shard runs the kernels on its rows; tail_merge_kernel (over the
-// tail's shard records, fused_argmax_kernel<true>), normal_merge_kernel (over
-// the shards' normal-cycle records) and prescreen_union_kernel (over the
-// shards' selected keys) merge them, in place of the collectives XLA inserts
-// into the reference's sharded programs.
+// row.  Each shard runs the kernels on its rows, in place of the
+// collectives XLA inserts into the reference's sharded programs: the
+// earlier shards' K2 and tail write records, and the last shard's launch of
+// each merges them with its own (normal_cycle_kernel with prior records,
+// fused_argmax_kernel<true, true>: no merge has a launch of its
+// own); prescreen_union_kernel merges the shards' selected keys.
 //
 // Chain of a plan, in stream order: K2 writes out[0..4]; K1 and its tail
 // read out[0] (found) and return at once when the normal cycle placed; the
@@ -671,7 +675,8 @@ __global__ void __launch_bounds__(kTile)
 //    then the warps' values in warp 0, then the CTAs' values, which meet
 //    in rank 0's shared memory (distributed shared memory and one cluster
 //    barrier): no global atomic, no ticket, no fence and no scratch in
-//    device memory, so nothing carries from one launch to the next.  The
+//    device memory, so nothing carries from one launch to the next (K2's
+//    split form, below, is the one exception).  The
 //    patch index is staged into shared memory with cp.async while the
 //    first row loads are in flight (at most kMaxPatchRows, which the
 //    launchers check), and binary searches run there.
@@ -680,13 +685,24 @@ __global__ void __launch_bounds__(kTile)
 //    0, whose masks block 0's thread 0 read itself.  One cluster has at
 //    most 16 SMs, so where most nodes pass the count screen the per-node
 //    tiers set K2's time as N grows.  Above normal_cycle.SPLIT_NODES nodes
-//    it runs split (normal_geometry): a grid of clusters (the rows
-//    blockIdx x threads + thread + i x (blocks x threads)), each writing
-//    its minimum and payload to a 16-byte record of a buffer the wrapper
-//    allocates, then one warp (normal_merge_kernel, the next launch on the
-//    stream) takes the least record and places it.  The records are all
-//    written before they are read, in stream order: still no atomic, and
-//    nothing carries from one call to the next.
+//    it runs split (normal_geometry), still one launch: a grid of clusters
+//    (the rows blockIdx x threads + thread + i x (blocks x threads)), each
+//    writing its minimum and payload to a 16-byte record of a buffer the
+//    wrapper allocates; rank 0 takes a device-scope ticket (acq_rel: no
+//    full fence), and in the cluster that takes the last, one warp reads
+//    every record through L2, takes the least, places it and resets the
+//    ticket to 0 (one
+//    zeroed uint32 the wrapper keeps for each device and stream).  That
+//    form's instances (normal_cycle_kernel<true, *>) hold the one atomic;
+//    the one-cluster instances hold none.
+//  * Over a sharded state the last shard's launch merges: the earlier
+//    shards' records (written earlier on the stream) are staged into rank
+//    0's shared memory with cp.async at the kernel's start, while the rows
+//    load, and rank 0's warp 0 folds them into its own result after
+//    cluster_reduce (K2: the least key, and row 0 from shard 0's record;
+//    the tail: lane d shard d's TailState, warp_merge_tail, then the
+//    winner's entry from the one record whose key it is).  The split form
+//    reads them through L2 in its last cluster.
 //  * The tail is one pass: a thread reads its rows' 12 class fields (each
 //    column coalesced), scores each (row, tier) entry once and folds it
 //    into an exact monoid (TailState, below) that carries the max score,
@@ -1553,17 +1569,25 @@ __global__ void __launch_bounds__(WIDE ? kWideThreads : kNarrowThreads,
 
 // ---- thread-block clusters: the cross-CTA reductions of K2 and the tail ------
 
+// One int32 copied from device memory into shared memory with cp.async.
+__device__ __forceinline__ void stage_one(int* dst, const int* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
 // A plan's patch index, staged from device memory into shared memory with
 // cp.async, one 4-byte copy a thread in turn (coalesced); each thread waits
 // for its own copies with stage_wait(), and a __syncthreads() after it makes
 // them the CTA's.
 __device__ __forceinline__ void stage_async(int* dst, const int* src, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst + i));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-                 "l"(src + i)
-                 : "memory");
-  }
+  for (int i = threadIdx.x; i < n; i += blockDim.x) stage_one(dst + i, src + i);
+}
+
+// Where the earlier shards' records start in a cluster kernel's dynamic
+// shared memory, after the p staged patch-index entries (16-byte aligned).
+__host__ __device__ __forceinline__ int staged_at(int p) {
+  return (p + 3) & ~3;
 }
 
 __device__ __forceinline__ void stage_wait() {
@@ -1789,6 +1813,112 @@ __device__ __forceinline__ void place_entry(const State& ls,
 // the no-survivor outcome from the segment's first row: whether this shard
 // holds that row, its combo id, priority sum, k and placed masks.
 constexpr int kPartFields = 28;
+static_assert((kMaxShards - 1) * kPartFields <= kMaxPriorInts,
+              "a segment's earlier shard records fit the staging budget");
+
+// Whether a shard's tail holds its segment's first global row at its local
+// row r0: only where the row's offset is 0, and the row is not a zero row.
+__device__ __forceinline__ bool first_row_here(const State& ls, int r0,
+                                               int split, int off_lo,
+                                               int off_hi) {
+  return (r0 < split ? off_lo : off_hi) == 0 && !fetch_row(ls, r0).zero;
+}
+
+// The merge of a sharded tail, in the last shard's launch (rank 0's warp 0
+// of a segment's cluster), standing in for the cross-shard collectives XLA
+// inserts into the reference's sharded tail (repro/core/cluster_parallel.py):
+// lane d takes shard d's TailState (and d + 32, ...; the earlier shards'
+// from their staged records rec[d][kPartFields], its own, `st`, at d =
+// shards - 1) and the lanes merge them with warp_merge_tail; merge_tail is
+// an exact monoid, so the lanes' order cannot change the result.  Then the
+// global tie chain's choice of a or b, the winner's entry from the one
+// record whose key it is (flat indices are unique: the least lane that
+// holds it, by redux), the sum of the counts, and with no survivor the
+// segment's first row from the first shard that holds it (shard 0 where
+// none does).  Writes o[kWinFields] as the unsharded tail does over every
+// row.  The last shard's own entries are placed here (place_entry) only
+// where the winner is its own.
+__device__ __forceinline__ void tail_merge_shards(
+    const TailState& st, const int* rec, int shards, const State& ls,
+    const FusedParams& p, const TierRule& rule, const int* __restrict__ cls,
+    int R, int r0, int split, int off_lo, int off_hi, int* __restrict__ o) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31, last = shards - 1;
+  TailState m = tail_identity();
+  int first = kIntMax;  // the least earlier shard holding the first row
+  for (int d = lane; d < shards; d += 32) {
+    if (d == last) {
+      merge_tail(m, st);
+      continue;
+    }
+    const int* r = rec + d * kPartFields;
+    TailState e;
+    e.score = __int_as_float(r[0]);
+    e.tmin = r[1];
+    e.tmax = r[2];
+    e.cnt = static_cast<unsigned>(r[3]);
+    e.a = {r[4], r[5], r[6], r[7], r[8]};
+    e.b = {r[9], r[10], r[11], r[12], r[13]};
+    merge_tail(m, e);
+    if (r[22]) first = min(first, d);
+  }
+  m = warp_merge_tail(m);
+  int found = 0, row = 0, t = 0, cb, pp, k;
+  unsigned gm, cm;
+  if (m.score > -CUDART_INF_F) {
+    const bool use_a = m.tmin == m.tmax && p.alpha_pos;
+    const TieKey tk = use_a ? m.a : m.b;
+    int holder = kIntMax;
+    for (int d = lane; d < shards; d += 32) {
+      const int flat = d == last ? (use_a ? st.a.flat : st.b.flat)
+                                 : rec[d * kPartFields + (use_a ? 8 : 13)];
+      if (flat == tk.flat) holder = min(holder, d);
+    }
+    holder = __reduce_min_sync(kAll, holder);
+    if (holder == last) {  // this shard's entry: place it here
+      const int g = tk.flat / 3;
+      const int r = r0 + (g >= split + off_hi ? g - off_hi : g - off_lo);
+      place_entry(ls, p, rule, cls, R, r, tk.flat % 3, cb, pp, k, gm, cm);
+    } else {
+      const int* e = rec + holder * kPartFields + (use_a ? 14 : 18);
+      cb = e[0];
+      pp = e[1];
+      gm = static_cast<unsigned>(e[2]);
+      cm = static_cast<unsigned>(e[3]);
+    }
+    found = 1;
+    row = tk.flat / 3;
+    t = tk.flat % 3;
+    k = tk.k;
+  } else {
+    first = __reduce_min_sync(kAll, first);
+    if (first == kIntMax) {  // no earlier shard holds it: this one, or shard 0
+      if (first_row_here(ls, r0, split, off_lo, off_hi))
+        place_entry(ls, p, rule, cls, R, r0, 0, cb, pp, k, gm, cm);
+      else
+        first = 0;
+    }
+    if (first != kIntMax) {
+      const int* w = rec + first * kPartFields;
+      cb = w[23];
+      pp = w[24];
+      k = w[25];
+      gm = static_cast<unsigned>(w[26]);
+      cm = static_cast<unsigned>(w[27]);
+    }
+  }
+  if (lane == 0) {
+    o[0] = found;
+    o[1] = row;
+    o[2] = t;
+    o[3] = cb;
+    o[4] = pp;
+    o[5] = k;
+    o[6] = static_cast<int>(m.cnt);
+    o[7] = static_cast<int>(gm);
+    o[8] = static_cast<int>(cm);
+  }
+}
 
 // One cluster of `ctas` CTAs a segment of `seg` rows (grid = segments x
 // ctas).  A thread a row, strided over the cluster, two rows' loads in
@@ -1800,29 +1930,45 @@ constexpr int kPartFields = 28;
 // 0 staged in shared memory while the pass ran.
 // kPart is a shard's tail: an entry's flat index is built from the row's
 // global place in the segment, the local row r - r0 plus off_lo below row
-// `split` (a shard's resident rows) and off_hi from it (its gathered rows),
-// and rank 0's warp 0 writes the shard's record (kPartFields) instead of a
-// winner: tail_merge_kernel merges the shards' records.
-template <bool kPart>
+// `split` (a shard's resident rows) and off_hi from it (its gathered rows).
+// Without kPrior, rank 0's warp 0 writes the shard's record (kPartFields)
+// instead of a winner.  With kPrior (the last of `shards` shards: `prior`
+// holds the records of shards 0 .. shards - 2, prior[shard][segment]
+// [kPartFields], written by earlier launches on the stream), rank 0's warp
+// 0 stages its segment's records into shared memory with cp.async at the
+// kernel's start, and merges them with its own state (tail_merge_shards)
+// into the segment's winner (kWinFields), as the unsharded tail writes it.
+// That merge is an instance of its own, so the other two keep their code.
+template <bool kPart, bool kPrior>
 __global__ void __launch_bounds__(kTailThreads)
     fused_argmax_kernel(State s, FusedParams p, const int* __restrict__ cls,
                         int R, int seg, int ctas, int split, int off_lo,
-                        int off_hi, const int* __restrict__ skip,
-                        int* __restrict__ out) {
+                        int off_hi, const int* __restrict__ prior, int shards,
+                        const int* __restrict__ skip, int* __restrict__ out) {
   extern __shared__ int s_pidx[];
   __shared__ TailState s_warp[kTailThreads / 32];
   __shared__ TailState s_rank[kMaxClusterCtas];
   const int rank = static_cast<int>(cg::this_cluster().block_rank());
-  const int width = kPart ? kPartFields : kWinFields;
-  int* o = out + (blockIdx.x / ctas) * width;
+  const int sg = blockIdx.x / ctas;
+  static_assert(kPart || !kPrior, "only a shard's tail merges records");
+  const int width = kPart && !kPrior ? kPartFields : kWinFields;
+  int* o = out + sg * width;
   if (skip != nullptr && *skip != 0) {  // the normal cycle placed
     if (rank == 0 && threadIdx.x < width) o[threadIdx.x] = 0;
     return;  // every CTA of the cluster, before any cluster barrier
   }
   if (ctas > 1) cluster_arrive_relaxed();
   if (rank == 0 && s.p > 0) stage_async(s_pidx, s.pidx, s.p);
+  int* const s_prior = s_pidx + staged_at(s.p);
+  if (kPrior && rank == 0 && threadIdx.x < 32) {  // the finale's warp
+    const int segs = gridDim.x / ctas;
+    for (int i = threadIdx.x; i < (shards - 1) * kPartFields; i += 32)
+      stage_one(s_prior + i,
+                prior + (static_cast<long>(i / kPartFields) * segs + sg) *
+                            kPartFields + i % kPartFields);
+  }
   const TierRule rule = tier_rule(p.t, bundle_magic(p.t.cgs_per_bundle));
-  const int r0 = (blockIdx.x / ctas) * seg;
+  const int r0 = sg * seg;
   const int r1 = min(R, r0 + seg);
   const int stride = ctas * blockDim.x;
   TailState st = tail_identity();
@@ -1874,6 +2020,13 @@ __global__ void __launch_bounds__(kTailThreads)
     }
     return;
   }
+  if (kPrior) {
+    stage_wait();
+    __syncwarp();
+    tail_merge_shards(st, s_prior, shards, ls, p, rule, cls, R, r0, split,
+                      off_lo, off_hi, o);
+    return;
+  }
   if (lane == 0) {
     const TieKey keys[2] = {st.a, st.b};
     o[0] = __float_as_int(st.score);
@@ -1909,82 +2062,12 @@ __global__ void __launch_bounds__(kTailThreads)
   // where its offset is 0, and then only where the row is not a zero row
   place_entry(ls, p, rule, cls, R, r0, 0, cb, pp, k, gm, cm);
   if (lane == 0) {
-    const int off = r0 < split ? off_lo : off_hi;
-    o[22] = off == 0 && !fetch_row(ls, r0).zero;
+    o[22] = first_row_here(ls, r0, split, off_lo, off_hi);
     o[23] = cb;
     o[24] = pp;
     o[25] = k;
     o[26] = static_cast<int>(gm);
     o[27] = static_cast<int>(cm);
-  }
-}
-
-// The merge of a sharded tail, one thread a segment, standing in for the
-// cross-shard collectives XLA inserts into the reference's sharded tail
-// (repro/core/cluster_parallel.py): merge_tail over the shards' records of
-// the segment (part[shard][segment][kPartFields]) in shard order, then the
-// global tie chain's choice of a or b, the winner's entry from the one
-// record whose key it is (flat indices are unique), the sum of the counts,
-// and with no survivor the record of the shard that holds the segment's
-// first row (shard 0 where none does).  Writes out[segment][kWinFields] as
-// fused_argmax_kernel<false> over the unsharded rows does.  Bound: the D
-// records' bytes (28 int32 each a segment, D <= 8) and the winner's; its
-// time is a launch's.
-__global__ void __launch_bounds__(32)
-    tail_merge_kernel(const int* __restrict__ part, int shards, int segs,
-                      int alpha_pos, const int* __restrict__ skip,
-                      int* __restrict__ out) {
-  const int sg = blockIdx.x * blockDim.x + threadIdx.x;
-  if (sg >= segs) return;
-  int* o = out + sg * kWinFields;
-  if (skip != nullptr && *skip != 0) {
-    for (int i = 0; i < kWinFields; ++i) o[i] = 0;
-    return;
-  }
-  TailState st = tail_identity();
-  int first = -1;
-  for (int d = 0; d < shards; ++d) {
-    const int* r = part + (static_cast<long>(d) * segs + sg) * kPartFields;
-    TailState e;
-    e.score = __int_as_float(r[0]);
-    e.tmin = r[1];
-    e.tmax = r[2];
-    e.cnt = static_cast<unsigned>(r[3]);
-    e.a = {r[4], r[5], r[6], r[7], r[8]};
-    e.b = {r[9], r[10], r[11], r[12], r[13]};
-    merge_tail(st, e);
-    if (first < 0 && r[22]) first = d;
-  }
-  if (st.score > -CUDART_INF_F) {
-    const bool use_a = st.tmin == st.tmax && alpha_pos;
-    const TieKey tk = use_a ? st.a : st.b;
-    const int key_at = use_a ? 8 : 13, entry_at = use_a ? 14 : 18;
-    const int* w = part + sg * kPartFields;
-    for (int d = 0; d < shards; ++d) {
-      const int* r = part + (static_cast<long>(d) * segs + sg) * kPartFields;
-      if (r[key_at] == tk.flat) w = r;
-    }
-    o[0] = 1;
-    o[1] = tk.flat / 3;
-    o[2] = tk.flat % 3;
-    o[3] = w[entry_at];
-    o[4] = w[entry_at + 1];
-    o[5] = tk.k;
-    o[6] = static_cast<int>(st.cnt);
-    o[7] = w[entry_at + 2];
-    o[8] = w[entry_at + 3];
-  } else {
-    const int* w =
-        part + (static_cast<long>(first < 0 ? 0 : first) * segs + sg) * kPartFields;
-    o[0] = 0;
-    o[1] = 0;
-    o[2] = 0;
-    o[3] = w[23];
-    o[4] = w[24];
-    o[5] = w[25];
-    o[6] = static_cast<int>(st.cnt);
-    o[7] = w[26];
-    o[8] = w[27];
   }
 }
 
@@ -2076,27 +2159,85 @@ __device__ __forceinline__ void normal_place(const NormalBest& best,
   }
 }
 
+// A 16-byte record (key, free GPU and CG masks) read through L2
+// (ld.global.cg): the split form's records, which other clusters of the
+// running grid wrote, are never read from a stale L1 line.
+__device__ __forceinline__ NormalBest load_record(const NormalBest* r) {
+  const uint4 w = __ldcg(reinterpret_cast<const uint4*>(r));
+  return {(static_cast<unsigned long long>(w.y) << 32) | w.x, w.z, w.w};
+}
+
+// The same record from four int32 staged in shared memory.
+__device__ __forceinline__ NormalBest staged_record(const int* r) {
+  return {(static_cast<unsigned long long>(static_cast<unsigned>(r[1])) << 32) |
+              static_cast<unsigned>(r[0]),
+          static_cast<unsigned>(r[2]), static_cast<unsigned>(r[3])};
+}
+
+// A device-scope ticket: adds 1 and returns the count before, releasing
+// this thread's earlier writes and acquiring those that the earlier takers
+// released (atom.acq_rel, no full fence on either side).
+__device__ __forceinline__ unsigned take_ticket(unsigned* t) {
+  unsigned old;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
+               : "=r"(old)
+               : "l"(t)
+               : "memory");
+  return old;
+}
+
+// The place of the i-th minimum among the earlier shards' records, each
+// shard's `clusters` minima and then its row 0.
+__device__ __forceinline__ int minimum_at(int i, int clusters) {
+  return i / clusters * (clusters + 1) + i % clusters;
+}
+
 // Clusters of `ctas` CTAs over every node.  Every CTA stages the patch
 // index into shared memory (cp.async, overlapped with its first batch of
 // row loads); each thread takes the rows blockIdx * blockDim + thread + i *
 // (gridDim * blockDim), kNormalBatch at a time with their loads issued
 // together, resolves each row's patch by a binary search in shared memory,
 // and folds the row's key and free masks.  The warps, the CTA and then the
-// cluster (distributed shared memory) take the minimum.  With one cluster
-// (`part` null), rank 0's warp 0 places the winner from its payload, or row
-// 0 (whose masks block 0's thread 0 read itself) when no node is a
-// candidate.  With more (the split form), rank 0's thread 0 of cluster c
-// writes the cluster's minimum to part[c], and cluster 0 also row 0's masks
-// and node id to part[clusters]; normal_merge_kernel, launched next on the
-// stream, places from them.
+// cluster (distributed shared memory) take the minimum.
+// An earlier shard of a sharded state (`part` set, one instance) writes its
+// records: rank 0's thread 0 of cluster c its minimum to part[c], and
+// cluster 0 also row 0's masks and node id to part[clusters].
+// Every other launch places the winner, in one launch whatever its form,
+// over its own rows and, with kPrior (the last shard), over the records of
+// the earlier shards (prior: prior_shards blocks of prior_clusters minima
+// and then their row 0, which earlier launches on the stream wrote; row 0
+// is then block 0's, the state's row 0).  Node ids are unique across
+// shards, so the keys are.  The merging instances (kPrior) are their own,
+// so the unsharded forms keep their code and registers.
+//  * One cluster (kSplit false, `part` null): with kPrior, rank 0's warp 0
+//    stages the
+//    earlier records with cp.async at the kernel's start, folds them into
+//    the cluster's minimum (warp_min_normal) and places it from its
+//    payload, or row 0 (whose masks block 0's thread 0 read itself) when no
+//    node is a candidate.  No atomic, no fence.
+//  * The split form (kSplit): each cluster's rank 0 writes its record as
+//    above and takes a device-scope ticket (an acq_rel atomic: it releases
+//    the record, and the last taker acquires them all); in the cluster that
+//    takes the last, rank 0's warp 0 reads every record (its launch's and
+//    the earlier shards', through L2), takes the least, places, and resets
+//    the ticket to 0 for the next launch on the stream.
+template <bool kSplit, bool kPrior>
 __global__ void __launch_bounds__(kNormalThreads)
     normal_cycle_kernel(State s, FusedParams p, int ctas,
-                        NormalBest* __restrict__ part, int* __restrict__ out) {
+                        NormalBest* __restrict__ part,
+                        unsigned* __restrict__ ticket,
+                        const int* __restrict__ prior, int prior_shards,
+                        int prior_clusters, int* __restrict__ out) {
   extern __shared__ int s_pidx[];
   __shared__ NormalBest s_warp[kNormalThreads / 32];
   __shared__ NormalBest s_rank[kMaxClusterCtas];
+  constexpr unsigned kAll = 0xffffffffu;
   if (ctas > 1) cluster_arrive_relaxed();
   if (s.p > 0) stage_async(s_pidx, s.pidx, s.p);
+  if (kPrior && !kSplit && blockIdx.x == 0 && threadIdx.x < 32)
+    for (int i = threadIdx.x; i < prior_shards * (prior_clusters + 1) * 4;
+         i += 32)
+      stage_one(s_pidx + staged_at(s.p) + i, prior + i);
   const TierRule rule = tier_rule(p.t, bundle_magic(p.t.cgs_per_bundle));
   State ls = s;
   ls.pidx = s_pidx;
@@ -2164,40 +2305,53 @@ __global__ void __launch_bounds__(kNormalThreads)
 
   // rank 0's warp 0: every lane holds the cluster's minimum; in cluster 0,
   // lane 0 holds row 0's masks
-  if (part == nullptr) {
-    constexpr unsigned kAll = 0xffffffffu;
-    normal_place(best, __shfl_sync(kAll, fg0, 0), __shfl_sync(kAll, fc0, 0),
-                 __shfl_sync(kAll, nid0, 0), s.n, p, rule, out);
+  const int lane = threadIdx.x;
+  if (kSplit || part != nullptr) {  // the cluster's records
+    const int clusters = gridDim.x / ctas, c = blockIdx.x / ctas;
+    unsigned last = 0;
+    if (lane == 0) {
+      part[c] = best;
+      if (c == 0) part[clusters] = {static_cast<unsigned>(nid0), fg0, fc0};
+      if (kSplit)
+        last = take_ticket(ticket) == static_cast<unsigned>(clusters - 1);
+    }
+    if (!kSplit || !__shfl_sync(kAll, last, 0)) return;
+    __syncwarp();  // every lane's loads after lane 0's acquire
+    const NormalBest* earlier = reinterpret_cast<const NormalBest*>(prior);
+    const int theirs = kPrior ? prior_shards * prior_clusters : 0;
+    best = {kNoKey, 0u, 0u};
+    for (int i = lane; i < clusters + theirs; i += 32) {
+      const NormalBest* r =
+          i < clusters ? part + i
+                       : earlier + minimum_at(i - clusters, prior_clusters);
+      merge_normal(best, load_record(r));
+    }
+    best = warp_min_normal(best);
+    const NormalBest row0 =
+        load_record(kPrior ? earlier + prior_clusters : part + clusters);
+    normal_place(best, row0.fg, row0.fc, static_cast<int>(row0.key),
+                 s.n + (kPrior ? prior_shards : 0), p, rule, out);
+    if (lane == 0) *ticket = 0u;  // for the next launch on the stream
     return;
   }
-  if (threadIdx.x == 0) {
-    const int c = blockIdx.x / ctas;
-    part[c] = best;
-    if (c == 0)
-      part[gridDim.x / ctas] = {static_cast<unsigned>(nid0), fg0, fc0};
+  fg0 = __shfl_sync(kAll, fg0, 0);
+  fc0 = __shfl_sync(kAll, fc0, 0);
+  nid0 = __shfl_sync(kAll, nid0, 0);
+  if (kPrior) {  // the earlier shards' records, staged
+    const int* staged = s_pidx + staged_at(s.p);
+    stage_wait();
+    __syncwarp();
+    for (int i = lane; i < prior_shards * prior_clusters; i += 32)
+      merge_normal(best, staged_record(
+                             staged + 4 * minimum_at(i, prior_clusters)));
+    best = warp_min_normal(best);
+    const NormalBest row0 = staged_record(staged + 4 * prior_clusters);
+    nid0 = static_cast<int>(row0.key);
+    fg0 = row0.fg;
+    fc0 = row0.fc;
   }
-}
-
-// The split form's second launch, and the merge of a sharded normal cycle,
-// one warp.  part holds `shards` blocks of `clusters` + 1 records, each
-// block's cluster minima and then its row 0, as normal_cycle_kernel writes
-// them with part set: the least key over every block's minima (node ids are
-// unique across shards, so the keys are), placed with block 0's row 0 (the
-// state's row 0) where no node is a candidate.  One block is the split
-// form; over D > 1 shards it stands in for the cross-shard collectives of
-// the reference's sharded normal cycle (repro/core/cluster_parallel.py).
-__global__ void __launch_bounds__(32)
-    normal_merge_kernel(const NormalBest* __restrict__ part, int shards,
-                        int clusters, int n, FusedParams p,
-                        int* __restrict__ out) {
-  NormalBest best = {kNoKey, 0u, 0u};
-  const int total = shards * clusters;
-  for (int i = threadIdx.x; i < total; i += 32)
-    merge_normal(best, part[(i / clusters) * (clusters + 1) + i % clusters]);
-  best = warp_min_normal(best);
-  const NormalBest row0 = part[clusters];
-  normal_place(best, row0.fg, row0.fc, static_cast<int>(row0.key), n, p,
-               tier_rule(p.t, bundle_magic(p.t.cgs_per_bundle)), out);
+  normal_place(best, fg0, fc0, nid0, s.n + (kPrior ? prior_shards : 0), p,
+               rule, out);
 }
 
 // ---- The view-delta encoder and the shortlist's prescreen ------------------
@@ -3329,7 +3483,8 @@ static bool bad_cluster(int ctas, int threads, int max_threads, int p) {
 }
 
 // The cluster kernels' opt-ins, set once a device: dynamic shared memory up
-// to the patch index's budget (above the default 48 KB; the prescreen's to
+// to the patch index's and the earlier shards' records' budget (above the
+// default 48 KB; the prescreen's to
 // its windows' and the union select's to its keys'), and clusters above the
 // portable 8 CTAs.  A card that refuses the second keeps clusters of 8
 // (cluster_ctas_max), so its refusal is not an error here.
@@ -3337,15 +3492,25 @@ static cudaError_t prepare_cluster_kernels(int device) {
   static bool done[kMaxDevices] = {};
   const bool known = device >= 0 && device < kMaxDevices;
   if (known && done[device]) return cudaSuccess;
-  const int smem = kMaxPatchRows * static_cast<int>(sizeof(int));
+  const int smem = (staged_at(kMaxPatchRows) + kMaxPriorInts) *
+                   static_cast<int>(sizeof(int));
   const int pre = static_cast<int>(kPrescreenMaxSmem);
   const int uni = static_cast<int>(kUnionMaxSmem);
   constexpr auto kMax = cudaFuncAttributeMaxDynamicSharedMemorySize;
-  cudaError_t err = cudaFuncSetAttribute(normal_cycle_kernel, kMax, smem);
+  cudaError_t err =
+      cudaFuncSetAttribute(normal_cycle_kernel<false, false>, kMax, smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(fused_argmax_kernel<false>, kMax, smem);
+    err = cudaFuncSetAttribute(normal_cycle_kernel<false, true>, kMax, smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(fused_argmax_kernel<true>, kMax, smem);
+    err = cudaFuncSetAttribute(normal_cycle_kernel<true, false>, kMax, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(normal_cycle_kernel<true, true>, kMax, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fused_argmax_kernel<false, false>, kMax, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fused_argmax_kernel<true, false>, kMax, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fused_argmax_kernel<true, true>, kMax, smem);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(prescreen_cluster_kernel<false, false>, kMax, pre);
   if (err == cudaSuccess)
@@ -3360,9 +3525,11 @@ static cudaError_t prepare_cluster_kernels(int device) {
     err = cudaFuncSetAttribute(prescreen_union_kernel<true>, kMax, uni);
   if (err != cudaSuccess) return err;
   constexpr auto kBig = cudaFuncAttributeNonPortableClusterSizeAllowed;
-  cudaFuncSetAttribute(normal_cycle_kernel, kBig, 1);
-  cudaFuncSetAttribute(fused_argmax_kernel<false>, kBig, 1);
-  cudaFuncSetAttribute(fused_argmax_kernel<true>, kBig, 1);
+  cudaFuncSetAttribute(normal_cycle_kernel<false, false>, kBig, 1);
+  cudaFuncSetAttribute(normal_cycle_kernel<false, true>, kBig, 1);
+  cudaFuncSetAttribute(fused_argmax_kernel<false, false>, kBig, 1);
+  cudaFuncSetAttribute(fused_argmax_kernel<true, false>, kBig, 1);
+  cudaFuncSetAttribute(fused_argmax_kernel<true, true>, kBig, 1);
   cudaFuncSetAttribute(prescreen_cluster_kernel<false, false>, kBig, 1);
   cudaFuncSetAttribute(prescreen_cluster_kernel<false, true>, kBig, 1);
   cudaFuncSetAttribute(prescreen_cluster_kernel<true, false>, kBig, 1);
@@ -3500,67 +3667,100 @@ int fused_class_launch(const State* state, const FusedParams* params,
 }
 
 // One cluster of `ctas` CTAs of `threads` each a segment of `seg` rows.
-// part != 0 is a shard's tail (fused_argmax_kernel<true>): out then takes
-// kPartFields a segment, the flat indices offset by off_lo below row split
-// and by off_hi from it.
+// part != 0 is a shard's tail (fused_argmax_kernel<true, *>), the flat indices
+// offset by off_lo below row split and by off_hi from it: out takes
+// kPartFields a segment, or, with `prior` (the records of the earlier
+// shards 0 .. shards - 2, [shards - 1][segments][kPartFields], on this
+// device and written earlier on this stream), the merged winner,
+// kWinFields a segment.
 int fused_argmax_launch(const State* state, const FusedParams* params,
                         const void* cls, int R, int seg, int ctas,
                         int threads, int part, int split, int off_lo,
-                        int off_hi, const void* skip, void* out, int device,
+                        int off_hi, const void* prior, int shards,
+                        const void* skip, void* out, int device,
                         void* stream) {
   if (R <= 0 || seg <= 0 || bad_cluster(ctas, threads, kTailThreads, state->p) ||
       split < 0 || off_lo < 0 || off_hi < 0 ||
-      (part == 0 && (split != 0 || off_lo != 0 || off_hi != 0)))
+      (part == 0 && (split != 0 || off_lo != 0 || off_hi != 0)) ||
+      (prior != nullptr && (part == 0 || shards < 2 || shards > kMaxShards)))
     return static_cast<int>(cudaErrorInvalidValue);
   const DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
   cudaError_t err = prepare_cluster_kernels(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = static_cast<size_t>(state->p) * sizeof(int);
+  const int staged = prior != nullptr ? (shards - 1) * kPartFields : 0;
+  const size_t smem =
+      static_cast<size_t>(staged_at(state->p) + staged) * sizeof(int);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
       cluster_config((R + seg - 1) / seg * ctas, ctas, threads, smem,
                      static_cast<cudaStream_t>(stream), &attr);
+  auto kernel = part == 0 ? fused_argmax_kernel<false, false>
+                : prior == nullptr ? fused_argmax_kernel<true, false>
+                                   : fused_argmax_kernel<true, true>;
   err = cudaLaunchKernelEx(
-      &cfg, part ? fused_argmax_kernel<true> : fused_argmax_kernel<false>,
-      *state, *params, static_cast<const int*>(cls), R, seg, ctas, split,
-      off_lo, off_hi, static_cast<const int*>(skip), static_cast<int*>(out));
+      &cfg, kernel, *state, *params, static_cast<const int*>(cls), R, seg,
+      ctas, split, off_lo, off_hi, static_cast<const int*>(prior), shards,
+      static_cast<const int*>(skip), static_cast<int*>(out));
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
-// `clusters` clusters of `ctas` CTAs of `threads` each over every node.
-// With more than one cluster (the split form) `part` holds clusters + 1
-// 16-byte records, which the first launch writes and normal_merge_kernel,
-// the second, reads.
+// `clusters` clusters of `ctas` CTAs of `threads` each over every node,
+// placing the winner into out[0..4] in one launch: one cluster, or the
+// split form (clusters > 1, normal_cycle_kernel<true, *>)
+// with `part` (clusters + 1 16-byte records) and `ticket` (one uint32, zero
+// between launches on the stream).  With prior_shards > 0 the launch is a
+// sharded state's last shard and merges the earlier shards' records,
+// prior_shards blocks of prior_clusters + 1 (normal_cycle_part_launch's
+// `part`, on this device and written earlier on this stream); as one
+// cluster it stages them in shared memory, at most kMaxPriorInts int32.
 int normal_cycle_launch(const State* state, const FusedParams* params,
                         int clusters, int ctas, int threads, void* part,
-                        void* out, int device, void* stream) {
+                        void* ticket, const void* prior, int prior_shards,
+                        int prior_clusters, void* out, int device,
+                        void* stream) {
+  const long staged =
+      static_cast<long>(prior_shards) * (prior_clusters + 1) * 4;
   if (state->n < 0 || state->n > (1 << kRowBits) || clusters < 1 ||
-      clusters > kMaxSplitClusters || (clusters > 1 && part == nullptr) ||
+      clusters > kMaxSplitClusters || out == nullptr ||
+      (clusters > 1 && (part == nullptr || ticket == nullptr)) ||
+      prior_shards < 0 || prior_shards >= kMaxShards ||
+      (prior_shards > 0 &&
+       (prior == nullptr || prior_clusters < 1 ||
+        prior_clusters > kMaxSplitClusters ||
+        (clusters == 1 && staged > kMaxPriorInts))) ||
       bad_cluster(ctas, threads, kNormalThreads, state->p))
     return static_cast<int>(cudaErrorInvalidValue);
   const DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
   cudaError_t err = prepare_cluster_kernels(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = static_cast<size_t>(state->p) * sizeof(int);
-  NormalBest* pb = clusters > 1 ? static_cast<NormalBest*>(part) : nullptr;
+  const size_t smem =
+      static_cast<size_t>(staged_at(state->p) + (clusters == 1 ? staged : 0)) *
+      sizeof(int);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
-      cluster_config(clusters * ctas, ctas, threads, smem, st, &attr);
-  err = cudaLaunchKernelEx(&cfg, normal_cycle_kernel, *state, *params, ctas,
-                           pb, static_cast<int*>(out));
-  if (err == cudaSuccess && pb != nullptr)
-    normal_merge_kernel<<<1, 32, 0, st>>>(pb, 1, clusters, state->n, *params,
-                                          static_cast<int*>(out));
+      cluster_config(clusters * ctas, ctas, threads, smem,
+                     static_cast<cudaStream_t>(stream), &attr);
+  const bool split = clusters > 1;
+  auto kernel = split ? (prior_shards > 0 ? normal_cycle_kernel<true, true>
+                                          : normal_cycle_kernel<true, false>)
+                      : (prior_shards > 0 ? normal_cycle_kernel<false, true>
+                                          : normal_cycle_kernel<false, false>);
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, *state, *params, ctas,
+      static_cast<NormalBest*>(split ? part : nullptr),
+      static_cast<unsigned*>(split ? ticket : nullptr),
+      static_cast<const int*>(prior), prior_shards, prior_clusters,
+      static_cast<int*>(out));
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
-// One shard's normal cycle: `clusters` clusters writing their minima and
-// row 0 to part (clusters + 1 16-byte records), no merge.
+// An earlier shard's normal cycle: `clusters` clusters writing their minima
+// and row 0 to part (clusters + 1 16-byte records), which the last shard's
+// normal_cycle_launch merges.
 int normal_cycle_part_launch(const State* state, const FusedParams* params,
                              int clusters, int ctas, int threads, void* part,
                              int device, void* stream) {
@@ -3572,44 +3772,19 @@ int normal_cycle_part_launch(const State* state, const FusedParams* params,
   if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
   cudaError_t err = prepare_cluster_kernels(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = static_cast<size_t>(state->p) * sizeof(int);
+  const size_t smem = static_cast<size_t>(staged_at(state->p)) * sizeof(int);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(
       clusters * ctas, ctas, threads, smem, static_cast<cudaStream_t>(stream),
       &attr);
-  err = cudaLaunchKernelEx(&cfg, normal_cycle_kernel, *state, *params, ctas,
-                           static_cast<NormalBest*>(part),
+  err = cudaLaunchKernelEx(&cfg, normal_cycle_kernel<false, false>, *state,
+                           *params,
+                           ctas, static_cast<NormalBest*>(part),
+                           static_cast<unsigned*>(nullptr),
+                           static_cast<const int*>(nullptr), 0, 0,
                            static_cast<int*>(nullptr));
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(err != cudaSuccess ? err : last);
-}
-
-// The shards' normal-cycle records merged and placed (one warp).
-int normal_merge_launch(const void* part, int shards, int clusters,
-                              int n, const FusedParams* params, void* out,
-                              int device, void* stream) {
-  if (part == nullptr || shards < 1 || clusters < 1 || n < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const DeviceGuard guard(device);
-  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
-  normal_merge_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const NormalBest*>(part), shards, clusters, n, *params,
-      static_cast<int*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The shards' tail records merged (a thread a segment).
-int tail_merge_launch(const void* part, int shards, int segs, int alpha_pos,
-                      const void* skip, void* out, int device, void* stream) {
-  if (part == nullptr || shards < 1 || segs < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const DeviceGuard guard(device);
-  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
-  tail_merge_kernel<<<(segs + 31) / 32, 32, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(part), shards, segs, alpha_pos,
-      static_cast<const int*>(skip), static_cast<int*>(out));
-  return static_cast<int>(cudaGetLastError());
 }
 
 // The union select's lists: `lists` sorted lists up to kMaxLists, else the
@@ -3833,11 +4008,14 @@ int cluster_ctas_max(int device) {
   const DeviceGuard guard(device);
   if (guard.err != cudaSuccess || prepare_cluster_kernels(device) != cudaSuccess)
     return kClusterCtas;
-  const bool big = fits_max_cluster(normal_cycle_kernel, kNormalThreads) &&
-                   fits_max_cluster(fused_argmax_kernel<false>, kTailThreads) &&
-                   fits_max_cluster(fused_argmax_kernel<true>, kTailThreads) &&
-                   fits_max_cluster(prescreen_cluster_kernel<false, false>,
-                                    kPrescreenThreads, kPrescreenMaxSmem);
+  const bool big =
+      fits_max_cluster(normal_cycle_kernel<false, false>, kNormalThreads) &&
+      fits_max_cluster(normal_cycle_kernel<false, true>, kNormalThreads) &&
+      fits_max_cluster(fused_argmax_kernel<false, false>, kTailThreads) &&
+      fits_max_cluster(fused_argmax_kernel<true, false>, kTailThreads) &&
+      fits_max_cluster(fused_argmax_kernel<true, true>, kTailThreads) &&
+      fits_max_cluster(prescreen_cluster_kernel<false, false>,
+                       kPrescreenThreads, kPrescreenMaxSmem);
   cudaGetLastError();  // a refused query leaves no error behind
   return big ? kMaxClusterCtas : kClusterCtas;
 }

@@ -33,9 +33,15 @@ row a group of threads chosen from its section's width and the plan's rows
 (`sweep_geometry`): 16 or 32 threads up to 8 slots, a CTA of
 `WIDE_THREADS` above.
 
+Over a sharded state each shard runs both on its rows; the earlier
+shards' tails write records of the tail's exact monoid state, and the last
+shard's tail (``fused_argmax`` with ``prior``) merges them in its own
+launch (``tail_merge_plain`` is that merge's plain version).
+
 A wrapper runs the plain version for tensors on the CPU and launches its
 kernel for tensors on a CUDA device; anything else raises.  Each wrapper
-counts its launches in ``<wrapper>.launches``.  ``skip`` (an int32 tensor
+counts its launches in ``<wrapper>.launches`` (and ``fused_argmax.merges``
+the launches that merged earlier shards' records).  ``skip`` (an int32 tensor
 of one element, the normal cycle's ``found``) makes both return at once
 when it is set: the kernels read it on the device, so a plan chains the
 normal cycle, the sweep and the tail without a host round trip.
@@ -100,6 +106,8 @@ CTA_ROWS = 128
 #: the most patch rows a launch takes: K2 and the tail stage the patch
 #: index in shared memory (kMaxPatchRows, 64 KB)
 MAX_PATCH_ROWS = 16384
+#: the most shards a merged launch takes (kMaxShards in csrc/topo_score.cu)
+MAX_SHARDS = 64
 #: width of a shard's tail record (kPartFields in csrc/topo_score.cu): the
 #: tail's monoid state (score bits, tmin, tmax, count, two tie keys of 5),
 #: the two keys' entries placed (combo id, priority sum, gpu and cg masks
@@ -599,12 +607,11 @@ def bind(out: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     sp, pp = ctypes.POINTER(_State), ctypes.POINTER(_FusedParams)
     out.fused_class_launch.argtypes = [sp, pp] + [ci] * 6 + [vp, vp, ci, vp]
-    out.fused_argmax_launch.argtypes = [sp, pp, vp] + [ci] * 8 + [vp, vp,
-                                                                  ci, vp]
-    out.normal_cycle_launch.argtypes = [sp, pp, ci, ci, ci, vp, vp, ci, vp]
+    out.fused_argmax_launch.argtypes = ([sp, pp, vp] + [ci] * 8
+                                        + [vp, ci, vp, vp, ci, vp])
+    out.normal_cycle_launch.argtypes = [sp, pp, ci, ci, ci, vp, vp, vp, ci,
+                                        ci, vp, ci, vp]
     out.normal_cycle_part_launch.argtypes = [sp, pp, ci, ci, ci, vp, ci, vp]
-    out.normal_merge_launch.argtypes = [vp, ci, ci, ci, pp, vp, ci, vp]
-    out.tail_merge_launch.argtypes = [vp, ci, ci, ci, vp, vp, ci, vp]
     out.prescreen_select_launch.argtypes = [vp, ci, ci, ci, vp, ci, ci, vp,
                                             vp, vp, ci, vp]
     out.cluster_ctas_max.argtypes = [ci]
@@ -623,7 +630,6 @@ def bind(out: ctypes.CDLL) -> ctypes.CDLL:
                out.prescreen_max_clusters, out.prescreen_clusters,
                out.empty_launch, out.encode_delta_launch,
                out.prescreen_launch, out.normal_cycle_part_launch,
-               out.normal_merge_launch, out.tail_merge_launch,
                out.prescreen_select_launch):
         fn.restype = ci
     out.prescreen_scratch_words.restype = ctypes.c_longlong
@@ -650,6 +656,22 @@ def on_cuda(*xs: torch.Tensor) -> bool:
 def stream_of(st: _State) -> int:
     """PyTorch's current stream on the state's device."""
     return torch.cuda.current_stream(st.device).cuda_stream
+
+
+#: the split forms' tickets, by (device, stream)
+_TICKETS: dict = {}
+
+
+def ticket(dev: torch.device, stream: int) -> torch.Tensor:
+    """The count of finished clusters that the split forms of K2 and of the
+    prescreen take for the launches of ``stream`` on ``dev``: one int32,
+    zero between launches (the cluster that takes the last ticket resets
+    it), so the launches of one stream share it one after the other."""
+    t = _TICKETS.get((dev, stream))
+    if t is None:
+        t = _TICKETS[dev, stream] = torch.zeros(1, dtype=torch.int32,
+                                                device=dev)
+    return t
 
 
 def fused_class(nodestate, victims, drain, pidx, pbuf, gidx, *, m_res: int,
@@ -723,7 +745,8 @@ def fused_argmax(cls, nodestate, victims, pidx, pbuf, gidx, *,
                  resident: bool, seg: int, req: FusedRequest,
                  spec: ServerSpec, skip: torch.Tensor | None = None,
                  out: torch.Tensor | None = None, base: int = 0,
-                 shard: tuple[int, int, int] | None = None) -> torch.Tensor:
+                 shard: tuple[int, int, int] | None = None,
+                 prior: torch.Tensor | None = None) -> torch.Tensor:
     """The Eq. 2 argmax and the winner's placement, one per segment of
     ``seg`` rows of ``cls``: int32[segments, `WIN_FIELDS`] (written into
     ``out`` when given).  With ``skip`` set every winner is zeros.
@@ -731,13 +754,24 @@ def fused_argmax(cls, nodestate, victims, pidx, pbuf, gidx, *,
 
     A shard of a sharded state (first row ``base``) passes ``shard =
     (split, off_lo, off_hi)``: a row's global place in its segment is its
-    local place plus ``off_lo`` below row ``split`` and ``off_hi`` from it,
-    and the output is the shard's records, int32[segments, `PART_FIELDS`],
-    which `tail_merge` merges across the shards."""
+    local place plus ``off_lo`` below row ``split`` and ``off_hi`` from it.
+    An earlier shard's output is its records, int32[segments,
+    `PART_FIELDS`].  The last shard also passes ``prior``, the earlier
+    shards' records (int32[D - 1, segments, `PART_FIELDS`] on its device):
+    its launch merges them with its own (the merge's plain version is
+    `tail_merge_plain`), so the output is each segment's winner over every
+    shard's rows, exactly what the tail gives over the unsharded rows; the
+    records hold the tail's exact monoid state, so the tie chain's
+    same-tier test is taken over every shard's survivors.  That merge
+    stands in for the cross-shard collectives XLA inserts into the
+    reference's sharded ``_fused_argmax_core`` + ``winner_place``."""
     rows = cls.shape[1]
     segs = -(-rows // seg)
-    width = WIN_FIELDS if shard is None else PART_FIELDS
-    if not on_cuda(cls, nodestate, victims, pidx, pbuf, gidx):
+    if prior is not None and shard is None:
+        raise ValueError("prior records need a shard's tail (shard=)")
+    width = WIN_FIELDS if shard is None or prior is not None else PART_FIELDS
+    if not on_cuda(cls, nodestate, victims, pidx, pbuf, gidx,
+                   *([] if prior is None else [prior])):
         if skip is not None and int(skip.reshape(-1)[0]):
             got = torch.zeros((segs, width), dtype=torch.int32)
         else:
@@ -745,6 +779,9 @@ def fused_argmax(cls, nodestate, victims, pidx, pbuf, gidx, *,
                                      gidx, resident=resident, seg=seg,
                                      req=req, spec=spec, base=base,
                                      shard=shard)
+            if prior is not None:
+                got = tail_merge_plain(torch.cat([prior.cpu(), got[None]]),
+                                       req.alpha > 0)
         if out is None:
             return got
         out.view(segs, width).copy_(got)
@@ -757,6 +794,14 @@ def fused_argmax(cls, nodestate, victims, pidx, pbuf, gidx, *,
     if (out.numel() != segs * width or out.dtype != torch.int32
             or not out.is_contiguous()):
         raise ValueError(f"out must hold {segs} x {width} int32")
+    if prior is not None and (
+            prior.dim() != 3 or prior.shape[1:] != (segs, PART_FIELDS)
+            or not 1 <= prior.shape[0] < MAX_SHARDS
+            or prior.dtype != torch.int32 or not prior.is_contiguous()
+            or prior.device != nodestate.device):
+        raise ValueError(f"prior must be int32[D - 1, {segs}, {PART_FIELDS}]"
+                         f" (D <= {MAX_SHARDS}), contiguous, beside the "
+                         "state")
     if rows == 0:
         return out
     if (cls.dtype != torch.int32 or not cls.is_contiguous()
@@ -770,18 +815,24 @@ def fused_argmax(cls, nodestate, victims, pidx, pbuf, gidx, *,
     code = lb.fused_argmax_launch(
         ctypes.byref(st), ctypes.byref(params(spec, req)),
         cls.data_ptr(), rows, seg, ctas, threads, int(shard is not None),
-        split, off_lo, off_hi, None if skip is None else skip.data_ptr(),
-        out.data_ptr(), st.device, stream_of(st))
+        split, off_lo, off_hi, None if prior is None else prior.data_ptr(),
+        1 if prior is None else prior.shape[0] + 1,
+        None if skip is None else skip.data_ptr(), out.data_ptr(),
+        st.device, stream_of(st))
     ts._raise_on(lb, code, "fused_argmax")
     fused_argmax.launches += 1
+    fused_argmax.merges += prior is not None
     return out
 
 
 fused_argmax.launches = 0
+fused_argmax.merges = 0
+
 
 def tail_merge_plain(part: torch.Tensor, alpha_pos: bool) -> torch.Tensor:
-    """Plain version of `tail_merge`: int32[segments, `WIN_FIELDS`] from
-    the shards' records int32[D, segments, `PART_FIELDS`]."""
+    """Plain version of the merge the last shard's tail makes (`fused_argmax`
+    with ``prior``): int32[segments, `WIN_FIELDS`] from the shards'
+    records int32[D, segments, `PART_FIELDS`], the last shard's last."""
     recs = part.cpu().numpy().astype(np.int64)
     out = []
     for sg in range(recs.shape[1]):
@@ -810,63 +861,15 @@ def tail_merge_plain(part: torch.Tensor, alpha_pos: bool) -> torch.Tensor:
         -1, WIN_FIELDS).to(torch.int32).to(part.device)
 
 
-def tail_merge(part: torch.Tensor, *, alpha: float,
-               skip: torch.Tensor | None = None,
-               out: torch.Tensor | None = None) -> torch.Tensor:
-    """The shards' tail records (int32[D, segments, `PART_FIELDS`], each
-    shard's `fused_argmax` with ``shard=``) merged into each segment's
-    winner, int32[segments, `WIN_FIELDS`]: exactly what the tail gives
-    over the unsharded rows.  The records hold the tail's exact monoid
-    state, so the tie chain's same-tier test is taken over every shard's
-    survivors.  With ``skip`` set every winner is zeros.  Written into
-    ``out`` when given.  Its kernel, ``tail_merge_kernel``, stands in for
-    the cross-shard collectives XLA inserts into the reference's sharded
-    ``_fused_argmax_core`` + ``winner_place``."""
-    if part.dim() != 3 or part.shape[2] != PART_FIELDS or not part.shape[0]:
-        raise ValueError(f"part must be [D, segments, {PART_FIELDS}]")
-    segs = part.shape[1]
-    if not on_cuda(part, *([] if skip is None else [skip])):
-        if skip is not None and int(skip.reshape(-1)[0]):
-            got = torch.zeros((segs, WIN_FIELDS), dtype=torch.int32)
-        else:
-            got = tail_merge_plain(part, alpha > 0)
-        if out is None:
-            return got
-        out.view(segs, WIN_FIELDS).copy_(got)
-        return out
-    if part.dtype != torch.int32 or not part.is_contiguous():
-        raise ValueError("part must be a contiguous int32 tensor")
-    if out is None:
-        out = torch.empty((segs, WIN_FIELDS), dtype=torch.int32,
-                          device=part.device)
-    if (out.numel() != segs * WIN_FIELDS or out.device != part.device
-            or out.dtype != torch.int32 or not out.is_contiguous()
-            or (skip is not None and skip.device != part.device)):
-        raise ValueError("out and skip must lie beside part")
-    lb = lib()
-    device = part.device.index if part.device.index is not None else \
-        torch.cuda.current_device()
-    code = lb.tail_merge_launch(
-        part.data_ptr(), part.shape[0], segs, int(alpha > 0),
-        None if skip is None else skip.data_ptr(), out.data_ptr(), device,
-        torch.cuda.current_stream(part.device).cuda_stream)
-    ts._raise_on(lb, code, "tail_merge")
-    tail_merge.launches += 1
-    return out
-
-
-tail_merge.launches = 0
-
 #: this module's kernel wrappers (their ``launches`` counters)
-WRAPPERS = (fused_class, fused_argmax, tail_merge)
+WRAPPERS = (fused_class, fused_argmax)
 
 __all__ = ["CLS_FIELDS", "CLUSTER_CTAS", "FusedRequest", "IDX_SENTINEL",
-           "CTA_ROWS", "MAX_PATCH_ROWS", "NORMAL_THREADS", "PART_FIELDS",
-           "TAIL_THREADS",
+           "CTA_ROWS", "MAX_PATCH_ROWS", "MAX_SHARDS", "NORMAL_THREADS",
+           "PART_FIELDS", "TAIL_THREADS",
            "WIN_FIELDS", "WRAPPERS", "bind", "class_sweep_plain",
            "cluster_geometry", "fused_argmax", "fused_argmax_plain",
            "fused_class", "fused_class_plain", "launch_state",
            "launch_class", "max_cluster_ctas", "plan_rows", "sm_count",
            "sweep_geometry", "SHARED_GROUP", "SWEEP_THREADS",
-           "SWEEP_WARP_ROWS", "WIDE_THREADS", "tail_merge",
-           "tail_merge_plain"]
+           "SWEEP_WARP_ROWS", "WIDE_THREADS", "tail_merge_plain", "ticket"]

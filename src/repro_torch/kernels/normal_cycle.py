@@ -14,22 +14,24 @@ reduces it per CTA by warp shuffles and across a thread-block cluster's CTAs
 through distributed shared memory.  Up to `SPLIT_NODES` nodes it runs as
 one cluster (up to 8 CTAs, or 16 where the card allows, of up to 1024
 threads, a thread a node and a loop beyond), whose rank 0 places the
-winner.  Above, it runs split over the whole card (`normal_geometry`): a
-grid of clusters each writes its minimum to a buffer the wrapper
-allocates, and a one-warp kernel launched after it
-(``normal_merge_kernel``) places the least.  It keeps nothing in device
-memory from one call to the next.
+winner.  Above, it runs split over the whole card (`normal_geometry`), in
+the same one launch: each cluster of a grid writes its minimum to a buffer
+the wrapper allocates and takes a ticket (one zeroed int32 the wrapper
+keeps for each device and stream), and the cluster that takes the last
+places the least.  Nothing else carries from one call to the next.
 
 The wrapper runs the plain version for tensors on the CPU and launches the
 kernel for tensors on a CUDA device; anything else raises.  It counts its
 launches in ``normal_cycle.launches``.
 
-A shard of a sharded state runs ``normal_cycle_part``: the same kernel
-over the shard's rows, writing each cluster's minimum and its row 0 as
-records and placing nothing; ``normal_merge`` launches the split form's
-merge (``normal_merge_kernel``) over every shard's records and places the
-winner, in place of the cross-shard collectives of the reference's sharded
-normal cycle.  It counts its launches in ``normal_merge.launches``.
+Over a sharded state the earlier shards run ``normal_cycle_part``: the same
+kernel over the shard's rows, writing each cluster's minimum and its row 0
+as records and placing nothing.  The last shard runs ``normal_cycle`` with
+those records as ``prior``: its launch merges them with its own minimum
+and places the winner, in place of the cross-shard collectives of the
+reference's sharded normal cycle, so no merge has a launch of its own.
+``normal_cycle.merges`` counts the launches that merged; the merge's plain
+version, ``normal_merge_plain``, is the CPU's second step.
 """
 from __future__ import annotations
 
@@ -48,19 +50,24 @@ from repro_torch.core.placement_device import (best_tier_counts,
 from repro_torch.core.topology import ServerSpec
 
 from . import topo_score as ts
-from .fused_class import (CLUSTER_CTAS, CTA_ROWS, NORMAL_THREADS,
+from .fused_class import (CLUSTER_CTAS, CTA_ROWS, MAX_SHARDS, NORMAL_THREADS,
                           FusedRequest, cluster_geometry, launch_state, lib,
-                          max_cluster_ctas, on_cuda, params, stream_of)
+                          max_cluster_ctas, on_cuda, params, stream_of,
+                          ticket)
 
 #: width of the normal cycle's winner: (found, node, tier, gpu_mask, cg_mask)
 NORMAL_FIELDS = 5
-#: the most nodes K2 takes as one thread-block cluster; above, it runs split
-#: (on an H100 the split form's second launch costs more than it saves up
-#: to 16384 random nodes, and less from 24576: PERF.md)
-SPLIT_NODES = 16384
+#: the most nodes K2 takes as one thread-block cluster; above, it runs split,
+#: in the same one launch (on an H100 the split form ties one cluster at
+#: 10240 random nodes, 5.95-5.99 against 5.94-5.99 us, and wins from 12288,
+#: 6.05-6.10 against 6.29-6.33: tools/merge_ab.py, PERF.md)
+SPLIT_NODES = 10240
 #: the most clusters of the split form (kMaxSplitClusters in
 #: csrc/topo_score.cu); the rows loop beyond
 MAX_SPLIT_CLUSTERS = 1024
+#: the int32 of earlier shards' records that a merged launch's one-cluster
+#: form stages in shared memory (kMaxPriorInts in csrc/topo_score.cu)
+MAX_PRIOR_INTS = 2048
 
 
 @functools.lru_cache(maxsize=1024)
@@ -90,52 +97,89 @@ def normal_cycle_plain(nodestate, victims, drain, pidx, pbuf,
 
 
 def normal_cycle(nodestate, victims, drain, pidx, pbuf, *, req: FusedRequest,
-                 spec: ServerSpec, out: torch.Tensor | None = None
+                 spec: ServerSpec, out: torch.Tensor | None = None,
+                 base: int = 0, prior: torch.Tensor | None = None
                  ) -> torch.Tensor:
     """The normal cycle's winner, int32[5] (found, node, tier, gpu_mask,
     cg_mask), written into ``out`` when given.  Only the request's sizes
     matter (``thresh`` and ``alpha`` are not read).  Counterpart of
-    ``placement_jax.normal_cycle_core`` behind the patch overlay."""
-    if not on_cuda(nodestate, victims, drain, pidx, pbuf):
-        got = normal_cycle_plain(nodestate, victims, drain, pidx, pbuf,
-                                 req, spec)
+    ``placement_jax.normal_cycle_core`` behind the patch overlay.
+
+    The last shard of a sharded state (its first row global row ``base``;
+    the patch index holds global row ids) passes ``prior``, the earlier
+    shards' records (int32[D - 1, records, 4], `normal_cycle_part`'s, on
+    its device): the launch merges them with its own rows and places the
+    winner over every shard's rows."""
+    if not on_cuda(nodestate, victims, drain, pidx, pbuf,
+                   *([] if prior is None else [prior])):
+        if prior is None and base == 0:
+            got = normal_cycle_plain(nodestate, victims, drain, pidx, pbuf,
+                                     req, spec)
+        else:
+            own = normal_part_plain(nodestate, victims, drain, pidx, pbuf,
+                                    req, spec, base)
+            got = normal_merge_plain(
+                [*([] if prior is None else prior), own], req, spec)
         if out is None:
             return got
         out.copy_(got)
         return out
     st = launch_state(nodestate, victims, drain, pidx, pbuf, None,
-                      resident=True)
-    return launch(st, req, spec, out)
+                      resident=True, base=base)
+    return launch(st, req, spec, out, prior=prior)
 
 
 def launch(st, req: FusedRequest, spec: ServerSpec,
            out: torch.Tensor | None = None,
-           geometry: tuple[int, int, int] | None = None) -> torch.Tensor:
+           geometry: tuple[int, int, int] | None = None,
+           prior: torch.Tensor | None = None) -> torch.Tensor:
     """K2 on a `launch_state`, in `normal_geometry` unless ``geometry``
     ``(clusters, ctas, threads)`` is given (every geometry gives the same
-    bits; a forced one serves the measurements of both forms)."""
+    bits; a forced one serves the measurements of both forms), merging the
+    earlier shards' records ``prior`` when given (`normal_cycle`)."""
     if out is None:
         out = torch.empty(NORMAL_FIELDS, dtype=torch.int32,
                           device=st.tensors[0].device)
     if (out.numel() != NORMAL_FIELDS or out.dtype != torch.int32
-            or not out.is_contiguous()):
-        raise ValueError(f"out must hold {NORMAL_FIELDS} int32")
+            or not out.is_contiguous()
+            or out.device != st.tensors[0].device):
+        raise ValueError(f"out must hold {NORMAL_FIELDS} int32 beside the "
+                         "state")
     clusters, ctas, threads = geometry or normal_geometry(
         st.n, max_cluster_ctas(st.device))
+    shards, per = 0, 1
+    if prior is not None:
+        if (prior.dim() != 3 or prior.shape[2] != 4 or prior.shape[1] < 2
+                or not 1 <= prior.shape[0] < MAX_SHARDS
+                or prior.dtype != torch.int32 or not prior.is_contiguous()
+                or prior.device != out.device or prior.data_ptr() % 16):
+            raise ValueError(
+                f"prior must be int32[D - 1, clusters + 1, 4] (D <= "
+                f"{MAX_SHARDS}), contiguous and 16-byte aligned, beside "
+                "the state")
+        if clusters == 1 and prior.numel() > MAX_PRIOR_INTS:
+            raise ValueError(f"{prior.numel()} int32 of earlier records; one "
+                             f"cluster stages at most {MAX_PRIOR_INTS}")
+        shards, per = prior.shape[0], prior.shape[1] - 1
+    stream = stream_of(st)
     # the split form's records: 16 bytes a cluster and one for row 0
     part = (torch.empty(4 * (clusters + 1), dtype=torch.int32,
                         device=out.device) if clusters > 1 else None)
     lb = lib()
     code = lb.normal_cycle_launch(
         ctypes.byref(st), ctypes.byref(params(spec, req)), clusters, ctas,
-        threads, None if part is None else part.data_ptr(), out.data_ptr(),
-        st.device, stream_of(st))
+        threads, None if part is None else part.data_ptr(),
+        ticket(out.device, stream).data_ptr() if clusters > 1 else None,
+        None if prior is None else prior.data_ptr(), shards, per,
+        out.data_ptr(), st.device, stream)
     ts._raise_on(lb, code, "normal_cycle")
     normal_cycle.launches += 1
+    normal_cycle.merges += prior is not None
     return out
 
 
 normal_cycle.launches = 0
+normal_cycle.merges = 0
 
 
 #: the key of a record that holds no candidate (kNoKey)
@@ -198,9 +242,9 @@ def normal_cycle_part(nodestate, victims, drain, pidx, pbuf, *,
                       out: torch.Tensor | None = None) -> torch.Tensor:
     """One shard's normal cycle (its first row global row ``base``; the
     patch index holds global row ids): int32[clusters + 1, 4], the least
-    key of each of its clusters and its row 0, as 16-byte records that
-    `normal_merge` merges across the shards; written into
-    ``out`` when given.  The plain version gives one cluster."""
+    key of each of its clusters and its row 0, as 16-byte records that the
+    last shard's `normal_cycle` merges (``prior``); written into ``out``
+    when given.  The plain version gives one cluster."""
     if not on_cuda(nodestate, victims, drain, pidx, pbuf):
         got = normal_part_plain(nodestate, victims, drain, pidx, pbuf, req,
                                 spec, base)
@@ -232,12 +276,15 @@ def _u32(x) -> int:
     return int(x) & 0xFFFFFFFF
 
 
-def normal_merge_plain(part: torch.Tensor, req: FusedRequest,
+def normal_merge_plain(parts, req: FusedRequest,
                        spec: ServerSpec) -> torch.Tensor:
-    """Plain version of `normal_merge`: the least key of the shards'
-    records (int32[D, clusters + 1, 4]) placed as ``normal_cycle_core``
-    places a node, or shard 0's row 0 where no record holds a candidate."""
-    recs = part.cpu().tolist()
+    """Plain version of the merge the last shard's `normal_cycle` launch
+    makes: the least key of the shards' records (each shard's int32[records,
+    4], its cluster minima then its row 0; a sequence, or one int32[D,
+    records, 4]) placed as ``normal_cycle_core`` places a node, or shard
+    0's row 0 where no record holds a candidate.  int32[5] beside the
+    first shard's records."""
+    recs = [p.cpu().tolist() for p in parts]
     best = (NO_KEY, 0, 0)
     for shard in recs:
         for lo, hi, fg, fc in shard[:-1]:
@@ -253,46 +300,8 @@ def normal_merge_plain(part: torch.Tensor, req: FusedRequest,
     col[NS_FREE_GPU, 0], col[NS_FREE_CG, 0], col[NS_NODE_ID, 0] = fg, fc, nid
     got = normal_cycle_core(col, req.need_gpus, req.need_cgs,
                             req.cgs_per_bundle, spec=spec)
-    return got.to(part.device)
+    return got.to(parts[0].device)
 
-
-def normal_merge(part: torch.Tensor, *, n: int, req: FusedRequest,
-                 spec: ServerSpec,
-                 out: torch.Tensor | None = None) -> torch.Tensor:
-    """The shards' normal-cycle records (int32[D, clusters + 1, 4], each
-    shard's cluster minima then its row 0, `normal_cycle_part`) merged and
-    placed: int32[5] (found, node, tier, gpu_mask, cg_mask), what
-    ``normal_cycle`` gives over the ``n`` unsharded rows.  Written into
-    ``out`` when given."""
-    if part.dim() != 3 or part.shape[2] != 4 or part.shape[1] < 2:
-        raise ValueError("part must be [D, clusters + 1, 4]")
-    if not on_cuda(part):
-        got = normal_merge_plain(part, req, spec)
-        if out is None:
-            return got
-        out.copy_(got)
-        return out
-    if out is None:
-        out = torch.empty(NORMAL_FIELDS, dtype=torch.int32,
-                          device=part.device)
-    if (part.dtype != torch.int32 or not part.is_contiguous()
-            or out.numel() != NORMAL_FIELDS or out.device != part.device
-            or out.dtype != torch.int32 or not out.is_contiguous()):
-        raise ValueError(f"part and out ({NORMAL_FIELDS} int32) must be "
-                         "contiguous int32 tensors on one device")
-    lb = lib()
-    device = part.device.index if part.device.index is not None else \
-        torch.cuda.current_device()
-    code = lb.normal_merge_launch(
-        part.data_ptr(), part.shape[0], part.shape[1] - 1, n,
-        ctypes.byref(params(spec, req)), out.data_ptr(), device,
-        torch.cuda.current_stream(part.device).cuda_stream)
-    ts._raise_on(lb, code, "normal_merge")
-    normal_merge.launches += 1
-    return out
-
-
-normal_merge.launches = 0
 
 #: this module's kernel wrappers (their ``launches`` counters)
-WRAPPERS = (normal_cycle, normal_merge)
+WRAPPERS = (normal_cycle,)

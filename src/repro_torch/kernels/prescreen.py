@@ -65,15 +65,15 @@ from repro_torch.core.topology import ServerSpec
 
 from . import topo_score as ts
 from .fused_class import (FusedRequest, launch_state, lib,
-                          max_cluster_ctas, on_cuda, params, stream_of)
+                          max_cluster_ctas, on_cuda, params, stream_of,
+                          ticket)
 
 #: the most eligible victims a row may hold to enter the shortlist (the
 #: second stage sweeps it at this width)
 NARROW_M = 8
 _INT32_MAX = 2**31 - 1
-#: the split form's tickets and the prescreen's global scratch, by (device,
-#: stream): the launches of one stream use them one after the other
-_TICKETS: dict = {}
+#: the prescreen's global scratch, by (device, stream): the launches of one
+#: stream use it one after the other
 _SCRATCH: dict = {}
 
 
@@ -266,7 +266,7 @@ def prescreen(nodestate, victims, pidx, pbuf, rep, forced, *, k: int,
         forced.data_ptr() if forced.shape[0] else None, forced.shape[0], k,
         ctas, clusters, None if skip is None else skip.data_ptr(),
         None if scratch is None else scratch.data_ptr(),
-        _ticket(dev, stream).data_ptr() if clusters > 1 else None,
+        ticket(dev, stream).data_ptr() if clusters > 1 else None,
         None if sel is None else sel.data_ptr(), out.data_ptr(), st.device,
         stream)
     ts._raise_on(lb, code, "prescreen")
@@ -310,17 +310,6 @@ def _scratch(dev: torch.device, stream: int, words: int) -> torch.Tensor:
     t = _SCRATCH.get((dev, stream))
     if t is None or t.numel() < words:
         t = _SCRATCH[dev, stream] = torch.empty(words, dtype=torch.int64,
-                                                device=dev)
-    return t
-
-
-def _ticket(dev: torch.device, stream: int) -> torch.Tensor:
-    """The split form's count of finished clusters for the launches of
-    ``stream`` on ``dev``: one int32, zero between launches (the last
-    cluster resets it)."""
-    t = _TICKETS.get((dev, stream))
-    if t is None:
-        t = _TICKETS[dev, stream] = torch.zeros(1, dtype=torch.int32,
                                                 device=dev)
     return t
 

@@ -8,12 +8,13 @@ in place of the reference's ``--xla_force_host_platform_device_count``
   (pads with `IDX_SENTINEL` ids and zero masks), kept through a scatter
   and a full rebuild (port of ``test_sharded_state_layout_and_scatter``).
 * The merges against the unsharded kernels' plain versions, bit for bit:
-  the tail's shard records merged by ``tail_merge`` against the tail over
-  all rows (and against a numpy model of the reference's tie chain, with
-  forced cross-shard ties, the same-tier case among them); the normal
-  cycle's shard records merged by ``normal_merge`` against the normal
-  cycle; the shards' prescreen keys merged by ``prescreen_select`` against
-  the prescreen over all rows.
+  the earlier shards' tail records merged by the last shard's tail
+  (``fused_argmax(prior=)``) against the tail over all rows (and against a
+  numpy model of the reference's tie chain, with forced cross-shard ties,
+  the same-tier case among them); the earlier shards' normal-cycle records
+  merged by the last shard's K2 (``normal_cycle(prior=)``) against the
+  normal cycle; the shards' prescreen keys merged by ``prescreen_select``
+  against the prescreen over all rows.
 * Decisions: ``imp_sharded`` and ``imp_sharded_full`` with D in {1, 2, 3,
   4, 8} over the reference's randomized plan / commit / rollback /
   ``plan_batch`` sequences at 5, 11 and 13 nodes, held to the reference's
@@ -65,10 +66,11 @@ from repro_torch.kernels.fused_class import (C_ANY, C_CB, C_CNT,  # noqa: E402
                                              CLS_FIELDS, FusedRequest,
                                              fused_argmax_plain)
 from repro_torch.kernels.fused_class import (fused_argmax,  # noqa: E402
-                                             tail_merge)
-from repro_torch.kernels.normal_cycle import (normal_cycle_part,  # noqa: E402
+                                             tail_merge_plain)
+from repro_torch.kernels.normal_cycle import (normal_cycle,  # noqa: E402
+                                              normal_cycle_part,
                                               normal_cycle_plain,
-                                              normal_merge)
+                                              normal_merge_plain)
 from repro_torch.kernels.prescreen import (prescreen,  # noqa: E402
                                            prescreen_plain, prescreen_select)
 from repro_torch.core import preemption_device as pd  # noqa: E402
@@ -241,16 +243,27 @@ def random_cls(ns: np.ndarray, seed: int, cap: int) -> np.ndarray:
 
 
 def sharded_tail(cls, ns, v, d: int, req, spec):
-    """Each shard's tail records over its rows of ``cls`` (a resident
-    segment), then `tail_merge`."""
+    """Each earlier shard's tail records over its rows of ``cls`` (a
+    resident segment), then the last shard's tail with them as ``prior``:
+    the merged winner, also held to `tail_merge_plain` over the same
+    records (the last shard's own from its plain record form)."""
     n = cls.shape[1]
     rows = n // d
-    part = torch.stack([fused_argmax(
-        _t(cls[:, k * rows:(k + 1) * rows]), _t(ns[:, k * rows:(k + 1) * rows]),
-        _t(v[:, k * rows:(k + 1) * rows]), EMPTY[0], EMPTY[1], EMPTY[0],
-        resident=True, seg=rows, req=req, spec=spec, base=k * rows,
-        shard=(rows, k * rows, n - rows)) for k in range(d)])
-    return tail_merge(part, alpha=req.alpha)[0]
+
+    def tail(k, prior=None):
+        cols = slice(k * rows, (k + 1) * rows)
+        return fused_argmax(
+            _t(cls[:, cols]), _t(ns[:, cols]), _t(v[:, cols]), EMPTY[0],
+            EMPTY[1], EMPTY[0], resident=True, seg=rows, req=req, spec=spec,
+            base=k * rows, shard=(rows, k * rows, n - rows), prior=prior)
+
+    if d == 1:        # one shard: its record alone through the merge
+        return tail_merge_plain(tail(0)[None], req.alpha > 0)[0]
+    prior = torch.stack([tail(k) for k in range(d - 1)])
+    got = tail(d - 1, prior)[0]
+    recs = torch.cat([prior, tail(d - 1)[None]])
+    assert torch.equal(got, tail_merge_plain(recs, req.alpha > 0)[0])
+    return got
 
 
 @pytest.mark.parametrize("d", MESHES)
@@ -329,9 +342,11 @@ def test_chunked_segments_merge(d):
 
 @pytest.mark.parametrize("d", MESHES)
 def test_normal_shard_merge_equals_the_normal_cycle(d):
-    """Each shard's K2 records (with patch rows of several shards, global
-    ids) merged give the normal cycle over all rows, for every Table 3
-    request size; an all-busy state gives row 0's outcome."""
+    """The earlier shards' K2 records (with patch rows of several shards,
+    global ids) merged by the last shard's K2 give the normal cycle over
+    all rows, for every Table 3 request size, and `normal_merge_plain`
+    over every shard's records; an all-busy state gives row 0's
+    outcome."""
     spec = SPECS["rtx4090"]
     for seed in range(3):
         ns, v, dr = random_state(spec, 13, seed)
@@ -352,16 +367,20 @@ def test_normal_shard_merge_equals_the_normal_cycle(d):
                                0, 0.5)
             want = normal_cycle_plain(_t(ns), _t(v), _t(dr), _t(pidx),
                                       _t(pbuf), req, spec)
-            recs = []
+            args = []
             for k in range(d):
                 mine = (pidx >= k * rows) & (pidx < (k + 1) * rows)
                 cols = slice(k * rows, (k + 1) * rows)
-                recs.append(normal_cycle_part(
-                    _t(ns[:, cols]), _t(v[:, cols]), _t(dr[:, cols]),
-                    _t(pidx[mine]), _t(pbuf[mine]), req=req, spec=spec,
-                    base=k * rows))
-            got = normal_merge(torch.stack(recs), n=n, req=req, spec=spec)
+                args.append((_t(ns[:, cols]), _t(v[:, cols]),
+                             _t(dr[:, cols]), _t(pidx[mine]),
+                             _t(pbuf[mine])))
+            recs = [normal_cycle_part(*a, req=req, spec=spec, base=k * rows)
+                    for k, a in enumerate(args)]
+            prior = torch.stack(recs[:-1]) if d > 1 else None
+            got = normal_cycle(*args[-1], req=req, spec=spec,
+                               base=(d - 1) * rows, prior=prior)
             assert torch.equal(got, want), (seed, wl.name, got, want)
+            assert torch.equal(got, normal_merge_plain(recs, req, spec))
 
 
 @pytest.mark.parametrize("d", MESHES)

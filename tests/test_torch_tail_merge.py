@@ -12,8 +12,8 @@
 * The launch geometries that the wrappers hand the two kernels (K2's
   ``normal_geometry``, one cluster or split, and the tail's
   ``cluster_geometry``), with the row loops of the kernels written out:
-  every row of 0..70000 (sampled) taken exactly once, in clusters of at
-  most 8 and 16 CTAs.
+  every row of 0..70000 (sampled, and either side of ``SPLIT_NODES``)
+  taken exactly once, in clusters of at most 8 and 16 CTAs.
 * The wrappers' mirrors of the kernel source's constants agree with it,
   and the kernels' bundle division by multiply (``bundle_magic``, a
   constant table) is exact.
@@ -167,7 +167,8 @@ def _rows_tail(lo: int, hi: int, ctas: int, threads: int) -> np.ndarray:
 def test_cluster_geometry_takes_every_row_once(max_ctas):
     sizes = sorted({0, 1, 2, 31, 32, 33, 127, 128, 129, 255, 256, 257, 1023,
                     1024, 1025, 4095, 4096, 4097, 8191, 8192, 8193, 16383,
-                    16384, 16385, 40960, 70000,
+                    16384, 16385, 40960, 70000, nck.SPLIT_NODES - 1,
+                    nck.SPLIT_NODES, nck.SPLIT_NODES + 1,
                     *random.Random(max_ctas).sample(range(70001), 30)})
     for n in sizes:
         for cut in (nck.SPLIT_NODES, 0):        # as the wrapper picks; split
@@ -199,7 +200,9 @@ _CU = (pathlib.Path(fc.__file__).parent / "csrc" / "topo_score.cu").read_text()
     ("CLUSTER_CTAS", "kClusterCtas"), ("NORMAL_THREADS", "kNormalThreads"),
     ("TAIL_THREADS", "kTailThreads"), ("MAX_PATCH_ROWS", "kMaxPatchRows"),
     ("MAX_SPLIT_CLUSTERS", "kMaxSplitClusters"),
-    ("SWEEP_THREADS", "kNarrowThreads"), ("WIDE_THREADS", "kWideThreads")])
+    ("SWEEP_THREADS", "kNarrowThreads"), ("WIDE_THREADS", "kWideThreads"),
+    ("MAX_SHARDS", "kMaxShards"), ("MAX_PRIOR_INTS", "kMaxPriorInts"),
+    ("PART_FIELDS", "kPartFields")])
 def test_wrapper_constants_mirror_the_kernel_source(name, const):
     got = re.search(rf"constexpr int {const} = (\d+);", _CU)
     assert got, const
