@@ -158,7 +158,12 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    with fully masked first tiles, a ragged Sq at the 128-row q block, a
    windowed head_dim-128 shape whose length is not a multiple of 128, and
    at head dim 256 recurrentgemma-9b's prefill (B 4, H 16, MQA, S 1024,
-   window 2048) and a ragged windowed Sq; no output may be non-finite.  Then 50 back-to-back launches at the serving
+   window 2048) and a ragged windowed Sq; the bidirectional form at
+   seamless-m4t-medium's encoder (B 4, 16/16 heads, S 1024, d 64) and at a
+   cross-attention (Sq 777 against Sk 1024); the prefix-LM form at
+   paligemma-3b's prefill (B 4, 8/1 heads, S 1280, P 256, d 256), at a
+   ragged P 100 over S 300 (d 256), and with a window at d 64; no output
+   may be non-finite.  Then 50 back-to-back launches at the serving
    shape must give bit-identical outputs.
 8. ``[serve]``: the serving path, llama3.2-1b at full width and depth with
    seeded random weights made on the card, through ``ServeEngine`` (batch
@@ -173,12 +178,16 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    to 2 layers.  The full depth's differences are recorded beside them, and
    so is how far each layer amplifies a 1e-6 perturbation of the input
    (f32): the random-weight model is chaotic at depth (``serve_check``).
-9b. ``[families]``: the MoE and recurrent families at full width with
-   seeded random weights made on the card, through ``ServeEngine`` with
-   ``[serve]``'s protocol: mixtral-8x7b (depth cut 32 -> 16 layers: 93 GB
-   of bf16 weights exceed the card's 80 GB), olmoe-1b-7b, rwkv6-7b and
-   recurrentgemma-9b, one at a time.  Counters at 0 just before ``run()``,
-   read just after: K4 launches = attention layers x prefill batches, the
+9b. ``[families]``: the MoE, recurrent, encoder-decoder and VLM families
+   at full width with seeded random weights made on the card, through
+   ``ServeEngine`` with ``[serve]``'s protocol: mixtral-8x7b (depth cut
+   32 -> 16 layers: 93 GB of bf16 weights exceed the card's 80 GB),
+   olmoe-1b-7b, rwkv6-7b, recurrentgemma-9b, seamless-m4t-medium (12 + 12
+   layers, zero frames) and paligemma-3b (18 layers, 256 zero patch
+   embeddings in front of each prompt), one at a time.  Counters at 0 just
+   before ``run()``, read just after: K4 launches = attention layers x
+   prefill batches (seamless: 3 x 12 a batch, of them 2 x 12
+   bidirectional; paligemma: 18 a batch, each with the prefix), the
    ``wkv6_scan`` and ``rglru_scan`` launches = their layers x (prefill
    batches + decode steps).  Every request has 32 tokens, no logit is
    non-finite, the first batch served again gives the same tokens; the
@@ -190,7 +199,13 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    hidden states of a 2 x 1000-token prefill put on a grid where the
    router's product is exact: expert indices, slot order, keep mask and
    capacity slots identical, outputs within 1e-4 relative; decode against
-   prefill recorded with the dropped fraction, not gated.
+   prefill recorded with the dropped fraction, not gated; for seamless and
+   paligemma the model in f32 on the card against the same model on the
+   CPU (prefill and 4 decode steps, seeded random frames or patch
+   embeddings, within 1e-4 relative) at 1 + 1 and 2 layers a stack
+   (seamless's 2 + 2 recorded beside the CPU's own movement under a 1e-7
+   change of its frames), and decode against prefill on the card, gated at
+   0.08 there and recorded at full depth.
 9c. ``[examples]``: ``examples/torch_preemption_demo.py`` on the card,
    whose lines must equal its lines with ``--device cpu`` (the plain
    versions, held to the reference's demo by the CPU tests), and
@@ -233,7 +248,12 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    1, 1023, 1024 and each kernel's chunk boundaries (``chunk_check_s``),
    in bf16 and f32, on drawn and extreme decays (``scan_inputs``); they
    and K4's at head dim 256 (``FLASH_D256``) carry the launches of
-   ``[families]`` (the decode rows those at S 1).
+   ``[families]`` (the decode rows those at S 1).  K4 has a row for each
+   form beside the causal one: ``flash_attention_bidirectional`` at
+   seamless's encoder (and the cross-attention shape), with seamless's
+   bidirectional launches, and ``flash_attention_prefix`` at paligemma's
+   prefill, with its launches; the causal row also times seamless's
+   decoder self-attention.
 11. The card's name and power limit again, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -419,7 +439,8 @@ def reset_counts() -> None:
 
     for w in WRAPPERS:
         w.launches = 0
-        for extra in ("decode_launches", "merges"):
+        for extra in ("decode_launches", "merges") + tuple(
+                f"{form}_launches" for form in K4_FORMS):
             if hasattr(w, extra):
                 setattr(w, extra, 0)
     evaluate_subsets.calls = 0
@@ -429,8 +450,13 @@ def reset_counts() -> None:
         PATH_COUNTS[key] = 0
 
 
+#: K4's forms beside the causal one, each counted on its own as well
+K4_FORMS = ("bidirectional", "prefix")
+
+
 def read_counts() -> dict:
-    """Each wrapper's launches, the merges folded into launches (`FOLDED`),
+    """Each wrapper's launches (K4's also by form, as
+    ``flash_attention_<form>``), the merges folded into launches (`FOLDED`),
     ``imp_pallas``' calls and host fallbacks, the per-size engines' subset
     sweeps (``evaluate_subsets``), and under ``path`` what the fused engine
     ran (``PATH_COUNTS``)."""
@@ -442,6 +468,9 @@ def read_counts() -> dict:
     out = {w.__name__: w.launches for w in WRAPPERS}
     out.update({f"{w.__name__}_decode": w.decode_launches for w in WRAPPERS
                 if hasattr(w, "decode_launches")})
+    out.update({f"{w.__name__}_{form}": getattr(w, f"{form}_launches")
+                for w in WRAPPERS for form in K4_FORMS
+                if hasattr(w, f"{form}_launches")})
     by_name = {w.__name__: w for w in WRAPPERS}
     out.update({m: by_name[w].merges for m, w in FOLDED.items()})
     out["evaluate_subsets_calls"] = evaluate_subsets.calls
@@ -1542,12 +1571,15 @@ def cluster_phase(torch, np, dev) -> dict[str, float]:
 # Phase 4: the flash-attention kernel against its plain version
 # ---------------------------------------------------------------------------------
 
-#: B, H, K, Sq, Sk, d, causal, window: the reference tests' five shapes, the
-#: serving path's (llama3.2-1b prefill, batch 4 x 1024), a head_dim-128
-#: shape, a window whose first KV tile is fully masked for some rows, a
-#: ragged Sq at the bf16 kernel's 128-row q block, a windowed
-#: head_dim-128 shape whose length is not a multiple of 128, and at head
-#: dim 256 recurrentgemma-9b's prefill and a ragged windowed Sq
+#: B, H, K, Sq, Sk, d, causal, window[, prefix]: the reference tests' five
+#: shapes, the serving path's (llama3.2-1b prefill, batch 4 x 1024), a
+#: head_dim-128 shape, a window whose first KV tile is fully masked for some
+#: rows, a ragged Sq at the bf16 kernel's 128-row q block, a windowed
+#: head_dim-128 shape whose length is not a multiple of 128, at head dim 256
+#: recurrentgemma-9b's prefill and a ragged windowed Sq; then
+#: seamless-m4t-medium's encoder and a cross-attention (bidirectional),
+#: paligemma-3b's prefill (prefix-LM, P 256), a ragged P 100 at d 256, and
+#: a prefix with a window at d 64 whose P and window cross the blocks
 FLASH_SHAPES = (
     (2, 4, 2, 128, 128, 32, True, None),
     (1, 4, 1, 200, 200, 16, True, None),
@@ -1561,13 +1593,38 @@ FLASH_SHAPES = (
     (2, 8, 2, 777, 777, 128, True, 250),
     (4, 16, 1, 1024, 1024, 256, True, 2048),
     (2, 8, 1, 777, 777, 256, True, 250),
+    (4, 16, 16, 1024, 1024, 64, False, None),
+    (4, 16, 16, 777, 1024, 64, False, None),
+    (4, 8, 1, 1280, 1280, 256, True, None, 256),
+    (2, 8, 1, 300, 300, 256, True, None, 100),
+    (2, 8, 2, 600, 600, 64, True, 100, 300),
 )
 #: recurrentgemma-9b's local attention at [families]' prefill (MQA, d 256)
 FLASH_D256 = FLASH_SHAPES[10]
+#: seamless-m4t-medium at [families]' prefill: the encoder's self-attention
+#: and the decoder's cross-attention (bidirectional; here at Sq 777), and
+#: the decoder's causal self-attention
+SEAMLESS_ENC, SEAMLESS_CROSS = FLASH_SHAPES[12], FLASH_SHAPES[13]
+SEAMLESS_SELF = (4, 16, 16, 1024, 1024, 64, True, None)
+#: paligemma-3b at [families]' prefill: 256 patches and 1024 text tokens
+PALIGEMMA = FLASH_SHAPES[14]
 #: back-to-back launches at the serving shape that must agree bit for bit
 REPEATS = 50
 MAIN_FLASH = FLASH_SHAPES[5]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2.5e-2}
+
+
+def mask_of(shape) -> dict:
+    """The mask arguments of a ``FLASH_SHAPES`` entry."""
+    return {"causal": shape[6], "window": shape[7],
+            "prefix_len": shape[8] if len(shape) > 8 else None}
+
+
+def form_of(shape) -> str:
+    """K4's form at a shape: causal, bidirectional or prefix."""
+    m = mask_of(shape)
+    return ("bidirectional" if not m["causal"] else
+            "prefix" if m["prefix_len"] else "causal")
 
 
 def flash_inputs(torch, shape, dtype, seed):
@@ -1582,14 +1639,13 @@ def flash_phase(torch) -> dict[str, float]:
 
     errs = {}
     for i, shape in enumerate(FLASH_SHAPES):
-        causal, window = shape[6], shape[7]
+        mask = mask_of(shape)
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[1]
             q, k, v = flash_inputs(torch, shape, dtype, seed=i)
-            out = fa.flash_attention(q, k, v, causal=causal, window=window)
+            out = fa.flash_attention(q, k, v, **mask)
             torch.cuda.synchronize()
-            want = fa.flash_attention_plain(q, k, v, causal=causal,
-                                            window=window)
+            want = fa.flash_attention_plain(q, k, v, **mask)
             torch.cuda.synchronize()
             check(bool(torch.isfinite(out).all()),
                   f"flash {shape} {name}: non-finite output")
@@ -1602,11 +1658,15 @@ def flash_phase(torch) -> dict[str, float]:
             errs[name] = max(errs.get(name, 0.0), err)
             if shape == MAIN_FLASH:
                 errs[f"{name}_main"] = err
-            if shape[5] == 256:
+            if shape[5] == 256 and form_of(shape) == "causal":
                 errs[f"{name}_d256"] = max(errs.get(f"{name}_d256", 0.0),
                                            err)
+            if form_of(shape) != "causal":
+                key = f"{name}_{form_of(shape)}"
+                errs[key] = max(errs.get(key, 0.0), err)
     print(f"[flash] {len(FLASH_SHAPES)} shapes x 2 dtypes within tolerance "
-          f"of the plain version: {json.dumps(errs)}", flush=True)
+          f"of the plain version (forms: causal, windowed, bidirectional, "
+          f"cross, prefix-LM): {json.dumps(errs)}", flush=True)
     q, k, v = flash_inputs(torch, MAIN_FLASH, torch.bfloat16, seed=5)
     first = fa.flash_attention(q, k, v, causal=True)
     outs = [fa.flash_attention(q, k, v, causal=True) for _ in range(REPEATS)]
@@ -1756,24 +1816,32 @@ def serve_trace(torch, api, params) -> dict:
     return out
 
 
-def decode_vs_prefill(torch, np, api, params, S: int = 1000
+def decode_vs_prefill(torch, np, api, params, S: int = 1000,
+                      modality: dict | None = None
                       ) -> list[tuple[float, bool]]:
-    """2 sequences of S tokens, then 4 decode steps: per step the largest
-    |difference| from a fresh prefill (through K4) of the extended
-    sequence, and whether it is within 0.08 (atol and rtol)."""
+    """2 sequences of S tokens (after ``modality``'s frames or patch
+    embeddings, the same for every prefill), then 4 decode steps: per step
+    the largest |difference| from a fresh prefill (through K4) of the
+    extended sequence, and whether it is within 0.08 (atol and rtol)."""
     from repro_torch.configs import cache_capacity
 
     B, T = 2, 4
+    cfg = api.cfg
+    pos0 = cfg.frontend_len if cfg.frontend == "patch" else 0
     rng = np.random.default_rng(7)
-    toks = torch.from_numpy(rng.integers(1, api.cfg.vocab, (B, S + T),
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab, (B, S + T),
                                          dtype=np.int32)).to(api.device)
-    cap = cache_capacity(api.cfg, S + T)
+    cap = cache_capacity(cfg, pos0 + S + T)
+    modality = modality or {}
     out = []
     with torch.inference_mode():
-        logits, caches = api.prefill(params, {"tokens": toks[:, :S]}, cap)
+        logits, caches = api.prefill(
+            params, {"tokens": toks[:, :S], **modality}, cap)
         for t in range(S, S + T):
-            ref, _ = api.prefill(params, {"tokens": toks[:, :t + 1]}, cap)
-            logits, caches = api.decode_step(params, caches, toks[:, t], t)
+            ref, _ = api.prefill(
+                params, {"tokens": toks[:, :t + 1], **modality}, cap)
+            logits, caches = api.decode_step(params, caches, toks[:, t],
+                                             pos0 + t)
             check(bool(torch.isfinite(logits).all()),
                   f"decode step {t}: non-finite logits")
             out.append((float((logits - ref).abs().max()),
@@ -1842,7 +1910,8 @@ def serve_check(torch, np, api, params) -> dict:
 # Phase 5b: the MoE and recurrent families, and the two examples
 # ---------------------------------------------------------------------------------
 
-FAMILY_ARCHS = ("mixtral-8x7b", "olmoe-1b-7b", "rwkv6-7b", "recurrentgemma-9b")
+FAMILY_ARCHS = ("mixtral-8x7b", "olmoe-1b-7b", "rwkv6-7b", "recurrentgemma-9b",
+                "seamless-m4t-medium", "paligemma-3b")
 #: ``[families]``' depth cuts: mixtral-8x7b's 32 layers hold 93 GB of bf16
 #: weights, more than the card's 80 GB; 16 layers hold 47 GB
 FAMILY_LAYERS = {"mixtral-8x7b": 16}
@@ -1855,21 +1924,37 @@ CHECK_PROMPT = {"rwkv6-7b": 1000, "recurrentgemma-9b": 2100}
 #: 2^-10 (every product and partial sum of the router's f32 product is then
 #: exact on either device, so routing can be compared bit for bit)
 MOE_GRID = (4.0, 1024.0)
+#: the encoder-decoder and VLM check: the depths (layers a stack) of the
+#: card-against-CPU check, the first gated at 1e-4 and the others recorded
+#: (``modality_check``), and the text's length (seamless's frames are as
+#: many; paligemma's 256 patches come in front)
+MODALITY_LAYERS = {"seamless-m4t-medium": (1, 2), "paligemma-3b": (2,)}
+MODALITY_TEXT = 256
 
 
 def expected_family_launches(cfg, batches: int, steps: int) -> dict:
     """The K4, ``wkv6_scan`` and ``rglru_scan`` launches of one
-    ``ServeEngine.run`` on ``cfg``: K4 once an attention layer a prefill
-    batch (decode attention is plain), each scan once a layer of its kind a
-    prefill batch and a decode step."""
+    ``ServeEngine.run`` on ``cfg``: K4 once an attention a prefill batch
+    (decode attention is plain) — an encoder-decoder's encoder
+    self-attentions and decoder cross-attentions bidirectional, its decoder
+    self-attentions causal, every layer of a prefix-LM model with the
+    prefix — and each scan once a layer of its kind a prefill batch and a
+    decode step."""
     from repro_torch.models import lm
 
+    if cfg.is_encdec:
+        bidirectional = cfg.enc_layers + cfg.dec_layers
+        return {"flash_attention": (bidirectional + cfg.dec_layers) * batches,
+                "flash_attention_bidirectional": bidirectional * batches,
+                "flash_attention_prefix": 0, "wkv6_scan": 0, "rglru_scan": 0}
     kind = lm.block_kind(cfg)
     blocks, tail = lm._n_scanned(cfg)
     attn = 0 if kind == "rwkv" else blocks
     rwkv = blocks if kind == "rwkv" else 0
     rglru = 2 * blocks + tail if kind == "griffin" else 0
     return {"flash_attention": attn * batches,
+            "flash_attention_bidirectional": 0,
+            "flash_attention_prefix": attn * batches if cfg.prefix_lm else 0,
             "wkv6_scan": rwkv * (batches + steps),
             "rglru_scan": rglru * (batches + steps)}
 
@@ -1899,6 +1984,14 @@ def as_f32(tree):
     if isinstance(tree, list):
         return [as_f32(v) for v in tree]
     return tree.float()
+
+
+def to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_cpu(v) for v in tree]
+    return tree.cpu()
 
 
 def family_serve(torch, np, arch: str) -> tuple[dict, object, object]:
@@ -1965,6 +2058,7 @@ def family_serve(torch, np, arch: str) -> tuple[dict, object, object]:
     out = {
         "model": cfg.name, "params": count_params(params),
         "layers": cfg.n_layers, "layers_full": get_config(arch).n_layers,
+        "enc_layers": cfg.enc_layers,
         "batch": SERVE_BATCH, "seq_len": SERVE_SEQ,
         "requests": SERVE_REQUESTS, "new_tokens": SERVE_NEW,
         "init_s": init_s, "wall_s": wall,
@@ -2098,6 +2192,125 @@ def moe_check(torch, np, arch: str, api, params) -> dict:
     return out
 
 
+def cut_model(cfg, params, layers: int):
+    """``cfg`` and ``params`` cut to ``layers`` layers a stack."""
+    import dataclasses
+
+    if cfg.is_encdec:
+        return (dataclasses.replace(cfg, n_layers=layers, enc_layers=layers,
+                                    dec_layers=layers),
+                dict(params, encoder=params["encoder"][:layers],
+                     decoder=params["decoder"][:layers]))
+    return (dataclasses.replace(cfg, n_layers=layers),
+            dict(params, blocks=params["blocks"][:layers]))
+
+
+def modality_inputs(torch, cfg, B: int, S: int, seed: int) -> dict:
+    """Seeded random frames [B, S, d] (encoder-decoder) or patch
+    embeddings [B, frontend_len, d] (VLM), f32 on the CPU."""
+    gen = torch.Generator().manual_seed(seed)
+    if cfg.is_encdec:
+        return {"frames": torch.randn((B, S, cfg.d_model), generator=gen)}
+    return {"prefix_embeds": torch.randn((B, cfg.frontend_len, cfg.d_model),
+                                         generator=gen)}
+
+
+def card_vs_cpu(torch, cfg, params, S: int) -> dict:
+    """``cfg`` (f32) with ``params`` cut to its depth, on the card and on
+    the CPU: prefill on seeded random frames or patch embeddings and
+    2 x S tokens, then 4 decode steps.  Per step the card's largest logit
+    difference from the CPU's, relative to the largest CPU logit, and the
+    same for the CPU run on inputs moved by 1e-7 relative (how far the
+    random-weight model's own f32 rounding noise carries)."""
+    from repro_torch.configs import cache_capacity
+    from repro_torch.models import build_model
+
+    B, T = 2, 4
+    pos0 = cfg.frontend_len if cfg.frontend == "patch" else 0
+    cap = cache_capacity(cfg, pos0 + S + T)
+    mod = modality_inputs(torch, cfg, B, S, seed=11)
+    moved = {k: v * (1 + 1e-7 * torch.randn(
+        v.shape, generator=torch.Generator().manual_seed(13)))
+        for k, v in mod.items()}
+    toks = torch.randint(1, cfg.vocab, (B, S + T),
+                         generator=torch.Generator().manual_seed(12))
+    weights = {"cuda": as_f32(params)}
+    weights["cpu"] = to_cpu(weights["cuda"])
+    runs = {}
+    for run, dev, inputs in (("card", "cuda", mod), ("cpu", "cpu", mod),
+                             ("cpu_moved", "cpu", moved)):
+        model = build_model(cfg, device=dev)
+        logits = []
+        with torch.inference_mode():
+            batch = {k: v.to(dev) for k, v in inputs.items()}
+            out, caches = model.prefill(
+                weights[dev], {"tokens": toks[:, :S].to(dev), **batch}, cap)
+            logits.append(out.cpu())
+            for t in range(S, S + T):
+                out, caches = model.decode_step(
+                    weights[dev], caches, toks[:, t].to(dev), pos0 + t)
+                logits.append(out.cpu())
+        runs[run] = logits
+        del caches
+    del weights
+
+    def rel(name):
+        return [float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(runs[name], runs["cpu"])]
+
+    return {"card_vs_cpu": rel("card"), "cpu_moved_1e-7": rel("cpu_moved")}
+
+
+def modality_check(torch, np, arch: str, api, params) -> dict:
+    """``[families-check]`` of the encoder-decoder and VLM families: the
+    model cut to each depth of ``MODALITY_LAYERS`` (layers a stack), in
+    f32, on the card (K4's f32 kernel in every form the model runs)
+    against the same model on the CPU (the plain versions), ``card_vs_cpu``
+    on 2 x ``MODALITY_TEXT`` tokens: each step's logits within 1e-4
+    relative at the first depth; the others are recorded beside the CPU's
+    own sensitivity (seamless at 2 layers a stack moves its logits by ~1e-3
+    when its frames move by 1e-7, so no implementation could hold 1e-4
+    there).  Then decode against a fresh prefill on the card, gated at 0.08
+    on the gated depth in f32, and recorded for the served model at full
+    depth (bf16; chaotic at depth, as ``serve_check`` says)."""
+    import dataclasses
+
+    from repro_torch.models import build_model
+
+    S = MODALITY_TEXT
+    depths = {}
+    for i, layers in enumerate(MODALITY_LAYERS[arch]):
+        cut, cut_params = cut_model(api.cfg, params, layers)
+        cfg = dataclasses.replace(cut, compute_dtype=torch.float32)
+        depths[layers] = card_vs_cpu(torch, cfg, cut_params, S)
+        if i == 0:
+            errs = depths[layers]["card_vs_cpu"]
+            check(all(e <= 1e-4 for e in errs), f"[families-check] {arch}: "
+                  f"logits on the card against the CPU, relative errors "
+                  f"{errs} (tolerance 1e-4), {layers} layers a stack, f32")
+            gated_cfg, gated_params = cfg, as_f32(cut_params)
+    card_mod = {k: v.cuda() for k, v in modality_inputs(
+        torch, api.cfg, 2, S, seed=11).items()}
+    gated = decode_vs_prefill(torch, np, build_model(gated_cfg, device="cuda"),
+                              gated_params, S, card_mod)
+    for i, (err, ok) in enumerate(gated):
+        check(ok, f"[families-check] {arch} step {S + i}: decode logits max "
+              f"|diff| {err} from the prefill's (tolerance 0.08), "
+              f"{gated_cfg.n_layers} layers a stack, f32")
+    del gated_params
+    full = decode_vs_prefill(torch, np, api, params, S, card_mod)
+    out = {"model": arch, "text": S,
+           "modality": {k: list(v.shape) for k, v in card_mod.items()},
+           "layers_gated": MODALITY_LAYERS[arch][0],
+           "card_vs_cpu_f32_by_layers": depths,
+           "max_diff_gated": [e for e, _ in gated],
+           "layers_full": api.cfg.n_layers, "enc_layers_full":
+           api.cfg.enc_layers, "max_diff_full": [e for e, _ in full],
+           "within_full": [ok for _, ok in full]}
+    print(f"[families-check] {json.dumps(out)}", flush=True)
+    return out
+
+
 def families_phase(torch, np) -> dict:
     """``[families]`` and ``[families-check]`` for each of
     ``FAMILY_ARCHS``, one model on the card at a time."""
@@ -2105,7 +2318,10 @@ def families_phase(torch, np) -> dict:
     for arch in FAMILY_ARCHS:
         t0 = time.perf_counter()
         serve, api, params = family_serve(torch, np, arch)
-        checker = moe_check if api.cfg.moe is not None else recurrent_check
+        cfg = api.cfg
+        checker = (moe_check if cfg.moe is not None else
+                   modality_check if cfg.is_encdec or cfg.frontend == "patch"
+                   else recurrent_check)
         out["check"][arch] = checker(torch, np, arch, api, params)
         serve["phase_wall_s"] = time.perf_counter() - t0
         out["serve"][arch] = serve
@@ -3840,6 +4056,8 @@ def sweep_timing(torch, np, dev) -> dict:
         "spec": spec.name, "rows": 48, "m": 16,
         "eligible": [int(x) for x in (v[4, g] != 0).sum(1).tolist()],
         "ms": event_ms(torch, fn, reps=7),
+        "plain_ms": event_ms(torch, lambda: fc.fused_class_plain(
+            ns, v, dr, *empty, gidx, **kw), reps=3, inner=1),
         "kernel_ms": profiled_kernel_ms(torch, fn, "fused_class_kernel"),
         "bound_ms": b_ms, "bound_by": b_by}
     print(f"[sweep-timing] {json.dumps(out)}", flush=True)
@@ -3984,34 +4202,55 @@ def cluster_sweep(torch, np, dev) -> dict[str, list]:
     return out
 
 
-def flash_timing(torch, shape, plain: bool) -> dict:
-    """Kernel, plain version and library call at one shape (bf16, causal):
-    the operations the causal mask leaves, the bytes of q, k, v read once
-    and the output written once."""
+def allowed_pairs(torch, shape) -> int:
+    """The (query, key) pairs the shape's mask allows, counted on the
+    reference's ``make_mask``."""
+    from repro_torch.models.attention import make_mask
+
+    Sq, Sk = shape[3], shape[4]
+    m = mask_of(shape)
+    return int(make_mask(Sq, Sk, causal=m["causal"], window=m["window"],
+                         prefix_len=m["prefix_len"]).sum())
+
+
+def flash_timing(torch, shape) -> dict:
+    """Kernel, plain version and library call at one shape (bf16, its
+    mask): the operations on the pairs the mask allows, the bytes of q, k,
+    v read once and the output written once.  The library call is
+    ``scaled_dot_product_attention``: ``is_causal`` for the causal mask
+    (every shape timed causal has no window narrower than S), none for the
+    bidirectional one, the boolean ``make_mask`` for the prefix-LM one."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.attention import make_mask
 
-    B, H, K, S, _, d = shape[:6]
+    B, H, K, Sq, Sk, d = shape[:6]
+    mask = mask_of(shape)
     q, k, v = flash_inputs(torch, shape, torch.bfloat16, seed=99)
+    lib_kw = {"is_causal": mask["causal"]}
+    if mask["prefix_len"]:
+        lib_kw = {"attn_mask": make_mask(
+            Sq, Sk, causal=True, window=mask["window"],
+            prefix_len=mask["prefix_len"], device="cuda")[0, 0]}
 
-    def fn(): return fa.flash_attention(q, k, v, causal=True)
-    def plain_fn(): return fa.flash_attention_plain(q, k, v, causal=True)
+    def fn(): return fa.flash_attention(q, k, v, **mask)
+    def plain_fn(): return fa.flash_attention_plain(q, k, v, **mask)
     def library(): return F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True)
+        q, k, v, enable_gqa=True, **lib_kw)
     ke, ve = (t.repeat_interleave(H // K, dim=1) for t in (k, v))
     def library_expanded(): return F.scaled_dot_product_attention(
-        q, ke, ve, is_causal=True)
+        q, ke, ve, **lib_kw)
 
-    flops = 4 * d * B * H * S * (S + 1) / 2
-    n_bytes = 2 * (2 * B * H * S * d + 2 * B * K * S * d)
+    flops = 4 * d * B * H * allowed_pairs(torch, shape)
+    n_bytes = 2 * (2 * B * H * Sq * d + 2 * B * K * Sk * d)
     b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOP_PER_S)
     ms = event_ms(torch, fn, inner=20)
     kernel_ms = profiled_kernel_ms(torch, fn, "flash_bf16_kernel")
     return {
-        "shape": list(shape[:6]), "ms": ms, "kernel_ms": kernel_ms,
-        "plain_ms": (event_ms(torch, plain_fn, reps=5, inner=5) if plain
-                     else None),
+        "shape": list(shape[:6]), "form": form_of(shape),
+        "prefix_len": mask["prefix_len"], "ms": ms, "kernel_ms": kernel_ms,
+        "plain_ms": event_ms(torch, plain_fn, reps=5, inner=5),
         "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
         "bytes": n_bytes, **rates(flops, b_ms, ms, kernel_ms),
         "library_ms": event_ms(torch, library, reps=10, inner=10),
@@ -4020,8 +4259,9 @@ def flash_timing(torch, shape, plain: bool) -> dict:
 
 
 def flash_row(torch, errs, launches) -> dict:
-    main = flash_timing(torch, MAIN_FLASH, plain=True)
-    wide = flash_timing(torch, FLASH_SHAPES[6], plain=False)
+    main = flash_timing(torch, MAIN_FLASH)
+    wide = flash_timing(torch, FLASH_SHAPES[6])
+    seamless_self = flash_timing(torch, SEAMLESS_SELF)
     return {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -4037,8 +4277,33 @@ def flash_row(torch, errs, launches) -> dict:
         "library": "torch.nn.functional.scaled_dot_product_attention("
                    "is_causal=True, enable_gqa=True)",
         "library_kv_expanded_ms": main["library_kv_expanded_ms"],
-        "shapes": [main, wide],
+        "shapes": [main, wide, seamless_self],
     }
+
+
+def flash_form_row(torch, errs, form: str, launches: int) -> dict:
+    """K4 in one of its other forms, at the shape [families] gives it:
+    bidirectional at seamless-m4t-medium's encoder (and timed at the
+    cross-attention shape), prefix-LM at paligemma-3b's prefill."""
+    shapes = {"bidirectional": (SEAMLESS_ENC, SEAMLESS_CROSS),
+              "prefix": (PALIGEMMA,)}[form]
+    timed = [flash_timing(torch, shape) for shape in shapes]
+    main = timed[0]
+    return {
+        "name": f"flash_attention_{form}", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:77",
+        "replaces_fn": "flash_attention" + (
+            "; src/repro/models/attention.py:135 _gqa_attend_chunked"
+            if form == "prefix" else ""),
+        "launches": launches, "on_main_path": launches > 0,
+        "max_abs_err": errs[f"bfloat16_{form}"],
+        "max_abs_err_f32": errs[f"float32_{form}"], **main,
+        "dtype": "bfloat16",
+        "library": "torch.nn.functional.scaled_dot_product_attention("
+                   + ("enable_gqa=True)" if form == "bidirectional" else
+                      "attn_mask=make_mask(prefix_len=P), enable_gqa=True)"),
+        "shapes": timed}
 
 
 #: ``wkv6_scan``'s row: rwkv6-7b's prefill (B, S, H); ``rglru_scan``'s:
@@ -4254,7 +4519,7 @@ def scan_rows(torch, launches: dict, decode_launches: dict) -> list[dict]:
 def flash_d256_row(torch, errs, launches: int) -> dict:
     """K4 at head dim 256: recurrentgemma-9b's local attention at its
     prefill (B 4, H 16, MQA, S 1024, bf16; the 2048 window spans it)."""
-    t = flash_timing(torch, FLASH_D256, plain=True)
+    t = flash_timing(torch, FLASH_D256)
     return {
         "name": "flash_attention_d256", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -4617,6 +4882,11 @@ def run() -> int:
     rows.append(flash_d256_row(
         torch, flash_errs,
         fam["recurrentgemma-9b"]["launches"]["flash_attention"]))
+    for form in K4_FORMS:
+        rows.append(flash_form_row(
+            torch, flash_errs, form,
+            sum(f["launches"][f"flash_attention_{form}"]
+                for f in fam.values())))
     rows.extend(scan_rows(torch, *({
         name: sum(f[key][name] for f in fam.values())
         for name in ("wkv6_scan", "rglru_scan")}

@@ -1,4 +1,5 @@
-"""Assigned input shapes per (arch × shape), and the KV-cache capacity.
+"""Assigned input shapes per (arch × shape), the KV-cache capacity, and the
+specs of a step's inputs.
 
 LM transformer shapes are seq_len × global_batch.  ``decode_*`` / ``long_*``
 are one new token against a KV cache of seq_len.  ``long_500k`` requires
@@ -7,6 +8,8 @@ sub-quadratic attention and only runs for SSM / hybrid / SWA-bounded archs.
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 from repro_torch.models.common import ModelConfig
 
@@ -45,3 +48,32 @@ def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
         return False, ("full-attention arch: 500k dense KV decode is "
                        "unbounded/quadratic — skipped per assignment")
     return True, ""
+
+
+def _spec(shape, dtype) -> torch.Tensor:
+    """A shape and dtype without storage (the reference's
+    ``jax.ShapeDtypeStruct``)."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeSpec,
+                dtype=torch.int32) -> dict:
+    """Specs of the *data* inputs of a prefill (or train) step: tokens;
+    for an encoder-decoder also the frames [B, S, d]; for a patch frontend
+    the prefix embeddings [B, P, d] and S - P tokens."""
+    B, S = shape.global_batch, shape.seq_len
+    cd = cfg.compute_dtype
+    if cfg.is_encdec:
+        return {"frames": _spec((B, S, cfg.d_model), cd),
+                "tokens": _spec((B, S), dtype)}
+    if cfg.frontend == "patch":
+        P = cfg.frontend_len
+        return {"prefix_embeds": _spec((B, P, cfg.d_model), cd),
+                "tokens": _spec((B, S - P), dtype)}
+    return {"tokens": _spec((B, S), dtype)}
+
+
+def decode_specs(shape: ShapeSpec) -> tuple:
+    """(token, pos) specs for a decode step."""
+    return (_spec((shape.global_batch,), torch.int32),
+            _spec((), torch.int32))

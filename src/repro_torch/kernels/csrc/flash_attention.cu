@@ -1,15 +1,24 @@
-// Blocked causal / sliding-window GQA attention with an online softmax, for
-// Hopper (sm_90a).  Hand-written CUDA C++ with a plain C interface (ctypes).
+// Blocked causal / sliding-window / prefix-LM / bidirectional GQA attention
+// with an online softmax, for Hopper (sm_90a).  Hand-written CUDA C++ with a
+// plain C interface (ctypes).
 //
 // Replaces: src/repro/kernels/flash_attention.py:77 flash_attention (the
-// Pallas TPU kernel, body _flash_kernel).  Same function:
+// Pallas TPU kernel, body _flash_kernel), and for the prefix-LM mask the
+// query-chunked XLA attention src/repro/models/attention.py:135
+// _gqa_attend_chunked.  Same function:
 //   out = softmax(mask(q . k^T * d^-0.5)) . v,  head h reads KV head h / (H/K)
 //   masked scores = -1e30 (finite, as the reference), kept where
-//   cols < Sk, cols <= rows (causal) and rows - cols < window (if given);
+//   cols < Sk and either cols <= rows (causal) and rows - cols < window (if
+//   given), or rows < P and cols < P (a prefix of P positions that attend
+//   to each other both ways; causal only, the reference's make_mask);
 //   f32 running max m, denominator l and accumulator; out = acc / max(l, 1e-30)
-//   in q's dtype.  Each q block walks only the KV tiles [lo, hi) it needs:
-//   hi = min(Sk, q0 + BQ) when causal, lo = floor(max(0, q0 - (window - 1))
-//   / BK) * BK with a window.  With the finite sentinel a fully masked first
+//   in q's dtype.  Every row's allowed keys are one range [lo, hi): a row
+//   below P takes [0, min(P, Sk)), any other row [row - window + 1,
+//   min(Sk, row + 1)) when causal.  Each q block walks only the KV tiles
+//   [lo, hi) it needs: hi = min(Sk, q0 + BQ) when causal, or min(Sk,
+//   max(q0 + BQ, P)) for a block that starts below P; lo = floor(max(0,
+//   q0 - (window - 1)) / BK) * BK with a window, 0 for a block that starts
+//   below P.  With the finite sentinel a fully masked first
 //   tile adds exp(0) garbage that the next real tile erases exactly
 //   (alpha = exp(-1e30 - m) = 0); -INFINITY would give exp(-inf + inf) = NaN.
 //
@@ -28,7 +37,9 @@
 //   (setmaxnreg.dec) and one thread issues every TMA load.  Warpgroups 1
 //   and 2 are the consumers (setmaxnreg.inc), 64 q rows each.  Heads run
 //   along x and q blocks, reversed, along y: the longest causal rows of
-//   every head are launched first.
+//   every head are launched first.  A prefix keeps that order: hi does
+//   not decrease with q0 (max(q0 + BQ, P) for the blocks below P), so the
+//   last blocks still walk the most tiles.
 // * TMA.  4-D tensor maps (d, S, heads, B) over the strided views the model
 //   passes, encoded on the host (cuTensorMapEncodeTiled through
 //   cudaGetDriverEntryPoint, so no -lcuda) from the rows the Python helper
@@ -47,8 +58,8 @@
 //   scaled by d^-0.5 log2(e) and p = 2^(s - m) on the SFU (ex2.approx),
 //   row max and sum in 4 chains and across the quad with shuffles.  The
 //   per-element mask runs only on tiles the causal diagonal, the window's
-//   edge or Sk's edge crosses (tile_needs_mask), as two compares against
-//   each row's allowed key range.
+//   edge, the prefix's edge or Sk's edge crosses (tile_needs_mask), as two
+//   compares against each row's allowed key range.
 // * O += P V: wgmma m64n(d)k16 with A = P from registers (the S accumulator
 //   of two n8 tiles is the A fragment of one k16 step) and B = V read
 //   MN-major from shared memory (transpose bit), so V is not gathered.  P
@@ -88,32 +99,42 @@ enum MapField {
 
 struct Shape {
   int H, group, Sq, Sk, causal, window;  // window 0 = none
+  int prefix;   // P of the prefix-LM mask; 0 = none, and 0 unless causal
   float scale;  // d^-0.5; for bf16 d^-0.5 * log2(e) (scores in log2 units)
 };
 
 template <int BQ, int BK>
 __device__ __forceinline__ void kv_range(const Shape& a, int q0, int& lo,
                                          int& hi) {
-  hi = a.causal ? min(a.Sk, q0 + BQ) : a.Sk;
+  const bool in_prefix = q0 < a.prefix;
+  hi = a.causal ? min(a.Sk, in_prefix ? max(q0 + BQ, a.prefix) : q0 + BQ)
+                : a.Sk;
   lo = 0;
-  if (a.window > 0) lo = (max(0, q0 - (a.window - 1)) / BK) * BK;
+  if (a.window > 0 && !in_prefix)
+    lo = (max(0, q0 - (a.window - 1)) / BK) * BK;
 }
 
 __device__ __forceinline__ bool allowed(const Shape& a, int row, int col) {
-  bool ok = col < a.Sk;
-  if (a.causal) ok = ok && col <= row;
+  bool ok = true;
+  if (a.causal) ok = col <= row;
   if (a.window > 0) ok = ok && (row - col) < a.window;
-  return ok;
+  ok = ok || (row < a.prefix && col < a.prefix);
+  return ok && col < a.Sk;
 }
 
 // Whether rows [r0, r0 + 64) against keys [k0, k0 + BK) need the
-// per-element mask: some key past Sk, above the diagonal, or out of the
-// window.  Elsewhere every element is allowed.
+// per-element mask: some key past Sk, past P for a row below P, above the
+// diagonal or out of the window for a row at or past P.  Elsewhere every
+// element is allowed.
 template <int BK>
 __device__ __forceinline__ bool tile_needs_mask(const Shape& a, int r0,
                                                 int k0) {
-  return k0 + BK > a.Sk || (a.causal && k0 + BK - 1 > r0) ||
-         (a.window > 0 && r0 + 63 - k0 >= a.window);
+  bool m = k0 + BK > a.Sk;
+  if (r0 < a.prefix) m = m || k0 + BK > a.prefix;
+  if (r0 + 63 >= a.prefix)
+    m = m || (a.causal && k0 + BK - 1 > max(r0, a.prefix)) ||
+        (a.window > 0 && r0 + 63 - k0 >= a.window);
+  return m;
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -547,12 +568,14 @@ struct RowState {
 };
 
 // RowState of q row `row` and row + 8: keys below Sk, at or below the row
-// (causal) and within the window (if any)
+// (causal) and within the window (if any); below P for a row below P
 __device__ __forceinline__ RowState row_state(const Shape& a, int row) {
   auto lo = [&](int r) {
-    return a.window > 0 ? r - a.window + 1 : -(1 << 30);
+    return a.window > 0 && r >= a.prefix ? r - a.window + 1 : -(1 << 30);
   };
-  auto hi = [&](int r) { return a.causal ? min(a.Sk, r + 1) : a.Sk; };
+  auto hi = [&](int r) {
+    return a.causal ? min(a.Sk, r < a.prefix ? a.prefix : r + 1) : a.Sk;
+  };
   return {lo(row), hi(row), lo(row + 8), hi(row + 8), NEG_INF, NEG_INF, 0.f,
           0.f};
 }
@@ -1060,13 +1083,15 @@ extern "C" {
 
 // dtype: 0 = f32, 1 = bf16 (q, k, v and o alike).  maps: 4 rows (q, k, v,
 // o) of MAP_FIELDS int64 each, from the wrapper's tensor-map helper.
+// prefix: P of the prefix-LM mask (0 = none; ignored unless causal).
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
 // for a head dimension that has no instantiation or a map row that does
 // not fit the kernel's tiling or that the driver refuses.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int dtype, int B, int H, int KH, int Sq,
                            int Sk, int D, const long long* maps, int causal,
-                           int window, float scale, void* stream) {
+                           int window, int prefix, float scale,
+                           void* stream) {
   Shape a;
   a.H = H;
   a.group = H / KH;
@@ -1074,6 +1099,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   a.Sk = Sk;
   a.causal = causal;
   a.window = window;
+  a.prefix = causal ? prefix : 0;
   a.scale = scale;
   const void* ptrs[4] = {q, k, v, o};
   const auto s = static_cast<cudaStream_t>(stream);

@@ -1,6 +1,12 @@
-"""Blocked causal / sliding-window GQA attention (K4) on the GPU.
+"""Blocked causal / sliding-window / prefix-LM / bidirectional GQA attention
+(K4) on the GPU.
 
-The prefill attention of the serving path.  ``flash_attention`` launches the
+Every full-sequence attention of the serving path: the causal prefill
+(with a sliding window where the model has one), the prefix-LM prefill of a
+patch-prefix model (a causal mask plus a bidirectional block over the first
+``prefix_len`` positions, the reference's ``make_mask``), and an
+encoder-decoder's bidirectional encoder and cross-attention (``causal=False``,
+Sq and Sk free).  ``flash_attention`` launches the
 hand-written CUDA kernel of ``csrc/flash_attention.cu`` for CUDA tensors and
 runs ``flash_attention_plain`` for CPU tensors; anything else raises.  It
 counts its kernel launches in ``flash_attention.launches``.
@@ -9,7 +15,14 @@ counts its kernel launches in ``flash_attention.launches``.
 wrapper                plain version              replaces
 =====================  =========================  =================================
 ``flash_attention``    ``flash_attention_plain``  ``repro.kernels.flash_attention``
+                                                  and, for every mask it takes,
+                                                  ``repro.models.attention.``
+                                                  ``_gqa_attend_chunked``
 =====================  =========================  =================================
+
+Beside ``flash_attention.launches`` it counts the launches with each
+non-causal or prefixed mask in ``flash_attention.bidirectional_launches``
+and ``flash_attention.prefix_launches``.
 
 Layout as the reference: q ``[B, H, Sq, d]``, k and v ``[B, K, Sk, d]`` with
 head h reading KV head ``h // (H // K)``; the output is a new contiguous
@@ -65,20 +78,45 @@ def _scale(d: int, dtype: torch.dtype = torch.float32) -> float:
     return float(scale)
 
 
+def _prefix(causal: bool, prefix_len: int | None) -> int:
+    """P of the prefix-LM mask as the kernel takes it: 0 for none, and 0
+    unless causal (a bidirectional mask allows every key already)."""
+    return (prefix_len or 0) if causal else 0
+
+
 def _kv_range(q0: int, sk: int, causal: bool, window: int | None,
-              block_q: int, block_k: int) -> tuple[int, int]:
-    hi = min(sk, q0 + block_q) if causal else sk
-    lo = (max(0, q0 - (window - 1)) // block_k) * block_k if window else 0
+              block_q: int, block_k: int,
+              prefix_len: int | None = None) -> tuple[int, int]:
+    """The KV tiles [lo, hi) the q block from q0 walks: every allowed key
+    of its rows.  A block that starts below P reaches min(Sk, P) and, with
+    a window, starts at 0."""
+    pre = _prefix(causal, prefix_len)
+    in_prefix = q0 < pre
+    if causal:
+        hi = min(sk, max(q0 + block_q, pre) if in_prefix else q0 + block_q)
+    else:
+        hi = sk
+    lo = 0
+    if window and not in_prefix:
+        lo = (max(0, q0 - (window - 1)) // block_k) * block_k
     return lo, hi
 
 
 def tile_needs_mask(r0: int, k0: int, block_k: int, sk: int, causal: bool,
-                    window: int | None, rows: int = CONSUMER_ROWS) -> bool:
+                    window: int | None, rows: int = CONSUMER_ROWS,
+                    prefix_len: int | None = None) -> bool:
     """Whether q rows [r0, r0 + rows) against keys [k0, k0 + block_k) need
-    the per-element mask: some key lies past Sk, above the causal diagonal
-    or outside the window.  Where it is False every element is allowed."""
-    return (k0 + block_k > sk or (causal and k0 + block_k - 1 > r0)
-            or bool(window) and r0 + rows - 1 - k0 >= window)
+    the per-element mask: some key lies past Sk, past P for a row below P,
+    or, for a row at or past P, above the causal diagonal or outside the
+    window.  Where it is False every element is allowed."""
+    pre = _prefix(causal, prefix_len)
+    needs = k0 + block_k > sk
+    if r0 < pre:
+        needs = needs or k0 + block_k > pre
+    if r0 + rows - 1 >= pre:
+        needs = needs or (causal and k0 + block_k - 1 > max(r0, pre)) or (
+            bool(window) and r0 + rows - 1 - k0 >= window)
+    return needs
 
 
 def tensor_map(x: torch.Tensor, box_rows: int) -> tuple[int, ...]:
@@ -118,6 +156,7 @@ def tensor_map(x: torch.Tensor, box_rows: int) -> tuple[int, ...]:
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int | None = None,
+                          prefix_len: int | None = None,
                           block_q: int | None = None,
                           block_k: int | None = None) -> torch.Tensor:
     """Plain PyTorch version of the kernel, with its arithmetic: the same
@@ -125,12 +164,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sentinel, the f32 online softmax, for bf16 inputs the softmax in log2
     units (2^(s log2(e) - m log2(e)) = e^(s - m)) and P carried as bf16
     hi + lo parts (a 16-bit mantissa) in P V, and ``acc / max(l, 1e-30)``
-    cast to q's dtype."""
+    cast to q's dtype.  ``prefix_len`` P (causal only): rows below P also
+    attend to every key below P."""
     B, H, Sq, d = q.shape
     bq, bk = block_shape(d, q.dtype)
     block_q, block_k = block_q or bq, block_k or bk
     K, Sk = k.shape[1], k.shape[2]
     G = H // K
+    pre = _prefix(causal, prefix_len)
     scale = _scale(d, q.dtype)
     split_p = q.dtype == torch.bfloat16
     exp = torch.exp2 if split_p else torch.exp
@@ -144,19 +185,19 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = torch.full((B, K, G * n, 1), NEG_INF, device=q.device)
         l = torch.zeros_like(m)
         acc = torch.zeros((B, K, G * n, d), device=q.device)
-        lo, hi = _kv_range(q0, Sk, causal, window, block_q, block_k)
+        lo, hi = _kv_range(q0, Sk, causal, window, block_q, block_k, pre)
         for k0 in range(lo, hi, block_k):
             pad = (0, 0, 0, max(0, k0 + block_k - Sk))   # zero rows past Sk
             kb = torch.nn.functional.pad(kf[:, :, k0:k0 + block_k], pad)
             vb = torch.nn.functional.pad(vf[:, :, k0:k0 + block_k], pad)
             s = torch.matmul(qb, kb.transpose(-1, -2)) * scale
             cols = k0 + torch.arange(block_k, device=q.device)[None, :]
-            mask = cols < Sk
-            if causal:
-                mask = mask & (cols <= rows)
+            mask = (cols <= rows) if causal else (cols >= 0)
             if window:
                 mask = mask & ((rows - cols) < window)
-            s = torch.where(mask, s, NEG_INF)
+            if pre:
+                mask = mask | ((rows < pre) & (cols < pre))
+            s = torch.where(mask & (cols < Sk), s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
             p = exp(s - m_new)
             alpha = exp(m - m_new)
@@ -175,7 +216,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # Kernel wrapper
 # ---------------------------------------------------------------------------------
 
-def _checked(q, k, v, window) -> bool:
+def _checked(q, k, v, window, prefix_len=None) -> bool:
     """Validate the inputs; returns whether they lie on CUDA."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k and v must be 4-D: [B, H, Sq, d] and "
@@ -193,6 +234,8 @@ def _checked(q, k, v, window) -> bool:
                          "KV heads")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
+    if prefix_len is not None and prefix_len < 0:
+        raise ValueError(f"prefix_len must be >= 0 or None, got {prefix_len}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must lie on one device")
     if q.device.type not in ("cpu", "cuda"):
@@ -227,7 +270,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_launch.argtypes = (
         [vp] * 4 + [ci] * 7 + [ctypes.POINTER(ctypes.c_longlong), ci, ci,
-                               ctypes.c_float, vp])
+                               ci, ctypes.c_float, vp])
     lib.flash_attention_launch.restype = ci
     lib.flash_attention_error_string.argtypes = [ci]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -240,18 +283,24 @@ def _lib() -> ctypes.CDLL:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int | None = None
-                    ) -> torch.Tensor:
+                    causal: bool = True, window: int | None = None,
+                    prefix_len: int | None = None) -> torch.Tensor:
     """softmax(mask(q kᵀ d^-0.5)) v per head, [B, H, Sq, d] in q's dtype.
-    Counterpart of ``repro.kernels.flash_attention.flash_attention``.
+    Counterpart of ``repro.kernels.flash_attention.flash_attention``, and
+    with ``prefix_len`` P of the reference's prefix-LM mask (causal, plus
+    rows below P attending to every key below P; ignored unless causal).
 
     The kernel takes head dimensions 16, 32, 64, 128 and 256 (every
-    config's at full width: recurrentgemma-9b's local attention is at 256);
-    CPU tensors of any head dimension go to the plain version."""
-    if not _checked(q, k, v, window):
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    config's at full width: recurrentgemma-9b's local attention and
+    paligemma-3b's attention are at 256); CPU tensors of any head
+    dimension go to the plain version."""
+    if not _checked(q, k, v, window, prefix_len):
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     prefix_len=prefix_len)
     B, H, Sq, d = q.shape
     K, Sk = k.shape[1], k.shape[2]
+    # rows lie below Sq and keys below Sk: a longer prefix means no more
+    pre = min(_prefix(causal, prefix_len), max(Sq, Sk))
     out = torch.empty((B, H, Sq, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
@@ -264,14 +313,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         code = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _DTYPE_CODE[q.dtype], B, H, K, Sq, Sk, d, table,
-            int(causal), int(window or 0), _scale(d, q.dtype),
+            int(causal), int(window or 0), pre, _scale(d, q.dtype),
             torch.cuda.current_stream(q.device).cuda_stream)
     if code != 0:
         msg = lib.flash_attention_error_string(code).decode()
         raise RuntimeError(f"flash_attention launch failed: CUDA error {code} "
                            f"({msg})")
     flash_attention.launches += 1
+    flash_attention.bidirectional_launches += int(not causal)
+    flash_attention.prefix_launches += int(pre > 0)
     return out
 
 
 flash_attention.launches = 0
+flash_attention.bidirectional_launches = 0
+flash_attention.prefix_launches = 0

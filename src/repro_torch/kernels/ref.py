@@ -10,9 +10,11 @@ import torch
 
 
 def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-            causal: bool = True, window: int | None = None) -> torch.Tensor:
-    """q [B,H,Sq,d], k/v [B,K,Sk,d] -> [B,H,Sq,d]; the window applies only
-    with the causal mask, as in the reference."""
+            causal: bool = True, window: int | None = None,
+            prefix_len: int | None = None) -> torch.Tensor:
+    """q [B,H,Sq,d], k/v [B,K,Sk,d] -> [B,H,Sq,d]; the window and the
+    prefix-LM block (rows below ``prefix_len`` see every key below it)
+    apply only with the causal mask, as in the reference's ``make_mask``."""
     B, H, Sq, d = q.shape
     K, Sk = k.shape[1], k.shape[2]
     qg = q.reshape(B, K, H // K, Sq, d)
@@ -23,6 +25,8 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask = cols <= rows
         if window is not None:
             mask = mask & ((rows - cols) < window)
+        if prefix_len is not None:
+            mask = mask | ((rows < prefix_len) & (cols < prefix_len))
         scores = torch.where(mask, scores, -1e30)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,bktd->bkgsd", probs.to(v.dtype), v)

@@ -4,8 +4,11 @@
                                        [--device cuda|cpu]
 
 One *instance* in the paper's co-location model, on one device (the card
-unless ``--device cpu``).  ``--arch`` takes every ported arch id: the dense
-family, the MoE family (mixtral-8x7b, olmoe-1b-7b) and the recurrent ones
+unless ``--device cpu``).  ``--arch`` takes all ten arch ids of the
+reference: the dense family (llama3.2-1b, qwen1.5-0.5b, qwen2-7b,
+qwen3-8b), the VLM paligemma-3b (zero patch embeddings in front of the
+prompt), the MoE family (mixtral-8x7b, olmoe-1b-7b), the encoder-decoder
+seamless-m4t-medium (zero frames for the encoder) and the recurrent ones
 (rwkv6-7b, recurrentgemma-9b).  The weights come from the port's own
 seeded init; the smoke config is the default, ``--full`` serves the
 config's full width and depth (mixtral-8x7b's 93 GB of bf16 weights do not

@@ -1,5 +1,6 @@
-"""Model substrate in PyTorch: the dense, MoE and recurrent (RWKV-6,
-RG-LRU hybrid) families."""
+"""Model substrate in PyTorch: every family of the reference — dense, MoE,
+recurrent (RWKV-6, RG-LRU hybrid), VLM (patch prefix, prefix-LM) and
+encoder-decoder."""
 from .api import ModelApi, build_model
 from .common import ModelConfig, MoEConfig, count_params
 from .convert import load_reference_params

@@ -1,5 +1,5 @@
-"""Uniform model API (the serving entry point): the dense, MoE and
-recurrent families."""
+"""Uniform model API (the serving entry point) over every family: the
+decoder-only ones (dense, VLM, MoE, recurrent) and the encoder-decoder."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,7 +9,7 @@ import torch
 
 from repro_torch.core.cluster import resolve_device
 
-from . import lm
+from . import encdec, lm
 from .common import ModelConfig
 
 
@@ -25,23 +25,26 @@ class ModelApi:
 def build_model(cfg: ModelConfig, device: str | torch.device = "cuda"
                 ) -> ModelApi:
     """The model of ``cfg`` on ``device`` (the card unless the caller asks
-    for the CPU).  Raises for the encoder-decoder and patch-frontend
-    families, which come with port slice 12."""
+    for the CPU)."""
     cfg.validate()
-    if cfg.is_encdec or cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder and patch-frontend models are not "
-            "ported yet; they come with port slice 12 (ROADMAP §1)")
     dev = resolve_device(device)
 
-    def init(seed: int):
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        return lm.lm_init(gen, cfg)
+    def generator(seed: int) -> torch.Generator:
+        return torch.Generator(device=dev).manual_seed(seed)
 
+    if cfg.is_encdec:
+        return ModelApi(
+            cfg=cfg,
+            device=dev,
+            init=lambda seed: encdec.encdec_init(generator(seed), cfg),
+            prefill=lambda p, b, cap: encdec.encdec_prefill(p, cfg, b, cap),
+            decode_step=lambda p, c, t, pos: encdec.encdec_decode_step(
+                p, cfg, c, t, pos),
+        )
     return ModelApi(
         cfg=cfg,
         device=dev,
-        init=init,
+        init=lambda seed: lm.lm_init(generator(seed), cfg),
         prefill=lambda p, b, cap: lm.lm_prefill(p, cfg, b, cap),
         decode_step=lambda p, c, t, pos: lm.lm_decode_step(p, cfg, c, t, pos),
     )

@@ -1,13 +1,16 @@
 """GQA/MQA attention with RoPE, optional QKV-bias / qk-norm / sliding window.
 
 Every family's attention: llama3 / qwen / mixtral GQA (n_kv < n_heads),
-MHA and recurrentgemma's MQA, qwen1.5/qwen2 QKV bias, qwen3 / olmoe
-qk-RMSNorm, and the sliding window (mixtral's, recurrentgemma's local
-attention).  The
-causal prefill goes through the flash-attention kernel (K4,
-`repro_torch.kernels.ops.flash_attention`); prefix-LM and bidirectional
-masks, and the one-token decode against the cache, stay plain PyTorch
-(`_gqa_attend`), as the reference leaves them to XLA.
+MHA and the MQA of recurrentgemma and paligemma, qwen1.5/qwen2 QKV bias,
+qwen3 / olmoe qk-RMSNorm, the sliding window (mixtral's, recurrentgemma's
+local attention), paligemma's prefix-LM mask, and seamless's bidirectional
+encoder self-attention and cross-attention (keys and values from the
+encoder's memory, not rotated).  Every full-sequence attention goes
+through the flash-attention kernel (K4,
+`repro_torch.kernels.ops.flash_attention`), which takes every mask the
+reference's query-chunked ``_gqa_attend_chunked`` takes: that function has
+no counterpart of its own here.  Only the one-token decode against the
+cache stays plain PyTorch (`_gqa_attend`).
 
 Serving uses a unified cache: K is stored pre-rotated at absolute positions;
 ``abs`` tracks each slot's absolute position (-1 = empty), which makes full
@@ -49,16 +52,25 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return p
 
 
-def _project_qkv(p, cfg: ModelConfig, x):
+def _project_q(p, cfg: ModelConfig, x):
     q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
-    k = torch.einsum("bsd,dke->bske", x, p["wk"])
-    v = torch.einsum("bsd,dke->bske", x, p["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"]
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.rms_eps)
+    return q
+
+
+def _project_qkv(p, cfg: ModelConfig, x, kv_x=None):
+    """q from ``x``; k and v from ``kv_x`` (cross-attention), else ``x``."""
+    kv_x = x if kv_x is None else kv_x
+    q = _project_q(p, cfg, x)
+    k = torch.einsum("bsd,dke->bske", kv_x, p["wk"])
+    v = torch.einsum("bsd,dke->bske", kv_x, p["wv"])
+    if cfg.qkv_bias:
         k = k + p["bk"]
         v = v + p["bv"]
     if cfg.qk_norm:
-        q = rmsnorm(p["q_norm"], q, cfg.rms_eps)
         k = rmsnorm(p["k_norm"], k, cfg.rms_eps)
     return q, k, v
 
@@ -109,26 +121,25 @@ def make_mask(s_q: int, s_k: int, *, causal: bool, window: int | None = None,
 # full-sequence forward (prefill)
 # ---------------------------------------------------------------------------------
 
-def attn_forward(p, cfg: ModelConfig, x, *, positions, causal: bool = True,
+def attn_forward(p, cfg: ModelConfig, x, *, positions, kv_x=None,
+                 kv_positions=None, use_rope: bool = True, causal: bool = True,
                  window: int | None = None, prefix_len: int | None = None):
-    """Returns (out [B,S,d], (k, v) rotated [B,S,K,hd]).
+    """Returns (out [B,Sq,d], (k, v) [B,Sk,K,hd], rotated if ``use_rope``).
 
-    A causal mask with no prefix goes through the flash-attention kernel on
-    [B, heads, S, hd] views of the projections; the others through
-    `_gqa_attend` with `make_mask`."""
-    q, k, v = _project_qkv(p, cfg, x)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    S = q.shape[1]
-    if causal and prefix_len is None:
-        o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2), causal=True, window=window)
-        out = torch.einsum("bhsd,hde->bse", o, p["wo"])
-    else:
-        mask = make_mask(S, S, causal=causal, window=window,
-                         prefix_len=prefix_len, device=x.device)
-        out = _gqa_attend(p, cfg, q, k, v, mask)
-    return out, (k, v)
+    k and v come from ``kv_x`` (cross-attention; rotated at
+    ``kv_positions``, default ``positions``), else from ``x``.  The mask is
+    ``make_mask``'s: causal with an optional window and prefix-LM block, or
+    bidirectional.  Every mask goes through the flash-attention kernel on
+    [B, heads, S, hd] views of the projections."""
+    q, k, v = _project_qkv(p, cfg, x, kv_x)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions if kv_positions is None else kv_positions,
+                       cfg.rope_theta)
+    o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=causal, window=window,
+                            prefix_len=prefix_len)
+    return torch.einsum("bhsd,hde->bse", o, p["wo"]), (k, v)
 
 
 # ---------------------------------------------------------------------------------
@@ -160,13 +171,14 @@ def fill_cache(cache: dict, k, v, positions) -> dict:
 
 
 def attn_decode(p, cfg: ModelConfig, x, cache: dict, pos: int, *,
-                window: int | None = None):
+                window: int | None = None, use_rope: bool = True):
     """One decode step (x [B,1,d], pos the new token's absolute position);
     returns (out [B,1,d], cache updated in place)."""
     q, k_new, v_new = _project_qkv(p, cfg, x)
-    posv = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
-    q = apply_rope(q, posv, cfg.rope_theta)
-    k_new = apply_rope(k_new, posv, cfg.rope_theta)
+    if use_rope:
+        posv = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
+        q = apply_rope(q, posv, cfg.rope_theta)
+        k_new = apply_rope(k_new, posv, cfg.rope_theta)
     W = cache["k"].shape[1]
     idx = pos % W
     cache["k"][:, idx] = k_new[:, 0]

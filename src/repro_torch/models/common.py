@@ -35,8 +35,9 @@ class ModelConfig:
 
     The sharding and rematerialisation fields (``remat``, ``attn_chunk_q``,
     ``seq_shard``, ``moe_zero1``, ``zero1``) are kept so that every config
-    carries over; one device reads none of them.  On the causal prefill path
-    the flash-attention kernel takes the place of ``attn_chunk_q``."""
+    carries over; one device reads none of them.  On every full-sequence
+    attention the flash-attention kernel takes the place of
+    ``attn_chunk_q``."""
     name: str
     family: str                  # dense | moe | ssm | hybrid | encdec | vlm
     n_layers: int
@@ -116,6 +117,22 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * params["scale"].float()).to(dt)
+
+
+def layernorm_init(d: int, device) -> dict:
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
+            "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def layernorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in f32 with the biased variance, cast back to x's dtype
+    (no model of the reference calls it; it is public there and here)."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * params["scale"].float() + params["bias"].float()).to(dt)
 
 
 ACTIVATIONS: dict[str, Callable] = {

@@ -1,9 +1,11 @@
 """Carry the reference model's weights across to the port.
 
 The reference (`repro.models`) initialises a pytree with ``blocks`` (and a
-griffin model's ``tail``) stacked on a leading layer axis; the port keeps a
-list of per-layer dicts, with the same nested keys (``attn``/``mlp``/
-``moe``, rwkv's ``tm``/``cm``, griffin's ``sub0..2`` and ``mix``).  Each
+griffin model's ``tail``, an encoder-decoder's ``encoder`` and ``decoder``)
+stacked on a leading layer axis; the port keeps a list of per-layer dicts,
+with the same nested keys (``attn``/``mlp``/``moe``, rwkv's ``tm``/``cm``,
+griffin's ``sub0..2`` and ``mix``, the decoder's ``self_attn``/``ln_x``/
+``cross_attn``).  Each
 leaf is kept in the dtype the reference uses it in: the parameters it
 applies in f32 stay f32 (norm scales, the MoE router, rwkv's ``w0``,
 ``wd2``, ``u`` and ``gn_scale``, the rg-lru's ``w_r``, ``w_i``, ``b_r``,
@@ -73,10 +75,12 @@ def load_reference_params(cfg: ModelConfig, tree: Mapping[str, Any],
     """The port's params from the reference's ``api.init`` pytree (leaves as
     numpy arrays or anything ``np.array`` reads)."""
     dev = resolve_device(device)
-    params = _convert("", {k: v for k, v in tree.items()
-                           if k not in ("blocks", "tail")}, cfg, dev)
-    n_blocks, n_tail = lm._n_scanned(cfg)
-    params["blocks"] = _layers(tree["blocks"], n_blocks, cfg, dev)
-    if n_tail:
-        params["tail"] = _layers(tree["tail"], n_tail, cfg, dev)
+    stacks = ({"encoder": cfg.enc_layers, "decoder": cfg.dec_layers}
+              if cfg.is_encdec else dict(zip(("blocks", "tail"),
+                                             lm._n_scanned(cfg))))
+    params = _convert("", {k: v for k, v in tree.items() if k not in stacks},
+                      cfg, dev)
+    for name, n in stacks.items():
+        if n:
+            params[name] = _layers(tree[name], n, cfg, dev)
     return params

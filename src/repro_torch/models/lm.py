@@ -1,7 +1,8 @@
-"""Decoder-only language model over the dense, MoE and recurrent families.
+"""Decoder-only language model over the dense, VLM, MoE and recurrent
+families.
 
 Families map to block kinds, as in the reference:
-  dense              -> "attn"      (attn + gated MLP)
+  dense, vlm         -> "attn"      (attn + gated MLP)
   moe                -> "moe"       (attn + top-k MoE; optional SWA)
   ssm (rwkv6)        -> "rwkv"      (time-mix + channel-mix)
   hybrid (rec.gemma) -> "griffin"   (period-3 super-block: rglru, rglru,
@@ -13,6 +14,9 @@ A griffin model with ``n_layers % 3`` left over runs that many rg-lru
 layers after its super-blocks (``tail``), and its caches take the
 reference's ``{"main": [...], "tail": [...]}`` shape.  The MoE's
 load-balance aux is dropped on the serving path, as the reference drops it.
+A patch-frontend (VLM) prefill takes ``batch["prefix_embeds"]`` [B, P, d]
+in front of the text, under the prefix-LM mask with P = ``frontend_len``
+when the config sets ``prefix_lm``; positions count the prefix.
 """
 from __future__ import annotations
 
@@ -124,11 +128,11 @@ def _kv_cache(cfg: ModelConfig, k, v, positions, capacity):
 
 
 def _apply_attn_block(bp, cfg: ModelConfig, x, positions, window,
-                      capacity=None):
+                      capacity=None, prefix_len=None):
     h, (k, v) = attn.attn_forward(bp["attn"], cfg,
                                   rmsnorm(bp["ln1"], x, cfg.rms_eps),
                                   positions=positions, causal=True,
-                                  window=window)
+                                  window=window, prefix_len=prefix_len)
     x = x + h
     xn = rmsnorm(bp["ln2"], x, cfg.rms_eps)
     if "moe" in bp:
@@ -177,14 +181,15 @@ def _apply_griffin_sub(bp, cfg: ModelConfig, x, positions, temporal: str,
     return x, cache
 
 
-def _forward_blocks(params, cfg: ModelConfig, x, positions, capacity):
+def _forward_blocks(params, cfg: ModelConfig, x, positions, capacity,
+                    prefix_len=None):
     """Run all blocks.  Returns (hidden, caches)."""
     kind = block_kind(cfg)
     caches = []
     if kind in ("attn", "moe"):
         for bp in params["blocks"]:
             x, cache = _apply_attn_block(bp, cfg, x, positions,
-                                         cfg.swa_window, capacity)
+                                         cfg.swa_window, capacity, prefix_len)
             caches.append(cache)
         return x, caches
     if kind == "rwkv":
@@ -212,10 +217,14 @@ def _forward_blocks(params, cfg: ModelConfig, x, positions, capacity):
 # embedding / head
 # ---------------------------------------------------------------------------------
 
-def embed_tokens(params, cfg: ModelConfig, tokens):
+def embed_tokens(params, cfg: ModelConfig, tokens, prefix_embeds=None):
+    """The tokens' embeddings (scaled by sqrt(d) in the compute dtype where
+    the config says so), with ``prefix_embeds`` [B, P, d] in front."""
     x = params["embed"][tokens]
     if cfg.scale_embed:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.compute_dtype)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(cfg.compute_dtype), x], dim=1)
     return x
 
 
@@ -235,12 +244,16 @@ def last_token_logits(params, cfg: ModelConfig, hidden_last):
 # ---------------------------------------------------------------------------------
 
 def lm_prefill(params, cfg: ModelConfig, batch, capacity: int):
-    """Prefill: returns (last-token logits [B,V] f32, caches)."""
-    tokens = batch["tokens"]
-    x = embed_tokens(params, cfg, tokens)
+    """Prefill: returns (last-token logits [B,V] f32, caches).  ``batch``
+    holds ``tokens`` [B, S] and, for a patch frontend, ``prefix_embeds``."""
+    prefix = batch.get("prefix_embeds")
+    x = embed_tokens(params, cfg, batch["tokens"], prefix)
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
-    hidden, caches = _forward_blocks(params, cfg, x, positions, capacity)
+    prefix_len = (cfg.frontend_len if cfg.prefix_lm and prefix is not None
+                  else None)
+    hidden, caches = _forward_blocks(params, cfg, x, positions, capacity,
+                                     prefix_len)
     hidden = rmsnorm(params["final_norm"], hidden, cfg.rms_eps)
     return last_token_logits(params, cfg, hidden[:, -1]), caches
 

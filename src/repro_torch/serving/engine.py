@@ -93,7 +93,11 @@ class ServeEngine:
     """Greedy batched serving of one model on ``api.device``.
 
     As in the reference, prompts are left-padded with token 0 and there is
-    no padding mask: the padding is part of the context.  The KV caches are
+    no padding mask: the padding is part of the context.  The modality
+    inputs are the reference's stubs, zeros: ``frames`` [B, seq_len, d]
+    for an encoder-decoder, ``prefix_embeds`` [B, frontend_len, d] for a
+    patch frontend, whose prefix the cache holds and the decode positions
+    count.  The KV caches are
     updated in place by each decode step (the reference donates them).
     Everything runs under ``torch.inference_mode()``; ``stats`` holds the
     prefill and decode wall times, taken after ``torch.cuda.synchronize()``
@@ -108,7 +112,10 @@ class ServeEngine:
         self.params = params
         self.batch_size = batch_size
         self.seq_len = seq_len
-        self.capacity = cache_capacity(self.cfg, seq_len)
+        # the cache holds the modality prefix in addition to the text
+        self.prefix = (self.cfg.frontend_len if self.cfg.frontend == "patch"
+                       else 0)
+        self.capacity = cache_capacity(self.cfg, self.prefix + seq_len)
         self.queue = RequestQueue(batch_size, seq_len)
         self.stats = {"prefill_s": [], "decode_s": [], "tokens": 0}
 
@@ -132,16 +139,30 @@ class ServeEngine:
                 self._serve(group)
         return requests
 
+    def _make_batch(self, prompts: np.ndarray) -> dict:
+        batch: dict[str, Any] = {
+            "tokens": torch.from_numpy(prompts).to(self.device)}
+        B, cfg = prompts.shape[0], self.cfg
+        if cfg.is_encdec:
+            batch["frames"] = torch.zeros(
+                (B, self.seq_len, cfg.d_model), dtype=cfg.compute_dtype,
+                device=self.device)
+        elif cfg.frontend == "patch":
+            batch["prefix_embeds"] = torch.zeros(
+                (B, cfg.frontend_len, cfg.d_model), dtype=cfg.compute_dtype,
+                device=self.device)
+        return batch
+
     def _serve(self, group: list[Request]) -> None:
         prompts = self.queue.pad_prompts(group)
-        tokens = torch.from_numpy(prompts).to(self.device)
         t0 = time.perf_counter()
-        logits, caches = self.api.prefill(self.params, {"tokens": tokens},
+        logits, caches = self.api.prefill(self.params,
+                                          self._make_batch(prompts),
                                           self.capacity)
         self._sync()
         self.stats["prefill_s"].append(time.perf_counter() - t0)
         tok = torch.argmax(logits, dim=-1)
-        pos = prompts.shape[1]
+        pos = self.prefix + prompts.shape[1]
         for t in range(max(r.max_new_tokens for r in group)):
             host = tok.tolist()
             for i, r in enumerate(group):

@@ -1,5 +1,7 @@
 """The port's flash-attention kernel K4 (its plain PyTorch version) against
-the JAX reference.
+the JAX reference: the causal, windowed and bidirectional forms, and the
+prefix-LM form against the reference's masked ``_gqa_attend`` and its
+query-chunked ``_gqa_attend_chunked``, whose place K4 takes.
 
 The reference's Pallas kernel does not trace on every jax version, so the
 oracles are the reference's own: ``repro.kernels.ref.mha_ref`` (the
@@ -189,7 +191,7 @@ def _qkv(B=1, H=4, K=2, S=8, d=16, dtype=torch.float32):
 
 @pytest.mark.parametrize("case", [
     "rank", "dtype", "mixed_dtype", "kv_shape", "heads", "head_dim",
-    "window", "device"])
+    "window", "device", "prefix"])
 def test_wrapper_validation_errors(case):
     q, k, v = _qkv()
     kw = {}
@@ -208,6 +210,8 @@ def test_wrapper_validation_errors(case):
         v = k.clone()
     elif case == "window":
         kw = {"window": 0}
+    elif case == "prefix":
+        kw = {"prefix_len": -1}
     elif case == "device":
         q = q.to("meta")
     with pytest.raises(ValueError):
@@ -233,3 +237,138 @@ def test_cpu_tensors_never_launch():
     before = fa.flash_attention.launches
     ops.flash_attention(*_qkv())
     assert fa.flash_attention.launches == before
+
+
+# ---------------------------------------------------------------------------------
+# the prefix-LM form (paligemma's mask), against the reference's attention
+# ---------------------------------------------------------------------------------
+
+#: B, H, K, S: a GQA shape whose length is a multiple of the reference's
+#: query chunk (16) and not of any block of the kernel
+PREFIX_SHAPE = (2, 4, 2, 112)
+PREFIXES = (1, 5, 100, 200)             # 200 > S: every position a prefix
+HEAD_DIMS = (16, 64, 256)
+
+
+def _identity_wo(H, d, jdt):
+    """wo [H, d, H d] that leaves the heads' outputs as they are, so that
+    the reference's ``_gqa_attend`` returns the attention itself."""
+    return jnp.eye(H * d, dtype=jdt).reshape(H, d, H * d)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("window", [None, 24])
+@pytest.mark.parametrize("prefix", PREFIXES)
+def test_plain_prefix_matches_reference_attention(prefix, window, d, dtype):
+    """``flash_attention_plain(prefix_len=)`` against the reference's model
+    attention under ``make_mask(prefix_len=)`` and its query-chunked
+    ``_gqa_attend_chunked`` (chunk 16), which K4 takes the place of; the
+    port's ``mha_ref`` too.  Reference tests' tolerances."""
+    B, H, K, S = PREFIX_SHAPE
+    tdt, jdt, tol = DTYPES[dtype]
+    rcfg = dataclasses.replace(ref_get_config("llama3.2-1b", smoke=True),
+                               compute_dtype=jdt)
+    (q, k, v), (jq, jk, jv) = _both(_inputs((B, H, K, S, S, d), seed=prefix),
+                                    dtype)
+    p = {"wo": _identity_wo(H, d, jdt)}
+    # the model's layout: [B, S, heads, d]
+    mq, mk, mv = (jnp.swapaxes(t, 1, 2) for t in (jq, jk, jv))
+    mask = ref_attn.make_mask(S, S, causal=True, window=window,
+                              prefix_len=prefix)
+    want = np.asarray(ref_attn._gqa_attend(p, rcfg, mq, mk, mv, mask),
+                      np.float32).reshape(B, S, H, d).transpose(0, 2, 1, 3)
+    chunked = np.asarray(ref_attn._gqa_attend_chunked(
+        p, rcfg, mq, mk, mv, chunk=16, causal=True, window=window,
+        prefix_len=prefix), np.float32).reshape(B, S, H, d).transpose(
+            0, 2, 1, 3)
+    out = fa.flash_attention_plain(q, k, v, causal=True, window=window,
+                                   prefix_len=prefix)
+    assert out.dtype == tdt and out.shape == (B, H, S, d)
+    got = out.float().numpy()
+    np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
+    np.testing.assert_allclose(got, chunked, atol=tol, rtol=tol)
+    oracle = mha_ref(q, k, v, causal=True, window=window, prefix_len=prefix)
+    np.testing.assert_allclose(oracle.float().numpy(), want, atol=tol,
+                               rtol=tol)
+
+
+def test_prefix_is_ignored_without_the_causal_mask():
+    """As in ``make_mask``: a bidirectional mask allows every key already."""
+    q, k, v = (torch.from_numpy(a).float()
+               for a in _inputs((1, 2, 1, 40, 50, 16), seed=8))
+    assert torch.equal(
+        fa.flash_attention_plain(q, k, v, causal=False, prefix_len=7),
+        fa.flash_attention_plain(q, k, v, causal=False))
+    assert fa._prefix(False, 7) == 0 and fa._prefix(True, None) == 0
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("block", [(64, 64), (128, 32), (128, 128)])
+def test_prefix_at_the_kernel_tiling(block, dtype):
+    """Ragged P against the kernel's blocks (f32 64 x 64; bf16 128 rows
+    and KV tiles of 32 at d 256 or 128), P = 1 and P beyond S: the plain
+    version at that tiling equals the reference's unblocked masked
+    attention."""
+    bq, bk = block
+    tdt, jdt, tol = DTYPES[dtype]
+    B, H, K, S, d = 1, 2, 1, 300, 16
+    rcfg = dataclasses.replace(ref_get_config("llama3.2-1b", smoke=True),
+                               compute_dtype=jdt)
+    (q, k, v), (jq, jk, jv) = _both(_inputs((B, H, K, S, S, d), seed=9),
+                                    dtype)
+    p = {"wo": _identity_wo(H, d, jdt)}
+    mq, mk, mv = (jnp.swapaxes(t, 1, 2) for t in (jq, jk, jv))
+    for prefix, window in ((1, None), (100, None), (100, 40), (129, 50),
+                           (310, None)):
+        mask = ref_attn.make_mask(S, S, causal=True, window=window,
+                                  prefix_len=prefix)
+        want = np.asarray(ref_attn._gqa_attend(p, rcfg, mq, mk, mv, mask),
+                          np.float32).reshape(B, S, H, d).transpose(0, 2, 1,
+                                                                    3)
+        got = fa.flash_attention_plain(q, k, v, causal=True, window=window,
+                                       prefix_len=prefix, block_q=bq,
+                                       block_k=bk)
+        np.testing.assert_allclose(got.float().numpy(), want, atol=tol,
+                                   rtol=tol, err_msg=f"P {prefix} w {window}")
+
+
+def _allowed(rows, cols, sk, causal, window, prefix):
+    """The reference's make_mask, elementwise, with keys past Sk masked."""
+    r = np.arange(rows)[:, None]
+    c = np.arange(cols)[None, :]
+    m = np.ones((rows, cols), bool)
+    if causal:
+        m = c <= r
+        if window:
+            m &= (r - c) < window
+        if prefix:
+            m |= (r < prefix) & (c < prefix)
+    elif window:
+        m = (r - c) < window
+    return m & (c < sk)
+
+
+@pytest.mark.parametrize("causal,window,prefix", [
+    (True, None, 256), (True, None, 100), (True, None, 1), (True, 70, 100),
+    (True, 30, 129), (True, None, 2000), (True, 100, None),
+    (False, None, 100), (False, 70, None)])
+@pytest.mark.parametrize("bk", [32, 64, 128])
+def test_tile_needs_mask_with_a_prefix(causal, window, prefix, bk):
+    """``tile_needs_mask`` against the elementwise mask over every tile of
+    64 rows (a bf16 consumer's) and ``bk`` keys: False exactly where every
+    element is allowed.  And ``_kv_range`` visits every allowed key of
+    every row of its q block (128 rows), in tiles from a multiple of bk."""
+    sq, sk = 1000, 777
+    dense = _allowed(sq + 128, sk + bk, sk, causal, window, prefix)
+    for r0 in range(0, sq, 64):
+        for k0 in range(0, sk, bk):
+            need = fa.tile_needs_mask(r0, k0, bk, sk, causal, window,
+                                      prefix_len=prefix)
+            assert need == (not dense[r0:r0 + 64, k0:k0 + bk].all()), \
+                (r0, k0)
+    for q0 in range(0, sq, 128):
+        lo, hi = fa._kv_range(q0, sk, causal, window, 128, bk, prefix)
+        assert lo % bk == 0
+        rows = dense[q0:min(q0 + 128, sq)]
+        assert not rows[:, :lo].any() and not rows[:, hi:].any(), q0

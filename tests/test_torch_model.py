@@ -28,9 +28,9 @@ jnp = pytest.importorskip("jax.numpy")
 from repro.configs import get_config as ref_get_config  # noqa: E402
 from repro.models import build_model as ref_build_model  # noqa: E402
 from repro.models import count_params as ref_count_params  # noqa: E402
-from repro_torch.configs import ARCH_IDS, NOT_PORTED, get_config  # noqa: E402
-from repro_torch.models import (ModelConfig, build_model,  # noqa: E402
-                                count_params, load_reference_params)
+from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
+from repro_torch.models import (build_model, count_params,  # noqa: E402
+                                load_reference_params)
 
 DENSE = ["llama3.2-1b", "qwen1.5-0.5b", "qwen2-7b", "qwen3-8b"]
 DTYPES = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16,
@@ -175,32 +175,15 @@ def test_full_llama_parameter_count():
     assert cfg.vocab * d + cfg.n_layers * per_layer + d == 1_235_814_400
 
 
-@pytest.mark.parametrize("arch", sorted(NOT_PORTED))
-def test_unported_arch_ids_raise(arch):
-    with pytest.raises(NotImplementedError, match="not have yet"):
-        get_config(arch)
-    assert arch not in ARCH_IDS
-
-
 def test_unknown_arch_raises():
     with pytest.raises(KeyError):
         get_config("gpt-17")
 
 
-@pytest.mark.parametrize("family", ["encdec", "patch"])
-def test_unported_families_raise(family):
-    base = get_config("llama3.2-1b", smoke=True)
-    cfg = {
-        "encdec": dataclasses.replace(base, enc_layers=2, dec_layers=2),
-        "patch": dataclasses.replace(base, frontend="patch"),
-    }[family]
-    assert isinstance(cfg, ModelConfig)
-    with pytest.raises(NotImplementedError, match="slice 12"):
-        build_model(cfg, device="cpu")
-
-
-def test_build_model_defaults_to_the_card(monkeypatch):
-    cfg = get_config("llama3.2-1b", smoke=True)
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "seamless-m4t-medium",
+                                  "paligemma-3b"])
+def test_build_model_defaults_to_the_card(monkeypatch, arch):
+    cfg = get_config(arch, smoke=True)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         build_model(cfg)
@@ -253,8 +236,9 @@ def test_swa_window_limits_receptive_field():
 
 @pytest.mark.parametrize("mask", ["bidirectional", "prefix"])
 def test_masks_off_the_kernel_path_match_reference(mask):
-    """Prefix-LM and bidirectional masks stay on the plain attention; f32
-    against the reference's attn_forward with its make_mask."""
+    """The prefix-LM and bidirectional masks, once off K4's path and now
+    on it (its plain version on these CPU tensors); f32 against the
+    reference's attn_forward with its make_mask."""
     from repro.models import attention as ref_attn
     from repro_torch.models import attention as attn
 
@@ -274,3 +258,158 @@ def test_masks_off_the_kernel_path_match_reference(mask):
                                causal=causal, prefix_len=prefix)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
                                rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------------
+# every arch id: the registry, the smoke shapes, the input specs
+# ---------------------------------------------------------------------------------
+
+def _smoke_batch(cfg, B=2, S=32, seed=0):
+    """The reference's ``test_models_smoke.make_batch``, as torch tensors."""
+    rng = np.random.default_rng(seed)
+    if cfg.is_encdec:
+        return {"frames": torch.from_numpy(rng.standard_normal(
+                    (B, S, cfg.d_model))).to(cfg.compute_dtype),
+                "tokens": torch.from_numpy(rng.integers(0, cfg.vocab,
+                                                        (B, S)))}
+    if cfg.frontend == "patch":
+        P = cfg.frontend_len
+        return {"prefix_embeds": torch.from_numpy(rng.standard_normal(
+                    (B, P, cfg.d_model))).to(cfg.compute_dtype),
+                "tokens": torch.from_numpy(rng.integers(0, cfg.vocab,
+                                                        (B, S - P)))}
+    return {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)))}
+
+
+def _structure(tree):
+    if isinstance(tree, dict):
+        return {k: _structure(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_structure(v) for v in tree]
+    return (tuple(tree.shape), tree.dtype)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_smoke_prefill_decode_shapes(arch):
+    """The reference's ``test_models_smoke`` shapes check, every arch id:
+    finite [B, V] logits from prefill and a decode step, and caches of the
+    same structure after it."""
+    from repro_torch.configs import cache_capacity
+
+    cfg = get_config(arch, smoke=True)
+    api = build_model(cfg, device="cpu")
+    params = api.init(0)
+    B, S = 2, 32
+    cap = cache_capacity(cfg, S)
+    with torch.inference_mode():
+        logits, caches = api.prefill(params, _smoke_batch(cfg, B, S), cap)
+        before = _structure(caches)
+        assert logits.shape == (B, cfg.vocab) and logits.dtype == torch.float32
+        assert bool(torch.isfinite(logits).all()), arch
+        tok = torch.argmax(logits, dim=-1)
+        logits2, caches2 = api.decode_step(params, caches, tok, S)
+    assert logits2.shape == (B, cfg.vocab)
+    assert bool(torch.isfinite(logits2).all()), arch
+    assert _structure(caches2) == before
+
+
+def test_full_configs_match_assignment():
+    """The exact numbers from the assignment table (the reference's test)."""
+    rows = {
+        "paligemma-3b": (18, 2048, 8, 1, 16384, 257216),
+        "mixtral-8x7b": (32, 4096, 32, 8, 14336, 32000),
+        "olmoe-1b-7b": (16, 2048, 16, 16, 1024, 50304),
+        "llama3.2-1b": (16, 2048, 32, 8, 8192, 128256),
+        "qwen1.5-0.5b": (24, 1024, 16, 16, 2816, 151936),
+        "qwen2-7b": (28, 3584, 28, 4, 18944, 152064),
+        "qwen3-8b": (36, 4096, 32, 8, 12288, 151936),
+        "rwkv6-7b": (32, 4096, 64, 64, 14336, 65536),
+        "recurrentgemma-9b": (38, 4096, 16, 1, 12288, 256000),
+    }
+    for arch, (L, d, H, K, f, V) in rows.items():
+        cfg = get_config(arch)
+        assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_ff,
+                cfg.vocab) == (L, d, H, K, f, V), arch
+    sm = get_config("seamless-m4t-medium")
+    assert (sm.enc_layers, sm.dec_layers, sm.d_model, sm.n_heads,
+            sm.d_ff) == (12, 12, 1024, 16, 4096)
+    assert sm.vocab == 256_256  # 256206 padded for 16-way vocab sharding
+    assert get_config("qwen1.5-0.5b").qkv_bias
+    assert get_config("qwen3-8b").qk_norm
+    assert get_config("mixtral-8x7b").swa_window == 4096
+    assert get_config("mixtral-8x7b").moe.num_experts == 8
+    assert get_config("olmoe-1b-7b").moe.top_k == 8
+    assert get_config("recurrentgemma-9b").local_window == 2048
+    assert get_config("paligemma-3b").prefix_lm
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+def test_every_config_is_the_reference_config(smoke):
+    """``ARCH_IDS`` and ``all_configs`` hold the reference's ten ids in its
+    order, each config equal to the reference's field for field (dtypes
+    and the MoE sub-config compared apart)."""
+    from repro.configs import ARCH_IDS as REF_IDS
+    from repro.configs import all_configs as ref_all_configs
+    from repro_torch.configs import all_configs
+
+    assert ARCH_IDS == REF_IDS and len(ARCH_IDS) == 10
+    ours, ref = all_configs(smoke), ref_all_configs(smoke)
+    assert list(ours) == list(ref)
+    for arch, cfg in ours.items():
+        for f in dataclasses.fields(cfg):
+            if f.name in ("param_dtype", "compute_dtype", "moe"):
+                continue
+            assert getattr(cfg, f.name) == getattr(ref[arch], f.name), \
+                (arch, f.name)
+        assert (cfg.moe is None) == (ref[arch].moe is None)
+        if cfg.moe is not None:
+            assert dataclasses.asdict(cfg.moe) == \
+                dataclasses.asdict(ref[arch].moe)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_batch_specs_match_reference(arch):
+    """``batch_specs`` and ``decode_specs`` on meta tensors, against the
+    reference's ShapeDtypeStructs at every assigned shape."""
+    from repro.configs import SHAPES as REF_SHAPES
+    from repro.configs import batch_specs as ref_batch_specs
+    from repro.configs import decode_specs as ref_decode_specs
+    from repro_torch.configs import SHAPES, batch_specs, decode_specs
+
+    names = {torch.int32: "int32", torch.bfloat16: "bfloat16",
+             torch.float32: "float32"}
+    cfg, rcfg = get_config(arch), ref_get_config(arch)
+    assert list(SHAPES) == list(REF_SHAPES)
+    for name, shape in SHAPES.items():
+        got, want = batch_specs(cfg, shape), ref_batch_specs(rcfg,
+                                                             REF_SHAPES[name])
+        assert list(got) == list(want), (arch, name)
+        for key, spec in got.items():
+            assert spec.device.type == "meta"
+            assert tuple(spec.shape) == tuple(want[key].shape), (arch, key)
+            assert names[spec.dtype] == str(want[key].dtype), (arch, key)
+        for g, w in zip(decode_specs(shape), ref_decode_specs(
+                REF_SHAPES[name])):
+            assert tuple(g.shape) == tuple(w.shape) and g.device.type == \
+                "meta" and names[g.dtype] == str(w.dtype)
+
+
+def test_layernorm_matches_reference():
+    """``layernorm`` (public, as in the reference; no model calls it)."""
+    from repro.models import common as ref_common
+    from repro_torch.models import common
+
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((3, 5, 48)).astype(np.float32) * 3 + 1
+    p = common.layernorm_init(48, "cpu")
+    p = {"scale": p["scale"] * 1.5, "bias": p["bias"] + 0.25}
+    rp = {k: jnp.asarray(v.numpy()) for k, v in p.items()}
+    for tdt, jdt, tol in ((torch.float32, jnp.float32, 1e-5),
+                          (torch.bfloat16, jnp.bfloat16, 2e-2)):
+        got = common.layernorm(p, torch.from_numpy(x).to(tdt))
+        want = ref_common.layernorm(rp, jnp.asarray(x, jdt))
+        assert got.dtype == tdt
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), atol=tol,
+                                   rtol=tol)
+    assert sorted(ref_common.layernorm_init(48)) == sorted(p)
