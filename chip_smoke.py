@@ -165,6 +165,16 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    ragged P 100 over S 300 (d 256), and with a window at d 64; no output
    may be non-finite.  Then 50 back-to-back launches at the serving
    shape must give bit-identical outputs.
+7b. ``[flash-bwd]``: K4's backward (``csrc/flash_attention_bwd.cu``, two
+   launches a call: dQ with D = rowsum(dO O), then dK and dV) against
+   ``flash_attention_bwd_plain`` at every ``[flash]`` shape in f32 and
+   bf16, on the forward kernel's own output and log-sum-exp: each of dq,
+   dk, dv within ``BWD_TOL`` (f32 1e-4, bf16 3e-2) of its largest plain
+   element, no value non-finite, and the forward's log-sum-exp within
+   ``LSE_TOL`` of the plain forward's; autograd through
+   ``flash_attention`` gives the same gradients with one forward (with
+   its log-sum-exp) and one backward launch; 10 back-to-back calls at the
+   serving shape bit-identical.
 8. ``[serve]``: the serving path, llama3.2-1b at full width and depth with
    seeded random weights made on the card, through ``ServeEngine`` (batch
    4, seq_len 1024): 8 requests of 512-1024 prompt tokens and 32 new tokens
@@ -212,6 +222,25 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    ``examples/torch_colocated_serving.py``,
    whose 12-node ``imp_batched`` day must give the port's host ``imp``
    day's ``key_metrics()``.
+9d. ``[train]``: ``launch.train.run`` on llama3.2-1b at full width and
+   depth (16 layers, d 2048, vocab 128256), bf16 compute over f32 master
+   weights, ``remat="full"``, 4 x 1024 tokens of the synthetic pipeline a
+   step, 6 steps.  Counters at 0 just before, read just after: K4's
+   forward 2 x 16 launches a step (the forward and its recompute), all
+   with the log-sum-exp, its backward 16.  Every loss and grad norm
+   finite, the first loss below ln(128256) + 2; step 0 twice from one
+   state bit-identical; one step traced (K4's shares of the device
+   time); step ms, tokens/s and peak memory recorded.
+   ``[train-check]``: the same width in f32 (2 x 256 tokens): the loss
+   and every leaf's gradient on the card (K4's f32 kernels) within 1e-3
+   of the CPU's (the plain versions), relative to the leaf's largest
+   element, at 1 layer, beside the CPU's own movement under a 1e-7 change
+   of the weights; at 2 layers, where that movement alone reaches ~1e-3,
+   recorded.  ``[train-resume]``: the smoke llama on the card (K4 at
+   d 16): 6 steps straight against 3 steps, an injected failure, and a
+   resume from the step-3 checkpoint into a fresh state, bit for bit;
+   then ``examples/torch_fault_tolerant_train.py`` on the card must
+   resume after its injected failure.
 10. One ``{"kernels": [...]}`` line: per kernel its launches on its path,
    the largest difference against the plain version, the time per call
    from CUDA events (kernel and plain version), the device time per launch
@@ -253,7 +282,12 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    seamless's encoder (and the cross-attention shape), with seamless's
    bidirectional launches, and ``flash_attention_prefix`` at paligemma's
    prefill, with its launches; the causal row also times seamless's
-   decoder self-attention.
+   decoder self-attention.  ``flash_attention_bwd`` carries ``[train]``'s
+   backward launches, its two kernels' device time and the wrapper's at
+   the serving shape (bf16, causal), the bound (five products), the plain
+   backward's time and the library's (``torch.autograd.grad`` of
+   ``scaled_dot_product_attention``), and the forward's time with and
+   without its log-sum-exp output.
 11. The card's name and power limit again, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -439,7 +473,7 @@ def reset_counts() -> None:
 
     for w in WRAPPERS:
         w.launches = 0
-        for extra in ("decode_launches", "merges") + tuple(
+        for extra in ("decode_launches", "merges", "lse_launches") + tuple(
                 f"{form}_launches" for form in K4_FORMS):
             if hasattr(w, extra):
                 setattr(w, extra, 0)
@@ -1679,6 +1713,166 @@ def flash_phase(torch) -> dict[str, float]:
     return errs
 
 
+#: |kernel - plain| <= BWD_TOL x the gradient's largest |plain| element, for
+#: each of dq, dk, dv (the bf16 kernels round P and dS to bf16 as the plain
+#: version does; the sums run in another order)
+BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+#: |kernel - plain| of the forward's log-sum-exp (natural units)
+LSE_TOL = 1e-3
+#: the backward kernels' names, as the profiler lists them
+BWD_KERNELS = {"mma": ("bwd_mma_dq_kernel", "bwd_mma_dkv_kernel"),
+               "core": ("bwd_core_dq_kernel", "bwd_core_dkv_kernel")}
+#: back-to-back backward calls at MAIN_FLASH that must agree bit for bit
+BWD_REPEATS = 10
+
+
+def flash_bwd_inputs(torch, shape, dtype, seed):
+    """q, k, v of ``flash_inputs``, the forward kernel's output and
+    log-sum-exp, and a seeded cotangent."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = flash_inputs(torch, shape, dtype, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1000)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    o, lse = fa._launch(q, k, v, *mask_of(shape).values(), True)
+    return q, k, v, o, lse, do
+
+
+def flash_bwd_phase(torch) -> dict:
+    """K4's backward against ``flash_attention_bwd_plain`` on the card at
+    every ``FLASH_SHAPES`` row in f32 and bf16, on the forward kernel's own
+    output and log-sum-exp (which is held to the plain forward's too);
+    autograd through ``flash_attention`` against the wrapper; and
+    ``BWD_REPEATS`` back-to-back calls at ``MAIN_FLASH`` bit-identical."""
+    from repro_torch.kernels import flash_attention as fa
+
+    errs: dict[str, float] = {}
+    for i, shape in enumerate(FLASH_SHAPES):
+        mask = mask_of(shape)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            q, k, v, o, lse, do = flash_bwd_inputs(torch, shape, dtype, i)
+            got = fa.flash_attention_bwd(q, k, v, o, lse, do, **mask)
+            want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **mask)
+            _, plain_lse = fa.flash_attention_plain(q, k, v, **mask,
+                                                    return_lse=True)
+            torch.cuda.synchronize()
+            lse_err = float((lse - plain_lse).abs().max())
+            check(lse_err <= LSE_TOL, f"flash {shape} {name}: the forward's "
+                  f"log-sum-exp {lse_err} off the plain version's")
+            errs[f"lse_{name}"] = max(errs.get(f"lse_{name}", 0.0), lse_err)
+            for g, w, which in zip(got, want, ("dq", "dk", "dv")):
+                check(bool(torch.isfinite(g).all()),
+                      f"flash_bwd {shape} {name}: non-finite {which}")
+                top = float(w.float().abs().max())
+                err = float((g.float() - w.float()).abs().max())
+                rel = err / max(top, 1e-30)
+                errs[f"abs_{name}"] = max(errs.get(f"abs_{name}", 0.0), err)
+                check(rel <= BWD_TOL[name],
+                      f"flash_bwd {shape} {name}: {which} max |diff| {err} "
+                      f"= {rel} of its largest element {top} (tolerance "
+                      f"{BWD_TOL[name]})")
+                errs[name] = max(errs.get(name, 0.0), rel)
+                if shape == MAIN_FLASH:
+                    errs[f"{name}_main"] = max(errs.get(f"{name}_main", 0.0),
+                                               rel)
+    # autograd through the wrapper: the same gradients, one forward (with
+    # its log-sum-exp) and one backward launch
+    q, k, v, o, lse, do = flash_bwd_inputs(torch, MAIN_FLASH, torch.bfloat16,
+                                           7)
+    want = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    before = (fa.flash_attention.lse_launches, fa.flash_attention_bwd.launches)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    out = fa.flash_attention(*leaves, causal=True)
+    got = torch.autograd.grad(out, leaves, do)
+    check(all(torch.equal(a, b) for a, b in zip(got, want))
+          and torch.equal(out, o),
+          "flash: autograd through flash_attention differs from the "
+          "forward kernel and flash_attention_bwd")
+    check((fa.flash_attention.lse_launches - before[0],
+           fa.flash_attention_bwd.launches - before[1]) == (1, 1),
+          "flash: autograd did not launch the forward with its "
+          "log-sum-exp and the backward once each")
+    outs = [fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+            for _ in range(BWD_REPEATS)]
+    torch.cuda.synchronize()
+    same = sum(all(torch.equal(a, b) for a, b in zip(g, want)) for g in outs)
+    check(same == BWD_REPEATS, f"flash_bwd: {BWD_REPEATS - same} of "
+          f"{BWD_REPEATS} repeated calls differ from the first")
+    print(f"[flash-bwd] {len(FLASH_SHAPES)} shapes x 2 dtypes within "
+          f"tolerance of flash_attention_bwd_plain (|diff| / max |plain| of "
+          f"each of dq, dk, dv; tolerance {json.dumps(BWD_TOL)}; the "
+          f"forward's log-sum-exp within {LSE_TOL}): {json.dumps(errs)}; "
+          f"autograd through flash_attention equal; {BWD_REPEATS} "
+          f"back-to-back calls at {MAIN_FLASH[:6]} bf16 bit-identical",
+          flush=True)
+    return errs
+
+
+def flash_bwd_timing(torch) -> dict:
+    """K4's backward at ``MAIN_FLASH`` (bf16, causal): the kernels' device
+    time a call (both passes), the wrapper call's, the plain version's, the
+    bound, and the library's: ``torch.autograd.grad`` of
+    ``scaled_dot_product_attention`` (``enable_gqa``, and with K/V
+    expanded).  Then the forward at the same shape with and without its
+    log-sum-exp output."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    B, H, K, Sq, Sk, d = MAIN_FLASH[:6]
+    mask = mask_of(MAIN_FLASH)
+    q, k, v, o, lse, do = flash_bwd_inputs(torch, MAIN_FLASH, torch.bfloat16,
+                                           99)
+
+    def fn(): return fa.flash_attention_bwd(q, k, v, o, lse, do, **mask)
+    def plain_fn(): return fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                         **mask)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                             enable_gqa=True)
+    def library(): return torch.autograd.grad(lib_out, leaves, do,
+                                              retain_graph=True)
+    ke, ve = (t.repeat_interleave(H // K, dim=1) for t in (k, v))
+    exp_leaves = [x.detach().requires_grad_() for x in (q, ke, ve)]
+    exp_out = F.scaled_dot_product_attention(*exp_leaves, is_causal=True)
+    def library_expanded(): return torch.autograd.grad(
+        exp_out, exp_leaves, do, retain_graph=True)
+
+    # five products (S, dP, dV, dK, dQ) against the forward's two
+    flops = 2.5 * 4 * d * B * H * allowed_pairs(torch, MAIN_FLASH)
+    # q, k, v, o, dO and the log-sum-exp read once; dq, dk, dv written once
+    n_bytes = 2 * (3 * B * H * Sq * d + 2 * B * K * Sk * d) \
+        + 4 * B * H * Sq + 2 * (B * H * Sq * d + 2 * B * K * Sk * d)
+    b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOP_PER_S)
+    # the library's first backward calls in a process run about twice as
+    # slow as later ones (its plans being chosen), longer than event_ms'
+    # warm-up
+    for _ in range(30):
+        library()
+        library_expanded()
+    ms = event_ms(torch, fn, inner=20)
+    kernel_ms = profiled_kernel_ms(torch, fn, BWD_KERNELS["mma"])
+    fwd = {}
+    for with_lse in (False, True):
+        def fwd_fn(w=with_lse): return fa._launch(q, k, v, *mask.values(), w)
+        fwd[f"lse_{str(with_lse).lower()}"] = {
+            "ms": event_ms(torch, fwd_fn, inner=20),
+            "kernel_ms": profiled_kernel_ms(torch, fwd_fn,
+                                            "flash_bf16_kernel")}
+    return {"shape": list(MAIN_FLASH[:6]), "dtype": "bfloat16",
+            "ms": ms, "kernel_ms": kernel_ms,
+            "plain_ms": event_ms(torch, plain_fn, reps=3, inner=2),
+            "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+            "bytes": n_bytes, **rates(flops, b_ms, ms, kernel_ms),
+            "library_ms": event_ms(torch, library, reps=10, inner=10),
+            "library": "torch.autograd.grad(scaled_dot_product_attention("
+                       "is_causal=True, enable_gqa=True))",
+            "library_kv_expanded_ms": event_ms(torch, library_expanded,
+                                               reps=10, inner=10),
+            "forward": fwd, "card": nvidia_smi()}
+
+
 # ---------------------------------------------------------------------------------
 # Phase 5: the serving path
 # ---------------------------------------------------------------------------------
@@ -1788,7 +1982,8 @@ def _traced(torch, fn) -> dict:
     return {"wall_us": wall * 1e6, "device_us": total,
             "device_busy_share": total / (wall * 1e6), "flash_us": flash,
             "flash_share": flash / total if total else None,
-            "top_us": [[name[:60], t] for name, t in top]}
+            "top_us": [[name[:60], t] for name, t in top],
+            "top_all": by_kernel}
 
 
 def serve_trace(torch, api, params) -> dict:
@@ -1812,6 +2007,8 @@ def serve_trace(torch, api, params) -> dict:
         out = {"prefill": _traced(torch, prefill)}
         decode()                                     # warm
         out["decode"] = _traced(torch, decode)
+    for trace in out.values():
+        del trace["top_all"]
     print(f"[serve-trace] {json.dumps(out)}", flush=True)
     return out
 
@@ -1871,8 +2068,8 @@ def sensitivity(torch, api, params, tokens: int = 256) -> list[float]:
         b = a * (1 + 1e-6 * torch.randn(a.shape, device="cuda",
                                         generator=gen))
         for bp in w["blocks"]:
-            a, _ = lm._apply_attn_block(bp, cfg, a, pos, None)
-            b, _ = lm._apply_attn_block(bp, cfg, b, pos, None)
+            a = lm._apply_attn_block(bp, cfg, a, pos, None)[0]
+            b = lm._apply_attn_block(bp, cfg, b, pos, None)[0]
             growth.append(float((a[:, -1] - b[:, -1]).norm()
                                 / a[:, -1].norm()))
     return growth
@@ -2396,6 +2593,259 @@ def examples_phase(torch) -> dict:
            "colocated_lines": buf.getvalue().splitlines()[1:4]}
     print(f"[examples] {json.dumps(out)}", flush=True)
     return out
+
+
+# ---------------------------------------------------------------------------------
+# Phase 5c: the training path
+# ---------------------------------------------------------------------------------
+
+#: ``[train]``: llama3.2-1b at full width and depth through
+#: ``launch.train.run``: B x S tokens of the synthetic pipeline a step
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 4, 1024
+#: ``[train-check]``: the same width in f32 at 1 (gated) and 2 layers, B x S
+CHECK_TRAIN_LAYERS, CHECK_TRAIN_BATCH, CHECK_TRAIN_SEQ = 2, 2, 256
+#: card against CPU: |diff| <= TRAIN_CHECK_TOL x the leaf's largest element
+TRAIN_CHECK_TOL = 1e-3
+
+
+def train_args(extra: list) -> object:
+    from repro_torch.launch import train as launch
+
+    return launch.parser().parse_args(["--device", "cuda"] + extra)
+
+
+def train_phase(torch, np) -> dict:
+    """``[train]``: ``launch.train.run`` on llama3.2-1b at full width and
+    depth (bf16 compute, f32 master weights, ``remat="full"``), TRAIN_BATCH
+    x TRAIN_SEQ tokens of ``SyntheticTokenPipeline(seed=0)`` a step, for
+    TRAIN_STEPS steps.  Counts at 0 just before, read just after: K4's
+    forward runs twice a layer and step (the step's forward and its
+    recompute under remat), both with the log-sum-exp, and its backward
+    once.  Every loss and grad norm finite, the first loss below
+    ln(vocab) + 2.  Then step 0 twice from one state: bit-identical loss
+    and gradients.  Then one step traced: K4's share of the device time."""
+    import math
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train as launch
+    from repro_torch.train.optim import tree_leaves
+    from repro_torch.train.step import value_and_grad
+
+    args = train_args(["--full", "--steps", str(TRAIN_STEPS), "--batch",
+                       str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                       "--ckpt-every", "0", "--log-every", "1",
+                       "--seed", "0"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                        # counts at 0 just before the path
+    t0 = time.perf_counter()
+    out = launch.run(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    counts["flash_attention_lse"] = fa.flash_attention.lse_launches
+    peak = torch.cuda.max_memory_allocated()
+    del out["state"]
+    cfg, api, step_fn = launch.build(args)
+    layers, steps = cfg.n_layers, TRAIN_STEPS
+    want = {"flash_attention": 2 * layers * steps,
+            "flash_attention_lse": 2 * layers * steps,
+            "flash_attention_bwd": layers * steps}
+    for name, n in want.items():
+        check(counts[name] == n, f"[train] {counts[name]} {name} launches, "
+              f"the path implies {n} ({layers} layers x {steps} steps, the "
+              "forward twice under remat)")
+    check(all(math.isfinite(x) for x in out["losses"] + out["grad_norms"]),
+          f"[train] a loss or grad norm is not finite: {out}")
+    bound = math.log(cfg.vocab) + 2
+    check(out["first_loss"] < bound, f"[train] first loss "
+          f"{out['first_loss']} >= ln(vocab) + 2 = {bound}")
+
+    # step 0 twice from one state, and one step traced
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.train import init_train_state
+
+    state = init_train_state(api, 0)
+    data = SyntheticTokenPipeline(DataConfig(vocab=cfg.vocab,
+                                             seq_len=TRAIN_SEQ,
+                                             global_batch=TRAIN_BATCH, seed=0))
+    batch = launch.feed(cfg, api, data.batch_at(0)["tokens"], TRAIN_BATCH,
+                        TRAIN_SEQ)
+    (l0, _), g0 = value_and_grad(api, state["params"], batch)
+    (l1, _), g1 = value_and_grad(api, state["params"], batch)
+    same = torch.equal(l0, l1) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(g0), tree_leaves(g1)))
+    check(same, "[train] step 0 twice from one state: the gradients differ")
+    del g0, g1
+    trace = _traced(torch, lambda: step_fn(state, batch))
+    bwd = sum(t for name, t in trace["top_all"].items()
+              if any(k in name for k in BWD_KERNELS["mma"]))
+    fwd = sum(t for name, t in trace["top_all"].items()
+              if "flash_bf16_kernel" in name)
+    del state, batch, trace["top_all"]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    res = {"arch": cfg.name, "layers": layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "steps": steps, "remat": cfg.remat, "losses": out["losses"],
+           "grad_norms": out["grad_norms"], "step_s": out["step_s"],
+           "step_ms_p50": out["step_s_p50"] * 1e3,
+           "tokens_per_s": tokens / out["step_s_p50"], "wall_s": wall,
+           "max_memory_allocated": peak,
+           "launches": {k: counts[k] for k in want},
+           "step0_twice_bit_identical": True,
+           "trace": {**trace, "flash_bwd_us": bwd, "flash_fwd_us": fwd,
+                     "flash_bwd_share": bwd / trace["device_us"],
+                     "flash_fwd_share": fwd / trace["device_us"]}}
+    print(f"[train] {json.dumps(res)}", flush=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+def _train_grads(torch, cfg, seed: int) -> dict:
+    """``cfg``'s seeded random master weights: the loss and gradients on
+    the card, on the CPU, and on the CPU with every weight moved by 1e-7
+    relative; the card's and the moved CPU's largest |diff| from the
+    CPU's (the loss relative to the loss, each leaf relative to its
+    largest element)."""
+    from repro_torch.models import build_model, master_params
+    from repro_torch.train.optim import tree_leaves, tree_map
+    from repro_torch.train.step import value_and_grad
+
+    master = master_params(build_model(cfg, device="cuda").init(seed))
+    gen = torch.Generator().manual_seed(seed + 1)
+    toks = torch.randint(0, cfg.vocab, (CHECK_TRAIN_BATCH, CHECK_TRAIN_SEQ),
+                         generator=gen)
+    cpu = to_cpu(master)
+    moved = tree_map(lambda t: t * (1 + 1e-7 * torch.randn(
+        t.shape, generator=gen)), cpu)
+    runs = {}
+    for name, dev, params in (("card", "cuda", master), ("cpu", "cpu", cpu),
+                              ("cpu_moved", "cpu", moved)):
+        api = build_model(cfg, device=dev)
+        (loss, _), grads = value_and_grad(api, params,
+                                          {"tokens": toks.to(dev)})
+        runs[name] = (loss.cpu(), [g.cpu() for g in tree_leaves(grads)])
+        del grads
+    del master, cpu, moved
+
+    def rel(name):
+        loss, grads = runs[name]
+        ref_loss, ref = runs["cpu"]
+        return {"loss_rel_diff": float((loss - ref_loss).abs()
+                                       / ref_loss.abs()),
+                "grad_max_rel_diff": max(
+                    float((a - b).abs().max() / b.abs().max().clamp(
+                        min=1e-30)) for a, b in zip(grads, ref))}
+
+    return {"layers": cfg.n_layers, **rel("card"),
+            "cpu_moved_1e-7": rel("cpu_moved")}
+
+
+def train_check(torch, np) -> dict:
+    """``[train-check]``: llama3.2-1b's width in f32, seeded random
+    weights, CHECK_TRAIN_BATCH x CHECK_TRAIN_SEQ tokens: the loss and every
+    leaf's gradient on the card (K4's f32 forward and backward kernels)
+    against the CPU's (the plain versions), each leaf's largest |diff|
+    relative to its largest element, beside the CPU's own movement when
+    every weight moves by 1e-7 relative.  Gated at TRAIN_CHECK_TOL at one
+    layer; at CHECK_TRAIN_LAYERS the random-weight model's own f32
+    movement reaches ~1e-3 (a 1e-7 change of the embedding alone moves the
+    embedding's gradient by 6e-4 on the CPU), so that depth is recorded,
+    not gated."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+
+    runs = []
+    for layers in (1, CHECK_TRAIN_LAYERS):
+        cfg = dataclasses.replace(get_config("llama3.2-1b"), n_layers=layers,
+                                  compute_dtype=torch.float32)
+        before = fa.flash_attention_bwd.launches
+        runs.append(_train_grads(torch, cfg, seed=3))
+        check(fa.flash_attention_bwd.launches - before == layers,
+              "[train-check] the card's gradients did not go through K4's "
+              "backward once a layer")
+    gated = runs[0]
+    res = {"d_model": 2048, "batch": CHECK_TRAIN_BATCH,
+           "seq": CHECK_TRAIN_SEQ, "gated": gated, "recorded": runs[1],
+           "tolerance": TRAIN_CHECK_TOL}
+    check(gated["loss_rel_diff"] <= TRAIN_CHECK_TOL
+          and gated["grad_max_rel_diff"] <= TRAIN_CHECK_TOL,
+          f"[train-check] the card's loss or gradients off the CPU's: {res}")
+    print(f"[train-check] {json.dumps(res)}", flush=True)
+    return res
+
+
+def train_resume(torch) -> dict:
+    """``[train-resume]``: the smoke llama on the card (K4 at d 16): 6
+    steps straight, against 6 steps with a failure injected after step 3
+    (its checkpoint at 3) and a resume into a fresh state for steps 3-5:
+    every leaf of the final state bit-identical.  Then
+    ``examples/torch_fault_tolerant_train.py`` on the card (a supervised
+    subprocess, a failure at step 8) must resume."""
+    import io
+    import tempfile
+
+    from repro_torch.launch import train as launch
+    from repro_torch.train.optim import tree_leaves
+
+    base = ["--steps", "6", "--batch", "8", "--seq", "64", "--log-every",
+            "10"]
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        straight = launch.run(train_args(base + ["--ckpt-every", "0",
+                                                 "--ckpt-dir", tmp + "/a"]))
+        counts = read_counts()
+        failed = False
+        try:
+            launch.run(train_args(base + ["--ckpt-every", "3", "--fail-at",
+                                          "3", "--ckpt-dir", tmp + "/b"]))
+        except RuntimeError as exc:
+            failed = "injected failure at step 3" in str(exc)
+        check(failed, "[train-resume] the failure was not injected")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            resumed = launch.run(train_args(base + [
+                "--ckpt-every", "0", "--resume", "--ckpt-dir", tmp + "/b"]))
+        check("resumed from step 3" in buf.getvalue(),
+              "[train-resume] the run did not resume from step 3")
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(straight["state"]), tree_leaves(resumed["state"])))
+    check(same, "[train-resume] 3 steps, a checkpoint and 3 more differ from "
+          "6 steps straight")
+    check(counts["flash_attention_bwd"] == 2 * 6,
+          f"[train-resume] {counts['flash_attention_bwd']} backward launches "
+          "in 6 steps of 2 layers")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        log = load_example("torch_fault_tolerant_train").main([])
+    res = {"bit_identical": True, "losses": straight["losses"],
+           "resumed_losses": resumed["losses"],
+           "backward_launches": counts["flash_attention_bwd"],
+           "example_s": time.perf_counter() - t0,
+           "example_resumed": "resumed from step 5" in log}
+    check(res["example_resumed"], "[train-resume] the fault-tolerant example "
+          f"did not resume: {log}")
+    print(f"[train-resume] {json.dumps(res)}", flush=True)
+    return res
+
+
+def flash_bwd_row(timing: dict, errs: dict, launches: int) -> dict:
+    return {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:77",
+        "replaces_fn": "the gradient of flash_attention (the reference's "
+                       "pallas_call has no custom_vjp; its training "
+                       "differentiates the XLA attention)",
+        "launches": launches, "on_main_path": launches > 0,
+        "max_abs_err": errs["abs_bfloat16"],
+        "max_abs_err_f32": errs["abs_float32"],
+        "max_rel_err": errs["bfloat16"], "max_rel_err_f32": errs["float32"],
+        **{k: v for k, v in timing.items() if k not in ("forward", "card")},
+        "forward_with_lse": timing["forward"]}
 
 
 # ---------------------------------------------------------------------------------
@@ -4619,7 +5069,8 @@ def build_all() -> None:
         return target, time.perf_counter() - t0, log
 
     targets = (("topo_score", ()), ("flash_attention", ()),
-               ("topo_score", TIER_YARDSTICK), ("recurrent", ()))
+               ("topo_score", TIER_YARDSTICK), ("recurrent", ()),
+               ("flash_attention_bwd", ()))
     logs = {}
     with concurrent.futures.ThreadPoolExecutor(len(targets)) as pool:
         for (name, defines), secs, log in pool.map(one, targets):
@@ -4862,6 +5313,7 @@ def run() -> int:
     for name in ("prescreen", "encode_delta", "topo_score") + MERGES:
         check(launches[name] > 0, f"the main path never launched {name}")
     flash_errs = flash_phase(torch)
+    bwd_errs = flash_bwd_phase(torch)
     serve, api, params = serve_phase(torch, np)
     day_serve = day_serve_line(day, serve)
     serve_trace(torch, api, params)
@@ -4873,6 +5325,12 @@ def run() -> int:
     lap("families")
     examples = examples_phase(torch)
     lap("examples")
+    train = train_phase(torch, np)
+    lap("train")
+    train_chk = train_check(torch, np)
+    lap("train_check")
+    resume = train_resume(torch)
+    lap("train_resume")
     rows = timing_phase(torch, np, dev, errs, launches,
                         {"topo_score": legacy_plans, None: plans})
     lap("timing")
@@ -4887,6 +5345,8 @@ def run() -> int:
             torch, flash_errs, form,
             sum(f["launches"][f"flash_attention_{form}"]
                 for f in fam.values())))
+    rows.append(flash_bwd_row(flash_bwd_timing(torch), bwd_errs,
+                              train["launches"]["flash_attention_bwd"]))
     rows.extend(scan_rows(torch, *({
         name: sum(f[key][name] for f in fam.values())
         for name in ("wkv6_scan", "rglru_scan")}
@@ -4940,6 +5400,14 @@ def run() -> int:
                                    for a, f in fam.items()},
                       "examples": {k: examples[k] for k in (
                           "colocated_uplift", "colocated_raw_tok_per_s")},
+                      "train": {k: train[k] for k in (
+                          "step_ms_p50", "tokens_per_s",
+                          "max_memory_allocated", "losses", "launches")},
+                      "train_flash_bwd_share": train["trace"][
+                          "flash_bwd_share"],
+                      "train_check": {k: train_chk[k] for k in (
+                          "gated", "recorded")},
+                      "train_resume_bit_identical": resume["bit_identical"],
                       "empty_kernel_ms": floor["kernel_ms"],
                       "shortlist": {f"{r['engine']}@{r['nodes']}":
                                     {k: r["counts"]["path"][k]

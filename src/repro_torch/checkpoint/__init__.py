@@ -1,0 +1,3 @@
+from .store import CheckpointManager, restore_pytree, save_pytree
+
+__all__ = ["CheckpointManager", "restore_pytree", "save_pytree"]

@@ -15,7 +15,8 @@ cycle merge the earlier shards' records in their own launches
 ``fused_class.tail_merge_plain`` and ``normal_cycle.normal_merge_plain``),
 and ``prescreen.prescreen_select`` merges the shards' shortlists.
 flash_attention — blocked causal / sliding-window GQA attention, the
-serving path's prefill attention (``csrc/flash_attention.cu``).
+serving path's prefill attention (``csrc/flash_attention.cu``), and its
+backward for training (``csrc/flash_attention_bwd.cu``).
 recurrent — the recurrent families' time-step scans: RWKV-6's WKV and the
 RG-LRU's gated diagonal recurrence (``csrc/recurrent.cu``).
 """
@@ -25,7 +26,8 @@ from . import (flash_attention, fused_class, normal_cycle, ops, prescreen,
 #: every kernel wrapper of the package (their ``launches`` counters)
 WRAPPERS = (topo_score.WRAPPERS + fused_class.WRAPPERS + normal_cycle.WRAPPERS
             + view_delta.WRAPPERS + prescreen.WRAPPERS
-            + (flash_attention.flash_attention,) + recurrent.WRAPPERS)
+            + (flash_attention.flash_attention,
+               flash_attention.flash_attention_bwd) + recurrent.WRAPPERS)
 
 __all__ = ["WRAPPERS", "flash_attention", "fused_class", "normal_cycle", "ops",
            "prescreen", "recurrent", "topo_score", "view_delta"]

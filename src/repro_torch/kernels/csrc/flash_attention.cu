@@ -77,8 +77,11 @@
 // stays within 2e-5 of the plain version: two threads per q row (four at
 // d = 256), each holding every other (fourth) element of q and of the
 // accumulator.
+// LSE: with a non-null lse pointer each row's log-sum-exp (natural units)
+// is written in the epilogue, for the backward (flash_attention_bwd.cu);
+// the serving path passes null and runs the same code as before.
 // Later work: the q heads that share a KV head in one CTA, a persistent
-// grid, fp8, a backward.
+// grid, fp8.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -101,7 +104,11 @@ struct Shape {
   int H, group, Sq, Sk, causal, window;  // window 0 = none
   int prefix;   // P of the prefix-LM mask; 0 = none, and 0 unless causal
   float scale;  // d^-0.5; for bf16 d^-0.5 * log2(e) (scores in log2 units)
+  float* lse;   // [B * H, Sq] each row's log-sum-exp (natural units), or
+                // null: the serving path asks for none
 };
+
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int BQ, int BK>
 __device__ __forceinline__ void kv_range(const Shape& a, int q0, int& lo,
@@ -851,6 +858,12 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap mq,
                      : "memory");
       }
     }
+    // the rows' log-sum-exp, m + log2(l) in log2 units, stored natural
+    if (a.lse != nullptr && t == 0) {
+      float* lp = a.lse + static_cast<long long>(blockIdx.x) * a.Sq;
+      if (row0 < a.Sq) lp[row0] = (st.m0 + log2f(d0)) * LN2;
+      if (row0 + 8 < a.Sq) lp[row0 + 8] = (st.m1 + log2f(d1)) * LN2;
+    }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     asm volatile("bar.sync %0, %1;\n" ::"r"(bar_id), "r"(WG_THREADS)
                  : "memory");
@@ -976,6 +989,8 @@ flash_f32_kernel(const F32Args p, const Shape a) {
                 half;
 #pragma unroll
     for (int i = 0; i < DH; ++i) op[TPR * i] = acc[i] / den;
+    if (a.lse != nullptr && half == 0)
+      a.lse[static_cast<long long>(blockIdx.y) * a.Sq + row] = m + logf(den);
   }
 }
 
@@ -1084,6 +1099,9 @@ extern "C" {
 // dtype: 0 = f32, 1 = bf16 (q, k, v and o alike).  maps: 4 rows (q, k, v,
 // o) of MAP_FIELDS int64 each, from the wrapper's tensor-map helper.
 // prefix: P of the prefix-LM mask (0 = none; ignored unless causal).
+// lse: f32 [B, H, Sq], each row's log-sum-exp of its scaled scores in
+// natural units (m + log(max(l, 1e-30))), or null for none (last, so that
+// a caller of the interface without it passes the stream where it was).
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
 // for a head dimension that has no instantiation or a map row that does
 // not fit the kernel's tiling or that the driver refuses.
@@ -1091,7 +1109,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int dtype, int B, int H, int KH, int Sq,
                            int Sk, int D, const long long* maps, int causal,
                            int window, int prefix, float scale,
-                           void* stream) {
+                           void* stream, float* lse) {
   Shape a;
   a.H = H;
   a.group = H / KH;
@@ -1101,6 +1119,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   a.window = window;
   a.prefix = causal ? prefix : 0;
   a.scale = scale;
+  a.lse = lse;
   const void* ptrs[4] = {q, k, v, o};
   const auto s = static_cast<cudaStream_t>(stream);
   switch (D) {

@@ -22,7 +22,20 @@ wrapper                plain version              replaces
 
 Beside ``flash_attention.launches`` it counts the launches with each
 non-causal or prefixed mask in ``flash_attention.bidirectional_launches``
-and ``flash_attention.prefix_launches``.
+and ``flash_attention.prefix_launches``, and those that wrote each row's
+log-sum-exp for a backward in ``flash_attention.lse_launches``.
+
+Training differentiates through it: where grad mode is on and q, k or v
+requires grad, ``flash_attention`` runs as the autograd function
+``FlashAttention``, whose forward launches the same kernel with its
+log-sum-exp output (f32 ``[B, H, Sq]``, natural units: log Σ exp of the
+scaled, masked scores) and whose backward is ``flash_attention_bwd``: the
+hand-written kernels of ``csrc/flash_attention_bwd.cu`` for CUDA tensors
+(counted in ``flash_attention_bwd.launches``), ``flash_attention_bwd_plain``
+for CPU tensors.  The reference has no backward of its Pallas kernel: its
+training differentiates the XLA attention, which the CPU tests hold these
+gradients to.  Without grad (the serving path, under inference mode) the
+kernel writes no log-sum-exp.
 
 Layout as the reference: q ``[B, H, Sq, d]``, k and v ``[B, K, Sk, d]`` with
 head h reading KV head ``h // (H // K)``; the output is a new contiguous
@@ -40,6 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
@@ -50,6 +64,8 @@ from . import _build
 #: give exp(-inf + inf))
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)
+LOG2E = float(np.float32(math.log2(math.e)))
+LN2 = float(np.float32(math.log(2.0)))
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: rows of the consumer warpgroup that owns a slice of a bf16 q block
 CONSUMER_ROWS = 64
@@ -154,18 +170,51 @@ def tensor_map(x: torch.Tensor, box_rows: int) -> tuple[int, ...]:
     return (d, S, heads, B, *strides, *box)
 
 
+def _q_range(k0: int, sq: int, sk: int, causal: bool, window: int | None,
+             block_q: int, block_k: int,
+             prefix_len: int | None = None) -> tuple[int, int]:
+    """The q rows [lo, hi) that see the KV tile [k0, k0 + block_k): the
+    transpose of `_kv_range`, with lo rounded down to a q block.  Causal,
+    rows from k0 on see it, and with a window only rows below
+    kmax + window (kmax the tile's last key below Sk); a tile that starts
+    below P is also seen by every row below P, so its rows start at 0."""
+    pre = _prefix(causal, prefix_len)
+    kmax = min(k0 + block_k, sk) - 1
+    in_prefix = k0 < pre
+    lo = k0 if causal and not in_prefix else 0
+    hi = sq
+    if window:
+        hi = min(sq, max(pre, kmax + window) if in_prefix else kmax + window)
+    return (lo // block_q) * block_q, hi
+
+
+def _allowed(rows: torch.Tensor, cols: torch.Tensor, sk: int, causal: bool,
+             window: int | None, pre: int) -> torch.Tensor:
+    """The kernel's mask of (row, key) pairs (`allowed` in the sources)."""
+    mask = (cols <= rows) if causal else (cols >= 0)
+    if window:
+        mask = mask & ((rows - cols) < window)
+    if pre:
+        mask = mask | ((rows < pre) & (cols < pre))
+    return mask & (cols < sk)
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int | None = None,
                           prefix_len: int | None = None,
                           block_q: int | None = None,
-                          block_k: int | None = None) -> torch.Tensor:
+                          block_k: int | None = None,
+                          return_lse: bool = False):
     """Plain PyTorch version of the kernel, with its arithmetic: the same
     blocked loop and bounds (``block_shape`` unless given), the finite
     sentinel, the f32 online softmax, for bf16 inputs the softmax in log2
     units (2^(s log2(e) - m log2(e)) = e^(s - m)) and P carried as bf16
     hi + lo parts (a 16-bit mantissa) in P V, and ``acc / max(l, 1e-30)``
     cast to q's dtype.  ``prefix_len`` P (causal only): rows below P also
-    attend to every key below P."""
+    attend to every key below P.  With ``return_lse`` it returns (out,
+    lse): each row's m + log(max(l, 1e-30)) in natural units, f32
+    ``[B, H, Sq]`` (bf16: (m + log2(max(l, 1e-30))) ln 2, as the kernel
+    writes it)."""
     B, H, Sq, d = q.shape
     bq, bk = block_shape(d, q.dtype)
     block_q, block_k = block_q or bq, block_k or bk
@@ -176,6 +225,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     split_p = q.dtype == torch.bfloat16
     exp = torch.exp2 if split_p else torch.exp
     out = torch.empty((B, H, Sq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     kf, vf = k.float(), v.float()
     for q0 in range(0, Sq, block_q):
         n = min(block_q, Sq - q0)
@@ -192,12 +242,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             vb = torch.nn.functional.pad(vf[:, :, k0:k0 + block_k], pad)
             s = torch.matmul(qb, kb.transpose(-1, -2)) * scale
             cols = k0 + torch.arange(block_k, device=q.device)[None, :]
-            mask = (cols <= rows) if causal else (cols >= 0)
-            if window:
-                mask = mask & ((rows - cols) < window)
-            if pre:
-                mask = mask | ((rows < pre) & (cols < pre))
-            s = torch.where(mask & (cols < Sk), s, NEG_INF)
+            s = torch.where(_allowed(rows, cols, Sk, causal, window, pre), s,
+                            NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
             p = exp(s - m_new)
             alpha = exp(m - m_new)
@@ -207,9 +253,91 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 p = hi + (p - hi).to(torch.bfloat16).float()
             acc = alpha * acc + torch.matmul(p, vb)
             m = m_new
-        o = acc / torch.clamp(l, min=1e-30)
+        den = torch.clamp(l, min=1e-30)
+        o = acc / den
         out[:, :, q0:q0 + n] = o.reshape(B, H, n, d).to(q.dtype)
-    return out
+        row_lse = (m + torch.log2(den)) * LN2 if split_p else m + torch.log(den)
+        lse[:, :, q0:q0 + n] = row_lse.reshape(B, H, n)
+    return (out, lse) if return_lse else out
+
+
+def bwd_block_shape(d: int, dtype: torch.dtype) -> tuple[int, int]:
+    """(q rows, KV rows) of a block of the backward's dQ pass, and so of
+    the plain backward's loop: 64 q rows (four warps of 16) against KV
+    tiles of 64 rows, 32 at bf16 d = 128 (registers); the CUDA-core forms
+    (f32, and bf16 at d = 256) walk the same 64 x 64 bounds."""
+    if dtype == torch.bfloat16 and d == 128:
+        return 64, 32
+    return 64, 64
+
+
+def _bf16_round(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor, *,
+                              causal: bool = True, window: int | None = None,
+                              prefix_len: int | None = None,
+                              block_q: int | None = None,
+                              block_k: int | None = None):
+    """Plain PyTorch version of the backward kernels, with their
+    arithmetic: ``D = rowsum(dO ∘ O)`` in f32; per q block (``bwd_block_shape``
+    unless given) over the KV tiles of `_kv_range`, P recomputed from the
+    log-sum-exp (bf16: 2^(s d^-0.5 log2(e) - lse log2(e)), the forward's
+    log2 units; f32: e^(s d^-0.5 - lse)), 0 where the mask forbids,
+    ``dP = dO Vᵀ``, ``dS = P ∘ (dP - D)``, ``dV += Pᵀ dO``,
+    ``dK += dSᵀ Q`` and ``dQ += dS K``, with P and dS rounded to bf16 as
+    the tensor cores take them for bf16 inputs; dQ and dK times d^-0.5 at
+    the end.  The G query heads of a KV head add into its dK and dV.
+    Returns (dq, dk, dv) in q's dtype, accumulated in f32."""
+    B, H, Sq, d = q.shape
+    bq, bk = bwd_block_shape(d, q.dtype)
+    block_q, block_k = block_q or bq, block_k or bk
+    K, Sk = k.shape[1], k.shape[2]
+    G = H // K
+    pre = _prefix(causal, prefix_len)
+    bf16 = q.dtype == torch.bfloat16
+    scale = _scale(d, q.dtype)
+    scale_nat = _scale(d)
+    exp = torch.exp2 if bf16 else torch.exp
+    rnd = _bf16_round if bf16 else (lambda x: x)
+    lse_u = lse.float() * LOG2E if bf16 else lse.float()
+    dev = q.device
+    pad_k = -(-Sk // block_k) * block_k
+    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, pad_k - Sk))
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, pad_k - Sk))
+    dk = torch.zeros((B, K, pad_k, d), device=dev)
+    dv = torch.zeros((B, K, pad_k, d), device=dev)
+    dq = torch.empty((B, H, Sq, d), dtype=q.dtype, device=dev)
+    for q0 in range(0, Sq, block_q):
+        n = min(block_q, Sq - q0)
+        # [B, K, G * n, d]: head h = kh * G + g, row index g * n + i
+        def rows_of(x):
+            return x[:, :, q0:q0 + n].float().reshape(B, K, G * n, -1)
+        qb, dob, ob = rows_of(q), rows_of(do), rows_of(o)
+        delta = (dob * ob).sum(dim=-1, keepdim=True)
+        lb = lse_u[:, :, q0:q0 + n].reshape(B, K, G * n, 1)
+        rows = (q0 + torch.arange(n, device=dev)).repeat(G)[:, None]
+        dq_acc = torch.zeros((B, K, G * n, d), device=dev)
+        lo, hi = _kv_range(q0, Sk, causal, window, block_q, block_k, pre)
+        for k0 in range(lo, hi, block_k):
+            kb, vb = kf[:, :, k0:k0 + block_k], vf[:, :, k0:k0 + block_k]
+            s = torch.matmul(qb, kb.transpose(-1, -2)) * scale
+            cols = k0 + torch.arange(block_k, device=dev)[None, :]
+            p = torch.where(_allowed(rows, cols, Sk, causal, window, pre),
+                            exp(s - lb), 0.0)
+            dp = torch.matmul(dob, vb.transpose(-1, -2))
+            ds = rnd(p * (dp - delta))
+            dv[:, :, k0:k0 + block_k] += torch.matmul(rnd(p).transpose(-1, -2),
+                                                      dob)
+            dk[:, :, k0:k0 + block_k] += torch.matmul(ds.transpose(-1, -2), qb)
+            dq_acc += torch.matmul(ds, kb)
+        dq[:, :, q0:q0 + n] = (dq_acc * scale_nat).reshape(
+            B, H, n, d).to(q.dtype)
+    return (dq, (dk[:, :, :Sk] * scale_nat).to(q.dtype),
+            dv[:, :, :Sk].to(q.dtype))
 
 
 # ---------------------------------------------------------------------------------
@@ -270,7 +398,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_launch.argtypes = (
         [vp] * 4 + [ci] * 7 + [ctypes.POINTER(ctypes.c_longlong), ci, ci,
-                               ci, ctypes.c_float, vp])
+                               ci, ctypes.c_float, vp, vp])
     lib.flash_attention_launch.restype = ci
     lib.flash_attention_error_string.argtypes = [ci]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -280,6 +408,69 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
     return bind(_build.load("flash_attention"))
+
+
+def _launch(q, k, v, causal, window, prefix_len, with_lse: bool):
+    """One launch of the forward kernel on CUDA tensors: (out, lse), lse
+    None unless ``with_lse``."""
+    B, H, Sq, d = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    # rows lie below Sq and keys below Sk: a longer prefix means no more
+    pre = min(_prefix(causal, prefix_len), max(Sq, Sk))
+    out = torch.empty((B, H, Sq, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if out.numel() == 0:
+        return out, lse
+    maps = check_kernel_inputs(q, k, v)
+    maps.append(tensor_map(out, CONSUMER_ROWS))
+    table = (ctypes.c_longlong * (4 * len(MAP_FIELDS)))(
+        *[n for row in maps for n in row])
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        code = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPE_CODE[q.dtype], B, H, K, Sq, Sk, d, table,
+            int(causal), int(window or 0), pre, _scale(d, q.dtype),
+            torch.cuda.current_stream(q.device).cuda_stream,
+            None if lse is None else lse.data_ptr())
+    if code != 0:
+        msg = lib.flash_attention_error_string(code).decode()
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {code} "
+                           f"({msg})")
+    flash_attention.launches += 1
+    flash_attention.bidirectional_launches += int(not causal)
+    flash_attention.prefix_launches += int(pre > 0)
+    flash_attention.lse_launches += int(with_lse)
+    return out, lse
+
+
+class FlashAttention(torch.autograd.Function):
+    """K4 under autograd: the forward kernel with its log-sum-exp output
+    (the plain version for CPU tensors), saving q, k, v, the output and the
+    log-sum-exp; the backward is `flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, prefix_len):
+        if q.device.type == "cuda":
+            out, lse = _launch(q, k, v, causal, window, prefix_len, True)
+        else:
+            out, lse = flash_attention_plain(q, k, v, causal=causal,
+                                             window=window,
+                                             prefix_len=prefix_len,
+                                             return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, window, prefix_len)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, prefix_len = ctx.mask
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do,
+                                         causal=causal, window=window,
+                                         prefix_len=prefix_len)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -293,38 +484,105 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     The kernel takes head dimensions 16, 32, 64, 128 and 256 (every
     config's at full width: recurrentgemma-9b's local attention and
     paligemma-3b's attention are at 256); CPU tensors of any head
-    dimension go to the plain version."""
-    if not _checked(q, k, v, window, prefix_len):
+    dimension go to the plain version.  Where grad mode is on and an input
+    requires grad it runs as `FlashAttention`, differentiable."""
+    on_cuda = _checked(q, k, v, window, prefix_len)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, prefix_len)
+    if not on_cuda:
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      prefix_len=prefix_len)
-    B, H, Sq, d = q.shape
-    K, Sk = k.shape[1], k.shape[2]
-    # rows lie below Sq and keys below Sk: a longer prefix means no more
-    pre = min(_prefix(causal, prefix_len), max(Sq, Sk))
-    out = torch.empty((B, H, Sq, d), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
-    maps = check_kernel_inputs(q, k, v)
-    maps.append(tensor_map(out, CONSUMER_ROWS))
-    table = (ctypes.c_longlong * (4 * len(MAP_FIELDS)))(
-        *[n for row in maps for n in row])
-    lib = _lib()
-    with torch.cuda.device(q.device):
-        code = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPE_CODE[q.dtype], B, H, K, Sq, Sk, d, table,
-            int(causal), int(window or 0), pre, _scale(d, q.dtype),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    if code != 0:
-        msg = lib.flash_attention_error_string(code).decode()
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {code} "
-                           f"({msg})")
-    flash_attention.launches += 1
-    flash_attention.bidirectional_launches += int(not causal)
-    flash_attention.prefix_launches += int(pre > 0)
-    return out
+    return _launch(q, k, v, causal, window, prefix_len, False)[0]
 
 
 flash_attention.launches = 0
 flash_attention.bidirectional_launches = 0
 flash_attention.prefix_launches = 0
+flash_attention.lse_launches = 0
+
+
+# ---------------------------------------------------------------------------------
+# The backward
+# ---------------------------------------------------------------------------------
+
+def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from
+    ``csrc/flash_attention_bwd.cu``."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_bwd_launch.argtypes = (
+        [vp] * 10 + [ci] * 7 + [ctypes.POINTER(ctypes.c_longlong), ci, ci,
+                                ci, ctypes.c_float, vp])
+    lib.flash_attention_bwd_launch.restype = ci
+    lib.flash_attention_bwd_error_string.argtypes = [ci]
+    lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def _bwd_lib() -> ctypes.CDLL:
+    return bind_bwd(_build.load("flash_attention_bwd"))
+
+
+def _vector_ready(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself where the backward kernels can read its rows with
+    16-byte loads (last dimension contiguous, base and the other strides
+    multiples of 16 bytes), else a contiguous copy."""
+    es = x.element_size()
+    if (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+            and all(x.stride(i) * es % 16 == 0 or x.shape[i] == 1
+                    for i in range(3))):
+        return x
+    return x.contiguous()
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = True, window: int | None = None,
+                        prefix_len: int | None = None):
+    """The gradients (dq, dk, dv) of `flash_attention`'s output ``o`` with
+    cotangent ``do``, given each row's log-sum-exp ``lse`` from the forward:
+    for CUDA tensors two launches of ``csrc/flash_attention_bwd.cu`` (dQ
+    with D = rowsum(dO ∘ O), then dK and dV, each KV tile summing its G
+    query heads in one CTA, no atomics), counted once in
+    ``flash_attention_bwd.launches``; for CPU tensors
+    `flash_attention_bwd_plain`.  The gradients come out in q's dtype."""
+    mask = {"causal": causal, "window": window, "prefix_len": prefix_len}
+    if not _checked(q, k, v, window, prefix_len):
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, **mask)
+    B, H, Sq, d = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dimension {d} has no kernel; supported: "
+                         f"{HEAD_DIMS}")
+    if do.shape != q.shape or o.shape != q.shape or lse.shape != (B, H, Sq):
+        raise ValueError(f"o {tuple(o.shape)}, do {tuple(do.shape)} and lse "
+                         f"{tuple(lse.shape)} do not fit q {tuple(q.shape)}")
+    pre = min(_prefix(causal, prefix_len), max(Sq, Sk))
+    ins = [_vector_ready(x.to(q.dtype)) for x in (q, k, v, o, do)]
+    lse = lse.float().contiguous()
+    dq = torch.empty((B, H, Sq, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, K, Sk, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    dsum = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 15)(
+        *[x.stride(i) for x in ins for i in range(3)])
+    lib = _bwd_lib()
+    with torch.cuda.device(q.device):
+        code = lib.flash_attention_bwd_launch(
+            *[x.data_ptr() for x in ins], lse.data_ptr(), dsum.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _DTYPE_CODE[q.dtype], B, H, K, Sq, Sk, d, strides, int(causal),
+            int(window or 0), pre, _scale(d),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if code != 0:
+        msg = lib.flash_attention_bwd_error_string(code).decode()
+        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
+                           f"{code} ({msg})")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

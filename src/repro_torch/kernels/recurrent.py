@@ -25,6 +25,11 @@ thread per (batch, channel).  Each wrapper runs its plain version for
 tensors on the CPU and launches its kernel for tensors on a CUDA device;
 anything else raises.  Each counts its launches in ``<wrapper>.launches``,
 and those at S = 1 also in ``<wrapper>.decode_launches``.
+
+The kernels have no backward yet.  On CUDA tensors each wrapper raises
+``NotImplementedError`` where grad mode is on and an input requires grad
+(`refuse_autograd`), rather than return outputs without a ``grad_fn``;
+CPU tensors go through the plain versions, which autograd differentiates.
 """
 from __future__ import annotations
 
@@ -53,6 +58,21 @@ def _on_cuda(*xs: torch.Tensor) -> bool:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     return dev.type == "cuda"
+
+
+def refuse_autograd(name: str, on_cuda: bool, *xs: torch.Tensor) -> None:
+    """Raise NotImplementedError for a kernel launch that autograd would
+    have to differentiate: ``on_cuda``, grad mode on and an input that
+    requires grad.  The scans' backward kernels come with the slice that
+    ports them (ROADMAP.md, section 2, items 2 and 3); until then training
+    of the recurrent families runs on the CPU."""
+    if on_cuda and torch.is_grad_enabled() and any(x.requires_grad
+                                                    for x in xs):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel has no backward yet (it comes with the "
+            "slice that ports the scans' backward kernels); run without "
+            "grad, or on CPU tensors, whose plain version autograd "
+            "differentiates")
 
 
 @functools.lru_cache(maxsize=1)
@@ -119,7 +139,9 @@ def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if r.dtype not in _DTYPE_CODE or k.dtype != r.dtype or v.dtype != r.dtype:
         raise ValueError("r, k and v must share one dtype, float32 or "
                          f"bfloat16; got {r.dtype}, {k.dtype}, {v.dtype}")
-    if not _on_cuda(r, k, v, w, u, s0):
+    on_cuda = _on_cuda(r, k, v, w, u, s0)
+    refuse_autograd("wkv6_scan", on_cuda, r, k, v, w, u, s0)
+    if not on_cuda:
         return wkv6_scan_plain(r, k, v, w, u, s0)
     if w.dtype != torch.float32 or u.dtype != torch.float32 \
             or s0.dtype != torch.float32:
@@ -182,7 +204,9 @@ def rglru_scan(gr: torch.Tensor, gi: torch.Tensor, xc: torch.Tensor,
                          "fit [B, S, R]")
     if xc.dtype not in _DTYPE_CODE:
         raise ValueError(f"xc must be float32 or bfloat16, not {xc.dtype}")
-    if not _on_cuda(gr, gi, xc, sp, h0):
+    on_cuda = _on_cuda(gr, gi, xc, sp, h0)
+    refuse_autograd("rglru_scan", on_cuda, gr, gi, xc, sp, h0)
+    if not on_cuda:
         return rglru_scan_plain(gr, gi, xc, sp, h0)
     if any(x.dtype != torch.float32 for x in (gr, gi, sp, h0)):
         raise ValueError("gr, gi, sp and h0 must be float32")
@@ -210,4 +234,5 @@ rglru_scan.decode_launches = 0
 WRAPPERS = (wkv6_scan, rglru_scan)
 
 __all__ = ["HEAD", "RG_C", "RG_CHUNK", "WKV_CHUNK", "WRAPPERS",
-           "rglru_scan", "rglru_scan_plain", "wkv6_scan", "wkv6_scan_plain"]
+           "refuse_autograd", "rglru_scan", "rglru_scan_plain", "wkv6_scan",
+           "wkv6_scan_plain"]

@@ -1,5 +1,8 @@
-"""Uniform model API (the serving entry point) over every family: the
-decoder-only ones (dense, VLM, MoE, recurrent) and the encoder-decoder."""
+"""Uniform model API (the serving and training entry point) over every
+family: the decoder-only ones (dense, VLM, MoE, recurrent) and the
+encoder-decoder.  ``loss`` takes the f32 master tree of the train state
+(or params already in the compute dtype) and casts its working copy
+(`convert.working_params`) before the forward."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,6 +14,7 @@ from repro_torch.core.cluster import resolve_device
 
 from . import encdec, lm
 from .common import ModelConfig
+from .convert import working_params
 
 
 @dataclasses.dataclass(frozen=True)
@@ -18,6 +22,7 @@ class ModelApi:
     cfg: ModelConfig
     device: torch.device
     init: Callable[[int], Any]                      # seed -> params
+    loss: Callable[[Any, dict], tuple]              # (params, batch) -> (loss, aux)
     prefill: Callable[[Any, dict, int], tuple]      # -> (logits, caches)
     decode_step: Callable[[Any, Any, Any, int], tuple]  # -> (logits, caches)
 
@@ -37,6 +42,8 @@ def build_model(cfg: ModelConfig, device: str | torch.device = "cuda"
             cfg=cfg,
             device=dev,
             init=lambda seed: encdec.encdec_init(generator(seed), cfg),
+            loss=lambda p, b: encdec.encdec_loss(working_params(cfg, p), cfg,
+                                                 b),
             prefill=lambda p, b, cap: encdec.encdec_prefill(p, cfg, b, cap),
             decode_step=lambda p, c, t, pos: encdec.encdec_decode_step(
                 p, cfg, c, t, pos),
@@ -45,6 +52,7 @@ def build_model(cfg: ModelConfig, device: str | torch.device = "cuda"
         cfg=cfg,
         device=dev,
         init=lambda seed: lm.lm_init(generator(seed), cfg),
+        loss=lambda p, b: lm.lm_loss(working_params(cfg, p), cfg, b),
         prefill=lambda p, b, cap: lm.lm_prefill(p, cfg, b, cap),
         decode_step=lambda p, c, t, pos: lm.lm_decode_step(p, cfg, c, t, pos),
     )

@@ -146,12 +146,15 @@ def attn_forward(p, cfg: ModelConfig, x, *, positions, kv_x=None,
 # serving cache
 # ---------------------------------------------------------------------------------
 
-def init_cache(cfg: ModelConfig, batch: int, capacity: int,
+def init_cache(cfg: ModelConfig, batch: int, capacity: int, dtype=None, *,
                device=None) -> dict:
+    """An empty cache of ``capacity`` slots, K and V in ``dtype`` (the
+    compute dtype unless given)."""
+    dtype = dtype or cfg.compute_dtype
     shape = (batch, capacity, cfg.n_kv, cfg.hd)
     return {
-        "k": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
-        "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
         "abs": torch.full((capacity,), -1, dtype=torch.int32, device=device),
     }
 

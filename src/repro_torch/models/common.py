@@ -8,10 +8,13 @@ list of per-layer dicts run in a Python loop.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 Params = Any  # nested dict of tensors; "blocks" is a list of per-layer dicts
 
@@ -33,11 +36,11 @@ class MoEConfig:
 class ModelConfig:
     """The reference's configuration, field for field, with torch dtypes.
 
-    The sharding and rematerialisation fields (``remat``, ``attn_chunk_q``,
-    ``seq_shard``, ``moe_zero1``, ``zero1``) are kept so that every config
-    carries over; one device reads none of them.  On every full-sequence
-    attention the flash-attention kernel takes the place of
-    ``attn_chunk_q``."""
+    The sharding fields (``attn_chunk_q``, ``seq_shard``, ``moe_zero1``,
+    ``zero1``) are kept so that every config carries over; one device
+    reads none of them.  On every full-sequence attention the
+    flash-attention kernel takes the place of ``attn_chunk_q``.  ``remat``
+    is read by `maybe_remat` where a loss is differentiated."""
     name: str
     family: str                  # dense | moe | ssm | hybrid | encdec | vlm
     n_layers: int
@@ -107,8 +110,8 @@ def embed_init(gen: torch.Generator, vocab: int, d: int,
     return (t * d ** -0.5).to(dtype)
 
 
-def rmsnorm_init(d: int, device) -> dict:
-    return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+def rmsnorm_init(d: int, dtype=torch.float32, *, device=None) -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
 
 
 def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -119,9 +122,9 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (x * params["scale"].float()).to(dt)
 
 
-def layernorm_init(d: int, device) -> dict:
-    return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
-            "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
+def layernorm_init(d: int, dtype=torch.float32, *, device=None) -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
 
 
 def layernorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -163,6 +166,44 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------------
+# Rematerialisation
+# ---------------------------------------------------------------------------------
+
+#: the products whose outputs ``remat="dots"`` keeps (the reference's
+#: ``dots_with_no_batch_dims_saveable``: the plain matrix products)
+DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def maybe_remat(fn: Callable, cfg: "ModelConfig") -> Callable:
+    """``fn`` under the config's rematerialisation policy where autograd
+    records (``torch.utils.checkpoint``, non-reentrant): ``"none"`` applies
+    it plainly, ``"full"`` keeps nothing of it for the backward and runs it
+    again there, ``"dots"`` keeps the outputs of its matrix products
+    (selective checkpointing) and recomputes the rest.  Without grad mode
+    ``fn`` runs plainly whatever the policy, as the reference's
+    ``jax.checkpoint`` does outside a differentiation."""
+    if cfg.remat == "none":
+        return fn
+
+    @functools.wraps(fn)
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        kw = {}
+        if cfg.remat == "dots":
+            kw["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, _save_dots)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return wrapped
 
 
 def count_params(params: Params) -> int:

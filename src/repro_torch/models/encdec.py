@@ -8,7 +8,9 @@ rotated).  Every full-sequence attention, the three kinds, goes through
 the flash-attention kernel (`attention.attn_forward`).
 
 Layers are lists of per-layer dicts run in a Python loop (the reference
-stacks them and runs ``lax.scan``).  Serving keeps one cache a decoder
+stacks them and runs ``lax.scan``), each under the config's
+rematerialisation policy where a loss is differentiated
+(``common.maybe_remat``).  Serving keeps one cache a decoder
 layer, ``{"self": kv cache, "cross_k": [B, S_enc, K, hd], "cross_v": ...}``:
 the cross K/V are computed once at prefill, and a decode step projects only
 its query against them (`attention._gqa_attend`, every key allowed).
@@ -19,16 +21,17 @@ import torch
 
 from . import attention as attn
 from . import ffn
-from .common import ModelConfig, Params, embed_init, rmsnorm, rmsnorm_init
-from .lm import last_token_logits
+from .common import (ModelConfig, Params, embed_init, maybe_remat, rmsnorm,
+                     rmsnorm_init)
+from .lm import chunked_xent, last_token_logits
 
 
 def _enc_block_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     dev = gen.device
     return {
-        "ln1": rmsnorm_init(cfg.d_model, dev),
+        "ln1": rmsnorm_init(cfg.d_model, device=dev),
         "attn": attn.attn_init(gen, cfg),
-        "ln2": rmsnorm_init(cfg.d_model, dev),
+        "ln2": rmsnorm_init(cfg.d_model, device=dev),
         "mlp": ffn.mlp_init(gen, cfg),
     }
 
@@ -36,11 +39,11 @@ def _enc_block_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
 def _dec_block_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     dev = gen.device
     return {
-        "ln1": rmsnorm_init(cfg.d_model, dev),
+        "ln1": rmsnorm_init(cfg.d_model, device=dev),
         "self_attn": attn.attn_init(gen, cfg),
-        "ln_x": rmsnorm_init(cfg.d_model, dev),
+        "ln_x": rmsnorm_init(cfg.d_model, device=dev),
         "cross_attn": attn.attn_init(gen, cfg),
-        "ln2": rmsnorm_init(cfg.d_model, dev),
+        "ln2": rmsnorm_init(cfg.d_model, device=dev),
         "mlp": ffn.mlp_init(gen, cfg),
     }
 
@@ -53,8 +56,8 @@ def encdec_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
         "embed": embed_init(gen, cfg.vocab, cfg.d_model, dtype=cd),
         "encoder": [_enc_block_init(gen, cfg) for _ in range(cfg.enc_layers)],
         "decoder": [_dec_block_init(gen, cfg) for _ in range(cfg.dec_layers)],
-        "enc_norm": rmsnorm_init(cfg.d_model, dev),
-        "final_norm": rmsnorm_init(cfg.d_model, dev),
+        "enc_norm": rmsnorm_init(cfg.d_model, device=dev),
+        "final_norm": rmsnorm_init(cfg.d_model, device=dev),
         "head": embed_init(gen, cfg.vocab, cfg.d_model,
                            dtype=cd).T.contiguous(),
     }
@@ -68,13 +71,18 @@ def encode(params, cfg: ModelConfig, frames) -> torch.Tensor:
     """frames: [B, S_enc, d] stub embeddings -> encoder memory [B, S_enc, d]."""
     x = frames.to(cfg.compute_dtype)
     positions = _positions(x.shape[1], x.device)
-    for bp in params["encoder"]:
+
+    def body(x, bp):
         h, _ = attn.attn_forward(bp["attn"], cfg,
                                  rmsnorm(bp["ln1"], x, cfg.rms_eps),
                                  positions=positions, causal=False)
         x = x + h
-        x = x + ffn.mlp_apply(bp["mlp"], cfg,
-                              rmsnorm(bp["ln2"], x, cfg.rms_eps))
+        return x + ffn.mlp_apply(bp["mlp"], cfg,
+                                 rmsnorm(bp["ln2"], x, cfg.rms_eps))
+
+    body = maybe_remat(body, cfg)
+    for bp in params["encoder"]:
+        x = body(x, bp)
     return rmsnorm(params["enc_norm"], x, cfg.rms_eps)
 
 
@@ -82,8 +90,8 @@ def _decoder_blocks(params, cfg: ModelConfig, x, memory, capacity=None):
     """The decoder over x [B, S, d] against ``memory``.  Returns (hidden,
     caches), the caches None unless ``capacity`` is given."""
     positions = _positions(x.shape[1], x.device)
-    caches = []
-    for bp in params["decoder"]:
+
+    def body(x, bp):
         h, (k, v) = attn.attn_forward(bp["self_attn"], cfg,
                                       rmsnorm(bp["ln1"], x, cfg.rms_eps),
                                       positions=positions, causal=True)
@@ -95,11 +103,34 @@ def _decoder_blocks(params, cfg: ModelConfig, x, memory, capacity=None):
         x = x + h
         x = x + ffn.mlp_apply(bp["mlp"], cfg,
                               rmsnorm(bp["ln2"], x, cfg.rms_eps))
+        cache = None
         if capacity is not None:
-            cache = attn.init_cache(cfg, x.shape[0], capacity, device=x.device)
-            caches.append({"self": attn.fill_cache(cache, k, v, positions[0]),
-                           "cross_k": ck, "cross_v": cv})
+            cache = attn.init_cache(cfg, x.shape[0], capacity,
+                                    device=x.device)
+            cache = {"self": attn.fill_cache(cache, k, v, positions[0]),
+                     "cross_k": ck, "cross_v": cv}
+        return x, cache
+
+    body = maybe_remat(body, cfg)
+    caches = []
+    for bp in params["decoder"]:
+        x, cache = body(x, bp)
+        caches.append(cache)
     return x, (caches if capacity is not None else None)
+
+
+def encdec_loss(params, cfg: ModelConfig, batch):
+    """batch: {"frames": [B, S_enc, d], "tokens": [B, S_dec]}.  Next-token
+    cross-entropy of the decoder's tokens.  Returns (loss, {})."""
+    memory = encode(params, cfg, batch["frames"])
+    tokens = batch["tokens"]
+    x = params["embed"][tokens]
+    hidden, _ = _decoder_blocks(params, cfg, x, memory)
+    hidden = rmsnorm(params["final_norm"], hidden, cfg.rms_eps)
+    labels = tokens[:, 1:]
+    mask = torch.ones(labels.shape, dtype=torch.float32, device=x.device)
+    loss, n = chunked_xent(params, cfg, hidden[:, :-1], labels, mask)
+    return loss / torch.clamp(n, min=1.0), {}
 
 
 def encdec_prefill(params, cfg: ModelConfig, batch, capacity: int):

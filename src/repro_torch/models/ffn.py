@@ -21,8 +21,9 @@ from .common import ACTIVATIONS, ModelConfig, dense_init
 # dense MLP
 # ---------------------------------------------------------------------------------
 
-def mlp_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
-    d, f, cd = cfg.d_model, cfg.d_ff, cfg.compute_dtype
+def mlp_init(gen: torch.Generator, cfg: ModelConfig,
+             d_ff: int | None = None) -> dict:
+    d, f, cd = cfg.d_model, d_ff or cfg.d_ff, cfg.compute_dtype
     if cfg.act == "relu":  # non-gated (classic transformer)
         return {
             "w_in": dense_init(gen, (d, f), dtype=cd),

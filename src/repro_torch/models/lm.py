@@ -13,10 +13,18 @@ stacks them and runs ``lax.scan``); caches are a list of per-layer dicts.
 A griffin model with ``n_layers % 3`` left over runs that many rg-lru
 layers after its super-blocks (``tail``), and its caches take the
 reference's ``{"main": [...], "tail": [...]}`` shape.  The MoE's
-load-balance aux is dropped on the serving path, as the reference drops it.
-A patch-frontend (VLM) prefill takes ``batch["prefix_embeds"]`` [B, P, d]
-in front of the text, under the prefix-LM mask with P = ``frontend_len``
-when the config sets ``prefix_lm``; positions count the prefix.
+load-balance aux is dropped on the serving path, as the reference drops it,
+and added to the loss at 0.01.  A patch-frontend (VLM) prefill takes
+``batch["prefix_embeds"]`` [B, P, d] in front of the text, under the
+prefix-LM mask with P = ``frontend_len`` when the config sets
+``prefix_lm``; positions count the prefix.
+
+The loss (``lm_loss``) is next-token cross-entropy over the text, computed
+in sequence chunks of ``LOSS_CHUNK`` so that the full [B, S, vocab] logits
+never exist at once.  Where a loss is differentiated each block (a griffin
+super-block, a tail layer) and each loss chunk runs under the config's
+rematerialisation policy (``common.maybe_remat``), where the reference
+applies ``jax.checkpoint``.
 """
 from __future__ import annotations
 
@@ -25,7 +33,10 @@ import torch
 from . import attention as attn
 from . import ffn
 from . import recurrent as rec
-from .common import ModelConfig, Params, embed_init, rmsnorm, rmsnorm_init
+from .common import (ModelConfig, Params, embed_init, maybe_remat, rmsnorm,
+                     rmsnorm_init)
+
+LOSS_CHUNK = 512
 
 
 def block_kind(cfg: ModelConfig) -> str:
@@ -43,9 +54,9 @@ def block_kind(cfg: ModelConfig) -> str:
 def _attn_block_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     dev = gen.device
     p = {
-        "ln1": rmsnorm_init(cfg.d_model, dev),
+        "ln1": rmsnorm_init(cfg.d_model, device=dev),
         "attn": attn.attn_init(gen, cfg),
-        "ln2": rmsnorm_init(cfg.d_model, dev),
+        "ln2": rmsnorm_init(cfg.d_model, device=dev),
     }
     if cfg.moe is not None:
         p["moe"] = ffn.moe_init(gen, cfg)
@@ -57,9 +68,9 @@ def _attn_block_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
 def _rwkv_block_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     dev = gen.device
     return {
-        "ln1": rmsnorm_init(cfg.d_model, dev),
+        "ln1": rmsnorm_init(cfg.d_model, device=dev),
         "tm": rec.rwkv_timemix_init(gen, cfg),
-        "ln2": rmsnorm_init(cfg.d_model, dev),
+        "ln2": rmsnorm_init(cfg.d_model, device=dev),
         "cm": rec.rwkv_channelmix_init(gen, cfg),
     }
 
@@ -70,9 +81,9 @@ def _griffin_sub_init(gen: torch.Generator, cfg: ModelConfig,
     mix = (rec.rglru_block_init(gen, cfg) if temporal == "rglru"
            else attn.attn_init(gen, cfg))
     return {
-        "ln1": rmsnorm_init(cfg.d_model, dev),
+        "ln1": rmsnorm_init(cfg.d_model, device=dev),
         "mix": mix,
-        "ln2": rmsnorm_init(cfg.d_model, dev),
+        "ln2": rmsnorm_init(cfg.d_model, device=dev),
         "mlp": ffn.mlp_init(gen, cfg),
     }
 
@@ -107,7 +118,7 @@ def lm_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
     params: Params = {
         "embed": embed_init(gen, cfg.vocab, cfg.d_model, dtype=cd),
         "blocks": [init_one(gen, cfg) for _ in range(n_blocks)],
-        "final_norm": rmsnorm_init(cfg.d_model, gen.device),
+        "final_norm": rmsnorm_init(cfg.d_model, device=gen.device),
     }
     if n_tail:
         params["tail"] = [_griffin_sub_init(gen, cfg, "rglru")
@@ -119,7 +130,7 @@ def lm_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 
 # ---------------------------------------------------------------------------------
-# full-sequence block application (prefill)
+# full-sequence block application (train / prefill)
 # ---------------------------------------------------------------------------------
 
 def _kv_cache(cfg: ModelConfig, k, v, positions, capacity):
@@ -129,6 +140,8 @@ def _kv_cache(cfg: ModelConfig, k, v, positions, capacity):
 
 def _apply_attn_block(bp, cfg: ModelConfig, x, positions, window,
                       capacity=None, prefix_len=None):
+    """One attention block: (x, cache, the MoE's load-balance loss, f32 0
+    for a dense block)."""
     h, (k, v) = attn.attn_forward(bp["attn"], cfg,
                                   rmsnorm(bp["ln1"], x, cfg.rms_eps),
                                   positions=positions, causal=True,
@@ -136,14 +149,16 @@ def _apply_attn_block(bp, cfg: ModelConfig, x, positions, window,
     x = x + h
     xn = rmsnorm(bp["ln2"], x, cfg.rms_eps)
     if "moe" in bp:
-        h, _ = ffn.moe_apply(bp["moe"], cfg, xn)
+        h, aux = ffn.moe_apply(bp["moe"], cfg, xn)
+        lb = aux["load_balance_loss"]
     else:
         h = ffn.mlp_apply(bp["mlp"], cfg, xn)
+        lb = torch.zeros((), dtype=torch.float32, device=x.device)
     x = x + h
     cache = None
     if capacity is not None:
         cache = _kv_cache(cfg, k, v, positions, capacity)
-    return x, cache
+    return x, cache, lb
 
 
 def _apply_rwkv_block(bp, cfg: ModelConfig, x, collect: bool):
@@ -183,38 +198,56 @@ def _apply_griffin_sub(bp, cfg: ModelConfig, x, positions, temporal: str,
 
 def _forward_blocks(params, cfg: ModelConfig, x, positions, capacity,
                     prefix_len=None):
-    """Run all blocks.  Returns (hidden, caches)."""
+    """Run all blocks, each under ``maybe_remat``.  Returns (hidden,
+    caches, aux): aux holds the attention blocks' mean load-balance loss
+    (0 for a dense model), as the reference's."""
     kind = block_kind(cfg)
     caches = []
     if kind in ("attn", "moe"):
+        def attn_body(x, bp):
+            return _apply_attn_block(bp, cfg, x, positions, cfg.swa_window,
+                                     capacity, prefix_len)
+
+        body, lbs = maybe_remat(attn_body, cfg), []
         for bp in params["blocks"]:
-            x, cache = _apply_attn_block(bp, cfg, x, positions,
-                                         cfg.swa_window, capacity, prefix_len)
+            x, cache, lb = body(x, bp)
             caches.append(cache)
-        return x, caches
+            lbs.append(lb)
+        return x, caches, {"load_balance_loss": torch.stack(lbs).mean()}
     if kind == "rwkv":
+        body = maybe_remat(lambda x, bp: _apply_rwkv_block(
+            bp, cfg, x, capacity is not None), cfg)
         for bp in params["blocks"]:
-            x, cache = _apply_rwkv_block(bp, cfg, x, capacity is not None)
+            x, cache = body(x, bp)
             caches.append(cache)
-        return x, caches
-    for bp in params["blocks"]:                       # griffin
+        return x, caches, {}
+
+    def griffin_body(x, bp):
         cache = {}
         for sub, temporal in GRIFFIN_SUBS:
             x, cache[sub] = _apply_griffin_sub(bp[sub], cfg, x, positions,
                                                temporal, capacity)
+        return x, cache
+
+    def tail_body(x, bp):
+        return _apply_griffin_sub(bp, cfg, x, positions, "rglru", capacity)
+
+    body = maybe_remat(griffin_body, cfg)
+    for bp in params["blocks"]:
+        x, cache = body(x, bp)
         caches.append(cache)
     out = {"main": caches}
     if "tail" in params:
         out["tail"] = []
+        body = maybe_remat(tail_body, cfg)
         for bp in params["tail"]:
-            x, cache = _apply_griffin_sub(bp, cfg, x, positions, "rglru",
-                                          capacity)
+            x, cache = body(x, bp)
             out["tail"].append(cache)
-    return x, out
+    return x, out, {}
 
 
 # ---------------------------------------------------------------------------------
-# embedding / head
+# embedding / head / loss
 # ---------------------------------------------------------------------------------
 
 def embed_tokens(params, cfg: ModelConfig, tokens, prefix_embeds=None):
@@ -234,6 +267,35 @@ def _head_weight(params, cfg: ModelConfig):
     return params["head"]
 
 
+def chunked_xent(params, cfg: ModelConfig, hidden, labels, mask):
+    """Cross-entropy over sequence chunks; never holds [B, S, V] logits.
+
+    hidden: [B, S, D]; labels/mask: [B, S].  Returns (loss, n_tokens), the
+    masked sum of log-sum-exp minus the label's logit (f32 logits) and the
+    mask's sum.  The chunks are the reference's: ``max(S // LOSS_CHUNK,
+    1)`` of ``S // n_chunks`` positions, the tail past them cut off; each
+    runs under ``maybe_remat``."""
+    w = _head_weight(params, cfg)
+    S = hidden.shape[1]
+    n_chunks = max(S // LOSS_CHUNK, 1)
+    csize = S // n_chunks
+
+    def body(h, lab, m):
+        logits = (h @ w).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, lab.long()[..., None])[..., 0]
+        return torch.sum((lse - ll) * m)
+
+    body = maybe_remat(body, cfg)
+    loss = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    n = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(n_chunks):
+        sl = slice(c * csize, (c + 1) * csize)
+        loss = loss + body(hidden[:, sl], labels[:, sl], mask[:, sl])
+        n = n + torch.sum(mask[:, sl])
+    return loss, n
+
+
 def last_token_logits(params, cfg: ModelConfig, hidden_last):
     """hidden_last: [B, D] -> [B, V] (f32)."""
     return (hidden_last @ _head_weight(params, cfg)).float()
@@ -242,6 +304,36 @@ def last_token_logits(params, cfg: ModelConfig, hidden_last):
 # ---------------------------------------------------------------------------------
 # public entry points
 # ---------------------------------------------------------------------------------
+
+def lm_loss(params, cfg: ModelConfig, batch) -> tuple[torch.Tensor, dict]:
+    """Next-token cross-entropy of ``batch["tokens"]`` [B, S] (with
+    ``prefix_embeds`` [B, P, d] in front for a patch frontend, whose
+    positions carry no label), plus 0.01 times the MoE's load-balance
+    loss.  ``params`` are used as given (`convert.working_params` casts a
+    master tree).  Returns (loss, {"xent", and for an attention model
+    "load_balance_loss"})."""
+    tokens = batch["tokens"]
+    prefix = batch.get("prefix_embeds")
+    x = embed_tokens(params, cfg, tokens, prefix)
+    S = x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
+    prefix_len = (cfg.frontend_len if cfg.prefix_lm and prefix is not None
+                  else None)
+    hidden, _, aux = _forward_blocks(params, cfg, x, positions, None,
+                                     prefix_len)
+    hidden = rmsnorm(params["final_norm"], hidden, cfg.rms_eps)
+    P = prefix.shape[1] if prefix is not None else 0
+    # next-token prediction on the text region
+    hid = hidden[:, P:P + tokens.shape[1] - 1]
+    labels = tokens[:, 1:]
+    mask = torch.ones(labels.shape, dtype=torch.float32, device=x.device)
+    loss, n = chunked_xent(params, cfg, hid, labels, mask)
+    xent = loss / torch.clamp(n, min=1.0)
+    total = xent
+    if "load_balance_loss" in aux:
+        total = total + 0.01 * aux["load_balance_loss"]
+    return total, {"xent": xent, **aux}
+
 
 def lm_prefill(params, cfg: ModelConfig, batch, capacity: int):
     """Prefill: returns (last-token logits [B,V] f32, caches).  ``batch``
@@ -252,8 +344,8 @@ def lm_prefill(params, cfg: ModelConfig, batch, capacity: int):
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
     prefix_len = (cfg.frontend_len if cfg.prefix_lm and prefix is not None
                   else None)
-    hidden, caches = _forward_blocks(params, cfg, x, positions, capacity,
-                                     prefix_len)
+    hidden, caches, _ = _forward_blocks(params, cfg, x, positions, capacity,
+                                        prefix_len)
     hidden = rmsnorm(params["final_norm"], hidden, cfg.rms_eps)
     return last_token_logits(params, cfg, hidden[:, -1]), caches
 

@@ -101,11 +101,13 @@ class ServeEngine:
     updated in place by each decode step (the reference donates them).
     Everything runs under ``torch.inference_mode()``; ``stats`` holds the
     prefill and decode wall times, taken after ``torch.cuda.synchronize()``
-    on the card, and the count of generated tokens.
+    on the card, and the count of generated tokens.  ``donate_cache`` is
+    the reference's argument and has no effect here: the caches are
+    updated in place whatever it says.
     """
 
     def __init__(self, api: ModelApi, params: Any, batch_size: int,
-                 seq_len: int) -> None:
+                 seq_len: int, donate_cache: bool = True) -> None:
         self.api = api
         self.cfg = api.cfg
         self.device = api.device

@@ -401,7 +401,7 @@ def test_layernorm_matches_reference():
 
     rng = np.random.default_rng(12)
     x = rng.standard_normal((3, 5, 48)).astype(np.float32) * 3 + 1
-    p = common.layernorm_init(48, "cpu")
+    p = common.layernorm_init(48, device="cpu")
     p = {"scale": p["scale"] * 1.5, "bias": p["bias"] + 0.25}
     rp = {k: jnp.asarray(v.numpy()) for k, v in p.items()}
     for tdt, jdt, tol in ((torch.float32, jnp.float32, 1e-5),

@@ -200,3 +200,77 @@ def test_best_effort_shortlist_is_refused_on_imp_batched():
         sched = TopoScheduler(port, engine=engine,
                               shortlist_mode="best_effort")
         assert sched.shortlist is None
+
+
+# ---------------------------------------------------------------------------------
+# model signatures as the reference has them
+# ---------------------------------------------------------------------------------
+
+def test_serve_engine_takes_donate_cache():
+    """``ServeEngine(..., donate_cache=)`` as the reference's: accepted and
+    without effect (the caches are updated in place either way), the same
+    tokens for both values."""
+    cfg = dataclasses.replace(get_config("llama3.2-1b", smoke=True),
+                              compute_dtype=torch.float32)
+    api = build_model(cfg, device="cpu")
+    params = api.init(3)
+    prompts = [np.arange(1, 9, dtype=np.int32), np.arange(5, 12,
+                                                          dtype=np.int32)]
+    outs = [[r.output for r in ServeEngine(
+        api, params, batch_size=2, seq_len=16, donate_cache=donate).run(
+            [Request(rid=i, prompt=p, max_new_tokens=3)
+             for i, p in enumerate(prompts)])] for donate in (True, False)]
+    assert outs[0] == outs[1]
+
+
+def test_init_cache_takes_dtype_by_position():
+    """``init_cache(cfg, batch, capacity, dtype)``: the fourth argument is
+    the dtype, as in the reference (``device`` is keyword-only); None
+    keeps the compute dtype."""
+    from repro.models import attention as ref_attn
+    from repro_torch.models import attention
+
+    cfg = get_config("llama3.2-1b", smoke=True)
+    ref = ref_attn.init_cache(ref_get_config("llama3.2-1b", smoke=True), 2,
+                              8, jnp.float32)
+    got = attention.init_cache(cfg, 2, 8, torch.float32, device="cpu")
+    assert got["k"].dtype == got["v"].dtype == torch.float32
+    assert {k: tuple(v.shape) for k, v in got.items()} == {
+        k: tuple(v.shape) for k, v in ref.items()}
+    assert attention.init_cache(cfg, 2, 8)["k"].dtype == cfg.compute_dtype
+    assert (got["abs"] == -1).all() and got["abs"].dtype == torch.int32
+
+
+@pytest.mark.parametrize("name", ["rmsnorm_init", "layernorm_init"])
+def test_norm_inits_take_dtype(name):
+    """``rmsnorm_init(d, dtype=f32)`` / ``layernorm_init(d, dtype=f32)`` as
+    the reference's: the same keys, shapes and values, the dtype as given
+    by position (``device`` is keyword-only)."""
+    from repro.models import common as ref_common
+    from repro_torch.models import common
+
+    ref = getattr(ref_common, name)(24, jnp.bfloat16)
+    got = getattr(common, name)(24, torch.bfloat16, device="cpu")
+    assert sorted(got) == sorted(ref)
+    for key, val in got.items():
+        assert val.dtype == torch.bfloat16
+        np.testing.assert_array_equal(val.float().numpy(),
+                                      np.asarray(ref[key], np.float32))
+    assert getattr(common, name)(24)["scale"].dtype == torch.float32
+
+
+def test_mlp_init_takes_d_ff():
+    """``mlp_init(gen, cfg, d_ff=)`` as the reference's ``mlp_init(key, cfg,
+    d_ff=None)``: the shapes of the reference's at a given and the default
+    width, for the gated and the plain MLP."""
+    from repro.models import ffn as ref_ffn
+    from repro_torch.models import ffn
+
+    for arch in ("llama3.2-1b", "seamless-m4t-medium"):
+        cfg = get_config(arch, smoke=True)
+        rcfg = ref_get_config(arch, smoke=True)
+        for d_ff in (None, 40):
+            got = ffn.mlp_init(torch.Generator().manual_seed(0), cfg, d_ff)
+            ref = ref_ffn.mlp_init(jax.random.PRNGKey(0), rcfg, d_ff)
+            assert {k: tuple(v.shape) for k, v in got.items()} == {
+                k: tuple(v.shape) for k, v in ref.items()}

@@ -78,8 +78,8 @@ def _hidden(api, params, cfg, toks, prefix):
     x = lm.embed_tokens(params, cfg, torch.from_numpy(toks),
                         torch.from_numpy(prefix))
     pos = torch.arange(x.shape[1], dtype=torch.int32)[None]
-    hidden, _ = lm._forward_blocks(params, cfg, x, pos, None,
-                                   cfg.frontend_len)
+    hidden = lm._forward_blocks(params, cfg, x, pos, None,
+                                cfg.frontend_len)[0]
     return hidden
 
 
