@@ -11,8 +11,9 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    CUDA source (``nvcc`` for sm_90a, one process per source, all started
    together), with each source's ``ptxas -v`` lines.  ``cuobjdump -sass``
    of the flash-attention library counts the ``HGMMA`` (wgmma) and
-   ``UTMALDG`` (TMA load) instructions of each bf16 kernel; a count of 0
-   fails the run.  That of the recurrent library counts the local-memory
+   ``UTMALDG`` (TMA load) instructions of each bf16 kernel, the forward's
+   and the backward's (``bwd_wgmma_dq_kernel`` and both forms of
+   ``bwd_wgmma_dkv_kernel`` at d 16-128); a count of 0 fails the run.  That of the recurrent library counts the local-memory
    loads and stores of the scans' six kernel instances (one fails the run)
    and their tensor-core products (``HMMA``: the WKV kernel's none, or the
    rg-lru's any, fails it); their registers come from the ptxas log.
@@ -166,7 +167,12 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    may be non-finite.  Then 50 back-to-back launches at the serving
    shape must give bit-identical outputs.
 7b. ``[flash-bwd]``: K4's backward (``csrc/flash_attention_bwd.cu``, two
-   launches a call: dQ with D = rowsum(dO O), then dK and dV) against
+   launches a call: dQ with D = rowsum(dO O), then dK and dV; in bf16 at
+   d <= 128 ``wgmma`` kernels fed by a TMA ring, a producer warpgroup and
+   two consumers, the dK/dV CTA summing its G query heads in a fixed
+   order (on a small grid a cluster of two CTAs a KV tile, its four
+   consumers' partial sums met in a fixed order), no atomics; the CUDA
+   cores for f32 and d 256) against
    ``flash_attention_bwd_plain`` at every ``[flash]`` shape in f32 and
    bf16, on the forward kernel's own output and log-sum-exp: each of dq,
    dk, dv within ``BWD_TOL`` (f32 1e-4, bf16 3e-2) of its largest plain
@@ -283,11 +289,14 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    bidirectional launches, and ``flash_attention_prefix`` at paligemma's
    prefill, with its launches; the causal row also times seamless's
    decoder self-attention.  ``flash_attention_bwd`` carries ``[train]``'s
-   backward launches, its two kernels' device time and the wrapper's at
-   the serving shape (bf16, causal), the bound (five products), the plain
-   backward's time and the library's (``torch.autograd.grad`` of
-   ``scaled_dot_product_attention``), and the forward's time with and
-   without its log-sum-exp output.
+   backward launches, each of its two kernels' device time, their sum and
+   the wrapper's at the serving shape (bf16, causal), the bound (five
+   products), the plain backward's time and the library's
+   (``torch.autograd.grad`` of ``scaled_dot_product_attention``), and the
+   forward's time with and without its log-sum-exp output; under
+   ``shapes`` the same at the head_dim-128 shape and, on the CUDA-core
+   form, at ``FLASH_D256`` (each also printed as a ``[flash-bwd-timing]``
+   line).
 11. The card's name and power limit again, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -1720,8 +1729,14 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 #: |kernel - plain| of the forward's log-sum-exp (natural units)
 LSE_TOL = 1e-3
 #: the backward kernels' names, as the profiler lists them
-BWD_KERNELS = {"mma": ("bwd_mma_dq_kernel", "bwd_mma_dkv_kernel"),
+BWD_KERNELS = {"wgmma": ("bwd_wgmma_dq_kernel", "bwd_wgmma_dkv_kernel"),
                "core": ("bwd_core_dq_kernel", "bwd_core_dkv_kernel")}
+#: any backward kernel's name, as the profiler lists it (each pass's
+#: kernel keyed by its name)
+BWD_PATTERN = r"(bwd_\w+?_kernel)"
+#: K4's backward timed at llama3.2-1b's training shape, the head_dim-128
+#: shape and, on the CUDA-core form, head dim 256
+BWD_TIMED = (MAIN_FLASH, FLASH_SHAPES[6], FLASH_D256)
 #: back-to-back backward calls at MAIN_FLASH that must agree bit for bit
 BWD_REPEATS = 10
 
@@ -1809,25 +1824,25 @@ def flash_bwd_phase(torch) -> dict:
     return errs
 
 
-def flash_bwd_timing(torch) -> dict:
-    """K4's backward at ``MAIN_FLASH`` (bf16, causal): the kernels' device
-    time a call (both passes), the wrapper call's, the plain version's, the
-    bound, and the library's: ``torch.autograd.grad`` of
-    ``scaled_dot_product_attention`` (``enable_gqa``, and with K/V
-    expanded).  Then the forward at the same shape with and without its
-    log-sum-exp output."""
+def flash_bwd_timing(torch, shape=MAIN_FLASH, forward: bool = True) -> dict:
+    """K4's backward at one shape (bf16, its mask): each kernel's device
+    time a launch (the two passes, by name), their sum, the wrapper
+    call's time, the plain version's, the bound, and the library's:
+    ``torch.autograd.grad`` of ``scaled_dot_product_attention``
+    (``enable_gqa``, and with K/V expanded).  With ``forward``, then the
+    forward at the same shape with and without its log-sum-exp output."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
 
-    B, H, K, Sq, Sk, d = MAIN_FLASH[:6]
-    mask = mask_of(MAIN_FLASH)
-    q, k, v, o, lse, do = flash_bwd_inputs(torch, MAIN_FLASH, torch.bfloat16,
-                                           99)
+    B, H, K, Sq, Sk, d = shape[:6]
+    mask = mask_of(shape)
+    q, k, v, o, lse, do = flash_bwd_inputs(torch, shape, torch.bfloat16, 99)
 
     def fn(): return fa.flash_attention_bwd(q, k, v, o, lse, do, **mask)
     def plain_fn(): return fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
                                                          **mask)
+    # every shape timed is causal with no window narrower than S
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
     lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
                                              enable_gqa=True)
@@ -1840,7 +1855,7 @@ def flash_bwd_timing(torch) -> dict:
         exp_out, exp_leaves, do, retain_graph=True)
 
     # five products (S, dP, dV, dK, dQ) against the forward's two
-    flops = 2.5 * 4 * d * B * H * allowed_pairs(torch, MAIN_FLASH)
+    flops = 2.5 * 4 * d * B * H * allowed_pairs(torch, shape)
     # q, k, v, o, dO and the log-sum-exp read once; dq, dk, dv written once
     n_bytes = 2 * (3 * B * H * Sq * d + 2 * B * K * Sk * d) \
         + 4 * B * H * Sq + 2 * (B * H * Sq * d + 2 * B * K * Sk * d)
@@ -1852,25 +1867,31 @@ def flash_bwd_timing(torch) -> dict:
         library()
         library_expanded()
     ms = event_ms(torch, fn, inner=20)
-    kernel_ms = profiled_kernel_ms(torch, fn, BWD_KERNELS["mma"])
-    fwd = {}
-    for with_lse in (False, True):
-        def fwd_fn(w=with_lse): return fa._launch(q, k, v, *mask.values(), w)
-        fwd[f"lse_{str(with_lse).lower()}"] = {
-            "ms": event_ms(torch, fwd_fn, inner=20),
-            "kernel_ms": profiled_kernel_ms(torch, fwd_fn,
-                                            "flash_bf16_kernel")}
-    return {"shape": list(MAIN_FLASH[:6]), "dtype": "bfloat16",
-            "ms": ms, "kernel_ms": kernel_ms,
-            "plain_ms": event_ms(torch, plain_fn, reps=3, inner=2),
-            "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
-            "bytes": n_bytes, **rates(flops, b_ms, ms, kernel_ms),
-            "library_ms": event_ms(torch, library, reps=10, inner=10),
-            "library": "torch.autograd.grad(scaled_dot_product_attention("
-                       "is_causal=True, enable_gqa=True))",
-            "library_kv_expanded_ms": event_ms(torch, library_expanded,
-                                               reps=10, inner=10),
-            "forward": fwd, "card": nvidia_smi()}
+    kernels = profiled_kernels_ms(torch, fn, BWD_PATTERN)
+    kernel_ms = sum(kernels.values()) or None
+    res = {"shape": list(shape[:6]), "dtype": "bfloat16",
+           "form": "cuda cores" if d == 256 else "wgmma",
+           "ms": ms, "kernel_ms": kernel_ms, "kernels_ms": kernels,
+           "plain_ms": event_ms(torch, plain_fn, reps=3, inner=2),
+           "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+           "bytes": n_bytes, **rates(flops, b_ms, ms, kernel_ms),
+           "library_ms": event_ms(torch, library, reps=10, inner=10),
+           "library": "torch.autograd.grad(scaled_dot_product_attention("
+                      "is_causal=True, enable_gqa=True))",
+           "library_kv_expanded_ms": event_ms(torch, library_expanded,
+                                              reps=10, inner=10),
+           "card": nvidia_smi()}
+    if forward:
+        res["forward"] = {}
+        for with_lse in (False, True):
+            def fwd_fn(w=with_lse): return fa._launch(q, k, v,
+                                                      *mask.values(), w)
+            res["forward"][f"lse_{str(with_lse).lower()}"] = {
+                "ms": event_ms(torch, fwd_fn, inner=20),
+                "kernel_ms": profiled_kernel_ms(torch, fwd_fn,
+                                                "flash_bf16_kernel")}
+    print(f"[flash-bwd-timing] {json.dumps(res)}", flush=True)
+    return res
 
 
 # ---------------------------------------------------------------------------------
@@ -2679,7 +2700,7 @@ def train_phase(torch, np) -> dict:
     del g0, g1
     trace = _traced(torch, lambda: step_fn(state, batch))
     bwd = sum(t for name, t in trace["top_all"].items()
-              if any(k in name for k in BWD_KERNELS["mma"]))
+              if any(k in name for k in BWD_KERNELS["wgmma"]))
     fwd = sum(t for name, t in trace["top_all"].items()
               if "flash_bf16_kernel" in name)
     del state, batch, trace["top_all"]
@@ -2832,7 +2853,10 @@ def train_resume(torch) -> dict:
     return res
 
 
-def flash_bwd_row(timing: dict, errs: dict, launches: int) -> dict:
+def flash_bwd_row(timings: list[dict], errs: dict, launches: int) -> dict:
+    """K4's backward row: the first of ``timings`` (``MAIN_FLASH``) at the
+    top level, every one of them under ``shapes``."""
+    main = timings[0]
     return {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -2844,8 +2868,10 @@ def flash_bwd_row(timing: dict, errs: dict, launches: int) -> dict:
         "max_abs_err": errs["abs_bfloat16"],
         "max_abs_err_f32": errs["abs_float32"],
         "max_rel_err": errs["bfloat16"], "max_rel_err_f32": errs["float32"],
-        **{k: v for k, v in timing.items() if k not in ("forward", "card")},
-        "forward_with_lse": timing["forward"]}
+        **{k: v for k, v in main.items() if k not in ("forward", "card")},
+        "forward_with_lse": main["forward"],
+        "shapes": [{k: v for k, v in t.items() if k not in ("forward", "card")}
+                   for t in timings]}
 
 
 # ---------------------------------------------------------------------------------
@@ -4148,16 +4174,17 @@ def flushed_event_ms(torch, fn, flush, reps: int = 30) -> float:
     return statistics.median(samples)
 
 
-def profiled_kernel_ms(torch, fn, kernel, calls: int = 40,
-                       attempts: int = 3, before=None):
-    """Device time per launch of `kernel` from torch.profiler, or None where
-    the profiler records no device time for it; `kernel` a tuple of names,
-    each launched once a call of `fn`: the sum of their times a launch.
-    `before`, where given, runs ahead of each call (an L2 flush, whose
-    kernel is not counted).  The profiler has come back
-    without the device records of the ctypes-launched kernels now and then
-    (one of six fused timings in a run), so an empty window is profiled
-    again, up to ``attempts`` times."""
+def profiled_kernels_ms(torch, fn, pattern: str, calls: int = 40,
+                        attempts: int = 3, before=None) -> dict[str, float]:
+    """Device time per launch of each kernel whose name matches the regular
+    expression `pattern` (keyed by its first group), from torch.profiler;
+    empty where the profiler records no device time for any.  `before`,
+    where given, runs ahead of each call (an L2 flush, whose kernel is not
+    counted).  The profiler has come back without the device records of
+    the ctypes-launched kernels now and then (one of six fused timings in a
+    run), so an empty window is profiled again, up to ``attempts`` times."""
+    import re
+
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -4169,18 +4196,33 @@ def profiled_kernel_ms(torch, fn, kernel, calls: int = 40,
                     before()
                 fn()
             torch.cuda.synchronize()
-        names = kernel if isinstance(kernel, tuple) else (kernel,)
-        total = dict.fromkeys(names, 0.0)
-        count = dict.fromkeys(names, 0)
+        total: dict[str, float] = {}
+        count: dict[str, int] = {}
         for ev in prof.key_averages():
-            for k in names:
-                if k in ev.key:
-                    total[k] += getattr(ev, "device_time_total",
-                                        getattr(ev, "cuda_time_total", 0.0))
-                    count[k] += ev.count
+            m = re.search(pattern, ev.key)
+            if m:
+                k = m.group(1)
+                total[k] = total.get(k, 0.0) + getattr(
+                    ev, "device_time_total", getattr(ev, "cuda_time_total",
+                                                     0.0))
+                count[k] = count.get(k, 0) + ev.count
         if any(count.values()) and sum(total.values()) > 0:
-            return sum(total[k] / count[k] for k in names if count[k]) / 1e3
-    return None
+            return {k: total[k] / count[k] / 1e3 for k in total if count[k]}
+    return {}
+
+
+def profiled_kernel_ms(torch, fn, kernel, calls: int = 40,
+                       attempts: int = 3, before=None):
+    """Device time per launch of `kernel` from torch.profiler, or None where
+    the profiler records no device time for it; `kernel` a tuple of names,
+    each launched once a call of `fn`: the sum of their times a launch."""
+    import re
+
+    names = kernel if isinstance(kernel, tuple) else (kernel,)
+    split = profiled_kernels_ms(
+        torch, fn, "(" + "|".join(re.escape(k) for k in names) + ")", calls,
+        attempts, before)
+    return sum(split.values()) if split else None
 
 
 def bound_ms(n_bytes: float, flops: float,
@@ -5087,6 +5129,21 @@ def build_all() -> None:
     for d, c in counts.items():
         check(c["HGMMA"] > 0 and c["UTMALDG"] > 0,
               f"flash_bf16_kernel<{d}> has no wgmma or no TMA load: {c}")
+    lib = _build._target("flash_attention_bwd")[1]
+    counts = sass_counts(lib, BWD_SASS, SASS_OPS + ("LDL", "STL"))
+    print(f"[build] backward wgmma kernels' SASS (kernel: counts): "
+          f"{json.dumps(counts)}; registers: "
+          f"{json.dumps(ptxas_registers(logs[('flash_attention_bwd', ())], BWD_SASS))}",
+          flush=True)
+    want = sorted(f"{k}ILi{d}E{form}" for d in (16, 32, 64, 128)
+                  for k, forms in zip(BWD_KERNELS["wgmma"],
+                                      (("",), ("Lb0E", "Lb1E")))
+                  for form in forms)
+    check(sorted(counts) == want, f"{sorted(counts)} in the backward's "
+          f"SASS, {want} expected")
+    for name, c in counts.items():
+        check(c["HGMMA"] > 0 and c["UTMALDG"] > 0,
+              f"{name} has no wgmma or no TMA load: {c}")
     counts = sass_counts(_build._target("recurrent")[1], SCAN_KERNELS,
                          ("LDL", "STL", "HMMA"))
     print(f"[build] scan kernels' local memory and tensor-core SASS "
@@ -5155,6 +5212,9 @@ def build_all() -> None:
 
 
 SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG")
+#: the backward's wgmma kernels in the SASS and the ptxas log (d 16-128;
+#: the dK/dV kernel in its two forms, 128-row CTAs and cluster pairs)
+BWD_SASS = r"(bwd_wgmma_d(?:q|kv)_kernelILi\d+E(?:Lb[01]E)?)"
 #: the cluster kernels' instances and the global atomics each may hold:
 #: K2 <split, merging the earlier shards' records> (the split form's ticket
 #: is one atomic), the tail <a shard's, merging> (unsharded, an earlier
@@ -5345,8 +5405,10 @@ def run() -> int:
             torch, flash_errs, form,
             sum(f["launches"][f"flash_attention_{form}"]
                 for f in fam.values())))
-    rows.append(flash_bwd_row(flash_bwd_timing(torch), bwd_errs,
-                              train["launches"]["flash_attention_bwd"]))
+    rows.append(flash_bwd_row(
+        [flash_bwd_timing(torch, shape, forward=shape == MAIN_FLASH)
+         for shape in BWD_TIMED], bwd_errs,
+        train["launches"]["flash_attention_bwd"]))
     rows.extend(scan_rows(torch, *({
         name: sum(f[key][name] for f in fam.values())
         for name in ("wkv6_scan", "rglru_scan")}

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` exports a plain C interface (device pointers and the
 stream as ``void*``, sizes as ``int``; every launcher returns its
 ``cudaGetLastError()``), compiled for Hopper into
 ``_build/<name>-<hash>.so`` beside this file.  The hash covers the source,
-the flags and any preprocessor defines, so an edited source is rebuilt and
+every ``csrc/*.cuh`` header it includes (and those headers' own), the flags
+and any preprocessor defines, so an edited source or header is rebuilt and
 an unchanged one is built once per checkout.  A failed build raises with the compiler's output; no
 caller falls back to anything else.
 
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -48,10 +50,27 @@ def _flags(defines: tuple[str, ...]) -> tuple[str, ...]:
     return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+\.cuh)"', re.MULTILINE)
+
+
+def _sources(src: Path) -> list[Path]:
+    """``src`` and every header under ``CSRC`` it includes, directly or
+    through another, each once, in the order they are first included."""
+    seen = [src]
+    for path in seen:
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            header = CSRC / inc.decode()
+            if header.exists() and header not in seen:
+                seen.append(header)
+    return seen
+
+
 def _target(name: str, defines: tuple[str, ...] = ()) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(_flags(defines)).encode())
+    digest = hashlib.sha256()
+    for path in _sources(src):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(_flags(defines)).encode())
     return src, BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

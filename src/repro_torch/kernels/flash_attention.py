@@ -148,17 +148,18 @@ def tensor_map(x: torch.Tensor, box_rows: int) -> tuple[int, ...]:
     contiguous, byte strides that are not multiples of 16 or reach 2^40,
     dims of 0 or of 2^32 and more.  A dimension of size 1 is never
     stepped, so its stride is given as 16."""
-    B, heads, S, d = x.shape
+    shape, stride = x.shape, x.stride()
+    B, heads, S, d = shape
     es = x.element_size()
-    if x.stride(3) != 1:
+    if stride[3] != 1:
         raise ValueError("the last dimension must be contiguous")
     if x.data_ptr() % 16:
         raise ValueError("the base address must be 16-byte aligned")
-    if not all(0 < n < 2 ** 32 for n in x.shape):
-        raise ValueError(f"dims {tuple(x.shape)} must lie in [1, 2^32)")
+    if not all(0 < n < 2 ** 32 for n in shape):
+        raise ValueError(f"dims {tuple(shape)} must lie in [1, 2^32)")
     strides = []
     for dim in (2, 1, 0):
-        nbytes = x.stride(dim) * es if x.shape[dim] > 1 else 16
+        nbytes = stride[dim] * es if shape[dim] > 1 else 16
         if nbytes % 16 or not 0 < nbytes < 2 ** 40:
             raise ValueError(f"byte stride {nbytes} of dim {dim} must be a "
                              "positive multiple of 16 below 2^40")
@@ -261,13 +262,23 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, lse) if return_lse else out
 
 
+#: q rows of a dQ CTA and KV rows of a dK/dV CTA in the backward's wgmma
+#: kernels (two consumer warpgroups of 64), and the rows the scratch of D
+#: and the log-sum-exp pads each head to
+BWD_ROWS = 2 * CONSUMER_ROWS
+
+
 def bwd_block_shape(d: int, dtype: torch.dtype) -> tuple[int, int]:
     """(q rows, KV rows) of a block of the backward's dQ pass, and so of
-    the plain backward's loop: 64 q rows (four warps of 16) against KV
-    tiles of 64 rows, 32 at bf16 d = 128 (registers); the CUDA-core forms
-    (f32, and bf16 at d = 256) walk the same 64 x 64 bounds."""
-    if dtype == torch.bfloat16 and d == 128:
-        return 64, 32
+    the plain backward's loop (it decides only the order of the plain
+    version's sums): bf16 at d <= 128 (the wgmma kernels) 128 q rows (two
+    consumer warpgroups of 64) against KV tiles of 128 rows, 64 at d = 128
+    (registers); the CUDA-core forms (f32, and bf16 at d = 256) 64 x 64.
+    The wgmma dK/dV pass takes q blocks of 64 rows against 128 KV rows a
+    CTA, or 64 in its cluster-pair form (where 128-row CTAs would leave SMs
+    idle); the CUDA-core one 64 x 64."""
+    if dtype == torch.bfloat16 and d <= 128:
+        return BWD_ROWS, 64 if d == 128 else 128
     return 64, 64
 
 
@@ -283,15 +294,16 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               block_q: int | None = None,
                               block_k: int | None = None):
     """Plain PyTorch version of the backward kernels, with their
-    arithmetic: ``D = rowsum(dO ∘ O)`` in f32; per q block (``bwd_block_shape``
-    unless given) over the KV tiles of `_kv_range`, P recomputed from the
-    log-sum-exp (bf16: 2^(s d^-0.5 log2(e) - lse log2(e)), the forward's
-    log2 units; f32: e^(s d^-0.5 - lse)), 0 where the mask forbids,
-    ``dP = dO Vᵀ``, ``dS = P ∘ (dP - D)``, ``dV += Pᵀ dO``,
-    ``dK += dSᵀ Q`` and ``dQ += dS K``, with P and dS rounded to bf16 as
-    the tensor cores take them for bf16 inputs; dQ and dK times d^-0.5 at
-    the end.  The G query heads of a KV head add into its dK and dV.
-    Returns (dq, dk, dv) in q's dtype, accumulated in f32."""
+    arithmetic: ``D = rowsum(dO ∘ O)`` in f32; per q block of the dQ pass
+    (``bwd_block_shape`` unless given) over the KV tiles of `_kv_range`, P
+    recomputed from the log-sum-exp (bf16: 2^(s d^-0.5 log2(e) - lse
+    log2(e)), the forward's log2 units; f32: e^(s d^-0.5 - lse)), 0 where
+    the mask forbids, ``dP = dO Vᵀ``, ``dS = P ∘ (dP - D)``, ``dV += Pᵀ dO``,
+    ``dK += dSᵀ Q`` and ``dQ += dS K``, with P and dS rounded to bf16 once,
+    as the tensor cores take them, for bf16 inputs; dQ and dK times d^-0.5
+    at the end.  The G query heads of a KV head add into its dK and dV.
+    The block shape changes only the order of the f32 sums.  Returns (dq,
+    dk, dv) in q's dtype, accumulated in f32."""
     B, H, Sq, d = q.shape
     bq, bk = bwd_block_shape(d, q.dtype)
     block_q, block_k = block_q or bq, block_k or bk
@@ -510,9 +522,9 @@ def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a library built from
     ``csrc/flash_attention_bwd.cu``."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
+    llp = ctypes.POINTER(ctypes.c_longlong)
     lib.flash_attention_bwd_launch.argtypes = (
-        [vp] * 10 + [ci] * 7 + [ctypes.POINTER(ctypes.c_longlong), ci, ci,
-                                ci, ctypes.c_float, vp])
+        [vp] * 10 + [ci] * 7 + [llp, llp, ci, ci, ci, ctypes.c_float, vp])
     lib.flash_attention_bwd_launch.restype = ci
     lib.flash_attention_bwd_error_string.argtypes = [ci]
     lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
@@ -522,6 +534,10 @@ def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
 @functools.lru_cache(maxsize=1)
 def _bwd_lib() -> ctypes.CDLL:
     return bind_bwd(_build.load("flash_attention_bwd"))
+
+
+#: the backward launcher's code for a refused tensor map (less its row)
+_MAP_REFUSED = -100
 
 
 def _vector_ready(x: torch.Tensor) -> torch.Tensor:
@@ -566,17 +582,28 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.empty_like(dk)
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    dsum = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    # D and, for the wgmma kernels, the rows' log-sum-exp in log2 units,
+    # each head's rows padded to BWD_ROWS
+    pad = -(-Sq // BWD_ROWS) * BWD_ROWS
+    dsum = torch.empty(2 * B * H * pad, dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 15)(
         *[x.stride(i) for x in ins for i in range(3)])
+    maps = (ctypes.c_longlong * (8 * len(MAP_FIELDS)))(
+        *[n for x in (*ins, dq, dk, dv)
+          for n in tensor_map(x, CONSUMER_ROWS)])
     lib = _bwd_lib()
     with torch.cuda.device(q.device):
         code = lib.flash_attention_bwd_launch(
             *[x.data_ptr() for x in ins], lse.data_ptr(), dsum.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _DTYPE_CODE[q.dtype], B, H, K, Sq, Sk, d, strides, int(causal),
-            int(window or 0), pre, _scale(d),
+            _DTYPE_CODE[q.dtype], B, H, K, Sq, Sk, d, strides, maps,
+            int(causal), int(window or 0), pre, _scale(d),
             torch.cuda.current_stream(q.device).cuda_stream)
+    if _MAP_REFUSED - 8 < code <= _MAP_REFUSED:
+        names = ("q", "k", "v", "o", "do", "dq", "dk", "dv")
+        raise RuntimeError(f"flash_attention_bwd: the kernels or the driver "
+                           f"refused the tensor map of "
+                           f"{names[_MAP_REFUSED - code]}")
     if code != 0:
         msg = lib.flash_attention_bwd_error_string(code).decode()
         raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "

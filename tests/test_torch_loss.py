@@ -6,8 +6,9 @@
   windowed, bidirectional) and of the model's ``_gqa_attend`` under
   ``make_mask(prefix_len=)`` (prefix-LM) and a bidirectional mask with
   Sq != Sk (cross-attention), f32, head dims 16/64/256, a seeded
-  cotangent: within 2e-5 of each gradient's largest element.  The forward's
-  log-sum-exp against ``logsumexp`` of the masked scores.
+  cotangent: within 2e-5 of each gradient's largest element; also at each
+  block shape of the kernels' loops (128 x 128, 128 x 64, 64 x 64).  The
+  forward's log-sum-exp against ``logsumexp`` of the masked scores.
 * ``_q_range`` (the q rows that see a KV tile) and the tile test over
   q blocks against the elementwise mask over every tile.
 * ``api.loss`` and its gradients against ``jax.value_and_grad`` of the
@@ -149,6 +150,42 @@ def test_bwd_plain_matches_jax_grad_of_model_attention(form, d):
         _close_by_max(g, w, BWD_TOL, f"{form} d{d} d{name}")
 
 
+#: (q rows, KV rows) of the plain backward's blocks: the wgmma kernels'
+#: dQ pass (128 x 128; 128 x 64 at d 128) and the CUDA-core forms' 64 x 64
+BWD_BLOCKS = [(128, 128), (128, 64), (64, 64)]
+
+
+@pytest.mark.parametrize("block", BWD_BLOCKS,
+                         ids=[f"{bq}x{bk}" for bq, bk in BWD_BLOCKS])
+@pytest.mark.parametrize("form", list(MHA_FORMS))
+def test_bwd_plain_at_each_kernel_block_matches_jax_grad(form, block):
+    """At each block shape the kernels use, f32, d 32: the block shape
+    moves only the order of the f32 sums, within ``BWD_TOL``."""
+    B, H, K, Sq, Sk, causal, window = MHA_FORMS[form]
+    q, k, v, do = _inputs(B, H, K, Sq, Sk, 32, seed=11)
+    _, vjp = jax.vjp(lambda *a: jax_mha_ref(*a, causal=causal,
+                                            window=window), q, k, v)
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    o, lse = fa.flash_attention_plain(tq, tk, tv, causal=causal,
+                                      window=window, return_lse=True)
+    got = fa.flash_attention_bwd_plain(tq, tk, tv, o, lse,
+                                       torch.from_numpy(do), causal=causal,
+                                       window=window, block_q=block[0],
+                                       block_k=block[1])
+    for g, w, name in zip(got, want, "qkv"):
+        _close_by_max(g, w, BWD_TOL, f"{form} {block} d{name}")
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_bwd_block_shapes(d):
+    """The dQ pass's blocks: the wgmma kernels' at bf16 d <= 128, 64 x 64
+    in the CUDA-core forms."""
+    assert fa.bwd_block_shape(d, torch.bfloat16) == (
+        (128, 64 if d == 128 else 128) if d <= 128 else (64, 64))
+    assert fa.bwd_block_shape(d, torch.float32) == (64, 64)
+
+
 @pytest.mark.parametrize("form", ["causal", "window", "bidirectional",
                                   "prefix_window"])
 def test_plain_lse_is_logsumexp_of_masked_scores(form):
@@ -185,10 +222,14 @@ def test_q_range_and_tile_test_against_the_mask(causal, window, prefix):
     it (lo rounded down to a q block); and a q block x KV tile the
     transposed tile test leaves unmasked has every element allowed; at Sq
     1, 63, 64, 65, 130 and 300, Sk = Sq (and Sq + 37 without the causal
-    mask), tiles of 64 x 64 and 64 x 32."""
+    mask), tiles of 64 x 64 and 64 x 32, and the wgmma kernels' 64 x 128
+    (the dK/dV pass's q steps against its KV tile), 128 x 128 and 128 x 64
+    (the dQ pass's q block against its KV tiles)."""
     for sq, (extra, bq, bk) in itertools.product(
             (1, 63, 64, 65, 130, 300), ((0, 64, 64), (0, 64, 32),
-                                        (37, 64, 64))):
+                                        (37, 64, 64), (0, 64, 128),
+                                        (37, 64, 128), (0, 128, 128),
+                                        (0, 128, 64))):
         if causal and extra:
             continue
         sk = sq + extra

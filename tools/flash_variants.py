@@ -86,8 +86,11 @@ def main(argv: list[str]) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
-    # each source under a name of its own, so that _build caches them apart
+    # each source under a name of its own, so that _build caches them apart,
+    # beside the package's headers
     csrc = Path(tempfile.mkdtemp(prefix="flash_variants_"))
+    for header in _build.CSRC.glob("*.cuh"):
+        shutil.copy(header, csrc)
     variants = []
     for i, arg in enumerate(argv):
         path, _, tiling = arg.partition("@")
