@@ -12,8 +12,11 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    together), with each source's ``ptxas -v`` lines.  ``cuobjdump -sass``
    of the flash-attention library counts the ``HGMMA`` (wgmma) and
    ``UTMALDG`` (TMA load) instructions of each bf16 kernel, the forward's
-   and the backward's (``bwd_wgmma_dq_kernel`` and both forms of
-   ``bwd_wgmma_dkv_kernel`` at d 16-128); a count of 0 fails the run.  That of the recurrent library counts the local-memory
+   and the backward's (``bwd_wgmma_dq_kernel`` at d 16-256, both forms of
+   ``bwd_wgmma_dkv_kernel`` at d 16-128 and ``bwd_wgmma_dkv_wide_kernel``
+   at d 256); a count of 0 fails the run, and
+   so does a bf16 instance of the backward's CUDA-core forms.  That of the
+   recurrent library counts the local-memory
    loads and stores of the scans' six kernel instances (one fails the run)
    and their tensor-core products (``HMMA``: the WKV kernel's none, or the
    rg-lru's any, fails it); their registers come from the ptxas log.
@@ -167,20 +170,22 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    may be non-finite.  Then 50 back-to-back launches at the serving
    shape must give bit-identical outputs.
 7b. ``[flash-bwd]``: K4's backward (``csrc/flash_attention_bwd.cu``, two
-   launches a call: dQ with D = rowsum(dO O), then dK and dV; in bf16 at
-   d <= 128 ``wgmma`` kernels fed by a TMA ring, a producer warpgroup and
-   two consumers, the dK/dV CTA summing its G query heads in a fixed
-   order (on a small grid a cluster of two CTAs a KV tile, its four
-   consumers' partial sums met in a fixed order), no atomics; the CUDA
-   cores for f32 and d 256) against
-   ``flash_attention_bwd_plain`` at every ``[flash]`` shape in f32 and
-   bf16, on the forward kernel's own output and log-sum-exp: each of dq,
+   launches a call: dQ with D = rowsum(dO O), then dK and dV; in bf16
+   ``wgmma`` kernels fed by a TMA ring, a producer warpgroup and two
+   consumers, the dK/dV CTA summing its G query heads in a fixed order (on
+   a small grid a cluster of two CTAs a KV tile, its four consumers'
+   partial sums met in a fixed order; at d 256 the consumers split the
+   head dim and a cluster of 4 CTAs takes each KV tile, the partials met
+   a box at a time in rank order), no atomics; the CUDA cores for f32)
+   against ``flash_attention_bwd_plain`` at every ``[flash]`` shape in
+   f32 and bf16, on the forward kernel's own output and log-sum-exp: each
+   of dq,
    dk, dv within ``BWD_TOL`` (f32 1e-4, bf16 3e-2) of its largest plain
    element, no value non-finite, and the forward's log-sum-exp within
    ``LSE_TOL`` of the plain forward's; autograd through
    ``flash_attention`` gives the same gradients with one forward (with
    its log-sum-exp) and one backward launch; 10 back-to-back calls at the
-   serving shape bit-identical.
+   serving shape, at ``FLASH_D256`` and at ``PALIGEMMA`` bit-identical.
 8. ``[serve]``: the serving path, llama3.2-1b at full width and depth with
    seeded random weights made on the card, through ``ServeEngine`` (batch
    4, seq_len 1024): 8 requests of 512-1024 prompt tokens and 32 new tokens
@@ -236,7 +241,13 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    with the log-sum-exp, its backward 16.  Every loss and grad norm
    finite, the first loss below ln(128256) + 2; step 0 twice from one
    state bit-identical; one step traced (K4's shares of the device
-   time); step ms, tokens/s and peak memory recorded.
+   time); step ms, tokens/s and peak memory recorded.  Then the same for
+   paligemma-3b at full width (d 2048, 8/1 heads of 256, 256 zero patch
+   embeddings before the 1024 tokens, so K4 at d 256 under the prefix-LM
+   mask), its depth cut 18 -> 8 (``TRAIN_VLM_LAYERS``: past 11 layers the
+   zero patches' gradients overflow, in the reference's arithmetic as in
+   the port's), 4 steps: K4's forward 2 x 8 launches a step, all with the
+   log-sum-exp and the prefix, its backward 8.
    ``[train-check]``: the same width in f32 (2 x 256 tokens): the loss
    and every leaf's gradient on the card (K4's f32 kernels) within 1e-3
    of the CPU's (the plain versions), relative to the leaf's largest
@@ -294,9 +305,10 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    products), the plain backward's time and the library's
    (``torch.autograd.grad`` of ``scaled_dot_product_attention``), and the
    forward's time with and without its log-sum-exp output; under
-   ``shapes`` the same at the head_dim-128 shape and, on the CUDA-core
-   form, at ``FLASH_D256`` (each also printed as a ``[flash-bwd-timing]``
-   line).
+   ``shapes`` the same at the head_dim-128 shape (each also printed as a
+   ``[flash-bwd-timing]`` line); ``flash_attention_bwd_d256`` the same at
+   ``FLASH_D256`` and ``PALIGEMMA`` (the library under the boolean
+   prefix-LM mask), with paligemma-3b's ``[train]`` backward launches.
 11. The card's name and power limit again, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -1728,17 +1740,22 @@ def flash_phase(torch) -> dict[str, float]:
 BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 #: |kernel - plain| of the forward's log-sum-exp (natural units)
 LSE_TOL = 1e-3
-#: the backward kernels' names, as the profiler lists them
-BWD_KERNELS = {"wgmma": ("bwd_wgmma_dq_kernel", "bwd_wgmma_dkv_kernel"),
+#: the backward kernels' names, as the profiler lists them: bf16 (the dQ
+#: pass at every d, the dK/dV pass at d <= 128 and at d = 256) and f32
+BWD_KERNELS = {"wgmma": ("bwd_wgmma_dq_kernel", "bwd_wgmma_dkv_kernel",
+                         "bwd_wgmma_dkv_wide_kernel"),
                "core": ("bwd_core_dq_kernel", "bwd_core_dkv_kernel")}
 #: any backward kernel's name, as the profiler lists it (each pass's
 #: kernel keyed by its name)
 BWD_PATTERN = r"(bwd_\w+?_kernel)"
 #: K4's backward timed at llama3.2-1b's training shape, the head_dim-128
-#: shape and, on the CUDA-core form, head dim 256
-BWD_TIMED = (MAIN_FLASH, FLASH_SHAPES[6], FLASH_D256)
-#: back-to-back backward calls at MAIN_FLASH that must agree bit for bit
+#: shape, and at head dim 256 recurrentgemma-9b's local attention and
+#: paligemma-3b's prefix-LM attention (its [train] shape)
+BWD_TIMED = (MAIN_FLASH, FLASH_SHAPES[6], FLASH_D256, PALIGEMMA)
+#: back-to-back backward calls at each of these shapes that must agree bit
+#: for bit
 BWD_REPEATS = 10
+BWD_REPEATED = (MAIN_FLASH, FLASH_D256, PALIGEMMA)
 
 
 def flash_bwd_inputs(torch, shape, dtype, seed):
@@ -1755,10 +1772,11 @@ def flash_bwd_inputs(torch, shape, dtype, seed):
 
 def flash_bwd_phase(torch) -> dict:
     """K4's backward against ``flash_attention_bwd_plain`` on the card at
-    every ``FLASH_SHAPES`` row in f32 and bf16, on the forward kernel's own
-    output and log-sum-exp (which is held to the plain forward's too);
+    every ``FLASH_SHAPES`` row in f32 and bf16, on the forward kernel's
+    own output and log-sum-exp (which is held to the plain forward's too);
     autograd through ``flash_attention`` against the wrapper; and
-    ``BWD_REPEATS`` back-to-back calls at ``MAIN_FLASH`` bit-identical."""
+    ``BWD_REPEATS`` back-to-back calls at each of ``BWD_REPEATED``
+    bit-identical."""
     from repro_torch.kernels import flash_attention as fa
 
     errs: dict[str, float] = {}
@@ -1791,6 +1809,10 @@ def flash_bwd_phase(torch) -> dict:
                 if shape == MAIN_FLASH:
                     errs[f"{name}_main"] = max(errs.get(f"{name}_main", 0.0),
                                                rel)
+                if shape[5] == 256:
+                    for key, x in ((f"{name}_d256", rel),
+                                   (f"abs_{name}_d256", err)):
+                        errs[key] = max(errs.get(key, 0.0), x)
     # autograd through the wrapper: the same gradients, one forward (with
     # its log-sum-exp) and one backward launch
     q, k, v, o, lse, do = flash_bwd_inputs(torch, MAIN_FLASH, torch.bfloat16,
@@ -1808,18 +1830,25 @@ def flash_bwd_phase(torch) -> dict:
            fa.flash_attention_bwd.launches - before[1]) == (1, 1),
           "flash: autograd did not launch the forward with its "
           "log-sum-exp and the backward once each")
-    outs = [fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
-            for _ in range(BWD_REPEATS)]
-    torch.cuda.synchronize()
-    same = sum(all(torch.equal(a, b) for a, b in zip(g, want)) for g in outs)
-    check(same == BWD_REPEATS, f"flash_bwd: {BWD_REPEATS - same} of "
-          f"{BWD_REPEATS} repeated calls differ from the first")
+    for shape in BWD_REPEATED:
+        mask = mask_of(shape)
+        q, k, v, o, lse, do = flash_bwd_inputs(torch, shape, torch.bfloat16,
+                                               7)
+        want = fa.flash_attention_bwd(q, k, v, o, lse, do, **mask)
+        outs = [fa.flash_attention_bwd(q, k, v, o, lse, do, **mask)
+                for _ in range(BWD_REPEATS)]
+        torch.cuda.synchronize()
+        same = sum(all(torch.equal(a, b) for a, b in zip(g, want))
+                   for g in outs)
+        check(same == BWD_REPEATS, f"flash_bwd {shape}: {BWD_REPEATS - same}"
+              f" of {BWD_REPEATS} repeated calls differ from the first")
     print(f"[flash-bwd] {len(FLASH_SHAPES)} shapes x 2 dtypes within "
-          f"tolerance of flash_attention_bwd_plain (|diff| / max |plain| of "
-          f"each of dq, dk, dv; tolerance {json.dumps(BWD_TOL)}; the "
-          f"forward's log-sum-exp within {LSE_TOL}): {json.dumps(errs)}; "
-          f"autograd through flash_attention equal; {BWD_REPEATS} "
-          f"back-to-back calls at {MAIN_FLASH[:6]} bf16 bit-identical",
+          f"tolerance of flash_attention_bwd_plain (|diff| / "
+          f"max |plain| of each of dq, dk, dv; tolerance "
+          f"{json.dumps(BWD_TOL)}; the forward's log-sum-exp within "
+          f"{LSE_TOL}): {json.dumps(errs)}; autograd through "
+          f"flash_attention equal; {BWD_REPEATS} back-to-back calls at each "
+          f"of {[s[:6] for s in BWD_REPEATED]} bf16 bit-identical",
           flush=True)
     return errs
 
@@ -1829,11 +1858,14 @@ def flash_bwd_timing(torch, shape=MAIN_FLASH, forward: bool = True) -> dict:
     time a launch (the two passes, by name), their sum, the wrapper
     call's time, the plain version's, the bound, and the library's:
     ``torch.autograd.grad`` of ``scaled_dot_product_attention``
-    (``enable_gqa``, and with K/V expanded).  With ``forward``, then the
-    forward at the same shape with and without its log-sum-exp output."""
+    (``enable_gqa``, and with K/V expanded) under the shape's own mask
+    (``is_causal``; for the prefix-LM the boolean ``make_mask``).  With
+    ``forward``, then the forward at the same shape with and without its
+    log-sum-exp output."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.attention import make_mask
 
     B, H, K, Sq, Sk, d = shape[:6]
     mask = mask_of(shape)
@@ -1842,15 +1874,21 @@ def flash_bwd_timing(torch, shape=MAIN_FLASH, forward: bool = True) -> dict:
     def fn(): return fa.flash_attention_bwd(q, k, v, o, lse, do, **mask)
     def plain_fn(): return fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
                                                          **mask)
-    # every shape timed is causal with no window narrower than S
+    # every shape timed is causal with no window narrower than S; the
+    # prefix-LM takes its boolean mask
+    lib_kw = {"is_causal": True}
+    if mask["prefix_len"]:
+        lib_kw = {"attn_mask": make_mask(
+            Sq, Sk, causal=True, window=mask["window"],
+            prefix_len=mask["prefix_len"], device="cuda")[0, 0]}
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-    lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
-                                             enable_gqa=True)
+    lib_out = F.scaled_dot_product_attention(*leaves, enable_gqa=True,
+                                             **lib_kw)
     def library(): return torch.autograd.grad(lib_out, leaves, do,
                                               retain_graph=True)
     ke, ve = (t.repeat_interleave(H // K, dim=1) for t in (k, v))
     exp_leaves = [x.detach().requires_grad_() for x in (q, ke, ve)]
-    exp_out = F.scaled_dot_product_attention(*exp_leaves, is_causal=True)
+    exp_out = F.scaled_dot_product_attention(*exp_leaves, **lib_kw)
     def library_expanded(): return torch.autograd.grad(
         exp_out, exp_leaves, do, retain_graph=True)
 
@@ -1870,14 +1908,19 @@ def flash_bwd_timing(torch, shape=MAIN_FLASH, forward: bool = True) -> dict:
     kernels = profiled_kernels_ms(torch, fn, BWD_PATTERN)
     kernel_ms = sum(kernels.values()) or None
     res = {"shape": list(shape[:6]), "dtype": "bfloat16",
-           "form": "cuda cores" if d == 256 else "wgmma",
+           "mask": form_of(shape), "prefix_len": mask["prefix_len"],
+           "form": "wgmma" if d <= 128 else
+                   "wgmma; dK/dV wide: the head dim split between the "
+                   "consumers, a cluster of CTAs a KV tile",
            "ms": ms, "kernel_ms": kernel_ms, "kernels_ms": kernels,
            "plain_ms": event_ms(torch, plain_fn, reps=3, inner=2),
            "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
            "bytes": n_bytes, **rates(flops, b_ms, ms, kernel_ms),
            "library_ms": event_ms(torch, library, reps=10, inner=10),
            "library": "torch.autograd.grad(scaled_dot_product_attention("
-                      "is_causal=True, enable_gqa=True))",
+                      + ("attn_mask=make_mask(prefix_len=P)"
+                         if mask["prefix_len"] else "is_causal=True")
+                      + ", enable_gqa=True))",
            "library_kv_expanded_ms": event_ms(torch, library_expanded,
                                               reps=10, inner=10),
            "card": nvidia_smi()}
@@ -2623,6 +2666,14 @@ def examples_phase(torch) -> dict:
 #: ``[train]``: llama3.2-1b at full width and depth through
 #: ``launch.train.run``: B x S tokens of the synthetic pipeline a step
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 4, 1024
+#: [train]'s second model: paligemma-3b (K4 at d 256 under the prefix-LM
+#: mask over its 256 patch positions), 4 steps, its depth cut 18 -> 8: with
+#: the launcher's zero patch embeddings the prefix positions' residual
+#: stays 0 at every layer, where rmsnorm's gradient is eps^-0.5, so the
+#: gradient reaching them grows with depth and overflows into NaN from 12
+#: layers on (finite at 10, `tools/vlm_depth.py`; the reference's own
+#: gradients do the same, `tests/test_torch_loss.py`)
+TRAIN_VLM, TRAIN_VLM_STEPS, TRAIN_VLM_LAYERS = "paligemma-3b", 4, 8
 #: ``[train-check]``: the same width in f32 at 1 (gated) and 2 layers, B x S
 CHECK_TRAIN_LAYERS, CHECK_TRAIN_BATCH, CHECK_TRAIN_SEQ = 2, 2, 256
 #: card against CPU: |diff| <= TRAIN_CHECK_TOL x the leaf's largest element
@@ -2635,16 +2686,20 @@ def train_args(extra: list) -> object:
     return launch.parser().parse_args(["--device", "cuda"] + extra)
 
 
-def train_phase(torch, np) -> dict:
-    """``[train]``: ``launch.train.run`` on llama3.2-1b at full width and
-    depth (bf16 compute, f32 master weights, ``remat="full"``), TRAIN_BATCH
-    x TRAIN_SEQ tokens of ``SyntheticTokenPipeline(seed=0)`` a step, for
-    TRAIN_STEPS steps.  Counts at 0 just before, read just after: K4's
-    forward runs twice a layer and step (the step's forward and its
-    recompute under remat), both with the log-sum-exp, and its backward
-    once.  Every loss and grad norm finite, the first loss below
-    ln(vocab) + 2.  Then step 0 twice from one state: bit-identical loss
-    and gradients.  Then one step traced: K4's share of the device time."""
+def train_phase(torch, np, arch: str = "llama3.2-1b",
+                steps: int = TRAIN_STEPS, layers: int | None = None) -> dict:
+    """``[train]``: ``launch.train.run`` on ``arch`` at full width and
+    depth (or cut to ``layers``; bf16 compute, f32 master weights,
+    ``remat="full"``), TRAIN_BATCH
+    x TRAIN_SEQ tokens of ``SyntheticTokenPipeline(seed=0)`` a step (after
+    a patch-frontend model's zero patch embeddings), for ``steps`` steps.
+    Counts at 0 just before, read just after: K4's forward runs twice a
+    layer and step (the step's forward and its recompute under remat),
+    both with the log-sum-exp (and with the prefix where the model has
+    one), and its backward once.  Every loss and grad norm finite, the
+    first loss below ln(vocab) + 2.  Then step 0 twice from one state:
+    bit-identical loss and gradients.  Then one step traced: K4's share of
+    the device time."""
     import math
 
     from repro_torch.kernels import flash_attention as fa
@@ -2652,10 +2707,11 @@ def train_phase(torch, np) -> dict:
     from repro_torch.train.optim import tree_leaves
     from repro_torch.train.step import value_and_grad
 
-    args = train_args(["--full", "--steps", str(TRAIN_STEPS), "--batch",
-                       str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+    args = train_args(["--arch", arch, "--full", "--steps", str(steps),
+                       "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
                        "--ckpt-every", "0", "--log-every", "1",
-                       "--seed", "0"])
+                       "--seed", "0"]
+                      + (["--layers", str(layers)] if layers else []))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()                        # counts at 0 just before the path
@@ -2668,18 +2724,20 @@ def train_phase(torch, np) -> dict:
     peak = torch.cuda.max_memory_allocated()
     del out["state"]
     cfg, api, step_fn = launch.build(args)
-    layers, steps = cfg.n_layers, TRAIN_STEPS
+    layers = cfg.n_layers
     want = {"flash_attention": 2 * layers * steps,
             "flash_attention_lse": 2 * layers * steps,
+            "flash_attention_prefix": (2 * layers * steps
+                                       if cfg.frontend == "patch" else 0),
             "flash_attention_bwd": layers * steps}
     for name, n in want.items():
-        check(counts[name] == n, f"[train] {counts[name]} {name} launches, "
-              f"the path implies {n} ({layers} layers x {steps} steps, the "
-              "forward twice under remat)")
+        check(counts[name] == n, f"[train] {arch}: {counts[name]} {name} "
+              f"launches, the path implies {n} ({layers} layers x {steps} "
+              "steps, the forward twice under remat)")
     check(all(math.isfinite(x) for x in out["losses"] + out["grad_norms"]),
-          f"[train] a loss or grad norm is not finite: {out}")
+          f"[train] {arch}: a loss or grad norm is not finite: {out}")
     bound = math.log(cfg.vocab) + 2
-    check(out["first_loss"] < bound, f"[train] first loss "
+    check(out["first_loss"] < bound, f"[train] {arch}: first loss "
           f"{out['first_loss']} >= ln(vocab) + 2 = {bound}")
 
     # step 0 twice from one state, and one step traced
@@ -2696,7 +2754,8 @@ def train_phase(torch, np) -> dict:
     (l1, _), g1 = value_and_grad(api, state["params"], batch)
     same = torch.equal(l0, l1) and all(
         torch.equal(a, b) for a, b in zip(tree_leaves(g0), tree_leaves(g1)))
-    check(same, "[train] step 0 twice from one state: the gradients differ")
+    check(same, f"[train] {arch}: step 0 twice from one state: the "
+          "gradients differ")
     del g0, g1
     trace = _traced(torch, lambda: step_fn(state, batch))
     bwd = sum(t for name, t in trace["top_all"].items()
@@ -2707,6 +2766,7 @@ def train_phase(torch, np) -> dict:
     tokens = TRAIN_BATCH * TRAIN_SEQ
     res = {"arch": cfg.name, "layers": layers, "d_model": cfg.d_model,
            "vocab": cfg.vocab, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "prefix": cfg.frontend_len if cfg.frontend == "patch" else 0,
            "steps": steps, "remat": cfg.remat, "losses": out["losses"],
            "grad_norms": out["grad_norms"], "step_s": out["step_s"],
            "step_ms_p50": out["step_s_p50"] * 1e3,
@@ -2853,25 +2913,32 @@ def train_resume(torch) -> dict:
     return res
 
 
-def flash_bwd_row(timings: list[dict], errs: dict, launches: int) -> dict:
-    """K4's backward row: the first of ``timings`` (``MAIN_FLASH``) at the
-    top level, every one of them under ``shapes``."""
+def flash_bwd_row(timings: list[dict], errs: dict, launches: int,
+                  d256: bool = False) -> dict:
+    """K4's backward row: the first of ``timings`` at the top level, every
+    one of them under ``shapes``; at d <= 128 (``MAIN_FLASH`` first, with
+    the forward's times) or, with ``d256``, at head dim 256
+    (``FLASH_D256`` first, the errors of the d 256 rows)."""
     main = timings[0]
-    return {
-        "name": "flash_attention_bwd", "route": "cuda",
+    tag = "_d256" if d256 else ""
+    row = {
+        "name": "flash_attention_bwd" + tag, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:77",
         "replaces_fn": "the gradient of flash_attention (the reference's "
                        "pallas_call has no custom_vjp; its training "
                        "differentiates the XLA attention)",
         "launches": launches, "on_main_path": launches > 0,
-        "max_abs_err": errs["abs_bfloat16"],
-        "max_abs_err_f32": errs["abs_float32"],
-        "max_rel_err": errs["bfloat16"], "max_rel_err_f32": errs["float32"],
+        "max_abs_err": errs[f"abs_bfloat16{tag}"],
+        "max_abs_err_f32": errs[f"abs_float32{tag}"],
+        "max_rel_err": errs[f"bfloat16{tag}"],
+        "max_rel_err_f32": errs[f"float32{tag}"],
         **{k: v for k, v in main.items() if k not in ("forward", "card")},
-        "forward_with_lse": main["forward"],
         "shapes": [{k: v for k, v in t.items() if k not in ("forward", "card")}
                    for t in timings]}
+    if "forward" in main:
+        row["forward_with_lse"] = main["forward"]
+    return row
 
 
 # ---------------------------------------------------------------------------------
@@ -5135,15 +5202,21 @@ def build_all() -> None:
           f"{json.dumps(counts)}; registers: "
           f"{json.dumps(ptxas_registers(logs[('flash_attention_bwd', ())], BWD_SASS))}",
           flush=True)
-    want = sorted(f"{k}ILi{d}E{form}" for d in (16, 32, 64, 128)
-                  for k, forms in zip(BWD_KERNELS["wgmma"],
-                                      (("",), ("Lb0E", "Lb1E")))
-                  for form in forms)
+    dq, dkv, wide = BWD_KERNELS["wgmma"]
+    want = sorted([f"{dq}ILi{d}E" for d in (16, 32, 64, 128, 256)]
+                  + [f"{dkv}ILi{d}E{form}" for d in (16, 32, 64, 128)
+                     for form in ("Lb0E", "Lb1E")]
+                  + [wide])
     check(sorted(counts) == want, f"{sorted(counts)} in the backward's "
           f"SASS, {want} expected")
     for name, c in counts.items():
         check(c["HGMMA"] > 0 and c["UTMALDG"] > 0,
               f"{name} has no wgmma or no TMA load: {c}")
+    core = sass_counts(lib, r"(bwd_core_d(?:q|kv)_kernelI\w+?E)", ())
+    print(f"[build] backward CUDA-core kernels: {sorted(core)}", flush=True)
+    check(len(core) == 10 and not any("bfloat16" in k for k in core),
+          f"{sorted(core)}: the CUDA-core forms must be f32 only, at each "
+          "of the five head dims (bf16 runs on wgmma at every d)")
     counts = sass_counts(_build._target("recurrent")[1], SCAN_KERNELS,
                          ("LDL", "STL", "HMMA"))
     print(f"[build] scan kernels' local memory and tensor-core SASS "
@@ -5212,9 +5285,10 @@ def build_all() -> None:
 
 
 SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG")
-#: the backward's wgmma kernels in the SASS and the ptxas log (d 16-128;
-#: the dK/dV kernel in its two forms, 128-row CTAs and cluster pairs)
-BWD_SASS = r"(bwd_wgmma_d(?:q|kv)_kernelILi\d+E(?:Lb[01]E)?)"
+#: the backward's wgmma kernels in the SASS and the ptxas log (the dQ
+#: kernel at d 16-256; the dK/dV kernel at d 16-128 in its two forms,
+#: 128-row CTAs and cluster pairs, and the wide one at d 256)
+BWD_SASS = r"(bwd_wgmma_d(?:q|kv|kv_wide)_kernel(?:ILi\d+E(?:Lb[01]E)?)?)"
 #: the cluster kernels' instances and the global atomics each may hold:
 #: K2 <split, merging the earlier shards' records> (the split form's ticket
 #: is one atomic), the tail <a shard's, merging> (unsharded, an earlier
@@ -5386,6 +5460,8 @@ def run() -> int:
     examples = examples_phase(torch)
     lap("examples")
     train = train_phase(torch, np)
+    train_vlm = train_phase(torch, np, TRAIN_VLM, TRAIN_VLM_STEPS,
+                            TRAIN_VLM_LAYERS)
     lap("train")
     train_chk = train_check(torch, np)
     lap("train_check")
@@ -5405,10 +5481,14 @@ def run() -> int:
             torch, flash_errs, form,
             sum(f["launches"][f"flash_attention_{form}"]
                 for f in fam.values())))
+    bwd_timed = [flash_bwd_timing(torch, shape, forward=shape == MAIN_FLASH)
+                 for shape in BWD_TIMED]
     rows.append(flash_bwd_row(
-        [flash_bwd_timing(torch, shape, forward=shape == MAIN_FLASH)
-         for shape in BWD_TIMED], bwd_errs,
+        [t for t in bwd_timed if t["shape"][5] <= 128], bwd_errs,
         train["launches"]["flash_attention_bwd"]))
+    rows.append(flash_bwd_row(
+        [t for t in bwd_timed if t["shape"][5] == 256], bwd_errs,
+        train_vlm["launches"]["flash_attention_bwd"], d256=True))
     rows.extend(scan_rows(torch, *({
         name: sum(f[key][name] for f in fam.values())
         for name in ("wkv6_scan", "rglru_scan")}
@@ -5466,6 +5546,11 @@ def run() -> int:
                           "step_ms_p50", "tokens_per_s",
                           "max_memory_allocated", "losses", "launches")},
                       "train_flash_bwd_share": train["trace"][
+                          "flash_bwd_share"],
+                      "train_vlm": {k: train_vlm[k] for k in (
+                          "arch", "layers", "step_ms_p50", "tokens_per_s",
+                          "max_memory_allocated", "losses", "launches")},
+                      "train_vlm_flash_bwd_share": train_vlm["trace"][
                           "flash_bwd_share"],
                       "train_check": {k: train_chk[k] for k in (
                           "gated", "recorded")},

@@ -31,56 +31,86 @@
 // The operations bound it, so every product goes to the tensor cores at
 // the rate only wgmma reaches, and the loads hide behind them in a ring.
 // The two passes recompute S and dP each (7 products against the bound's
-// 5): the price of a dQ without atomics.
+// 5): the price of a dQ without atomics.  At d = 256 (recurrentgemma-9b's
+// local attention: B 4, H 16, K 1, S 1024) the five products are 86.0
+// GFLOP, 86.9 us.
 //
-// bf16 at d = 16, 32, 64, 128 (bwd_wgmma_dq_kernel, bwd_wgmma_dkv_kernel),
-// the forward's design (flash_attention.cu flash_bf16_kernel):
+// bf16 at every d (bwd_wgmma_dq_kernel; bwd_wgmma_dkv_kernel at d <= 128,
+// bwd_wgmma_dkv_wide_kernel at d = 256), the forward's design
+// (flash_attention.cu flash_bf16_kernel):
 // * 384 threads in three warpgroups.  Warpgroup 0 is the producer: it
 //   gives registers back (setmaxnreg.dec) and one thread issues every TMA
-//   load into a 4-stage ring with full and empty mbarriers.  Warpgroups 1
-//   and 2 are the consumers (setmaxnreg.inc), 64 rows each.
+//   load into a ring with full and empty mbarriers (4 stages; 3 in the dQ
+//   pass and 2 in the dK/dV pass at d = 256).  Warpgroups 1 and 2 are the
+//   consumers (setmaxnreg.inc).
 // * TMA.  4-D tensor maps (d, S, heads, B) over the strided views the
 //   model passes, encoded on the host (hopper.cuh) from the rows the
-//   Python helper computes: boxes of 64 rows and at most 64 columns, with
-//   the swizzle as wide as a box row (128B at d >= 64, 64B at d = 32, 32B
-//   at d = 16), the layout the wgmma descriptors read.  TMA zero-fills
-//   rows past Sq / Sk.
-// * dQ pass: a CTA per 128 q rows (heads along x, q blocks reversed along
-//   y: the longest causal rows first).  Q, dO and O arrive once; each
-//   consumer sums D = rowsum(dO o O) of its rows from shared memory and
-//   writes D and its rows' log-sum-exp in log2 units (+1e30 past Sq) to
-//   the scratch the dK/dV pass reads.  K and V tiles of BK rows (128; 64
-//   at d = 128, registers) stream through the ring.  A step:
-//   S = Q K^T and dP = dO V^T (wgmma m64nBKk16, both operands K-major in
-//   shared memory), P and dS on the accumulator fragments, dS rounded to
-//   bf16 once, dQ += dS K (m64n(d)k16, A = dS from registers, B = K read
+//   Python helper computes: boxes of 64 rows (32 for the dQ pass's K and V
+//   tiles at d = 256) and at most 64 columns, with the swizzle as wide as
+//   a box row (128B at d >= 64, 64B at d = 32, 32B at d = 16), the layout
+//   the wgmma descriptors read.  TMA zero-fills rows past Sq / Sk.
+// * dQ pass: a CTA per 128 q rows, 64 a consumer (heads along x, q blocks
+//   reversed along y: the longest causal rows first).  Q and dO arrive
+//   once, and O too at d <= 128; each consumer sums D = rowsum(dO o O) of
+//   its rows (O from shared memory, or at d = 256, where Q, dO and the
+//   ring fill it, from global memory) and writes D and its rows'
+//   log-sum-exp in log2 units (+1e30 past Sq) to the scratch the dK/dV
+//   pass reads.  K and V tiles of BK rows (128; 64 at d = 128 and 32 at
+//   d = 256, registers: a consumer holds BK / 2 floats of S and of dP
+//   beside D / 2 of dQ) stream through the ring.  A step: S = Q K^T and
+//   dP = dO V^T (wgmma m64nBKk16, both operands K-major in shared
+//   memory), P and dS on the accumulator fragments, dS rounded to bf16
+//   once, dQ += dS K (m64n(d)k16, A = dS from registers, B = K read
 //   MN-major with the transpose bit).
-// * dK/dV pass: KV heads along x, KV tiles along y (tile 0, which every q
-//   block sees under the causal mask, first).  K and V arrive once; Q and
-//   dO tiles of 64 rows, and the matching 64 values of the log-sum-exp and
-//   of D (1-D bulk copies from the scratch, whose rows are padded to
-//   128), stream through the ring in the fixed (head, q block) order.  A
-//   step: S^T = K Q^T and dP^T = V dO^T (m64n64k16, K-major), P^T and dS^T
-//   on the fragments, each rounded to bf16 once, dV += P^T dO and
-//   dK += dS^T Q (A from registers, B = dO and Q MN-major: neither is
-//   gathered).  A CTA takes 128 KV rows, a consumer each; where that grid
-//   leaves SMs idle, a cluster of two CTAs takes 64 KV rows, each CTA
-//   half the q blocks and its consumers alternate steps; the partial sums
-//   meet in a fixed order through shared and distributed shared memory.
+// * dK/dV pass at d <= 128: KV heads along x, KV tiles along y (tile 0,
+//   which every q block sees under the causal mask, first).  K and V
+//   arrive once; Q and dO tiles of 64 rows, and the matching 64 values of
+//   the log-sum-exp and of D (1-D bulk copies from the scratch, whose rows
+//   are padded to 128), stream through the ring in the fixed (head, q
+//   block) order.  A step: S^T = K Q^T and dP^T = V dO^T (m64n64k16,
+//   K-major), P^T and dS^T on the fragments, each rounded to bf16 once,
+//   dV += P^T dO and dK += dS^T Q (A from registers, B = dO and Q
+//   MN-major: neither is gathered).  A CTA takes 128 KV rows, a consumer
+//   each; where that grid leaves SMs idle, a cluster of two CTAs takes 64
+//   KV rows, each CTA half the q blocks and its consumers alternate steps;
+//   the partial sums meet in a fixed order through shared and distributed
+//   shared memory.
+// * dK/dV pass at d = 256 (bwd_wgmma_dkv_wide_kernel): dK and dV of 64 KV
+//   rows at full width take 256 floats a thread of a warpgroup, above the
+//   255 registers a thread has, so the two consumers split the head dim:
+//   consumer c holds dK and dV for columns [128 c, 128 c + 128) (2 x 64
+//   floats).  A step of 64 q rows: consumer c computes S^T and dP^T for
+//   the step's q rows [32 c, 32 c + 32) over the full d (m64n32k16, K and
+//   V against Q and dO, K-major), P^T and dS^T on its fragments, and
+//   writes them once in bf16 into shared memory (64 x 64 tiles in the 128B
+//   swizzle, double-buffered); after a barrier of the two consumers each
+//   adds dV[:, half] += P^T dO[:, half] and dK[:, half] += dS^T Q[:, half]
+//   (m64n128k16, A = P^T / dS^T K-major and B = dO / Q MN-major, both from
+//   shared memory).  K and V (64 KB) and a Q + dO stage (64 KB) leave room
+//   for a ring of two.  A step issues its S^T and dP^T with the products
+//   of the step before.  Under MQA one KV tile's walk over G heads x q
+//   blocks is the whole pass's work on 64 CTAs (recurrentgemma-9b's
+//   prefill), so a cluster of 4 CTAs takes each tile, rank r taking steps
+//   r, r + 4, ... of the fixed (head, q block) walk.  Their partial sums
+//   meet through distributed shared memory a 64-column box at a time: of
+//   a consumer's four boxes (dK and dV, two each) rank x owns box x,
+//   receives the other ranks' partials of it in its spent ring, adds the
+//   four in rank order, and stores it.
 // * Each consumer issues a step's S and dP with the products of the step
-//   before (the dQ pass, and the dK/dV pass at d <= 64: at d = 128 dK and
-//   dV take the registers for it), so the tensor cores run those during
-//   the softmax; the first and last steps stand alone, so that no wait
-//   depends on a branch inside the loop (ptxas keeps the products
-//   asynchronous).  The two consumers take turns to issue (ping-pong on
-//   named barriers, the forward's scheme), and the per-element mask is a
-//   branch of its own, taken only on the tiles the mask's edges cross.
+//   before (the dQ pass, and the dK/dV pass at d <= 64 and d = 256: at
+//   d = 128 dK and dV take the registers for it), so the tensor cores run
+//   those during the softmax; the first and last steps stand alone, so
+//   that no wait depends on a branch inside the loop (ptxas keeps the
+//   products asynchronous).  The two consumers of the dQ pass and of the
+//   dK/dV pass at d <= 128 take turns to issue (ping-pong on named
+//   barriers, the forward's scheme), and the per-element mask is a branch
+//   of its own, taken only on the tiles the mask's edges cross.
 // * Epilogue: dQ and dK scaled by d^-0.5 once, rounded to bf16 into the
 //   consumer's dead Q (dQ) or K and V (dK, dV) rows of shared memory in
 //   the map's swizzle, then TMA stores, which clip rows past Sq / Sk.
-// f32 at every d, and bf16 at d = 256 (bwd_core_*): the CUDA cores in f32
-// (FMA, expf), a q row (dQ pass) or a KV row (dK/dV pass) to TPR threads
-// that hold 32 of its elements each (16 at d = 16).
+// f32 at every d (bwd_core_*): the CUDA cores in f32 (FMA, expf), a q row
+// (dQ pass) or a KV row (dK/dV pass) to TPR threads that hold 32 of its
+// elements each (16 at d = 16).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -95,7 +125,7 @@ constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int BQ = 64;          // the CUDA-core forms' q rows a dQ CTA and
-                                // KV rows a dK/dV CTA
+                                // KV rows a dK/dV CTA (f32)
 
 struct Shape {
   int H, group, Sq, Sk, causal, window;  // window 0 = none
@@ -178,10 +208,6 @@ template <>
 __device__ __forceinline__ float to_f32<float>(float x) {
   return x;
 }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -189,12 +215,8 @@ template <>
 __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
 }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
-// 8 elements of a row from global memory to f32 (16 or 32 bytes)
+// 8 elements of a row from global memory to f32 (32 bytes)
 template <typename T>
 __device__ __forceinline__ void load8(float (&x)[8], const T* p);
 template <>
@@ -203,18 +225,6 @@ __device__ __forceinline__ void load8<float>(float (&x)[8], const float* p) {
   const float4 b = *reinterpret_cast<const float4*>(p + 4);
   x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
   x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
-}
-template <>
-__device__ __forceinline__ void load8<__nv_bfloat16>(
-    float (&x)[8], const __nv_bfloat16* p) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
-    x[2 * i] = __low2float(h);
-    x[2 * i + 1] = __high2float(h);
-  }
 }
 
 // D = rowsum(dO o O) of q rows [q0, q0 + BQ) of head bh into dsum, by
@@ -248,7 +258,7 @@ __device__ __forceinline__ void row_dsum(const Args& p, const Shape& a,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at d = 16, 32, 64, 128: wgmma fed by a TMA ring
+// bf16: wgmma fed by a TMA ring
 // ---------------------------------------------------------------------------
 
 constexpr int WG = 128;                  // threads of a warpgroup
@@ -261,7 +271,8 @@ constexpr int STAGES = 4;                // the rings' depth
 // The bf16 tiling for head dimension D: boxes of SPAN columns and 64 rows
 // with a SPAN * 2 byte swizzle (the forward's); a tile of R rows keeps box
 // x at byte x R ROWB.  BK: KV rows a dQ step (a consumer holds BK floats of
-// S and dP a thread beside D / 2 of dQ, so 64 at d = 128).
+// S and dP a thread beside D / 2 of dQ, so 64 at d = 128 and 32 at
+// d = 256).
 template <int D>
 struct WTile {
   static constexpr int SPAN = D < 64 ? D : 64;
@@ -269,12 +280,17 @@ struct WTile {
   static constexpr int BOXES = D / SPAN;
   static constexpr uint32_t MODE = ROWB == 128 ? 1 : ROWB == 64 ? 2 : 3;
   static constexpr uint32_t SWZ = ROWB / 16 - 1;  // row bits the XOR takes
-  static constexpr int BK = D == 128 ? 64 : 128;
+  static constexpr int BK = D == 256 ? 32 : D == 128 ? 64 : 128;
   // whether a dK/dV consumer holds two steps at once (the registers of
   // dK and dV leave no room for it at d = 128)
   static constexpr bool PIPE_DKV = D <= 64;
-  static constexpr int DQ_SMEM = 1024 + 3 * BM * D * 2 +
-                                 2 * STAGES * BK * D * 2 + 8 * (1 + 2 * STAGES);
+  // whether the dQ CTA stages O in shared memory for D; at d = 256 Q, dO
+  // and a ring of three stages fill it, and O is read from global memory
+  static constexpr bool O_SMEM = D <= 128;
+  static constexpr int DQ_STAGES = O_SMEM ? STAGES : 3;
+  static constexpr int DQ_SMEM = 1024 + (O_SMEM ? 3 : 2) * BM * D * 2 +
+                                 2 * DQ_STAGES * BK * D * 2 +
+                                 8 * (1 + 2 * DQ_STAGES);
   static constexpr int DKV_SMEM = 1024 + 2 * BM * D * 2 +
                                   STAGES * (2 * BQS * D * 2 + 2 * BQS * 4) +
                                   8 * (3 + 2 * STAGES);
@@ -296,24 +312,27 @@ __device__ __forceinline__ uint32_t swizzled(int r, int col) {
   return off ^ (((off >> 7) & T::SWZ) << 4);
 }
 
-// rows [r0, r0 + R) of a tensor into a tile of R rows, 64 rows a TMA load
+// rows [r0, r0 + R) of a tensor into a tile of R rows, min(R, 64) rows a
+// TMA load (the map's box)
 template <int D, int R>
 __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
                                           int r0, int head, int b,
                                           uint32_t bar) {
   using T = WTile<D>;
+  constexpr int BOXR = R < 64 ? R : 64;
 #pragma unroll
   for (int x = 0; x < T::BOXES; ++x)
 #pragma unroll
-    for (int j = 0; j < R / 64; ++j)
-      tma_load(dst + (x * R + 64 * j) * T::ROWB, map, x * T::SPAN,
-               r0 + 64 * j, head, b, bar);
+    for (int j = 0; j < R / BOXR; ++j)
+      tma_load(dst + (x * R + BOXR * j) * T::ROWB, map, x * T::SPAN,
+               r0 + BOXR * j, head, b, bar);
 }
 
 // C = A B^T over the head dimension, m64nNk16: A = the 64 rows at sA of a
-// tile of RA rows, B = a tile of N rows at sB, both K-major (D / 16 k-steps,
-// 32 bytes apart inside a box row, the next box RA or N box rows further)
-template <int D, int RA, int N>
+// tile of RA rows, B = the N rows at sB of a tile of RB rows, both K-major
+// (D / 16 k-steps, 32 bytes apart inside a box row, the next box RA or RB
+// box rows further)
+template <int D, int RA, int N, int RB = N>
 __device__ __forceinline__ void issue_ss(float (&c)[N / 2], uint32_t sA,
                                          uint32_t sB) {
   using T = WTile<D>;
@@ -322,7 +341,7 @@ __device__ __forceinline__ void issue_ss(float (&c)[N / 2], uint32_t sA,
     const int x = kk / (T::SPAN / 16), in = (kk % (T::SPAN / 16)) * 32;
     wgmma_ss(c,
              smem_desc(sA + x * RA * T::ROWB + in, 16, 8 * T::ROWB, T::MODE),
-             smem_desc(sB + x * N * T::ROWB + in, 16, 8 * T::ROWB, T::MODE),
+             smem_desc(sB + x * RB * T::ROWB + in, 16, 8 * T::ROWB, T::MODE),
              kk > 0);
   }
 }
@@ -391,6 +410,24 @@ __device__ __forceinline__ float dot8(uint32_t x, uint32_t y, float acc) {
   return acc;
 }
 
+// the same with the second chunk from global memory
+__device__ __forceinline__ float dot8g(uint32_t x, const void* y, float acc) {
+  uint32_t u[4];
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(u[0]), "=r"(u[1]), "=r"(u[2]), "=r"(u[3])
+               : "r"(x));
+  const uint4 v = __ldg(static_cast<const uint4*>(y));
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&u[i]);
+    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
+    acc = fmaf(__low2float(a), __low2float(b), acc);
+    acc = fmaf(__high2float(a), __high2float(b), acc);
+  }
+  return acc;
+}
+
 // the consumer's epilogue: its 64 rows of a tile (s, boxes R rows apart)
 // to the tensor at row r0 by TMA stores, which clip rows past the end
 template <int D, int R>
@@ -435,8 +472,8 @@ __device__ __forceinline__ void consumer_sync(int c) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(1 + c), "n"(WG) : "memory");
 }
 
-// dQ pass: a CTA per (b*H + h, 128 q rows, reversed).  Maps: q, k, v, o,
-// do, dq.
+// dQ pass: a CTA per (b*H + h, 128 q rows, reversed).  Maps: q, k, v
+// (boxes of BK rows), o, do, dq.
 template <int D>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 bwd_wgmma_dq_kernel(const __grid_constant__ CUtensorMap mq,
@@ -447,12 +484,12 @@ bwd_wgmma_dq_kernel(const __grid_constant__ CUtensorMap mq,
                     const __grid_constant__ CUtensorMap mdq, const Args p,
                     const Shape a) {
   using T = WTile<D>;
-  constexpr int BK = T::BK, ROWB = T::ROWB;
+  constexpr int BK = T::BK, ROWB = T::ROWB, STAGES = T::DQ_STAGES;
   constexpr int Q_BYTES = BM * D * 2, KV_BYTES = BK * D * 2;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
   const uint32_t sQ = base, sdO = sQ + Q_BYTES, sO = sdO + Q_BYTES;
-  const uint32_t sK = sO + Q_BYTES;                  // STAGES tiles
+  const uint32_t sK = T::O_SMEM ? sO + Q_BYTES : sO;  // STAGES tiles
   const uint32_t sV = sK + STAGES * KV_BYTES;        // STAGES tiles
   const uint32_t bars = sV + STAGES * KV_BYTES;
   auto full = [&](int s) { return bars + 8 * (1 + s); };
@@ -480,10 +517,10 @@ bwd_wgmma_dq_kernel(const __grid_constant__ CUtensorMap mq,
     // ---- producer: one thread keeps the ring full -------------------------
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(bars, 3 * Q_BYTES);
+      mbar_expect_tx(bars, (T::O_SMEM ? 3 : 2) * Q_BYTES);
       load_tile<D, BM>(sQ, &mq, q0, h, b, bars);
       load_tile<D, BM>(sdO, &mdo, q0, h, b, bars);
-      load_tile<D, BM>(sO, &mo, q0, h, b, bars);
+      if constexpr (T::O_SMEM) load_tile<D, BM>(sO, &mo, q0, h, b, bars);
       int s = 0;
       uint32_t phase = 0;
       for (int k0 = lo; k0 < hi; k0 += BK) {
@@ -511,14 +548,35 @@ bwd_wgmma_dq_kernel(const __grid_constant__ CUtensorMap mq,
     // D of rows row_a and row_b: the quad's 4 threads take every 4th
     // 16-byte chunk of each row, then add across the quad
     float d_a = 0.f, d_b = 0.f;
+    if constexpr (T::O_SMEM) {
 #pragma unroll
-    for (int i = 0; i < (D / 8 + 3) / 4; ++i) {
-      const int ch = t + 4 * i;
-      if (ch < D / 8) {
-        const uint32_t ra = swizzled<D, BM>(64 * c + 16 * warp + g, 8 * ch);
-        const uint32_t rb = swizzled<D, BM>(64 * c + 16 * warp + g + 8, 8 * ch);
-        d_a = dot8(sdO + ra, sO + ra, d_a);
-        d_b = dot8(sdO + rb, sO + rb, d_b);
+      for (int i = 0; i < (D / 8 + 3) / 4; ++i) {
+        const int ch = t + 4 * i;
+        if (ch < D / 8) {
+          const uint32_t ra = swizzled<D, BM>(64 * c + 16 * warp + g, 8 * ch);
+          const uint32_t rb =
+              swizzled<D, BM>(64 * c + 16 * warp + g + 8, 8 * ch);
+          d_a = dot8(sdO + ra, sO + ra, d_a);
+          d_b = dot8(sdO + rb, sO + rb, d_b);
+        }
+      }
+    } else {
+      // O's rows from global memory (rows past Sq hold none)
+      const __nv_bfloat16* op = static_cast<const __nv_bfloat16*>(p.o) +
+                                b * p.st[O_][0] + h * p.st[O_][1];
+      const __nv_bfloat16* oa =
+          op + static_cast<long long>(row_a) * p.st[O_][2];
+      const __nv_bfloat16* ob =
+          op + static_cast<long long>(row_b) * p.st[O_][2];
+#pragma unroll
+      for (int i = 0; i < D / 32; ++i) {
+        const int ch = t + 4 * i;
+        if (row_a < a.Sq)
+          d_a = dot8g(sdO + swizzled<D, BM>(64 * c + 16 * warp + g, 8 * ch),
+                      oa + 8 * ch, d_a);
+        if (row_b < a.Sq)
+          d_b = dot8g(sdO + swizzled<D, BM>(64 * c + 16 * warp + g + 8, 8 * ch),
+                      ob + 8 * ch, d_b);
       }
     }
     d_a = quad_sum(d_a);
@@ -978,7 +1036,332 @@ bwd_wgmma_dkv_kernel(const __grid_constant__ CUtensorMap mq,
 }
 
 // ---------------------------------------------------------------------------
-// f32 math on the CUDA cores: f32 at every d, bf16 at d = 256
+// bf16 at d = 256: the dK/dV pass with the head dim split between the
+// consumers and each KV tile's walk spread over a cluster
+// ---------------------------------------------------------------------------
+
+constexpr int WD = 256;                  // the head dimension
+constexpr int WK = 64;                   // KV rows a CTA (a cluster)
+constexpr int WQ = 64;                   // q rows a step, 32 a consumer
+constexpr int WSTAGES = 2;               // the ring's depth
+constexpr int WROWB = 128;               // bytes of a box row (64 columns)
+constexpr int W_KV = WK * WD * 2;        // a K or V tile
+constexpr int W_TILE = WQ * WD * 2;      // a Q or dO tile
+constexpr int W_PT = WK * WQ * 2;        // a P^T or dS^T tile (bf16)
+constexpr int W_BOX = 32 * WG * 4;       // a box of one consumer's partial
+                                         // sums (32 floats a thread)
+constexpr int WCL = 4;                   // CTAs of a cluster
+constexpr int WIDE_SMEM = 1024 + 2 * W_KV + WSTAGES * 2 * W_TILE +
+                          2 * 2 * W_PT + WSTAGES * 2 * WQ * 4 +
+                          8 * (1 + 2 * WSTAGES);
+static_assert(WIDE_SMEM <= 232448, "the dK/dV wide kernel's shared memory");
+
+__device__ __forceinline__ void st_remote4(uint32_t addr, float x, float y,
+                                           float z, float w) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "f"(x), "f"(y), "f"(z), "f"(w)
+               : "memory");
+}
+
+__device__ __forceinline__ float4 ld_shared4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// A cluster of WCL CTAs per (b*K + kh, 64 KV rows): rank r takes steps
+// n = r, r + WCL, ... of the fixed walk n -> (head kh G + n / blocks, q
+// block n % blocks), blocks the q blocks of 64 rows that see the tile.
+// Consumer c holds dK and dV for columns [128 c, 128 c + 128).  Box x of
+// the concatenated [dK (2 boxes), dV (2 boxes)] of a consumer belongs to
+// rank x, which sums it over the ranks in rank order and stores it.  Maps:
+// q, k, v, do, dk, dv (boxes of 64 rows).
+__global__ void __launch_bounds__(WG_THREADS, 1)
+bwd_wgmma_dkv_wide_kernel(const __grid_constant__ CUtensorMap mq,
+                          const __grid_constant__ CUtensorMap mk,
+                          const __grid_constant__ CUtensorMap mv,
+                          const __grid_constant__ CUtensorMap mdo,
+                          const __grid_constant__ CUtensorMap mdk,
+                          const __grid_constant__ CUtensorMap mdv,
+                          const Args p, const Shape a) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t sK = base, sV = sK + W_KV;
+  const uint32_t ring = sV + W_KV;           // WSTAGES x (Q, dO)
+  const uint32_t sP = ring + WSTAGES * 2 * W_TILE;   // 2 buffers
+  const uint32_t sdS = sP + 2 * W_PT;                // 2 buffers
+  const uint32_t sL = sdS + 2 * W_PT;        // WSTAGES x WQ floats
+  const uint32_t sD = sL + WSTAGES * WQ * 4;  // WSTAGES x WQ floats
+  const uint32_t bars = sD + WSTAGES * WQ * 4;
+  const float* gL = reinterpret_cast<const float*>(smem_raw + (sL - raw));
+  const float* gD = reinterpret_cast<const float*>(smem_raw + (sD - raw));
+  auto sQ = [&](int s) { return ring + s * 2 * W_TILE; };
+  auto sdO = [&](int s) { return ring + s * 2 * W_TILE + W_TILE; };
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + WSTAGES + s); };
+
+  const int KH = a.H / a.group;
+  const int b = blockIdx.x / KH, kh = blockIdx.x % KH;
+  const int rank = cluster_rank();
+  const int k0 = blockIdx.y / WCL * WK;
+  // warp-uniform (a shuffle), so that ptxas sees the consumers' control
+  // flow as uniform and keeps their products asynchronous
+  const int wg = __shfl_sync(FULL, threadIdx.x / WG, 0);
+  int lo, hi;
+  q_range<WK, WQ>(a, k0, lo, hi);
+  const int blocks = lo < hi ? (hi - lo + WQ - 1) / WQ : 0;
+  const int total = a.group * blocks;
+  const int mine = total > rank ? (total - rank + WCL - 1) / WCL : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < WSTAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 2 * WG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: K and V once, then Q, dO, lse and D in a ring ----------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bars, 2 * W_KV);
+      load_tile<WD, WK>(sK, &mk, k0, kh, b, bars);
+      load_tile<WD, WK>(sV, &mv, k0, kh, b, bars);
+      for (int m = 0; m < mine; ++m) {
+        const int s = m % WSTAGES, n = rank + WCL * m;
+        const int h = kh * a.group + n / blocks, q0 = lo + n % blocks * WQ;
+        const long long row = static_cast<long long>(b * a.H + h) * p.pad;
+        mbar_wait(empty(s), ((m / WSTAGES) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * W_TILE + 2 * WQ * 4);
+        load_tile<WD, WQ>(sQ(s), &mq, q0, h, b, full(s));
+        load_tile<WD, WQ>(sdO(s), &mdo, q0, h, b, full(s));
+        bulk_load(sL + s * WQ * 4, p.lse2 + row + q0, WQ * 4, full(s));
+        bulk_load(sD + s * WQ * 4, p.dsum + row + q0, WQ * 4, full(s));
+      }
+    }
+    __syncwarp();
+    cluster_sync();                        // every walk of the cluster done
+    cluster_sync();                        // every partial sum delivered
+    return;
+  }
+
+  // ---- consumers --------------------------------------------------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int c = wg - 1, tid = threadIdx.x % WG;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int key_a = k0 + 16 * warp + g, key_b = key_a + 8;
+  const float scale2 = a.scale * LOG2E;
+  // P^T, then dS^T = P^T o (dP^T - D), of step m's q rows [32 c, 32 c +
+  // 32) in place; element (j, e): key e < 2 ? key_a : key_b, q row
+  // q0 + 32 c + 8 j + 2 t + e % 2
+  auto p_ds = [&](float (&st)[16], float (&dpt)[16], int m) {
+    const int s = m % WSTAGES, n = rank + WCL * m;
+    const int q0 = lo + n % blocks * WQ + 32 * c;
+    const float* ls = gL + s * WQ + 32 * c + 2 * t;
+    const float* dsm = gD + s * WQ + 32 * c + 2 * t;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 l = *reinterpret_cast<const float2*>(ls + 8 * j);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        st[4 * j + e] = exp2_ftz(st[4 * j + e] * scale2 - (e & 1 ? l.y : l.x));
+    }
+    if (block_needs_mask(a, q0, 32, k0, WK)) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!allowed(a, q0 + 8 * j + 2 * t + (e & 1),
+                       e < 2 ? key_a : key_b))
+            st[4 * j + e] = 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 dd = *reinterpret_cast<const float2*>(dsm + 8 * j);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dpt[4 * j + e] =
+            st[4 * j + e] * (dpt[4 * j + e] - (e & 1 ? dd.y : dd.x));
+    }
+  };
+  // S^T = K Q^T and dP^T = V dO^T over this consumer's 32 q rows of stage s
+  auto issue_s = [&](float (&st)[16], float (&dpt)[16], int s) {
+    issue_ss<WD, WK, 32, WQ>(st, sK, sQ(s) + 32 * c * WROWB);
+    issue_ss<WD, WK, 32, WQ>(dpt, sV, sdO(s) + 32 * c * WROWB);
+  };
+  // P^T and dS^T in bf16 into buffer `buf`, at this consumer's columns
+  auto put = [&](const float (&st)[16], const float (&dpt)[16], int buf) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const uint32_t at =
+            buf * W_PT +
+            swizzled<64, WK>(16 * warp + g + 8 * half, 32 * c + 8 * j + 2 * t);
+        asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(sP + at),
+                     "r"(pack2f(st[4 * j + 2 * half], st[4 * j + 2 * half + 1]))
+                     : "memory");
+        asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(sdS + at),
+                     "r"(pack2f(dpt[4 * j + 2 * half],
+                                dpt[4 * j + 2 * half + 1]))
+                     : "memory");
+      }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync 3, %0;\n" ::"n"(2 * WG) : "memory");
+  };
+  float dk[64], dv[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+  // dV[:, half] += P^T dO[:, half] and dK[:, half] += dS^T Q[:, half] of
+  // stage s from buffer buf: A K-major (64 q rows, 4 k-steps of 32 bytes),
+  // B MN-major (the consumer's two boxes, 16 rows a k-step)
+  auto issue_g = [&](int s, int buf) {
+#pragma unroll
+    for (int kk = 0; kk < WQ / 16; ++kk)
+      wgmma_ss_tb(dv, smem_desc(sP + buf * W_PT + 32 * kk, 16, 8 * WROWB, 1),
+                  smem_desc(sdO(s) + (2 * c * WQ + 16 * kk) * WROWB,
+                            WQ * WROWB, 8 * WROWB, 1));
+#pragma unroll
+    for (int kk = 0; kk < WQ / 16; ++kk)
+      wgmma_ss_tb(dk, smem_desc(sdS + buf * W_PT + 32 * kk, 16, 8 * WROWB, 1),
+                  smem_desc(sQ(s) + (2 * c * WQ + 16 * kk) * WROWB,
+                            WQ * WROWB, 8 * WROWB, 1));
+  };
+  mbar_wait(bars, 0);
+  // Each step issues its S^T and dP^T with dV and dK of the step before,
+  // so the tensor cores run those during this step's P^T and dS^T; the
+  // first step's S^T, dP^T and the last step's dV, dK stand alone
+  if (mine > 0) {
+    float st[16], dpt[16];
+    mbar_wait(full(0), 0);
+    wgmma_fence();
+    issue_s(st, dpt, 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    hold(st);
+    hold(dpt);
+    p_ds(st, dpt, 0);
+    put(st, dpt, 0);
+  }
+  for (int m = 1; m < mine; ++m) {
+    const int s = m % WSTAGES, sp = (m - 1) % WSTAGES;
+    float st[16], dpt[16];
+    mbar_wait(full(s), (m / WSTAGES) & 1);
+    wgmma_fence();
+    issue_s(st, dpt, s);
+    wgmma_commit();
+    issue_g(sp, (m - 1) & 1);
+    wgmma_commit();
+    wgmma_wait<1>();                         // S^T and dP^T are done
+    hold(st);
+    hold(dpt);
+    p_ds(st, dpt, m);
+    wgmma_wait<0>();                         // dV and dK of the step before
+    hold(dv);
+    hold(dk);
+    mbar_arrive(empty(sp));
+    // both consumers' products of the step before have read buffer m & 1
+    // (each waited for them before the last barrier)
+    put(st, dpt, m & 1);
+  }
+  if (mine > 0) {
+    const int sp = (mine - 1) % WSTAGES;
+    wgmma_fence();
+    issue_g(sp, (mine - 1) & 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    hold(dv);
+    hold(dk);
+    mbar_arrive(empty(sp));
+  }
+
+  // box x of [dK, dV]: dK x < 2, dV x >= 2, columns 128 c + 64 (x % 2);
+  // a consumer's 32 values of it are arr[32 (x % 2) + i].  The spent ring
+  // takes the partial sums: block (rank r, consumer c) of W_BOX bytes,
+  // each thread's 32 values in 16-byte chunks, chunk i of every thread
+  // before chunk i + 1
+  auto block = [&](int r) { return ring + (r * 2 + c) * W_BOX; };
+  cluster_sync();                            // every walk of the cluster done
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    if (x == rank) continue;
+    float(&arr)[64] = x < 2 ? dk : dv;
+    const uint32_t to = map_to(block(rank), x);
+#pragma unroll
+    for (int i = 0; i < 32; i += 4)
+      st_remote4(to + ((i / 4) * WG + tid) * 16, arr[32 * (x % 2) + i],
+                 arr[32 * (x % 2) + i + 1], arr[32 * (x % 2) + i + 2],
+                 arr[32 * (x % 2) + i + 3]);
+  }
+  cluster_sync();                            // every partial sum delivered
+  // this rank's box: the four partials added in rank order, times d^-0.5
+  // (dK), in bf16 into this consumer's dead K or V columns, then TMA
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    if (x != rank) continue;
+    float(&arr)[64] = x < 2 ? dk : dv;
+#pragma unroll
+    for (int i = 0; i < 32; i += 4) {
+      float sum[4];
+#pragma unroll
+      for (int r = 0; r < WCL; ++r) {
+        float part[4];
+        if (r == x) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[e] = arr[32 * (x % 2) + i + e];
+        } else {
+          const float4 v = ld_shared4(block(r) + ((i / 4) * WG + tid) * 16);
+          part[0] = v.x;
+          part[1] = v.y;
+          part[2] = v.z;
+          part[3] = v.w;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sum[e] = r == 0 ? part[e] : sum[e] + part[e];
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) arr[32 * (x % 2) + i + e] = sum[e];
+    }
+    const float scale = x < 2 ? a.scale : 1.f;
+    const uint32_t dst = (x < 2 ? sK : sV) + (2 * c + x % 2) * WK * WROWB;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int v = 32 * (x % 2) + 4 * j + 2 * half;
+        const uint32_t at =
+            dst + swizzled<64, WK>(16 * warp + g + 8 * half, 8 * j + 2 * t);
+        asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(at),
+                     "r"(pack2f(arr[v] * scale, arr[v + 1] * scale))
+                     : "memory");
+      }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  consumer_sync(c);
+  if (tid == 0) {
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+      if (x == rank)
+        tma_store(x < 2 ? &mdk : &mdv,
+                  (x < 2 ? sK : sV) + (2 * c + x % 2) * WK * WROWB,
+                  (2 * c + x % 2) * 64, k0, kh, b);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32 on the CUDA cores, at every d
 // ---------------------------------------------------------------------------
 
 template <int D>
@@ -1201,9 +1584,32 @@ int launch_dkv(const CUtensorMap (&m)[8], const Args& p, const Shape& a,
       p, a));
 }
 
+int launch_dkv_wide(const CUtensorMap (&m)[8], const Args& p, const Shape& a,
+                    int B, cudaStream_t s) {
+  const int err = set_smem(bwd_wgmma_dkv_wide_kernel, WIDE_SMEM);
+  if (err) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * (a.H / a.group), WCL * ((a.Sk + WK - 1) / WK));
+  cfg.blockDim = dim3(WG_THREADS);
+  cfg.dynamicSmemBytes = WIDE_SMEM;
+  cfg.stream = s;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = 1;
+  cluster.val.clusterDim.y = WCL;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(
+      &cfg, bwd_wgmma_dkv_wide_kernel, m[0], m[1], m[2], m[4], m[6], m[7], p,
+      a));
+}
+
 // maps: 8 rows (q, k, v, o, do, dq, dk, dv) of the wrapper's tensor-map
-// table, each with boxes of 64 rows.  The dK/dV pass takes its PAIR form
-// where 128-row CTAs would leave SMs idle.
+// table, each with boxes of 64 rows (the dQ pass's K and V maps are
+// encoded anew with boxes of BK rows where BK < 64).  At d <= 128 the
+// dK/dV pass takes its PAIR form where 128-row CTAs would leave SMs idle;
+// at d = 256 a cluster of 4 CTAs a KV tile.
 template <int D>
 int launch_wgmma(const Args& p, const Shape& a, int B, const long long* maps,
                  cudaStream_t s) {
@@ -1215,6 +1621,16 @@ int launch_wgmma(const Args& p, const Shape& a, int B, const long long* maps,
   for (int i = 0; i < 8; ++i)
     if (!encode(&m[i], ptrs[i], maps + i * MAP_FIELDS, 64, T::SPAN))
       return MAP_REFUSED - i;
+  CUtensorMap kv[2] = {m[1], m[2]};          // the dQ pass's K and V
+  if constexpr (T::BK < 64)
+    for (int i = 0; i < 2; ++i) {
+      long long row[MAP_FIELDS];
+      for (int f = 0; f < MAP_FIELDS; ++f)
+        row[f] = maps[(1 + i) * MAP_FIELDS + f];
+      row[M_BOX_ROWS] = T::BK;
+      if (!encode(&kv[i], ptrs[1 + i], row, T::BK, T::SPAN))
+        return MAP_REFUSED - 1 - i;
+    }
   int dev = 0, sms = 0;
   err = static_cast<int>(cudaGetDevice(&dev));
   if (err) return err;
@@ -1224,12 +1640,16 @@ int launch_wgmma(const Args& p, const Shape& a, int B, const long long* maps,
   err = set_smem(bwd_wgmma_dq_kernel<D>, T::DQ_SMEM);
   if (err) return err;
   bwd_wgmma_dq_kernel<D><<<dim3(B * a.H, (a.Sq + BM - 1) / BM), WG_THREADS,
-                           T::DQ_SMEM, s>>>(m[0], m[1], m[2], m[3], m[4],
+                           T::DQ_SMEM, s>>>(m[0], kv[0], kv[1], m[3], m[4],
                                             m[5], p, a);
-  const long long ctas =
-      static_cast<long long>(B) * (a.H / a.group) * ((a.Sk + BM - 1) / BM);
-  err = ctas < sms ? launch_dkv<D, true>(m, p, a, B, s)
-                   : launch_dkv<D, false>(m, p, a, B, s);
+  if constexpr (D == 256) {
+    err = launch_dkv_wide(m, p, a, B, s);
+  } else {
+    const long long ctas =
+        static_cast<long long>(B) * (a.H / a.group) * ((a.Sk + BM - 1) / BM);
+    err = ctas < sms ? launch_dkv<D, true>(m, p, a, B, s)
+                     : launch_dkv<D, false>(m, p, a, B, s);
+  }
   if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }
@@ -1249,8 +1669,7 @@ template <int D>
 int launch(int dtype, const Args& p, const Shape& a, int B,
            const long long* maps, cudaStream_t s) {
   if (dtype == 0) return launch_core<float, D>(p, a, B, s);
-  if constexpr (D == 256) return launch_core<__nv_bfloat16, D>(p, a, B, s);
-  else return launch_wgmma<D>(p, a, B, maps, s);
+  return launch_wgmma<D>(p, a, B, maps, s);
 }
 
 }  // namespace
@@ -1262,7 +1681,7 @@ extern "C" {
 // the last dim is contiguous and every row starts 16-byte aligned.  maps:
 // 8 rows (q, k, v, o, do, dq, dk, dv) of MAP_FIELDS int64 each, from the
 // wrapper's tensor-map helper with boxes of 64 rows (read by the bf16
-// kernels at d <= 128).  lse: f32 [B, H, Sq] from the forward (natural
+// kernels).  lse: f32 [B, H, Sq] from the forward (natural
 // units); dsum: f32 scratch of 2 B H pad values, pad = Sq rounded up to a
 // multiple of 128.  dq [B, H, Sq, D], dk and dv [B, KH, Sk, D],
 // contiguous.  prefix: P of the prefix-LM mask (0 = none; ignored unless

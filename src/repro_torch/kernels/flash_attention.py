@@ -271,14 +271,15 @@ BWD_ROWS = 2 * CONSUMER_ROWS
 def bwd_block_shape(d: int, dtype: torch.dtype) -> tuple[int, int]:
     """(q rows, KV rows) of a block of the backward's dQ pass, and so of
     the plain backward's loop (it decides only the order of the plain
-    version's sums): bf16 at d <= 128 (the wgmma kernels) 128 q rows (two
-    consumer warpgroups of 64) against KV tiles of 128 rows, 64 at d = 128
-    (registers); the CUDA-core forms (f32, and bf16 at d = 256) 64 x 64.
-    The wgmma dK/dV pass takes q blocks of 64 rows against 128 KV rows a
-    CTA, or 64 in its cluster-pair form (where 128-row CTAs would leave SMs
-    idle); the CUDA-core one 64 x 64."""
-    if dtype == torch.bfloat16 and d <= 128:
-        return BWD_ROWS, 64 if d == 128 else 128
+    version's sums): bf16 (the wgmma kernels) 128 q rows (two consumer
+    warpgroups of 64) against KV tiles of 128 rows, 64 at d = 128 and 32
+    at d = 256 (registers); f32 (the CUDA-core forms) 64 x 64.  The wgmma
+    dK/dV pass takes q blocks of 64 rows against 128 KV rows a CTA, or 64
+    in its cluster-pair form (where 128-row CTAs would leave SMs idle); at
+    d = 256 against 64 KV rows a cluster of 2 or 4 CTAs, each consumer
+    half the head dim; the CUDA-core one 64 x 64."""
+    if dtype == torch.bfloat16:
+        return BWD_ROWS, {128: 64, 256: 32}.get(d, 128)
     return 64, 64
 
 
@@ -560,7 +561,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     cotangent ``do``, given each row's log-sum-exp ``lse`` from the forward:
     for CUDA tensors two launches of ``csrc/flash_attention_bwd.cu`` (dQ
     with D = rowsum(dO ∘ O), then dK and dV, each KV tile summing its G
-    query heads in one CTA, no atomics), counted once in
+    query heads in one CTA or, on small grids, in a cluster whose partial
+    sums meet in a fixed order; no atomics), counted once in
     ``flash_attention_bwd.launches``; for CPU tensors
     `flash_attention_bwd_plain`.  The gradients come out in q's dtype."""
     mask = {"causal": causal, "window": window, "prefix_len": prefix_len}

@@ -17,12 +17,15 @@ reference.
 
 Dropped from the reference: ``--tp`` (tensor parallelism over a host mesh)
 and the XLA flags it documents (collective fusion, the latency-hiding
-scheduler); one device has no mesh.  Checkpoints default to
+scheduler); one device has no mesh.  Added: ``--layers N``, the config cut
+to N layers (a stack's depth for an encoder-decoder), for a model whose
+full depth the card cannot take.  Checkpoints default to
 ``<tempdir>/repro_torch_ckpt``.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import statistics
 import tempfile
@@ -41,6 +44,8 @@ from repro_torch.train import (OptConfig, TrainConfig, init_train_state,
 def build(args):
     """(cfg, api, train step) of the arguments."""
     cfg = get_config(args.arch, smoke=args.smoke)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     api = build_model(cfg, device=args.device)
     tcfg = TrainConfig(opt=OptConfig(lr=args.lr, warmup_steps=args.warmup,
                                      total_steps=args.steps),
@@ -120,6 +125,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="llama3.2-1b")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config's depth to this many layers")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
     ap.add_argument("--steps", type=int, default=50)

@@ -7,7 +7,8 @@
   ``make_mask(prefix_len=)`` (prefix-LM) and a bidirectional mask with
   Sq != Sk (cross-attention), f32, head dims 16/64/256, a seeded
   cotangent: within 2e-5 of each gradient's largest element; also at each
-  block shape of the kernels' loops (128 x 128, 128 x 64, 64 x 64).  The
+  block shape of the kernels' loops (128 x 128, 128 x 64, 128 x 32,
+  64 x 64).  The
   forward's log-sum-exp against ``logsumexp`` of the masked scores.
 * ``_q_range`` (the q rows that see a KV tile) and the tile test over
   q blocks against the elementwise mask over every tile.
@@ -27,6 +28,9 @@
   smoke widths bf16 gradients are mostly rounding noise, the reference's
   own far from its f32 ones, and which package lands nearer changes with
   the seed and the config.
+* With zero patch embeddings paligemma-3b's gradients turn non-finite
+  past the same depth as the reference's (the prefix positions' residual
+  is 0, where rmsnorm's gradient is eps^-0.5 at every layer).
 * ``maybe_remat``'s three policies give the same loss and gradients.
 * The scan wrappers' refusal of autograd on CUDA, as a plain function.
 """
@@ -151,8 +155,9 @@ def test_bwd_plain_matches_jax_grad_of_model_attention(form, d):
 
 
 #: (q rows, KV rows) of the plain backward's blocks: the wgmma kernels'
-#: dQ pass (128 x 128; 128 x 64 at d 128) and the CUDA-core forms' 64 x 64
-BWD_BLOCKS = [(128, 128), (128, 64), (64, 64)]
+#: dQ pass (128 x 128; 128 x 64 at d 128, 128 x 32 at d 256) and the
+#: CUDA-core forms' 64 x 64
+BWD_BLOCKS = [(128, 128), (128, 64), (128, 32), (64, 64)]
 
 
 @pytest.mark.parametrize("block", BWD_BLOCKS,
@@ -179,10 +184,11 @@ def test_bwd_plain_at_each_kernel_block_matches_jax_grad(form, block):
 
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
 def test_bwd_block_shapes(d):
-    """The dQ pass's blocks: the wgmma kernels' at bf16 d <= 128, 64 x 64
-    in the CUDA-core forms."""
+    """The dQ pass's blocks: the wgmma kernels' in bf16 at every d (KV
+    tiles of 64 rows at d 128 and 32 at d 256, as the forward's), 64 x 64
+    in the CUDA-core forms (f32)."""
     assert fa.bwd_block_shape(d, torch.bfloat16) == (
-        (128, 64 if d == 128 else 128) if d <= 128 else (64, 64))
+        128, {128: 64, 256: 32}.get(d, 128))
     assert fa.bwd_block_shape(d, torch.float32) == (64, 64)
 
 
@@ -223,13 +229,15 @@ def test_q_range_and_tile_test_against_the_mask(causal, window, prefix):
     transposed tile test leaves unmasked has every element allowed; at Sq
     1, 63, 64, 65, 130 and 300, Sk = Sq (and Sq + 37 without the causal
     mask), tiles of 64 x 64 and 64 x 32, and the wgmma kernels' 64 x 128
-    (the dK/dV pass's q steps against its KV tile), 128 x 128 and 128 x 64
-    (the dQ pass's q block against its KV tiles)."""
+    (the dK/dV pass's q steps against its KV tile), 128 x 128, 128 x 64
+    and 128 x 32 (the dQ pass's q block against its KV tiles) and 32 x 64
+    (a consumer's half of a q step against the KV tile at d 256)."""
     for sq, (extra, bq, bk) in itertools.product(
             (1, 63, 64, 65, 130, 300), ((0, 64, 64), (0, 64, 32),
                                         (37, 64, 64), (0, 64, 128),
                                         (37, 64, 128), (0, 128, 128),
-                                        (0, 128, 64))):
+                                        (0, 128, 64), (0, 128, 32),
+                                        (0, 32, 64), (37, 32, 64))):
         if causal and extra:
             continue
         sk = sq + extra
@@ -373,6 +381,36 @@ def test_loss_and_grads_bf16_by_the_reference_rule(arch):
     assert rel <= 2 * ref_rel + 8e-2, (f"{arch}: relative error {rel} from "
                                        f"the f32 gradients; the reference's "
                                        f"bf16 {ref_rel}")
+
+
+@pytest.mark.parametrize("layers", [8, 14])
+def test_zero_patch_gradients_overflow_as_the_reference(layers):
+    """With zero patch embeddings (the launcher's stub, as the
+    reference's) the prefix positions' residual stays 0 at every layer,
+    where rmsnorm's gradient is eps^-0.5: the gradient that reaches them
+    grows with each layer until, past some depth, it overflows and turns
+    the norms' gradients NaN.  f32 at the smoke width, the reference's
+    weights carried across: the port's gradients are finite exactly where
+    the reference's are (at 8 layers, not at 14)."""
+    cfg = dataclasses.replace(get_config("paligemma-3b", smoke=True),
+                              n_layers=layers, compute_dtype=torch.float32)
+    rcfg = dataclasses.replace(ref_get_config("paligemma-3b", smoke=True),
+                               n_layers=layers, compute_dtype=jnp.float32)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (B, S), dtype=np.int32),
+             "prefix_embeds": np.zeros((B, cfg.frontend_len, cfg.d_model),
+                                       np.float32)}
+    rapi = ref_build_model(rcfg)
+    tree = jax.jit(rapi.init)(jax.random.PRNGKey(0))
+    _, rgrads = jax.jit(jax.value_and_grad(rapi.loss, has_aux=True))(
+        tree, {k: jnp.asarray(v) for k, v in batch.items()})
+    master = load_reference_master(cfg, jax.tree.map(np.asarray, tree),
+                                   device="cpu")
+    _, grads = _port_value_and_grad(build_model(cfg, device="cpu"), master,
+                                    batch)
+    want = all(np.isfinite(x).all() for _, x in _leaves(rgrads))
+    got = all(bool(torch.isfinite(g).all()) for g in tree_leaves(grads))
+    assert got == want == (layers == 8)
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "recurrentgemma-9b",

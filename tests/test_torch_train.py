@@ -509,6 +509,22 @@ def test_launch_train_supervised_restart(tmp_path, capsys):
         assert torch.equal(a, b)
 
 
+def test_launch_train_layers_cuts_the_depth():
+    """``--layers N`` builds the config cut to N layers and trains it (a
+    patch-frontend model, fed its zero patch embeddings)."""
+    from repro_torch.launch import train as launch
+
+    args = launch.parser().parse_args(
+        ["--arch", "paligemma-3b", "--layers", "1", "--steps", "2",
+         "--batch", "2", "--seq", "16", "--ckpt-every", "0", "--device",
+         "cpu"])
+    cfg, api, _ = launch.build(args)
+    assert cfg.n_layers == 1 and len(api.init(0)["blocks"]) == 1
+    out = launch.run(args)
+    assert len(out["losses"]) == 2 and all(
+        np.isfinite(out["losses"] + out["grad_norms"]))
+
+
 def _example(name):
     import importlib.util
 

@@ -23,7 +23,7 @@ of ``scaled_dot_product_attention``.
 Each SOURCE is a variant of the backward source with its C interface (an
 experimental copy beside the committed one): each is built under a name
 of its own beside the package's headers, put in the wrapper's place, and
-checked and timed as above (``BWD_TIMED`` less the CUDA-core shape), in
+checked and timed as above (``BWD_TIMED``), in
 the order given and then in reverse, so that drift of the card shows.
 The first line is the card's name and power limit; one JSON line follows
 per step.
@@ -41,7 +41,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 #: the backward kernels' instances in the ptxas log and the SASS
-KERNELS = r"(bwd_(?:wgmma|mma|core)_d(?:q|kv)_kernelI\w+?E(?:L\w\d+E)?)"
+KERNELS = r"(bwd_(?:wgmma|mma|core)_d(?:q|kv|kv_wide)_kernel(?:I\w+?E(?:L\w\d+E)?)?)"
 
 
 def spills(log: str) -> dict[str, list[int]]:
@@ -143,7 +143,7 @@ def main(argv: list[str]) -> int:
         print(json.dumps({"source": label}), flush=True)
         if args.check:
             cs.flash_bwd_phase(torch)
-        for shape in cs.BWD_TIMED[:2]:
+        for shape in cs.BWD_TIMED:
             cs.flash_bwd_timing(torch, shape, forward=False)
     return 0
 
