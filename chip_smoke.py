@@ -19,7 +19,11 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    recurrent library counts the local-memory
    loads and stores of the scans' six kernel instances (one fails the run)
    and their tensor-core products (``HMMA``: the WKV kernel's none, or the
-   rg-lru's any, fails it); their registers come from the ptxas log.
+   rg-lru's any, fails it); their registers come from the ptxas log.  That
+   of the scans' backward library counts the local-memory traffic and
+   global atomics (``ATOMG``, ``RED``) of its six instances
+   (``wkv6_bwd_kernel``, ``rglru_bwd_kernel`` and ``sum_parts_kernel``,
+   f32 and bf16): one fails the run.
    That of the topo-score library counts the global
    atomics (``ATOMG``, ``ATOM``, ``RED``) of K2's normal-cycle form (both
    its instances) and K1's tail (both forms), which reduce across CTAs
@@ -186,6 +190,20 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    ``flash_attention`` gives the same gradients with one forward (with
    its log-sum-exp) and one backward launch; 10 back-to-back calls at the
    serving shape, at ``FLASH_D256`` and at ``PALIGEMMA`` bit-identical.
+7c. ``[scan-bwd]``: the scans' backward kernels (``csrc/recurrent_bwd.cu``:
+   ``wkv6_bwd_kernel``, the recurrence run forward with a checkpoint a
+   chunk of 16 steps, then the chunks walked backward, 16 rows of a
+   (batch, head)'s state a CTA; ``rglru_bwd_kernel``, the adjoint's
+   reverse scan in the forward's slices with the gates' chain rule; sums
+   over CTAs by a second pass in a fixed order, no atomics) against
+   ``wkv6_scan_bwd_plain`` and ``rglru_scan_bwd_plain`` at B 4 with H 64
+   or R 4096, S 1, 15, 16, 17, 35, 1024 (WKV) and 1, 31, 32, 33, 67, 1024
+   (rg-lru), r/k/v or x in bf16 and f32, non-zero s0, h0 and cotangents
+   on both outputs, on drawn and extreme inputs (WKV log-decays at both
+   ends of the clip; gr at +-20): every f32 gradient within 1e-5 of its
+   largest plain element, a bf16 one also within its bf16 rounding, the
+   non-finite elements (where the sqrt's slope is infinite) the same;
+   10 launches at the training shape bit-identical.
 8. ``[serve]``: the serving path, llama3.2-1b at full width and depth with
    seeded random weights made on the card, through ``ServeEngine`` (batch
    4, seq_len 1024): 8 requests of 512-1024 prompt tokens and 32 new tokens
@@ -247,13 +265,27 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    mask), its depth cut 18 -> 8 (``TRAIN_VLM_LAYERS``: past 11 layers the
    zero patches' gradients overflow, in the reference's arithmetic as in
    the port's), 4 steps: K4's forward 2 x 8 launches a step, all with the
-   log-sum-exp and the prefix, its backward 8.
-   ``[train-check]``: the same width in f32 (2 x 256 tokens): the loss
-   and every leaf's gradient on the card (K4's f32 kernels) within 1e-3
-   of the CPU's (the plain versions), relative to the leaf's largest
-   element, at 1 layer, beside the CPU's own movement under a 1e-7 change
-   of the weights; at 2 layers, where that movement alone reaches ~1e-3,
-   recorded.  ``[train-resume]``: the smoke llama on the card (K4 at
+   log-sum-exp and the prefix, its backward 8.  Then rwkv6-7b (d 4096, 64
+   heads of 64, vocab 65536) at 17 of its 32 layers and recurrentgemma-9b
+   (d 4096, rnn width 4096, vocab 256000) at 8 of its 38 (two
+   super-blocks and the two-layer rg-lru tail), 4 steps each
+   (``TRAIN_RECURRENT``: the depths the card's memory holds,
+   `tools/train_depth.py`): the launches each model's block kinds imply
+   (`expected_train_launches`: ``wkv6_scan`` 2 x 17 a step and
+   ``wkv6_scan_bwd`` 17, no K4; ``rglru_scan`` 2 x 6 and
+   ``rglru_scan_bwd`` 6, K4's forward 2 x 2 with the log-sum-exp and its
+   backward 2), the same gates, and the traced step's shares of the
+   scans' forward and backward kernels.
+   ``[train-check]``: llama3.2-1b, rwkv6-7b and recurrentgemma-9b at full
+   width in f32 (2 x 256 tokens): the loss and every leaf's gradient on
+   the card (K4's and the scans' f32 kernels) within 1e-3 of the CPU's
+   (the plain versions), relative to the leaf's largest element, at 1, 1
+   and 2 layers (recurrentgemma's two rg-lru tail layers), beside the
+   CPU's own movement under a 1e-7 change of the weights; one layer
+   deeper (recurrentgemma's super-block with its attention), where that
+   movement alone reaches ~1e-3 or more, recorded.  Each backward kernel must
+   have run once a layer of its kind.  ``[train-resume]``: the smoke llama
+   on the card (K4 at
    d 16): 6 steps straight against 3 steps, an injected failure, and a
    resume from the step-3 checkpoint into a fresh state, bit for bit;
    then ``examples/torch_fault_tolerant_train.py`` on the card must
@@ -309,6 +341,13 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    ``[flash-bwd-timing]`` line); ``flash_attention_bwd_d256`` the same at
    ``FLASH_D256`` and ``PALIGEMMA`` (the library under the boolean
    prefix-LM mask), with paligemma-3b's ``[train]`` backward launches.
+   ``wkv6_scan_bwd`` and ``rglru_scan_bwd`` carry ``[train]``'s
+   launches, their device time a call at the training shape (B 4, S 1024,
+   H 64 or R 4096, bf16) by kernel (the sweep and the sums over CTAs),
+   the wrapper's, the plain backward's, the bound (the bytes at 3.35
+   TB/s; the WKV recurrence's operations on the tensor cores, which a
+   chunked form could use, take less) beside the operations on the f32
+   pipe, and ``[scan-bwd]``'s largest errors.
 11. The card's name and power limit again, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -2674,8 +2713,24 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 4, 1024
 #: layers on (finite at 10, `tools/vlm_depth.py`; the reference's own
 #: gradients do the same, `tests/test_torch_loss.py`)
 TRAIN_VLM, TRAIN_VLM_STEPS, TRAIN_VLM_LAYERS = "paligemma-3b", 4, 8
-#: ``[train-check]``: the same width in f32 at 1 (gated) and 2 layers, B x S
-CHECK_TRAIN_LAYERS, CHECK_TRAIN_BATCH, CHECK_TRAIN_SEQ = 2, 2, 256
+#: [train]'s recurrent runs (arch, steps, layers), 4 steps each at full
+#: width, depth cut to what the card's 80 GB holds with f32 master weights,
+#: AdamW's moments and an f32 gradient (`tools/train_depth.py`, a process
+#: a depth): rwkv6-7b at 17 of 32 layers (75.0 GB; 18 take 78.5 GB of the
+#: card's 79.2 alone in a process, no room for what this run keeps),
+#: recurrentgemma-9b at 8 of 38 (70.6 GB: two super-blocks and the
+#: two-layer rg-lru tail; 11, the next depth with that tail, runs out of
+#: memory; 9 and 10 fit but drop or cut the tail)
+TRAIN_RECURRENT = (("rwkv6-7b", 4, 17), ("recurrentgemma-9b", 4, 8))
+#: ``[train-check]``: each arch's width in f32 at a gated and a recorded
+#: depth, B x S tokens, the gated one the deepest where the CPU's own
+#: movement under a 1e-7 change of the weights stays under TRAIN_CHECK_TOL:
+#: llama3.2-1b at 1 and 2 layers, rwkv6-7b at 1 and 2 (the CPU's movement
+#: 2.7e-4 and 2.8e-3), recurrentgemma-9b at 2 (two rg-lru tail layers,
+#: 1.9e-6) and 3 (a super-block, its local attention in: 2.1e-3)
+TRAIN_CHECKS = (("llama3.2-1b", 1, 2), ("rwkv6-7b", 1, 2),
+                ("recurrentgemma-9b", 2, 3))
+CHECK_TRAIN_BATCH, CHECK_TRAIN_SEQ = 2, 256
 #: card against CPU: |diff| <= TRAIN_CHECK_TOL x the leaf's largest element
 TRAIN_CHECK_TOL = 1e-3
 
@@ -2686,6 +2741,39 @@ def train_args(extra: list) -> object:
     return launch.parser().parse_args(["--device", "cuda"] + extra)
 
 
+def expected_train_launches(cfg, steps: int) -> dict:
+    """The kernel launches of ``steps`` training steps of the decoder-only
+    ``cfg`` under ``remat="full"``, from its block kinds: each forward
+    kernel twice a layer of its kind and step (the step's forward and its
+    recompute), each backward kernel once.  K4 (with the log-sum-exp, and
+    with the prefix where the model has one) runs in an attention layer,
+    ``wkv6_scan`` in an rwkv layer, ``rglru_scan`` in an rg-lru block (two a
+    griffin super-block beside its attention, one a tail layer)."""
+    from repro_torch.models import lm
+
+    kind = lm.block_kind(cfg)
+    blocks, tail = lm._n_scanned(cfg)
+    attn = 0 if kind == "rwkv" else blocks
+    rwkv = blocks if kind == "rwkv" else 0
+    rglru = 2 * blocks + tail if kind == "griffin" else 0
+    return {"flash_attention": 2 * attn * steps,
+            "flash_attention_lse": 2 * attn * steps,
+            "flash_attention_prefix": (2 * attn * steps
+                                       if cfg.frontend == "patch" else 0),
+            "flash_attention_bwd": attn * steps,
+            "wkv6_scan": 2 * rwkv * steps, "wkv6_scan_bwd": rwkv * steps,
+            "rglru_scan": 2 * rglru * steps,
+            "rglru_scan_bwd": rglru * steps}
+
+
+#: the kernels a traced training step's shares add up, by name
+TRAIN_TRACE = {"flash_fwd": ("flash_bf16_kernel",),
+               "flash_bwd": BWD_KERNELS["wgmma"],
+               "scan_fwd": ("wkv6_kernel", "rglru_kernel"),
+               "scan_bwd": ("wkv6_bwd_kernel", "rglru_bwd_kernel",
+                            "sum_parts_kernel")}
+
+
 def train_phase(torch, np, arch: str = "llama3.2-1b",
                 steps: int = TRAIN_STEPS, layers: int | None = None) -> dict:
     """``[train]``: ``launch.train.run`` on ``arch`` at full width and
@@ -2693,13 +2781,12 @@ def train_phase(torch, np, arch: str = "llama3.2-1b",
     ``remat="full"``), TRAIN_BATCH
     x TRAIN_SEQ tokens of ``SyntheticTokenPipeline(seed=0)`` a step (after
     a patch-frontend model's zero patch embeddings), for ``steps`` steps.
-    Counts at 0 just before, read just after: K4's forward runs twice a
-    layer and step (the step's forward and its recompute under remat),
-    both with the log-sum-exp (and with the prefix where the model has
-    one), and its backward once.  Every loss and grad norm finite, the
-    first loss below ln(vocab) + 2.  Then step 0 twice from one state:
-    bit-identical loss and gradients.  Then one step traced: K4's share of
-    the device time."""
+    Counts at 0 just before, read just after, each equal to what the
+    model's block kinds imply (`expected_train_launches`).  Every loss and
+    grad norm finite, the first loss below ln(vocab) + 2.  Then one step
+    traced: K4's and the scans' forward and backward shares of the device
+    time.  Then step 0 twice from one state's weights: bit-identical loss
+    and gradients."""
     import math
 
     from repro_torch.kernels import flash_attention as fa
@@ -2725,22 +2812,19 @@ def train_phase(torch, np, arch: str = "llama3.2-1b",
     del out["state"]
     cfg, api, step_fn = launch.build(args)
     layers = cfg.n_layers
-    want = {"flash_attention": 2 * layers * steps,
-            "flash_attention_lse": 2 * layers * steps,
-            "flash_attention_prefix": (2 * layers * steps
-                                       if cfg.frontend == "patch" else 0),
-            "flash_attention_bwd": layers * steps}
+    want = expected_train_launches(cfg, steps)
     for name, n in want.items():
         check(counts[name] == n, f"[train] {arch}: {counts[name]} {name} "
               f"launches, the path implies {n} ({layers} layers x {steps} "
-              "steps, the forward twice under remat)")
+              "steps, each forward twice under remat)")
     check(all(math.isfinite(x) for x in out["losses"] + out["grad_norms"]),
           f"[train] {arch}: a loss or grad norm is not finite: {out}")
     bound = math.log(cfg.vocab) + 2
     check(out["first_loss"] < bound, f"[train] {arch}: first loss "
           f"{out['first_loss']} >= ln(vocab) + 2 = {bound}")
 
-    # step 0 twice from one state, and one step traced
+    # one step traced, then step 0 twice from one state's weights (the
+    # optimizer's moments dropped first: two gradient trees take their room)
     from repro_torch.data import DataConfig, SyntheticTokenPipeline
     from repro_torch.train import init_train_state
 
@@ -2750,19 +2834,22 @@ def train_phase(torch, np, arch: str = "llama3.2-1b",
                                              global_batch=TRAIN_BATCH, seed=0))
     batch = launch.feed(cfg, api, data.batch_at(0)["tokens"], TRAIN_BATCH,
                         TRAIN_SEQ)
-    (l0, _), g0 = value_and_grad(api, state["params"], batch)
-    (l1, _), g1 = value_and_grad(api, state["params"], batch)
+    trace = _traced(torch, lambda: step_fn(state, batch))
+    shares = {}
+    for key, names in TRAIN_TRACE.items():
+        us = sum(t for name, t in trace["top_all"].items()
+                 if any(k in name for k in names))
+        shares[f"{key}_us"] = us
+        shares[f"{key}_share"] = us / trace["device_us"]
+    params = state["params"]
+    del state, trace["top_all"]
+    (l0, _), g0 = value_and_grad(api, params, batch)
+    (l1, _), g1 = value_and_grad(api, params, batch)
     same = torch.equal(l0, l1) and all(
         torch.equal(a, b) for a, b in zip(tree_leaves(g0), tree_leaves(g1)))
     check(same, f"[train] {arch}: step 0 twice from one state: the "
           "gradients differ")
-    del g0, g1
-    trace = _traced(torch, lambda: step_fn(state, batch))
-    bwd = sum(t for name, t in trace["top_all"].items()
-              if any(k in name for k in BWD_KERNELS["wgmma"]))
-    fwd = sum(t for name, t in trace["top_all"].items()
-              if "flash_bf16_kernel" in name)
-    del state, batch, trace["top_all"]
+    del g0, g1, params, batch
     tokens = TRAIN_BATCH * TRAIN_SEQ
     res = {"arch": cfg.name, "layers": layers, "d_model": cfg.d_model,
            "vocab": cfg.vocab, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
@@ -2774,20 +2861,18 @@ def train_phase(torch, np, arch: str = "llama3.2-1b",
            "max_memory_allocated": peak,
            "launches": {k: counts[k] for k in want},
            "step0_twice_bit_identical": True,
-           "trace": {**trace, "flash_bwd_us": bwd, "flash_fwd_us": fwd,
-                     "flash_bwd_share": bwd / trace["device_us"],
-                     "flash_fwd_share": fwd / trace["device_us"]}}
+           "trace": {**trace, **shares}}
     print(f"[train] {json.dumps(res)}", flush=True)
     torch.cuda.empty_cache()
     return res
 
 
-def _train_grads(torch, cfg, seed: int) -> dict:
+def _train_grads(torch, cfg, seed: int, moved: bool = True) -> dict:
     """``cfg``'s seeded random master weights: the loss and gradients on
-    the card, on the CPU, and on the CPU with every weight moved by 1e-7
-    relative; the card's and the moved CPU's largest |diff| from the
-    CPU's (the loss relative to the loss, each leaf relative to its
-    largest element)."""
+    the card, on the CPU, and (with ``moved``) on the CPU with every weight
+    moved by 1e-7 relative; the card's and the moved CPU's largest |diff|
+    from the CPU's (the loss relative to the loss, each leaf relative to
+    its largest element, and which leaf that is)."""
     from repro_torch.models import build_model, master_params
     from repro_torch.train.optim import tree_leaves, tree_map
     from repro_torch.train.step import value_and_grad
@@ -2797,64 +2882,80 @@ def _train_grads(torch, cfg, seed: int) -> dict:
     toks = torch.randint(0, cfg.vocab, (CHECK_TRAIN_BATCH, CHECK_TRAIN_SEQ),
                          generator=gen)
     cpu = to_cpu(master)
-    moved = tree_map(lambda t: t * (1 + 1e-7 * torch.randn(
-        t.shape, generator=gen)), cpu)
+    shifted = tree_map(lambda t: t * (1 + 1e-7 * torch.randn(
+        t.shape, generator=gen)), cpu) if moved else None
     runs = {}
     for name, dev, params in (("card", "cuda", master), ("cpu", "cpu", cpu),
-                              ("cpu_moved", "cpu", moved)):
+                              ("cpu_moved", "cpu", shifted)):
+        if params is None:
+            continue
         api = build_model(cfg, device=dev)
         (loss, _), grads = value_and_grad(api, params,
                                           {"tokens": toks.to(dev)})
         runs[name] = (loss.cpu(), [g.cpu() for g in tree_leaves(grads)])
         del grads
-    del master, cpu, moved
+    del master, cpu, shifted
 
     def rel(name):
         loss, grads = runs[name]
         ref_loss, ref = runs["cpu"]
+        diffs = [float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                 for a, b in zip(grads, ref)]
+        worst = max(range(len(diffs)), key=diffs.__getitem__)
         return {"loss_rel_diff": float((loss - ref_loss).abs()
                                        / ref_loss.abs()),
-                "grad_max_rel_diff": max(
-                    float((a - b).abs().max() / b.abs().max().clamp(
-                        min=1e-30)) for a, b in zip(grads, ref))}
+                "grad_max_rel_diff": diffs[worst],
+                "worst_leaf": [worst, list(ref[worst].shape)]}
 
-    return {"layers": cfg.n_layers, **rel("card"),
-            "cpu_moved_1e-7": rel("cpu_moved")}
+    return {"layers": cfg.n_layers, **rel("card")} | (
+        {"cpu_moved_1e-7": rel("cpu_moved")} if moved else {})
 
 
 def train_check(torch, np) -> dict:
-    """``[train-check]``: llama3.2-1b's width in f32, seeded random
-    weights, CHECK_TRAIN_BATCH x CHECK_TRAIN_SEQ tokens: the loss and every
-    leaf's gradient on the card (K4's f32 forward and backward kernels)
-    against the CPU's (the plain versions), each leaf's largest |diff|
-    relative to its largest element, beside the CPU's own movement when
-    every weight moves by 1e-7 relative.  Gated at TRAIN_CHECK_TOL at one
-    layer; at CHECK_TRAIN_LAYERS the random-weight model's own f32
-    movement reaches ~1e-3 (a 1e-7 change of the embedding alone moves the
-    embedding's gradient by 6e-4 on the CPU), so that depth is recorded,
-    not gated."""
+    """``[train-check]``: each arch of TRAIN_CHECKS at its full width in
+    f32, seeded random weights, CHECK_TRAIN_BATCH x CHECK_TRAIN_SEQ tokens:
+    the loss and every leaf's gradient on the card (K4's and the scans' f32
+    forward and backward kernels) against the CPU's (the plain versions),
+    each leaf's largest |diff| relative to its largest element, beside (at
+    the first depth) the CPU's own movement when every weight moves by 1e-7
+    relative.  Gated at TRAIN_CHECK_TOL at the first depth; at the second
+    the random-weight model's own f32 movement reaches ~1e-3 or more (for
+    llama a 1e-7 change of the embedding alone moves the embedding's
+    gradient by 6e-4 on the CPU; TRAIN_CHECKS), so that depth is recorded,
+    not gated.  The card's gradients must have gone
+    through each backward kernel once a layer of its kind."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import recurrent as rk
 
-    runs = []
-    for layers in (1, CHECK_TRAIN_LAYERS):
-        cfg = dataclasses.replace(get_config("llama3.2-1b"), n_layers=layers,
-                                  compute_dtype=torch.float32)
-        before = fa.flash_attention_bwd.launches
-        runs.append(_train_grads(torch, cfg, seed=3))
-        check(fa.flash_attention_bwd.launches - before == layers,
-              "[train-check] the card's gradients did not go through K4's "
-              "backward once a layer")
-    gated = runs[0]
-    res = {"d_model": 2048, "batch": CHECK_TRAIN_BATCH,
-           "seq": CHECK_TRAIN_SEQ, "gated": gated, "recorded": runs[1],
+    bwd = (fa.flash_attention_bwd, rk.wkv6_scan_bwd, rk.rglru_scan_bwd)
+    res = {"batch": CHECK_TRAIN_BATCH, "seq": CHECK_TRAIN_SEQ,
            "tolerance": TRAIN_CHECK_TOL}
-    check(gated["loss_rel_diff"] <= TRAIN_CHECK_TOL
-          and gated["grad_max_rel_diff"] <= TRAIN_CHECK_TOL,
-          f"[train-check] the card's loss or gradients off the CPU's: {res}")
-    print(f"[train-check] {json.dumps(res)}", flush=True)
+    for arch, gated_layers, recorded_layers in TRAIN_CHECKS:
+        runs = []
+        for layers in (gated_layers, recorded_layers):
+            cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                                      compute_dtype=torch.float32)
+            want = expected_train_launches(cfg, 1)
+            before = {w.__name__: w.launches for w in bwd}
+            runs.append(_train_grads(torch, cfg, seed=3,
+                                     moved=layers == gated_layers))
+            for w in bwd:
+                got = w.launches - before[w.__name__]
+                check(got == want[w.__name__], f"[train-check] {arch} at "
+                      f"{layers} layers: {got} {w.__name__} launches, the "
+                      f"block kinds imply {want[w.__name__]}")
+        gated = runs[0]
+        res[arch] = {"d_model": cfg.d_model, "gated": gated,
+                     "recorded": runs[1]}
+        print(f"[train-check] {json.dumps({'arch': arch, **res[arch]})}",
+              flush=True)
+        check(gated["loss_rel_diff"] <= TRAIN_CHECK_TOL
+              and gated["grad_max_rel_diff"] <= TRAIN_CHECK_TOL,
+              f"[train-check] {arch}: the card's loss or gradients off the "
+              f"CPU's: {res[arch]}")
     return res
 
 
@@ -5075,6 +5176,232 @@ def scan_rows(torch, launches: dict, decode_launches: dict) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------------------
+# The scans' backward: [scan-bwd] and their rows
+# ---------------------------------------------------------------------------------
+
+#: ``[scan-bwd]``: the S at which each backward kernel is held to its plain
+#: version: one step, either side of its chunk (16 WKV steps, 32 rg-lru
+#: steps), a ragged 2L + 3 and the training S
+SCAN_BWD_S = {"wkv6_scan_bwd": (1, 15, 16, 17, 35, 1024),
+              "rglru_scan_bwd": (1, 31, 32, 33, 67, 1024)}
+#: |kernel - plain| <= SCAN_BWD_TOL x the gradient's largest |plain| (the
+#: kernels sum in other orders than the plain versions); a bf16 gradient
+#: (dr, dk, dv; dxc) also within its own rounding of the f32 result,
+#: BF16_ROUNDING x |plain| an element
+SCAN_BWD_TOL = 1e-5
+BF16_ROUNDING = 2.0 ** -8
+#: launches at the training shape that must be bit-identical
+SCAN_BWD_REPEATS = 10
+#: each backward's gradients, those in the compute dtype, and its kernels
+#: (the sweep, then the sums over CTAs)
+SCAN_BWD = {
+    "wkv6_scan_bwd": (("dr", "dk", "dv", "dw", "du", "ds0"),
+                      ("dr", "dk", "dv"),
+                      ("wkv6_bwd_kernel", "sum_parts_kernel")),
+    "rglru_scan_bwd": (("dgr", "dgi", "dxc", "dsp", "dh0"), ("dxc",),
+                       ("rglru_bwd_kernel", "sum_parts_kernel"))}
+
+
+def scan_bwd_inputs(torch, name: str, S: int, seed: int, dtype=None,
+                    extreme: bool = False) -> tuple:
+    """Seeded inputs of a backward kernel at its scan's row shape with S
+    steps: the forward's (`scan_inputs`, non-zero s0 and h0; WKV
+    ``extreme``: log-decays at both ends of the clip, mixed within every
+    chunk), for the rg-lru the forward kernel's output h and, ``extreme``,
+    gr at -20 or +20 in a third of the elements each (a = 1 - 1e-7, where
+    the sqrt's slope is steep, or 1 in f32, where it is infinite); then
+    f32 cotangents of both outputs, non-zero."""
+    from repro_torch.kernels import recurrent as rk
+
+    wkv = name.startswith("wkv6")
+    x = scan_inputs(torch, "wkv6_scan" if wkv else "rglru_scan", S, seed,
+                    dtype, extreme and wkv)
+    gen = torch.Generator("cuda").manual_seed(seed + 1000)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    if wkv:
+        B, _, H = WKV_SHAPE
+        return (*x, rn(B, S, H, rk.HEAD), 0.1 * rn(B, H, rk.HEAD, rk.HEAD))
+    gr, gi, xc, sp, h0 = x
+    if extreme:
+        z = rn(*gr.shape)
+        gr = torch.where(z < -0.43, -20.0, torch.where(z > 0.43, 20.0, gr))
+    with torch.no_grad():
+        hs, _ = rk.rglru_scan(gr, gi, xc, sp, h0)
+    B, _, R = RGLRU_SHAPE
+    return gr, gi, xc, sp, h0, hs, rn(B, S, R), rn(B, R)
+
+
+def grad_error(torch, what: str, got, want, rounding: bool) -> dict:
+    """``got`` against the plain version's f32 ``want``: where ``want`` is
+    finite, |got - want| <= SCAN_BWD_TOL x max |want| (+ BF16_ROUNDING x
+    |want| with ``rounding``); the non-finite elements (an infinite slope)
+    the same in both, NaN for NaN and inf for inf of the same sign."""
+    g, w = got.float(), want.float()
+    fin = torch.isfinite(w)
+    inf = torch.isinf(w)
+    same = (torch.equal(fin, torch.isfinite(g))
+            and torch.equal(torch.isnan(w), torch.isnan(g))
+            and torch.equal(g[inf], w[inf]))
+    mag = w[fin].abs()
+    diff = (g[fin] - w[fin]).abs()
+    scale = float(mag.max()) if mag.numel() else 0.0
+    allowed = SCAN_BWD_TOL * scale + (BF16_ROUNDING * mag if rounding
+                                      else 0.0)
+    err = float(diff.max()) if diff.numel() else 0.0
+    check(same and bool((diff <= allowed).all()),
+          f"{what}: max |diff| {err} against the plain version (tolerance "
+          f"{SCAN_BWD_TOL} x {scale}{' + bf16 rounding' if rounding else ''}"
+          f"; non-finite elements the same: {same})")
+    return {"max_abs_err": err, "rel": err / scale if scale else 0.0,
+            "nonfinite": int((~fin).sum())}
+
+
+def same_bits(torch, a, b) -> bool:
+    """Equal bit for bit (NaN too)."""
+    ints = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return a.shape == b.shape and torch.equal(a.view(ints), b.view(ints))
+
+
+def scan_bwd_phase(torch) -> dict:
+    """``[scan-bwd]``: each backward kernel against its plain version at
+    every S of SCAN_BWD_S, r/k/v (or x) in bf16 and f32, on drawn and
+    extreme inputs (`scan_bwd_inputs`), every gradient by `grad_error`;
+    then SCAN_BWD_REPEATS launches at the training shape in bf16,
+    bit-identical.  Returns, per kernel and compute dtype, the largest
+    error relative to its gradient's largest element."""
+    from repro_torch.kernels import recurrent as rk
+
+    out = {}
+    for name in SCAN_BWD:
+        grads, narrow, _ = SCAN_BWD[name]
+        wrap, plain = getattr(rk, name), getattr(rk, name + "_plain")
+        worst = {"bfloat16": 0.0, "float32": 0.0}
+        abs_err = dict(worst)
+        nonfinite = 0
+        seed = 101
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = str(dtype).split(".")[-1]
+            for extreme in (False, True):
+                for S in SCAN_BWD_S[name]:
+                    x = scan_bwd_inputs(torch, name, S, seed, dtype, extreme)
+                    seed += 1
+                    got = wrap(*x)
+                    want = plain(*[t.float() for t in x])
+                    torch.cuda.synchronize()
+                    for gname, g, p in zip(grads, got, want):
+                        e = grad_error(
+                            torch, f"[scan-bwd] {name} S={S} {tag} "
+                            f"extreme={extreme} {gname}", g, p,
+                            dtype == torch.bfloat16 and gname in narrow)
+                        worst[tag] = max(worst[tag], e["rel"])
+                        abs_err[tag] = max(abs_err[tag], e["max_abs_err"])
+                        nonfinite += e["nonfinite"]
+                    del got, want, x
+        x = scan_bwd_inputs(torch, name, SCAN_BWD_S[name][-1], 7)
+        first = wrap(*x)
+        for _ in range(SCAN_BWD_REPEATS - 1):
+            again = wrap(*x)
+            check(all(same_bits(torch, a, b) for a, b in zip(first, again)),
+                  f"[scan-bwd] {name}: {SCAN_BWD_REPEATS} launches on one "
+                  "input are not bit-identical")
+        del x, first, again
+        torch.cuda.empty_cache()
+        out[name] = {"cases": 4 * len(SCAN_BWD_S[name]),
+                     "max_rel_err": worst, "max_abs_err": abs_err,
+                     "nonfinite_elements_matched": nonfinite,
+                     "bit_identical_launches": SCAN_BWD_REPEATS}
+    print(f"[scan-bwd] {json.dumps(out)}", flush=True)
+    return out
+
+
+def scan_bwd_work(name: str, B: int, S: int, W: int) -> dict:
+    """Bytes (inputs read once, outputs written once; r/k/v or x in bf16)
+    and operations of one backward call at (B, S, H or R), for
+    `scan_bound`.  WKV: the recurrence's f32 operations a (b, h) and step
+    (the states rebuilt, 3 hd^2; dr, dk, dv and dw, 2 hd^2 each; G's
+    update, 3 hd^2), which a chunked form would run on the tensor cores as
+    split TF32 (three passes); beside them the operations of this kernel's
+    form on the f32 pipe (the states rebuilt twice: 18 hd^2).  The rg-lru:
+    ~43 f32 operations an element (the gates recomputed, the chain
+    rule)."""
+    from repro_torch.kernels import recurrent as rk
+
+    if name == "wkv6_scan_bwd":
+        hd = rk.HEAD
+        n = B * S * W * hd
+        n_bytes = (n * (3 * 2 + 4 + 4) + n * (3 * 2 + 4) + 2 * W * hd * 4
+                   + 3 * B * W * hd * hd * 4)
+        flops = 14 * B * W * S * hd * hd
+        return {"bytes": n_bytes, "flops": flops, "tf32_flops": 3 * flops,
+                "f32_flops": 0, "form_f32_flops": 18 * B * W * S * hd * hd}
+    n = B * S * W
+    n_bytes = n * (4 + 4 + 2 + 4 + 4 + 4 + 4 + 2) + 2 * W * 4 + 3 * B * W * 4
+    return {"bytes": n_bytes, "flops": 43 * n, "tf32_flops": 0,
+            "f32_flops": 43 * n, "form_f32_flops": 43 * n}
+
+
+def scan_bwd_rows(torch, errs: dict, launches: dict) -> list[dict]:
+    """The two backward kernels at the training shape (B 4, S 1024, H 64
+    or R 4096, bf16): µs a call, each kernel's device µs a call, the plain
+    version's µs, the bound (`scan_bound` of `scan_bwd_work`), the
+    recurrence's and this form's operations on the f32 pipe beside it,
+    the errors of ``[scan-bwd]`` and the launches of ``[train]``."""
+    from repro_torch.kernels import recurrent as rk
+
+    rows = []
+    for name, (b, s, width), replaces in (
+            ("wkv6_scan_bwd", WKV_SHAPE,
+             "src/repro/models/recurrent.py:125 (the autodiff of the "
+             "lax.scan of rwkv_timemix_forward; XLA, no Pallas kernel)"),
+            ("rglru_scan_bwd", RGLRU_SHAPE,
+             "src/repro/models/recurrent.py:234 (the autodiff of the "
+             "lax.associative_scan of rglru_block_forward, with "
+             "_rglru_gates :205; XLA, no Pallas kernel)")):
+        _, _, kernels = SCAN_BWD[name]
+        wrap, plain = getattr(rk, name), getattr(rk, name + "_plain")
+        x = scan_bwd_inputs(torch, name, s, 7)
+        xf = [t.float() for t in x]
+
+        def fn(): return wrap(*x)
+        def plain_fn(): return plain(*xf)
+        ms = event_ms(torch, fn, reps=10, inner=5)
+        split = profiled_kernels_ms(
+            torch, fn, "(" + "|".join(kernels) + ")", calls=10)
+        work = scan_bwd_work(name, b, s, width)
+        b_ms, b_by = scan_bound(work)
+        kernel_ms = sum(split.values()) if split else None
+        err = errs[name]
+        row = {
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/recurrent_bwd.cu",
+            "replaces": replaces, "kernel": kernels[0],
+            "launches": launches[name], "on_main_path": launches[name] > 0,
+            "max_abs_err": err["max_abs_err"]["bfloat16"],
+            "max_abs_err_f32": err["max_abs_err"]["float32"],
+            "max_rel_err": err["max_rel_err"]["bfloat16"],
+            "max_rel_err_f32": err["max_rel_err"]["float32"],
+            "shape": {"B": b, "S": s, ("H" if name.startswith("wkv6")
+                                       else "R"): width,
+                      "dtype": "bfloat16"},
+            "ms": ms, "kernel_ms": kernel_ms, "kernel_ms_by_kernel": split,
+            "plain_ms": event_ms(torch, plain_fn, reps=3, inner=1),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms_bytes": work["bytes"] / HBM_BYTES_PER_S * 1e3,
+            "bound_ms_f32_recurrence": work["flops"] / F32_FLOP_PER_S * 1e3,
+            "bound_ms_f32_form": work["form_f32_flops"] / F32_FLOP_PER_S
+            * 1e3,
+            **work, **rates(work["flops"], b_ms, ms, kernel_ms),
+            "library_ms": None}
+        del x, xf
+        torch.cuda.empty_cache()
+        rows.append(row)
+    return rows
+
+
 def flash_d256_row(torch, errs, launches: int) -> dict:
     """K4 at head dim 256: recurrentgemma-9b's local attention at its
     prefill (B 4, H 16, MQA, S 1024, bf16; the 2048 window spans it)."""
@@ -5179,7 +5506,7 @@ def build_all() -> None:
 
     targets = (("topo_score", ()), ("flash_attention", ()),
                ("topo_score", TIER_YARDSTICK), ("recurrent", ()),
-               ("flash_attention_bwd", ()))
+               ("recurrent_bwd", ()), ("flash_attention_bwd", ()))
     logs = {}
     with concurrent.futures.ThreadPoolExecutor(len(targets)) as pool:
         for (name, defines), secs, log in pool.map(one, targets):
@@ -5232,6 +5559,17 @@ def build_all() -> None:
     regs = ptxas_registers(logs[("recurrent", ())], SCAN_KERNELS)
     print(f"[build] scan kernels' registers (kernel: registers): "
           f"{json.dumps(regs)}", flush=True)
+    counts = sass_counts(_build._target("recurrent_bwd")[1],
+                         SCAN_BWD_KERNELS, ("LDL", "STL", "ATOMG", "RED"))
+    regs = ptxas_registers(logs[("recurrent_bwd", ())], SCAN_BWD_KERNELS)
+    print(f"[build] scan backward kernels' local memory and atomics SASS "
+          f"(kernel: counts): {json.dumps(counts)}; registers: "
+          f"{json.dumps(regs)}", flush=True)
+    check(len(counts) == 6, f"{sorted(counts)} of the scan backward's six "
+          "kernel instances found in the SASS")
+    for name, c in counts.items():
+        check(not any(c.values()), f"{name} spills to local memory or holds "
+              f"a global atomic: {c}")
     regs = ptxas_registers(logs[("topo_score", ())], PRESCREEN_KERNELS)
     print(f"[build] prescreen and encoder registers (kernel: registers): "
           f"{json.dumps(regs)}", flush=True)
@@ -5314,6 +5652,9 @@ PRESCREEN_KERNELS = (r"((?:prescreen_cluster|prescreen_union|encode_delta)"
 #: the scans' kernel instances in the SASS and the ptxas log
 SCAN_KERNELS = (r"((?:wkv6|rglru|rglru_step)_kernelI"
                 r"(?:f|13__nv_bfloat16)E)")
+#: the scans' backward kernel instances (the sweeps and the sums over CTAs)
+SCAN_BWD_KERNELS = (r"((?:wkv6_bwd|rglru_bwd|sum_parts)_kernelI"
+                    r"(?:f|13__nv_bfloat16)E)")
 
 
 def ptxas_registers(log: str, function: str) -> dict[str, int] | str:
@@ -5448,6 +5789,7 @@ def run() -> int:
         check(launches[name] > 0, f"the main path never launched {name}")
     flash_errs = flash_phase(torch)
     bwd_errs = flash_bwd_phase(torch)
+    scan_bwd = scan_bwd_phase(torch)
     serve, api, params = serve_phase(torch, np)
     day_serve = day_serve_line(day, serve)
     serve_trace(torch, api, params)
@@ -5462,6 +5804,8 @@ def run() -> int:
     train = train_phase(torch, np)
     train_vlm = train_phase(torch, np, TRAIN_VLM, TRAIN_VLM_STEPS,
                             TRAIN_VLM_LAYERS)
+    train_rec = {arch: train_phase(torch, np, arch, steps, layers)
+                 for arch, steps, layers in TRAIN_RECURRENT}
     lap("train")
     train_chk = train_check(torch, np)
     lap("train_check")
@@ -5493,6 +5837,9 @@ def run() -> int:
         name: sum(f[key][name] for f in fam.values())
         for name in ("wkv6_scan", "rglru_scan")}
         for key in ("launches", "decode_launches"))))
+    rows.extend(scan_bwd_rows(torch, scan_bwd, {
+        name: sum(t["launches"][name] for t in train_rec.values())
+        for name in SCAN_BWD}))
     lap("flash_timing")
     rows.extend(fused_rows(torch, np, dev, errs, launches, fused_plans,
                            clusters, cluster_sweep(torch, np, dev)))
@@ -5552,8 +5899,15 @@ def run() -> int:
                           "max_memory_allocated", "losses", "launches")},
                       "train_vlm_flash_bwd_share": train_vlm["trace"][
                           "flash_bwd_share"],
-                      "train_check": {k: train_chk[k] for k in (
-                          "gated", "recorded")},
+                      "train_recurrent": {a: {k: t[k] for k in (
+                          "layers", "step_ms_p50", "tokens_per_s",
+                          "max_memory_allocated", "losses", "launches")}
+                          | {k: t["trace"][k] for k in (
+                              "scan_fwd_share", "scan_bwd_share",
+                              "flash_bwd_share")}
+                          for a, t in train_rec.items()},
+                      "train_check": {a: {k: train_chk[a][k] for k in (
+                          "gated", "recorded")} for a, _, _ in TRAIN_CHECKS},
                       "train_resume_bit_identical": resume["bit_identical"],
                       "empty_kernel_ms": floor["kernel_ms"],
                       "shortlist": {f"{r['engine']}@{r['nodes']}":

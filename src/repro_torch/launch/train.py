@@ -6,7 +6,9 @@
 
 The reference's ``repro.launch.train`` in PyTorch.  The model runs on the
 card unless ``--device cpu`` is given; on CUDA every attention and its
-backward go through K4's kernels.  Fault tolerance as the reference's:
+backward go through K4's kernels, and the recurrent families' scans and
+their backward through the scan kernels (``wkv6_scan``/``wkv6_scan_bwd``,
+``rglru_scan``/``rglru_scan_bwd``).  Fault tolerance as the reference's:
 atomic checkpoints every ``--ckpt-every`` steps, crash-safe resume
 (``--resume`` picks the latest commit), and a ``--supervise`` mode that
 restarts the run after failures (simulate one with ``--fail-at``).  The

@@ -2,11 +2,17 @@
 RG-LRU block of RecurrentGemma/Griffin.
 
 The reference runs RWKV-6's WKV recurrence as a sequential ``lax.scan``
-and the RG-LRU's diagonal recurrence as a ``lax.associative_scan``; here
-both go through one kernel launch each (`repro_torch.kernels.recurrent`:
-``wkv6_scan``, and ``rglru_scan``, which also takes the gates'
-elementwise part), prefill and decode alike (decode at S = 1).  The
-matrix products around them stay PyTorch.
+and the RG-LRU's diagonal recurrence as a ``lax.associative_scan``, and
+trains both through XLA's autodiff; here both go through one kernel
+launch each (`repro_torch.kernels.recurrent`: ``wkv6_scan``, and
+``rglru_scan``, which also takes the gates' elementwise part), prefill
+and decode alike (decode at S = 1).  Under autograd each runs as its
+autograd function (``WKV6Scan``, ``RGLRUScan``), whose backward is one
+launch of its backward kernel (``wkv6_scan_bwd``, ``rglru_scan_bwd``) and
+gives the gradients of the carried state too (``S``; ``h``, and through
+the convolution ``conv``; ``x_prev`` through the token shift) where a
+caller passes a state that requires grad.  The matrix products around
+them stay PyTorch.
 
 Parameters follow the reference's uses: those it applies in f32 (rwkv's
 ``w0``, ``wd2``, ``u`` and ``gn_scale``; the rg-lru's ``w_r``, ``w_i``,

@@ -32,7 +32,6 @@
   past the same depth as the reference's (the prefix positions' residual
   is 0, where rmsnorm's gradient is eps^-0.5 at every layer).
 * ``maybe_remat``'s three policies give the same loss and gradients.
-* The scan wrappers' refusal of autograd on CUDA, as a plain function.
 """
 import dataclasses
 import functools
@@ -51,7 +50,6 @@ from repro.models import attention as ref_attn  # noqa: E402
 from repro.models import build_model as ref_build_model  # noqa: E402
 from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
-from repro_torch.kernels import recurrent as rk  # noqa: E402
 from repro_torch.models import build_model, load_reference_master  # noqa
 from repro_torch.models.convert import layer_stacks  # noqa: E402
 from repro_torch.train.optim import tree_leaves  # noqa: E402
@@ -268,7 +266,8 @@ B, S, S_ENC = 2, 24, 16
 DTYPES = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16,
                                                       jnp.bfloat16)}
 #: the bf16 check's archs: dense, moe, encdec and patch blocks (the
-#: recurrent ones are held in f32, and their CUDA scans do not train yet)
+#: recurrent ones are held in f32 here, and in bf16 by the same rule in
+#: ``test_torch_scan_bwd.py``, beside their scans' backward)
 BF16_ARCHS = ["llama3.2-1b", "olmoe-1b-7b", "seamless-m4t-medium",
               "paligemma-3b"]
 
@@ -432,27 +431,3 @@ def test_remat_policies_agree(arch):
         assert torch.equal(loss, results[0][0])
         for a, b in zip(grads, results[0][1]):
             torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
-
-
-def test_scan_wrappers_refuse_autograd_on_cuda():
-    """``refuse_autograd``: raises for a CUDA launch that autograd would
-    have to differentiate (grad mode on, an input requiring grad), and
-    passes CPU tensors, inputs without grad and no-grad mode; the CPU
-    wrappers differentiate through their plain versions."""
-    x = torch.ones(3, requires_grad=True)
-    y = torch.ones(3)
-    with pytest.raises(NotImplementedError, match="wkv6_scan"):
-        rk.refuse_autograd("wkv6_scan", True, y, x)
-    rk.refuse_autograd("wkv6_scan", True, y, y)
-    rk.refuse_autograd("rglru_scan", False, x, y)
-    with torch.no_grad():
-        rk.refuse_autograd("rglru_scan", True, x)
-    rng = np.random.default_rng(5)
-    Bs, Ss, R = 2, 6, 8
-    gr, gi, xc = (torch.from_numpy(rng.standard_normal((Bs, Ss, R)).astype(
-        np.float32)).requires_grad_() for _ in range(3))
-    sp = torch.rand(R)
-    h0 = torch.zeros(Bs, R)
-    hs, _ = rk.rglru_scan(gr, gi, xc, sp, h0)
-    assert all(g is not None and bool(torch.isfinite(g).all())
-               for g in torch.autograd.grad(hs.sum(), (gr, gi, xc)))
