@@ -20,10 +20,13 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    loads and stores of the scans' six kernel instances (one fails the run)
    and their tensor-core products (``HMMA``: the WKV kernel's none, or the
    rg-lru's any, fails it); their registers come from the ptxas log.  That
-   of the scans' backward library counts the local-memory traffic and
-   global atomics (``ATOMG``, ``RED``) of its six instances
-   (``wkv6_bwd_kernel``, ``rglru_bwd_kernel`` and ``sum_parts_kernel``,
-   f32 and bf16): one fails the run.
+   of the scans' backward library counts the local-memory traffic,
+   global atomics (``ATOMG``, ``RED``) and tensor-core products (``HMMA``)
+   of its five instances (``wkv6_bwd_kernel`` and ``rglru_bwd_kernel``,
+   f32 and bf16, and ``sum_parts_kernel`` in f32): any local-memory
+   access or atomic fails the run, and so does a WKV instance without
+   ``HMMA`` or another with one; their registers come from the ptxas
+   log.
    That of the topo-score library counts the global
    atomics (``ATOMG``, ``ATOM``, ``RED``) of K2's normal-cycle form (both
    its instances) and K1's tail (both forms), which reduce across CTAs
@@ -191,13 +194,16 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    its log-sum-exp) and one backward launch; 10 back-to-back calls at the
    serving shape, at ``FLASH_D256`` and at ``PALIGEMMA`` bit-identical.
 7c. ``[scan-bwd]``: the scans' backward kernels (``csrc/recurrent_bwd.cu``:
-   ``wkv6_bwd_kernel``, the recurrence run forward with a checkpoint a
-   chunk of 16 steps, then the chunks walked backward, 16 rows of a
-   (batch, head)'s state a CTA; ``rglru_bwd_kernel``, the adjoint's
-   reverse scan in the forward's slices with the gates' chain rule; sums
-   over CTAs by a second pass in a fixed order, no atomics) against
+   ``wkv6_bwd_kernel``, the chunked form, a CTA a (batch, head): a first
+   pass forward keeping a checkpoint every 6 chunks of 16 steps, then each
+   segment rebuilt and its chunks walked back, the products as split TF32
+   on the tensor cores, a walk a channel on the CUDA cores with a
+   division-free dw; ``rglru_bwd_kernel``, the adjoint's reverse scan in
+   the forward's slices with the gates' chain rule; sums over the batch by
+   a second pass in a fixed order, no atomics) against
    ``wkv6_scan_bwd_plain`` and ``rglru_scan_bwd_plain`` at B 4 with H 64
-   or R 4096, S 1, 15, 16, 17, 35, 1024 (WKV) and 1, 31, 32, 33, 67, 1024
+   or R 4096, S 1, 15, 16, 17, 35, 95, 96, 97, 1024 (WKV: either side
+   of a chunk and of a checkpoint segment) and 1, 31, 32, 33, 67, 1024
    (rg-lru), r/k/v or x in bf16 and f32, non-zero s0, h0 and cotangents
    on both outputs, on drawn and extreme inputs (WKV log-decays at both
    ends of the clip; gr at +-20): every f32 gradient within 1e-5 of its
@@ -5182,8 +5188,9 @@ def scan_rows(torch, launches: dict, decode_launches: dict) -> list[dict]:
 
 #: ``[scan-bwd]``: the S at which each backward kernel is held to its plain
 #: version: one step, either side of its chunk (16 WKV steps, 32 rg-lru
-#: steps), a ragged 2L + 3 and the training S
-SCAN_BWD_S = {"wkv6_scan_bwd": (1, 15, 16, 17, 35, 1024),
+#: steps), a ragged 2L + 3, for the WKV either side of a checkpoint segment
+#: (``WKV_BWD_SEGMENT`` = 6 chunks) and the training S
+SCAN_BWD_S = {"wkv6_scan_bwd": (1, 15, 16, 17, 35, 95, 96, 97, 1024),
               "rglru_scan_bwd": (1, 31, 32, 33, 67, 1024)}
 #: |kernel - plain| <= SCAN_BWD_TOL x the gradient's largest |plain| (the
 #: kernels sum in other orders than the plain versions); a bf16 gradient
@@ -5194,7 +5201,8 @@ BF16_ROUNDING = 2.0 ** -8
 #: launches at the training shape that must be bit-identical
 SCAN_BWD_REPEATS = 10
 #: each backward's gradients, those in the compute dtype, and its kernels
-#: (the sweep, then the sums over CTAs)
+#: (the sweep: for the WKV the chunked form, a CTA a (b, h); then the sum
+#: over the batch)
 SCAN_BWD = {
     "wkv6_scan_bwd": (("dr", "dk", "dv", "dw", "du", "ds0"),
                       ("dr", "dk", "dv"),
@@ -5266,54 +5274,74 @@ def same_bits(torch, a, b) -> bool:
     return a.shape == b.shape and torch.equal(a.view(ints), b.view(ints))
 
 
+def scan_bwd_check(torch, rk, name: str, failures: list | None = None
+                   ) -> dict:
+    """``[scan-bwd]``'s check of one backward kernel: module ``rk``'s
+    wrapper ``name`` against its plain version at every S of SCAN_BWD_S,
+    r/k/v (or x) in bf16 and f32, on drawn and extreme inputs
+    (`scan_bwd_inputs`), every gradient by `grad_error`; then
+    SCAN_BWD_REPEATS launches at the training shape in bf16, bit-identical.
+    Returns, per compute dtype, the largest error relative to its
+    gradient's largest element.  A failed check raises `SmokeFailure`, or,
+    with a list ``failures``, appends its message there."""
+
+    def attempt(fn, *args):
+        try:
+            return fn(*args)
+        except SmokeFailure as err:
+            if failures is None:
+                raise
+            failures.append(str(err))
+            return None
+
+    grads, narrow, _ = SCAN_BWD[name]
+    wrap, plain = getattr(rk, name), getattr(rk, name + "_plain")
+    worst = {"bfloat16": 0.0, "float32": 0.0}
+    abs_err = dict(worst)
+    nonfinite = 0
+    seed = 101
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype).split(".")[-1]
+        for extreme in (False, True):
+            for S in SCAN_BWD_S[name]:
+                x = scan_bwd_inputs(torch, name, S, seed, dtype, extreme)
+                seed += 1
+                got = wrap(*x)
+                want = plain(*[t.float() for t in x])
+                torch.cuda.synchronize()
+                for gname, g, p in zip(grads, got, want):
+                    e = attempt(
+                        grad_error, torch, f"[scan-bwd] {name} S={S} {tag} "
+                        f"extreme={extreme} {gname}", g, p,
+                        dtype == torch.bfloat16 and gname in narrow)
+                    if e is None:
+                        continue
+                    worst[tag] = max(worst[tag], e["rel"])
+                    abs_err[tag] = max(abs_err[tag], e["max_abs_err"])
+                    nonfinite += e["nonfinite"]
+                del got, want, x
+    x = scan_bwd_inputs(torch, name, SCAN_BWD_S[name][-1], 7)
+    first = wrap(*x)
+    for _ in range(SCAN_BWD_REPEATS - 1):
+        again = wrap(*x)
+        attempt(check, all(same_bits(torch, a, b)
+                           for a, b in zip(first, again)),
+                f"[scan-bwd] {name}: {SCAN_BWD_REPEATS} launches on one "
+                "input are not bit-identical")
+    del x, first, again
+    torch.cuda.empty_cache()
+    return {"cases": 4 * len(SCAN_BWD_S[name]),
+            "max_rel_err": worst, "max_abs_err": abs_err,
+            "nonfinite_elements_matched": nonfinite,
+            "bit_identical_launches": SCAN_BWD_REPEATS}
+
+
 def scan_bwd_phase(torch) -> dict:
-    """``[scan-bwd]``: each backward kernel against its plain version at
-    every S of SCAN_BWD_S, r/k/v (or x) in bf16 and f32, on drawn and
-    extreme inputs (`scan_bwd_inputs`), every gradient by `grad_error`;
-    then SCAN_BWD_REPEATS launches at the training shape in bf16,
-    bit-identical.  Returns, per kernel and compute dtype, the largest
-    error relative to its gradient's largest element."""
+    """``[scan-bwd]``: `scan_bwd_check` of each backward kernel of the
+    package."""
     from repro_torch.kernels import recurrent as rk
 
-    out = {}
-    for name in SCAN_BWD:
-        grads, narrow, _ = SCAN_BWD[name]
-        wrap, plain = getattr(rk, name), getattr(rk, name + "_plain")
-        worst = {"bfloat16": 0.0, "float32": 0.0}
-        abs_err = dict(worst)
-        nonfinite = 0
-        seed = 101
-        for dtype in (torch.bfloat16, torch.float32):
-            tag = str(dtype).split(".")[-1]
-            for extreme in (False, True):
-                for S in SCAN_BWD_S[name]:
-                    x = scan_bwd_inputs(torch, name, S, seed, dtype, extreme)
-                    seed += 1
-                    got = wrap(*x)
-                    want = plain(*[t.float() for t in x])
-                    torch.cuda.synchronize()
-                    for gname, g, p in zip(grads, got, want):
-                        e = grad_error(
-                            torch, f"[scan-bwd] {name} S={S} {tag} "
-                            f"extreme={extreme} {gname}", g, p,
-                            dtype == torch.bfloat16 and gname in narrow)
-                        worst[tag] = max(worst[tag], e["rel"])
-                        abs_err[tag] = max(abs_err[tag], e["max_abs_err"])
-                        nonfinite += e["nonfinite"]
-                    del got, want, x
-        x = scan_bwd_inputs(torch, name, SCAN_BWD_S[name][-1], 7)
-        first = wrap(*x)
-        for _ in range(SCAN_BWD_REPEATS - 1):
-            again = wrap(*x)
-            check(all(same_bits(torch, a, b) for a, b in zip(first, again)),
-                  f"[scan-bwd] {name}: {SCAN_BWD_REPEATS} launches on one "
-                  "input are not bit-identical")
-        del x, first, again
-        torch.cuda.empty_cache()
-        out[name] = {"cases": 4 * len(SCAN_BWD_S[name]),
-                     "max_rel_err": worst, "max_abs_err": abs_err,
-                     "nonfinite_elements_matched": nonfinite,
-                     "bit_identical_launches": SCAN_BWD_REPEATS}
+    out = {name: scan_bwd_check(torch, rk, name) for name in SCAN_BWD}
     print(f"[scan-bwd] {json.dumps(out)}", flush=True)
     return out
 
@@ -5323,33 +5351,49 @@ def scan_bwd_work(name: str, B: int, S: int, W: int) -> dict:
     and operations of one backward call at (B, S, H or R), for
     `scan_bound`.  WKV: the recurrence's f32 operations a (b, h) and step
     (the states rebuilt, 3 hd^2; dr, dk, dv and dw, 2 hd^2 each; G's
-    update, 3 hd^2), which a chunked form would run on the tensor cores as
-    split TF32 (three passes); beside them the operations of this kernel's
-    form on the f32 pipe (the states rebuilt twice: 18 hd^2).  The rg-lru:
-    ~43 f32 operations an element (the gates recomputed, the chain
-    rule)."""
+    update, 3 hd^2), which a chunked form runs on the tensor cores as split
+    TF32 (three passes); beside them this kernel's chunked form as it runs
+    at bf16: its split-TF32 products (``form_tf32_flops``; p = 2 hd^2 L, one
+    64 x 64 x L product: a chunk walked back takes C 2 x p/4, dQraw 3 p,
+    dKraw 2 p, dV 3 x p/4 + 3 p, G 3 p, the half chunks' U and V 3 x p/8
+    each and A's cross block 3 x p/8 (16-row tiles, half of them empty),
+    107 p / 8 in all; each chunk run forward, in the first pass and the
+    segments' rebuilds, 2 p) and its f32 operations on the CUDA cores
+    (``form_f32_flops``, about 1730 a channel and chunk walked back: the
+    row walk and the two walks within each half chunk, the decay products,
+    rd and G's update; about 160 a chunk run forward).  The rg-lru: ~43 f32
+    operations an element (the gates recomputed, the chain rule)."""
     from repro_torch.kernels import recurrent as rk
 
     if name == "wkv6_scan_bwd":
-        hd = rk.HEAD
+        hd, L, M = rk.HEAD, rk.WKV_CHUNK, rk.WKV_BWD_SEGMENT
         n = B * S * W * hd
         n_bytes = (n * (3 * 2 + 4 + 4) + n * (3 * 2 + 4) + 2 * W * hd * 4
                    + 3 * B * W * hd * hd * 4)
         flops = 14 * B * W * S * hd * hd
+        nch = -(-S // L)
+        nseg = -(-nch // M)
+        forward = max(nch - 1, 0) + max(nseg - 1, 0) * (M - 1)
+        p = 2 * hd * hd * L
         return {"bytes": n_bytes, "flops": flops, "tf32_flops": 3 * flops,
-                "f32_flops": 0, "form_f32_flops": 18 * B * W * S * hd * hd}
+                "f32_flops": 0,
+                "form_tf32_flops": B * W * (nch * 107 * p // 8
+                                            + forward * 2 * p),
+                "form_f32_flops": B * W * hd * (nch * 1730 + forward * 160)}
     n = B * S * W
     n_bytes = n * (4 + 4 + 2 + 4 + 4 + 4 + 4 + 2) + 2 * W * 4 + 3 * B * W * 4
     return {"bytes": n_bytes, "flops": 43 * n, "tf32_flops": 0,
-            "f32_flops": 43 * n, "form_f32_flops": 43 * n}
+            "f32_flops": 43 * n, "form_tf32_flops": 0, "form_f32_flops": 43 * n}
 
 
 def scan_bwd_rows(torch, errs: dict, launches: dict) -> list[dict]:
     """The two backward kernels at the training shape (B 4, S 1024, H 64
     or R 4096, bf16): µs a call, each kernel's device µs a call, the plain
     version's µs, the bound (`scan_bound` of `scan_bwd_work`), the
-    recurrence's and this form's operations on the f32 pipe beside it,
-    the errors of ``[scan-bwd]`` and the launches of ``[train]``."""
+    recurrence's operations on the f32 pipe and this form's on the f32
+    pipe and the tensor cores beside it, the WKV's checkpoint bytes
+    (written and read), the errors of ``[scan-bwd]`` and the launches of
+    ``[train]``."""
     from repro_torch.kernels import recurrent as rk
 
     rows = []
@@ -5394,8 +5438,13 @@ def scan_bwd_rows(torch, errs: dict, launches: dict) -> list[dict]:
             "bound_ms_f32_recurrence": work["flops"] / F32_FLOP_PER_S * 1e3,
             "bound_ms_f32_form": work["form_f32_flops"] / F32_FLOP_PER_S
             * 1e3,
+            "bound_ms_tf32_form": work["form_tf32_flops"] / TF32_FLOP_PER_S
+            * 1e3,
             **work, **rates(work["flops"], b_ms, ms, kernel_ms),
             "library_ms": None}
+        if name == "wkv6_scan_bwd":
+            row["checkpoint_bytes"] = 2 * 4 * \
+                rk._bwd_lib().wkv6_scan_bwd_workspace(b, width, s)
         del x, xf
         torch.cuda.empty_cache()
         rows.append(row)
@@ -5560,16 +5609,21 @@ def build_all() -> None:
     print(f"[build] scan kernels' registers (kernel: registers): "
           f"{json.dumps(regs)}", flush=True)
     counts = sass_counts(_build._target("recurrent_bwd")[1],
-                         SCAN_BWD_KERNELS, ("LDL", "STL", "ATOMG", "RED"))
+                         SCAN_BWD_KERNELS,
+                         ("LDL", "STL", "ATOMG", "RED", "HMMA"))
     regs = ptxas_registers(logs[("recurrent_bwd", ())], SCAN_BWD_KERNELS)
-    print(f"[build] scan backward kernels' local memory and atomics SASS "
-          f"(kernel: counts): {json.dumps(counts)}; registers: "
-          f"{json.dumps(regs)}", flush=True)
-    check(len(counts) == 6, f"{sorted(counts)} of the scan backward's six "
-          "kernel instances found in the SASS")
+    print(f"[build] scan backward kernels' local memory, atomics and "
+          f"tensor-core SASS (kernel: counts): {json.dumps(counts)}; "
+          f"registers: {json.dumps(regs)}", flush=True)
+    check(sorted(counts) == sorted(SCAN_BWD_FORMS),
+          f"{sorted(counts)} in the scan backward's SASS, "
+          f"{sorted(SCAN_BWD_FORMS)} expected")
     for name, c in counts.items():
-        check(not any(c.values()), f"{name} spills to local memory or holds "
-              f"a global atomic: {c}")
+        check(not any(c[op] for op in ("LDL", "STL", "ATOMG", "RED")),
+              f"{name} spills to local memory or holds a global atomic: {c}")
+        check((c["HMMA"] > 0) == name.startswith("wkv6"),
+              f"{name}: {c['HMMA']} tensor-core products (the WKV "
+              "backward's run on them, the others have none)")
     regs = ptxas_registers(logs[("topo_score", ())], PRESCREEN_KERNELS)
     print(f"[build] prescreen and encoder registers (kernel: registers): "
           f"{json.dumps(regs)}", flush=True)
@@ -5655,6 +5709,11 @@ SCAN_KERNELS = (r"((?:wkv6|rglru|rglru_step)_kernelI"
 #: the scans' backward kernel instances (the sweeps and the sums over CTAs)
 SCAN_BWD_KERNELS = (r"((?:wkv6_bwd|rglru_bwd|sum_parts)_kernelI"
                     r"(?:f|13__nv_bfloat16)E)")
+#: the instances `SCAN_BWD_KERNELS` must find: each sweep in f32 and bf16,
+#: the sum over the batch (du's, dsp's) in f32
+SCAN_BWD_FORMS = ("wkv6_bwd_kernelIfE", "wkv6_bwd_kernelI13__nv_bfloat16E",
+                  "rglru_bwd_kernelIfE", "rglru_bwd_kernelI13__nv_bfloat16E",
+                  "sum_parts_kernelIfE")
 
 
 def ptxas_registers(log: str, function: str) -> dict[str, int] | str:

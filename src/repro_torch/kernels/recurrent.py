@@ -29,14 +29,18 @@ steps whose affine maps compose in shared memory; decode (S = 1) one
 thread per (batch, channel).
 
 The backward kernels are in ``csrc/recurrent_bwd.cu``.  ``wkv6_scan_bwd``:
-the recurrence run forward once with a checkpoint of the state every
-chunk, then the chunks walked backward, each chunk's states rebuilt from
-its checkpoint, the state's adjoint carried back; a CTA takes 16 rows of a
-(batch, head)'s state.  ``rglru_scan_bwd``: the adjoint's reverse
-recurrence in the forward's slices, each step's gates recomputed and
-differentiated as ``jax.vjp`` of the reference's lines does.  Sums over
-CTAs are second passes in a fixed order: no atomics, every launch
-bit-identical.
+one CTA per (batch, head), the forward's chunks of ``WKV_CHUNK`` steps
+walked back from the last: the chunk's products (the state's adjoint
+carried back, dv, and what dr, dk and dw need of the state and its
+adjoint) on the tensor cores as split TF32, then a walk a channel on the
+CUDA cores with every decay product built forward (no division, so a
+decay of exactly 0 is no fault); the chunks' incoming states come from a
+first pass forward that keeps one every segment of chunks, each segment
+rebuilt before it is walked back.  ``rglru_scan_bwd``: the adjoint's
+reverse recurrence in the forward's slices, each step's gates recomputed
+and differentiated as ``jax.vjp`` of the reference's lines does.  Sums
+over CTAs (du's and dsp's over the batch) are second passes in a fixed
+order: no atomics, every launch bit-identical.
 
 Each wrapper runs its plain version for tensors on the CPU and launches
 its kernel for tensors on a CUDA device; anything else raises.  Each
@@ -62,6 +66,9 @@ HEAD = 64
 RG_C = 8.0
 #: steps a chunk of the WKV kernel (``WKV_L`` in ``csrc/recurrent.cu``)
 WKV_CHUNK = 16
+#: chunks a checkpoint segment of the WKV backward (``WB_M`` in
+#: ``csrc/recurrent_bwd.cu``)
+WKV_BWD_SEGMENT = 6
 #: steps a chunk of the rg-lru kernel: 8 slices of 4 steps (``RG_CHUNK``)
 RG_CHUNK = 32
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -109,12 +116,10 @@ def _lib() -> ctypes.CDLL:
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("recurrent_bwd")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.wkv6_scan_bwd_launch.argtypes = [vp] * 17 + [ci] * 4 + [vp]
+    lib.wkv6_scan_bwd_launch.argtypes = [vp] * 16 + [ci] * 4 + [vp]
     lib.wkv6_scan_bwd_launch.restype = ci
     lib.wkv6_scan_bwd_workspace.argtypes = [ci] * 3
     lib.wkv6_scan_bwd_workspace.restype = ctypes.c_longlong
-    lib.wkv6_scan_bwd_blocks.argtypes = []
-    lib.wkv6_scan_bwd_blocks.restype = ci
     lib.rglru_scan_bwd_launch.argtypes = [vp] * 14 + [ci] * 4 + [vp]
     lib.rglru_scan_bwd_launch.restype = ci
     lib.recurrent_bwd_error_string.argtypes = [ci]
@@ -283,8 +288,9 @@ def wkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The gradients (dr, dk, dv, dw, du, ds0) of `wkv6_scan`'s outputs
     (y, the final state) with cotangents ``dy`` [B, S, H, 64] and ``ds_fin``
     [B, H, 64, 64], both f32 (zero where an output is unused).  For CUDA
-    tensors one call of ``csrc/recurrent_bwd.cu`` (the sweep, then dv's
-    and du's sums over CTAs), counted once in ``wkv6_scan_bwd.launches``;
+    tensors one call of ``csrc/recurrent_bwd.cu`` (the chunked sweep,
+    then du's sum over the batch), counted once in
+    ``wkv6_scan_bwd.launches``;
     for CPU tensors `wkv6_scan_bwd_plain`.  dr, dk, dv come out in r's
     dtype, the rest in f32."""
     on_cuda = _wkv6_check("wkv6_scan_bwd", r, k, v, w, u, s0)
@@ -297,8 +303,8 @@ def wkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return wkv6_scan_bwd_plain(r, k, v, w, u, s0, dy, ds_fin)
     _f32("wkv6_scan_bwd", w=w, u=u, s0=s0, dy=dy, ds_fin=ds_fin)
     B, S, H, hd = r.shape
-    r, k, v, w, dy = (x.contiguous() for x in (r, k, v, w, dy))
-    u, s0, ds_fin = (_aligned(x) for x in (u, s0, ds_fin))
+    r, k, v, w, dy, u, s0, ds_fin = (_aligned(x) for x in
+                                     (r, k, v, w, dy, u, s0, ds_fin))
     dr, dk, dv = (torch.empty_like(x) for x in (r, k, v))
     dw = torch.empty_like(w)
     du = torch.zeros_like(u)
@@ -308,13 +314,11 @@ def wkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _bwd_lib()
     ws = torch.empty(lib.wkv6_scan_bwd_workspace(B, H, S),
                      dtype=torch.float32, device=r.device)
-    dv_part = torch.empty((lib.wkv6_scan_bwd_blocks(), B, S, H, hd),
-                          dtype=torch.float32, device=r.device)
     du_part = torch.empty((B, H, hd), dtype=torch.float32, device=r.device)
     with torch.cuda.device(r.device):
         code = lib.wkv6_scan_bwd_launch(
             *(x.data_ptr() for x in (r, k, v, w, u, s0, dy, ds_fin, dr, dk,
-                                     dv, dw, du, ds0, dv_part, du_part, ws)),
+                                     dv, dw, du, ds0, du_part, ws)),
             _DTYPE_CODE[r.dtype], B, H, S, _stream(r))
     _raise_on(code, "wkv6_scan_bwd", lib.recurrent_bwd_error_string)
     wkv6_scan_bwd.launches += 1
@@ -517,6 +521,7 @@ rglru_scan_bwd.launches = 0
 WRAPPERS = (wkv6_scan, rglru_scan, wkv6_scan_bwd, rglru_scan_bwd)
 
 __all__ = ["HEAD", "RGLRUScan", "RG_C", "RG_CHUNK", "WKV6Scan", "WKV_CHUNK",
+           "WKV_BWD_SEGMENT",
            "WRAPPERS", "rglru_scan", "rglru_scan_bwd", "rglru_scan_bwd_plain",
            "rglru_scan_plain", "wkv6_scan", "wkv6_scan_bwd",
            "wkv6_scan_bwd_plain", "wkv6_scan_plain"]

@@ -51,9 +51,11 @@ def test_target_path_moves_with_each_included_header(csrc, edited, moves):
 
 
 def test_package_sources_include_the_shared_header():
-    """Both attention sources include ``hopper.cuh``; the others none."""
+    """Both attention sources include ``hopper.cuh``, both scan sources
+    ``tf32.cuh``; topo_score none."""
     for name, headers in (("flash_attention", ["hopper.cuh"]),
                           ("flash_attention_bwd", ["hopper.cuh"]),
-                          ("topo_score", []), ("recurrent", [])):
+                          ("topo_score", []), ("recurrent", ["tf32.cuh"]),
+                          ("recurrent_bwd", ["tf32.cuh"])):
         found = _build._sources(_build.CSRC / f"{name}.cu")
         assert [p.name for p in found[1:]] == headers, name

@@ -7,7 +7,8 @@ the CPU.
   ``lax.scan`` (``recurrent.py:114-125``) and ``_rglru_gates``' lines with
   the associative scan (``:205-236``), as ``test_torch_recurrent.py``
   copies them; f32, non-zero cotangents on both outputs, at S = 0, 1,
-  L - 1, L, L + 1 and 2L + 3 of each backward kernel's chunk L, on drawn
+  L - 1, L, L + 1 and 2L + 3 of each backward kernel's chunk L (the WKV's
+  also either side of a checkpoint segment, and four segments), on drawn
   and extreme decays (WKV log-decays at both ends of the clip; rg-lru gates
   at +-12, see `rglru_inputs`): every gradient within 1e-5 of its largest
   element.
@@ -20,12 +21,14 @@ the CPU.
   the reference's functions, f32.
 * rwkv6-7b's and recurrentgemma-9b's bf16 loss and gradients by
   ``test_torch_loss.py``'s rule (``BF16_ARCHS``).
-* A numpy model of each backward kernel's order of sums
-  (``csrc/recurrent_bwd.cu``: the WKV checkpoints, a row's 16 threads'
-  butterfly, dv over the warps and the CTAs in order; the rg-lru's slices
-  composed backward, dsp over a thread's steps, the slices and the batch)
-  held to the plain versions and the reference at 1e-5; the kernels'
-  constants read from the source.
+* A numpy model of each backward kernel as it computes
+  (``csrc/recurrent_bwd.cu``: the WKV's chunked form, its first pass and
+  segments rebuilt from checkpoints, the products as split TF32, the row
+  walk, the walk a channel with the division-free dw, dv within the
+  (b, h) and du over the batch; the rg-lru's slices composed backward, dsp
+  over a thread's steps, the slices and the batch) held to the plain
+  versions and the reference at 1e-5, the WKV also either side of a
+  checkpoint segment; the kernels' constants read from the source.
 
 The CUDA kernels run only on a GPU; ``chip_smoke.py``'s ``[scan-bwd]`` holds
 them to these plain versions there.
@@ -62,17 +65,22 @@ def _constant(name: str) -> int:
     return int(re.search(rf"constexpr int {name} = (\w+);", SOURCE).group(1))
 
 
-WB_L, RB_SLICES, RB_STEPS = (_constant(n) for n in
-                             ("WB_L", "RB_SLICES", "RB_STEPS"))
+HEADER = (Path(rk.__file__).parent / "csrc" / "tf32.cuh").read_text()
+#: steps a chunk, and chunks a checkpoint segment, of the WKV backward
+WB_L, WB_M, RB_SLICES, RB_STEPS = (_constant(n) for n in
+                                   ("WB_L", "WB_M", "RB_SLICES", "RB_STEPS"))
+WB_H = WB_L // 2
 RB_CHUNK = RB_SLICES * RB_STEPS
-WB_ROWS, WB_LANES = 16, 16
 
 
 def test_constants_match_the_source():
     assert (WB_L, RB_CHUNK) == (rk.WKV_CHUNK, rk.RG_CHUNK) == (16, 32)
-    assert re.search(r"constexpr int WB_ROWS = 16;", SOURCE)
-    assert re.search(r"constexpr int WB_COLS = 4;", SOURCE)
+    assert WB_M == rk.WKV_BWD_SEGMENT == 6
+    assert re.search(r"constexpr int WB_THREADS = 256;", SOURCE)
+    assert "constexpr int WB_H = WB_L / 2;" in SOURCE
+    assert '#include "tf32.cuh"' in SOURCE
     assert "atomic" not in SOURCE.split("#include")[-1]
+    assert "atomic" not in HEADER
 
 
 def _rand(rng, *shape, scale=1.0):
@@ -188,6 +196,12 @@ def _s_cases(L):
     return [0, 1, L - 1, L, L + 1, 2 * L + 3]
 
 
+#: the WKV cases: either side of a chunk, and of a checkpoint segment of
+#: WB_M chunks; four segments (two of them checkpoints in the workspace)
+WKV_S = _s_cases(WB_L) + [WB_M * WB_L - 1, WB_M * WB_L, WB_M * WB_L + 1,
+                          3 * WB_M * WB_L + 5]
+
+
 @functools.lru_cache(maxsize=None)
 def _wkv_case(S, decays):
     """The inputs of one WKV case and the reference's gradients there,
@@ -197,7 +211,7 @@ def _wkv_case(S, decays):
 
 
 @pytest.mark.parametrize("decays", ["drawn", "extreme"])
-@pytest.mark.parametrize("S", _s_cases(16))
+@pytest.mark.parametrize("S", WKV_S)
 def test_wkv6_bwd_plain_matches_jax_vjp(S, decays):
     x, want = _wkv_case(S, decays)
     got = rk.wkv6_scan_bwd_plain(*_torch(x))
@@ -515,86 +529,243 @@ def fma(a, b, c):
     return (np.float64(a) * np.float64(b) + np.float64(c)).astype(F32)
 
 
-def butterfly_up(p):
-    """A shuffle butterfly over the last axis, xor 1 first: every lane
-    ends with ((p0 + p1) + (p2 + p3)) + ..."""
-    while p.shape[-1] > 1:
-        p = (p[..., 0::2] + p[..., 1::2]).astype(F32)
-    return p[..., 0]
+def tf32(x):
+    """x cut to TF32: its 13 low mantissa bits cleared (the split's hi
+    part, and what the tensor cores read of any operand)."""
+    return (np.asarray(x, F32).view(np.uint32)
+            & np.uint32(0xffffe000)).view(F32)
 
 
-def butterfly_down(p):
-    """A shuffle butterfly over the last axis, xor half first."""
-    while p.shape[-1] > 1:
-        h = p.shape[-1] // 2
-        p = (p[..., :h] + p[..., h:]).astype(F32)
-    return p[..., 0]
+def split_mm(a, b, split_a=True, split_b=True):
+    """a @ b as the kernel's tensor-core products: each operand cut into
+    TF32 hi and lo (lo = tf32(x - hi), as the tensor cores read it), the
+    terms lo.hi + hi.lo and hi.hi each a product in f32 (a lo term left out
+    where its operand is exact in TF32), summed in f32."""
+    a, b = np.asarray(a, F32), np.asarray(b, F32)
+    ah, bh = tf32(a), tf32(b)
+    out = np.matmul(ah, bh)
+    lo = np.zeros_like(out)
+    if split_a:
+        lo = (lo + np.matmul(tf32(a - ah), bh)).astype(F32)
+    if split_b:
+        lo = (lo + np.matmul(ah, tf32(b - bh))).astype(F32)
+    return (lo + out).astype(F32)
 
 
-def wkv_bwd_model(r, k, v, w, u, s0, dy, ds_fin):
-    """``wkv6_bwd_kernel`` and its sums over CTAs, in their order: the
-    states at each chunk's start by a forward sweep (S = fma(w, S, k v)),
-    each chunk's states rebuilt from its checkpoint, then per step and row
-    a thread's four columns summed by fma, the row's 16 threads by a
-    butterfly (xor 1 first), v . dy by a lane's two products and a
-    butterfly over 32 lanes (xor 16 first); dv summed over a warp's two
-    rows, then the CTA's eight warps in order, then the four CTAs of a
-    (b, h) in order; du over a row's steps (backward), then the batch."""
+def _chunk(x, c, S, fill):
+    """Steps c L .. c L + L - 1 of x [B, S, H, 64] as [B, H, L, 64], the
+    steps past S ``fill``."""
+    t0 = c * WB_L
+    part = np.full(x.shape[:1] + (WB_L,) + x.shape[2:], fill, F32)
+    part[:, :min(WB_L, S - t0)] = x[:, t0:t0 + WB_L]
+    return np.moveaxis(part, 1, 2)
+
+
+def wkv_decay_model(k, w):
+    """K = k_s E_s and D of a chunk ([B, H, L, 64] each), E by multiplying
+    from the chunk's end (``wb_decay``)."""
+    e = np.ones(k.shape[:2] + k.shape[3:], F32)
+    ke = np.empty_like(k)
+    for s in reversed(range(WB_L)):
+        ke[:, :, s] = (k[:, :, s] * e).astype(F32)
+        e = (e * w[:, :, s]).astype(F32)
+    return ke, e
+
+
+def wkv_forward_model(state, k, v, w):
+    """One chunk forward (``wb_forward``): D . S + split-TF32 K^T V."""
+    ke, dl = wkv_decay_model(k, w)
+    upd = split_mm(np.swapaxes(ke, -1, -2), v)
+    return fma(dl[..., None], state, upd)
+
+
+def wkv_rows_model(r, k, w, u):
+    """A (with u on the diagonal) and Q = r . D_{t-1} of a chunk as the
+    row walk (``wb_rows``) and the cross-half product give them: within
+    each half chunk q = r_t gains a factor w_s a step as s walks down, each
+    A[t, s] a sum over the 64 channels in f32; an upper row's walk ends at
+    Q_hi = r_t prod_{8..t-1} w, and Q = Q_hi prod_{0..7} w; A[hi, lo] =
+    Q_hi K_lo^T as split TF32 (K_lo = k_s prod_{s+1..7} w)."""
+    B, H = r.shape[:2]
+    a = np.zeros((B, H, WB_L, WB_L), F32)
+    q = np.empty_like(r)
+    qh = np.empty_like(r[:, :, :WB_H])
+    for t in range(WB_L):
+        a[:, :, t, t] = ((r[:, :, t] * u).astype(F32)
+                         * k[:, :, t]).astype(F32).sum(-1, dtype=F32)
+        qt = r[:, :, t].copy()
+        for s in reversed(range(0 if t < WB_H else WB_H, t)):
+            a[:, :, t, s] = (qt * k[:, :, s]).astype(F32).sum(-1, dtype=F32)
+            qt = (qt * w[:, :, s]).astype(F32)
+        if t >= WB_H:
+            qh[:, :, t - WB_H] = qt
+            wl = np.ones_like(qt)
+            for s in range(WB_H):
+                wl = (wl * w[:, :, s]).astype(F32)
+            qt = (qt * wl).astype(F32)
+        q[:, :, t] = qt
+    el = np.empty_like(r[:, :, :WB_H])
+    e = np.ones(r.shape[:2] + r.shape[3:], F32)
+    for s in reversed(range(WB_H)):
+        el[:, :, s] = e
+        e = (e * w[:, :, s]).astype(F32)
+    kl = (k[:, :, :WB_H] * el).astype(F32)
+    a[:, :, WB_H:, :WB_H] = split_mm(qh, np.swapaxes(kl, -1, -2))
+    return a, q
+
+
+def wkv_walk_model(r, k, w, u, c, dq, dk_raw, rd):
+    """The walk of a chunk at every channel (``wb_walk``), every decay
+    product by forward multiplication (prefix D_{t-1}, suffix E_t, Horner
+    over the later steps).  The sums over pairs of steps walk within each
+    half chunk (the Z walk with dr and dw's last term; dk's sum); the pairs
+    across the halves, where P_{s,t} = El_s Dh_{t-1}, go through the
+    split-TF32 products U = C[hi, lo] K_lo and V = C[hi, lo]^T Q_hi and a
+    walk of one factor a step.  Then du's part and dw's other three terms.
+    r, k, w, dq, dk_raw [B, H, L, 64], c [B, H, L, L] (C[tau, s] = dy_tau .
+    v_s), rd [B, H, 64]."""
+    B, H = r.shape[:2]
+    sh = (B, H, 64)
+    lo, hi = range(WB_H), range(WB_H, WB_L)
+    el, dh = np.empty_like(r[:, :, :WB_H]), np.empty_like(r[:, :, :WB_H])
+    e = np.ones(sh, F32)
+    for s in reversed(lo):                              # El_s, s < 8
+        el[:, :, s] = e
+        e = (e * w[:, :, s]).astype(F32)
+    d = np.ones(sh, F32)
+    for t in hi:                                        # Dh_{t-1}, t >= 8
+        dh[:, :, t - WB_H] = d
+        d = (d * w[:, :, t]).astype(F32)
+    c_hl = c[:, :, WB_H:, :WB_H]
+    uu = split_mm(c_hl, (k[:, :, :WB_H] * el).astype(F32))
+    vv = split_mm(np.swapaxes(c_hl, -1, -2),
+                  (r[:, :, WB_H:] * dh).astype(F32))
+    cc = c[..., None]                                   # [B, H, tau, s, 1]
+    dr, dk, dw = (np.empty_like(r) for _ in range(3))
+    t4 = np.empty_like(r)
+    pre = np.ones(sh, F32)
+    for half in (lo, hi):
+        z = np.zeros_like(r)                            # Z_tau in the half
+        for t in half:
+            acc = np.zeros(sh, F32)
+            for tau in reversed(range(t + 1, half.stop)):
+                acc = fma(w[:, :, tau], acc, (r[:, :, tau] * z[:, :, tau])
+                          .astype(F32))
+            t4[:, :, t] = acc
+            zt = z[:, :, t] if t < WB_H else fma(dh[:, :, t - WB_H],
+                                                 uu[:, :, t - WB_H],
+                                                 z[:, :, t])
+            dr[:, :, t] = fma((u * k[:, :, t]).astype(F32), cc[:, :, t, t],
+                              fma(pre, dq[:, :, t], zt))
+            for tau in range(t + 1, half.stop):
+                z[:, :, tau] = fma(w[:, :, t], z[:, :, tau],
+                                   (cc[:, :, tau, t] * k[:, :, t])
+                                   .astype(F32))
+            pre = (pre * w[:, :, t]).astype(F32)
+    x = np.zeros(sh, F32)
+    for t in lo:
+        t4[:, :, t] = fma(el[:, :, t], x, t4[:, :, t])
+        x = fma(w[:, :, t], x, (k[:, :, t] * vv[:, :, t]).astype(F32))
+    y = np.zeros(sh, F32)
+    for t in reversed(hi):
+        t4[:, :, t] = fma(dh[:, :, t - WB_H], y, t4[:, :, t])
+        y = fma(w[:, :, t], y, (r[:, :, t] * uu[:, :, t - WB_H]).astype(F32))
+    suf = np.empty_like(r)
+    y = np.empty_like(r)
+    suf[:, :, -1] = 1.0
+    for t in reversed(range(WB_L - 1)):
+        suf[:, :, t] = (suf[:, :, t + 1] * w[:, :, t + 1]).astype(F32)
+    y[:, :, -1] = 0.0
+    for t in reversed(range(1, WB_L)):
+        y[:, :, t - 1] = fma(w[:, :, t], y[:, :, t],
+                             (r[:, :, t] * dq[:, :, t]).astype(F32))
+    du = np.zeros(sh, F32)
+    x = np.zeros(sh, F32)
+    pre = np.ones(sh, F32)
+    for t in range(WB_L):
+        acc = np.zeros(sh, F32)
+        for tau in reversed(range(t + 1, WB_H if t < WB_H else WB_L)):
+            acc = fma(w[:, :, tau], acc, (cc[:, :, tau, t] * r[:, :, tau])
+                      .astype(F32))
+        if t < WB_H:
+            acc = fma(el[:, :, t], vv[:, :, t], acc)
+        ct = cc[:, :, t, t]
+        dk[:, :, t] = fma((r[:, :, t] * u).astype(F32), ct,
+                          fma(suf[:, :, t], dk_raw[:, :, t], acc))
+        du = fma((r[:, :, t] * k[:, :, t]).astype(F32), ct, du)
+        part = fma((suf[:, :, t] * pre).astype(F32), rd,
+                   fma(suf[:, :, t], x, (pre * y[:, :, t]).astype(F32)))
+        dw[:, :, t] = (part + t4[:, :, t]).astype(F32)
+        x = fma(w[:, :, t], x, (k[:, :, t] * dk_raw[:, :, t]).astype(F32))
+        pre = (pre * w[:, :, t]).astype(F32)
+    return dr, dk, dw, du
+
+
+def wkv_bwd_model(r, k, v, w, u, s0, dy, ds_fin, seg=None):
+    """``wkv6_bwd_kernel`` and du's sum over the batch, in their order.  A
+    first pass forward keeps the state at each segment's start (every
+    ``seg`` chunks of WB_L steps); each segment from the last is rebuilt
+    forward from its checkpoint and walked back a chunk at a time: C,
+    dQraw, dKraw, dV and the adjoint's step as split TF32 products
+    (`split_mm`), rd a row's sum, A and Q by the row walk, then the walk at
+    each channel (`wkv_walk_model`); dv whole within the (b, h); du over a
+    (b, h)'s chunks from the last, then the batch in order.  Steps past S:
+    r = k = v = dy = 0, w = 1."""
+    seg = seg or WB_M
     B, S, H, hd = r.shape
     r, k, v = (x.astype(F32) for x in (r, k, v))
-    g = ds_fin.astype(F32).copy()                     # [B, H, i, j]
-    dr, dk, dw = (np.zeros((B, S, H, hd), F32) for _ in range(3))
-    dv_rows = np.zeros((B, S, H, hd, hd), F32)        # [.., i, j]
-    du_acc = np.zeros((B, H, hd), F32)
-    uu = u.astype(F32)[None]                          # [1, H, i]
+    uu = u.astype(F32)[None]                            # [1, H, 64]
     nch = -(-S // WB_L)
-    checkpoints, s = [], s0.astype(F32).copy()
+    nseg = -(-nch // seg)
+
+    def chunk(c):
+        return (_chunk(r, c, S, 0.0), _chunk(k, c, S, 0.0),
+                _chunk(v, c, S, 0.0), _chunk(w, c, S, 1.0),
+                _chunk(dy, c, S, 0.0))
+
+    checkpoints, kept = {0: s0.astype(F32)}, {}
+    state = s0.astype(F32)
     for c in range(nch):
-        checkpoints.append(s.copy())
-        for t in range(c * WB_L, min(S, (c + 1) * WB_L)):
-            kv = (k[:, t, :, :, None] * v[:, t, :, None, :]).astype(F32)
-            s = fma(w[:, t, :, :, None], s, kv)
-    for c in reversed(range(nch)):
-        steps = range(c * WB_L, min(S, (c + 1) * WB_L))
-        hist = [checkpoints[c]]
-        for t in list(steps)[:-1]:
-            kv = (k[:, t, :, :, None] * v[:, t, :, None, :]).astype(F32)
-            hist.append(fma(w[:, t, :, :, None], hist[-1], kv))
-        for t in reversed(steps):
-            sp = hist[t - c * WB_L]
-            rr, kk, ww = (x[:, t, :, :, None] for x in (r, k, w))
-            ye, ve = dy[:, t, :, None, :], v[:, t, :, None, :]
-            ruk = ((rr * uu[..., None]).astype(F32) * kk).astype(F32)
-            lane = (B, H, hd, WB_LANES, 4)      # column 4 q + e
-            sp_l, g_l = sp.reshape(lane), g.reshape(lane)
-            y_l = dy[:, t].reshape(B, H, 1, WB_LANES, 4)
-            v_l = v[:, t].reshape(B, H, 1, WB_LANES, 4)
-            pr, pk, pw = (np.zeros(lane[:-1], F32) for _ in range(3))
-            for e in range(4):
-                pr = fma(sp_l[..., e], y_l[..., e], pr)
-                pk = fma(g_l[..., e], v_l[..., e], pk)
-                pw = fma(g_l[..., e], sp_l[..., e], pw)
-            dv_rows[:, t] = fma(g, kk, (ruk * ye).astype(F32))
-            g = fma(ww, g, (rr * ye).astype(F32))
-            pr, pk, pw = (butterfly_up(p) for p in (pr, pk, pw))
-            lanes = np.concatenate([v[:, t], dy[:, t]], -1).reshape(
-                B, H, 4, 32)
-            vd = butterfly_down(fma(lanes[..., 1, :], lanes[..., 3, :],
-                                    (lanes[..., 0, :] * lanes[..., 2, :])
-                                    .astype(F32)))[..., None]
-            dr[:, t] = fma((uu * kk[..., 0]).astype(F32), vd, pr)
-            dk[:, t] = fma((rr[..., 0] * uu).astype(F32), vd, pk)
-            dw[:, t] = pw
-            du_acc = fma((rr[..., 0] * kk[..., 0]).astype(F32), vd, du_acc)
-    # dv: a warp's two rows, the CTA's eight warps, the four CTAs
-    pairs = dv_rows.reshape(B, S, H, hd // 2, 2, hd).sum(4, dtype=F32)
-    warps = pairs.reshape(B, S, H, hd // WB_ROWS, WB_ROWS // 2, hd)
-    cta = warps[..., 0, :]
-    for m in range(1, WB_ROWS // 2):
-        cta = (cta + warps[..., m, :]).astype(F32)
-    dv = cta[..., 0, :]
-    for blk in range(1, hd // WB_ROWS):
-        dv = (dv + cta[..., blk, :]).astype(F32)
+        if c % seg == 0:
+            checkpoints[c // seg] = state
+        if c >= (nseg - 1) * seg:
+            kept[c] = state
+        if c + 1 < nch:
+            _, kc, vc, wc, _ = chunk(c)
+            state = wkv_forward_model(state, kc, vc, wc)
+    g = ds_fin.astype(F32)                              # [B, H, i, j]
+    dr, dk, dv, dw = (np.zeros((B, S, H, hd), F32) for _ in range(4))
+    du_acc = np.zeros((B, H, hd), F32)
+    for sg in reversed(range(nseg)):
+        chunks = range(sg * seg, min(nch, (sg + 1) * seg))
+        if sg == nseg - 1:
+            states = kept
+        else:
+            states, state = {}, checkpoints[sg]
+            for c in chunks:
+                states[c] = state
+                if c + 1 < chunks.stop:
+                    _, kc, vc, wc, _ = chunk(c)
+                    state = wkv_forward_model(state, kc, vc, wc)
+        for c in reversed(chunks):
+            rc, kc, vc, wc, yc = chunk(c)
+            s_in = states[c]
+            ke, dl = wkv_decay_model(kc, wc)
+            a, q = wkv_rows_model(rc, kc, wc, uu)
+            cm = split_mm(yc, np.swapaxes(vc, -1, -2))
+            dq = split_mm(yc, np.swapaxes(s_in, -1, -2))
+            dkr = split_mm(vc, np.swapaxes(g, -1, -2))
+            rd = (g * s_in).astype(F32).sum(-1, dtype=F32)
+            dvc = (split_mm(np.swapaxes(a, -1, -2), yc)
+                   + split_mm(ke, g)).astype(F32)
+            g = fma(dl[..., None], g, split_mm(np.swapaxes(q, -1, -2), yc))
+            drc, dkc, dwc, du_c = wkv_walk_model(rc, kc, wc, uu, cm, dq,
+                                                 dkr, rd)
+            du_acc = (du_acc + du_c).astype(F32)
+            n = min(WB_L, S - c * WB_L)
+            sl = slice(c * WB_L, c * WB_L + n)
+            for out, part in ((dr, drc), (dk, dkc), (dv, dvc), (dw, dwc)):
+                out[:, sl] = np.moveaxis(part, 2, 1)[:, :n]
     du = du_acc[0] if B else np.zeros((H, hd), F32)
     for b in range(1, B):
         du = (du + du_acc[b]).astype(F32)
@@ -701,7 +872,7 @@ def rglru_bwd_model(gr, gi, xc, sp, h0, hs, dhs, dh_last):
 
 
 @pytest.mark.parametrize("decays", ["drawn", "extreme"])
-@pytest.mark.parametrize("S", _s_cases(16))
+@pytest.mark.parametrize("S", WKV_S)
 def test_wkv_bwd_model_matches_plain_and_reference(S, decays):
     x, ref = _wkv_case(S, decays)
     model = wkv_bwd_model(*x)
